@@ -1,12 +1,12 @@
-"""Format selection for benchmarking: builds CLOSG only, for now.
+"""Format selection for benchmarking.
 
-Counterpart of ``spmv_research_tpu/convert/build_pallas.py:build_best``. The
-JAX function tries SELLR and SELLW (the column-locality engines) first, then
-CLOSG, with CLOS and BFLY behind it. Of those only CLOSG is ported, so this
-function builds CLOSG and nothing else; on matrices that SELLR or SELLW would
-accept, the port's choice can therefore differ from the JAX package's. The
-format cache (``convert/cache.py``) is not ported either: every build is a
-cold build, and its time is reported as such.
+Counterpart of ``spmv_research_tpu/convert/build_pallas.py:build_best``, in
+the JAX order: SELLR, then SELLW (the column-locality engines; their
+builders refuse matrices without locality), then CLOSG. CLOS and BFLY, the
+JAX package's fallbacks behind CLOSG, are not ported: where CLOSG refuses a
+matrix this raises ``NotImplementedError``. The format cache
+(``convert/cache.py``) is not ported either: every build is a cold build,
+and its time is reported as such.
 """
 
 from __future__ import annotations
@@ -16,16 +16,36 @@ import time
 
 from ..core.host import HostCSR
 from ..ops.clos_gather import build_clos_gather_auto
+from ..ops.clos_route import ClosRoutingError
+from ..ops.sellr import SellRBuildError, build_sellr
+from ..ops.sellw import SellWBuildError, build_sellw
+
+
+def _timed(builder, host: HostCSR) -> tuple:
+    t0 = time.perf_counter()
+    A = builder(host)
+    t = time.perf_counter() - t0
+    return A, {"build_s": t, "cold_build_s": t, "from_cache": False}
 
 
 def build_best(host: HostCSR) -> dict:
     """``{name: (format, info)}`` candidates for this matrix, each format on
     the CPU; ``info`` is ``{"build_s", "cold_build_s", "from_cache"}`` as the
     JAX package's cached build reports it."""
-    t0 = time.perf_counter()
-    A = build_clos_gather_auto(host)
-    t = time.perf_counter() - t0
-    print(f"# build_best: CLOSG only (SELLR/SELLW not ported), cold build "
-          f"{t:.2f}s", file=sys.stderr, flush=True)
-    return {"CLOSG": (A, {"build_s": t, "cold_build_s": t,
-                          "from_cache": False})}
+    out = {}
+    for name, builder, refused in (("SELLR", build_sellr, SellRBuildError),
+                                   ("SELLW", build_sellw, SellWBuildError)):
+        try:
+            out[name] = _timed(builder, host)
+        except refused:
+            pass
+    try:
+        out["CLOSG"] = _timed(build_clos_gather_auto, host)
+    except ClosRoutingError as e:
+        raise NotImplementedError(
+            f"CLOSG refused the matrix ({e}); the CLOS and BFLY fallbacks "
+            "are not ported (ROADMAP queue A item 11)") from e
+    print("# build_best (SELLR, SELLW, CLOSG): " + ", ".join(
+        f"{k} cold build {info['build_s']:.2f}s"
+        for k, (_, info) in out.items()), file=sys.stderr, flush=True)
+    return out

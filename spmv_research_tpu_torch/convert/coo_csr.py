@@ -1,10 +1,12 @@
 """COO↔CSR conversion and the row permutation (numpy).
 
 Counterpart of ``spmv_research_tpu/convert/coo_csr.py``, carried over
-unchanged for the functions the port's slice uses: ``coo_to_csr``
-(``lib/storage_formats/csr/csr_gen.c:182``), ``csr_to_coo`` and
-``csr_row_permute`` (RCM's reorder). The symmetric expand/drop and the
-solver-dataset transforms follow the solvers' slice.
+unchanged for the functions the port uses: ``coo_to_csr``
+(``lib/storage_formats/csr/csr_gen.c:182``), ``csr_to_coo``,
+``csr_row_permute`` (RCM's reorder) and the transforms the sweep's
+``load_matrix`` applies (``fix_diagonal_zeros``, ``make_spd``,
+``make_diag_dominant``). The symmetric expand/drop follows the solvers'
+slice.
 """
 
 from __future__ import annotations
@@ -109,3 +111,55 @@ def csr_row_permute(csr: HostCSR, perm: np.ndarray, permute_columns: bool = True
     return HostCSR(a=a, ia=ia.astype(INDEX_DTYPE), ja=np.asarray(ja, dtype=INDEX_DTYPE),
                    m=csr.m, n=csr.n, nnz_expanded=csr.nnz_expanded,
                    symmetric_storage=False)
+
+
+def fix_diagonal_zeros(csr: HostCSR, value: float = 1e-7) -> HostCSR:
+    """Insert missing/zero diagonal entries — required by the solver benchmarks
+    (reference ``fix_diagonal_zeros`` — ``bench.cpp:362-462``; builds with
+    ``-DFIX_DIAGONAL_ZEROS``). Returns a new CSR with every diagonal present
+    and nonzero (zeros replaced by ``value``)."""
+    if csr.m != csr.n:
+        raise ValueError("fix_diagonal_zeros requires a square matrix")
+    coo = csr_to_coo(csr)
+    on_diag = coo.rows == coo.cols
+    have = np.zeros(csr.m, dtype=bool)
+    have[coo.rows[on_diag]] = True
+    vals = coo.vals.copy()
+    dmask = on_diag & (vals == 0.0)
+    vals[dmask] = value
+    missing = np.nonzero(~have)[0].astype(INDEX_DTYPE)
+    rows = np.concatenate([coo.rows, missing])
+    cols = np.concatenate([coo.cols, missing])
+    vals = np.concatenate([vals, np.full(missing.shape, value)])
+    out = coo_to_csr(HostCOO(rows, cols, vals, csr.m, csr.n))
+    out.symmetric_storage = csr.symmetric_storage
+    if csr.symmetric_storage:
+        # all m diagonals now present; off-diagonals of the stored (lower)
+        # triangle still count twice in the expanded matrix
+        out.nnz_expanded = 2 * out.nnz - csr.m
+    return out
+
+
+def make_spd(csr: HostCSR) -> HostCSR:
+    """SPD analog of a matrix: (A+Aᵀ)/2 off-diagonals with the diagonal set
+    to the off-diag row 1-norm + 1 (strictly diagonally dominant symmetric
+    ⇒ SPD) — the solver dataset's role for CG (``bench_cg.cpp:93``)."""
+    import scipy.sparse as sp
+    S = csr.to_scipy().tocsr()
+    B = ((S + S.T) * 0.5).tocsr()
+    B.setdiag(0)
+    B.eliminate_zeros()
+    d = np.asarray(np.abs(B).sum(axis=1)).ravel() + 1.0
+    return HostCSR.from_scipy((B + sp.diags(d)).tocsr())
+
+
+def make_diag_dominant(csr: HostCSR) -> HostCSR:
+    """Strictly row-diagonally-dominant variant (keeps the off-diagonal
+    pattern/values; diagonal = off-diag row 1-norm + 1). The nonsymmetric
+    solver-dataset analog: Jacobi-BiCGStab provably converges."""
+    import scipy.sparse as sp
+    S = csr.to_scipy().tocsr()
+    S.setdiag(0)
+    S.eliminate_zeros()
+    d = np.asarray(np.abs(S).sum(axis=1)).ravel() + 1.0
+    return HostCSR.from_scipy((S + sp.diags(d)).tocsr())

@@ -1,8 +1,8 @@
 """Device-side sparse formats as frozen dataclasses of torch tensors.
 
 Counterpart of ``spmv_research_tpu/core/formats.py``. Only ``CSR`` is ported
-so far (the baseline of the main path); the other formats follow their
-engines. A format is built on the host and moved with an explicit
+here (the baseline of the main path); the engines' formats live in their
+``ops`` modules. A format is built on the host and moved with an explicit
 ``.to(device)``: there is no default device.
 """
 
@@ -14,12 +14,25 @@ from typing import Tuple
 import torch
 
 
+def tree_map(fn, obj):
+    """``obj`` with ``fn`` applied to every tensor it holds, through nested
+    dataclass fields and tuples (e.g. the ``ClosG`` programs of a
+    ``ClosGChunked``); other leaves are kept as they are. The role of
+    ``jax.tree_util.tree_map`` over a format pytree."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, tuple):
+        return tuple(tree_map(fn, o) for o in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: tree_map(fn, getattr(obj, f.name))
+            for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
 def _move(fmt, device):
-    """Copy of ``fmt`` with every tensor field moved to ``device``."""
-    return dataclasses.replace(fmt, **{
-        f.name: getattr(fmt, f.name).to(device)
-        for f in dataclasses.fields(fmt)
-        if isinstance(getattr(fmt, f.name), torch.Tensor)})
+    """Copy of ``fmt`` with every tensor it holds moved to ``device``."""
+    return tree_map(lambda t: t.to(device), fmt)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,3 +3,4 @@ from .metrics import ErrorMetrics, error_metrics, check_accuracy, EPSILON_GATE
 from .bench import (
     BenchResult, bench_spmv, csv_labels, csv_row_real, csv_row_synthetic,
 )
+from .sweep import SweepDoneLog, load_matrix, run_sweep

@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.formats import tree_map
 from ..core.host import HostCSR
 from ..ops import spmv as spmv_dispatch
 from ..utils import roofline as rl
@@ -61,6 +62,9 @@ class BenchResult:
     time_compile: float = 0.0
     time_convert_cold: float = 0.0
     roofline_kind: str = "csr32"
+    # y of the accuracy call (float64 copy), for checks beyond the metrics;
+    # not part of any CSV schema
+    y: Optional[np.ndarray] = dataclasses.field(default=None, repr=False)
 
 
 REAL_LABELS = (
@@ -106,10 +110,7 @@ def _scale_for_iteration(host: HostCSR, A):
     if norm == 0 or not np.isfinite(norm):
         return A
     c = 1.0 / norm
-    return dataclasses.replace(A, **{
-        f.name: getattr(A, f.name) * c for f in dataclasses.fields(A)
-        if isinstance(getattr(A, f.name), torch.Tensor)
-        and getattr(A, f.name).is_floating_point()})
+    return tree_map(lambda t: t * c if t.is_floating_point() else t, A)
 
 
 def bench_spmv(host: HostCSR, A, *, config: Optional[BenchConfig] = None,
@@ -131,8 +132,8 @@ def bench_spmv(host: HostCSR, A, *, config: Optional[BenchConfig] = None,
     y = spmv_dispatch(A, xd, impl=impl)
     sync(device)
     time_compile = time.perf_counter() - t0
-    metrics = check_accuracy(host, x, y.double().cpu().numpy(),
-                             value_dtype=np.dtype(cfg.dtype))
+    y = y.double().cpu().numpy()
+    metrics = check_accuracy(host, x, y, value_dtype=np.dtype(cfg.dtype))
 
     # --- timing ---
     A_t = _scale_for_iteration(host, A) if A.m == A.n else A
@@ -179,6 +180,7 @@ def bench_spmv(host: HostCSR, A, *, config: Optional[BenchConfig] = None,
         time_compile=time_compile,
         time_convert_cold=(time_convert if time_convert_cold is None
                            else time_convert_cold),
+        y=y,
     )
 
 

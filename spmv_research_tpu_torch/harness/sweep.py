@@ -1,0 +1,196 @@
+"""Sweep runner for the SpMV workload — the run.sh / proc_run.sh analog.
+
+Counterpart of ``spmv_research_tpu/harness/sweep.py``. It iterates
+matrices × formats on one torch device with the JAX sweep's output
+discipline: one CSV file per format (``<fmt>_spmv.csv``) with the labels row
+first and the JAX package's synthetic schema (``csv_labels`` /
+``csv_row_synthetic``), human lines on stdout, and an idempotent done-log
+(``done.log``) so that a restarted sweep skips finished pairs.
+
+Differences from the JAX sweep, each deliberate:
+
+* matrices are synthetic 11-arg parameter lines; a ``.mtx`` spec raises
+  ``NotImplementedError`` (the Matrix Market reader is ROADMAP queue A
+  item 1);
+* ``FORMAT_BUILDERS`` holds ``csr``, ``sellr``, ``sellw`` and ``closg``, and
+  the workload is ``spmv``: any other name raises before the sweep starts;
+* the impls are the device's: on a CUDA device the engines run ``cuda`` and
+  CSR runs ``torch``; on the CPU everything runs ``torch``;
+* a builder's suitability error (``SellRBuildError``, ``SellWBuildError``,
+  ``ClosRoutingError``) is printed and the format skipped, as in the JAX
+  sweep; any other exception propagates (no retries: a GPU fault is not
+  transient);
+* the TPU-worker-crash handling (``_fatal_runtime``, exit code 3, the
+  ``CRASH`` records) has no counterpart on the GPU.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..convert import (build_csr, extract_features, fix_diagonal_zeros,
+                       make_diag_dominant, make_spd, rcm_reorder)
+from ..convert.reorder import rcm_if_beneficial
+from ..gen import ArtificialParams, artificial_matrix_generation
+from ..ops.clos_gather import build_clos_gather_auto
+from ..ops.clos_route import ClosRoutingError
+from ..ops.sellr import SellRBuildError, build_sellr
+from ..ops.sellw import SellWBuildError, build_sellw
+from .bench import bench_spmv, csv_labels, csv_row_synthetic
+from .config import BenchConfig
+
+FORMAT_BUILDERS = {
+    "csr": build_csr,
+    "sellr": build_sellr,
+    "sellw": build_sellw,
+    "closg": build_clos_gather_auto,
+}
+WORKLOADS = ("spmv",)
+# a builder raising one of these refuses the matrix: the format is skipped
+SUITABILITY_ERRORS = (SellRBuildError, SellWBuildError, ClosRoutingError)
+
+
+class BenchGateError(RuntimeError):
+    """A result that must not become a CSV row (non-finite error metrics)."""
+
+
+def check_sweep_args(formats: Sequence[str], workloads: Sequence[str]) -> None:
+    """Raise on a format or workload the port does not have yet."""
+    bad_f = [f for f in formats if f not in FORMAT_BUILDERS]
+    if bad_f:
+        raise NotImplementedError(
+            f"formats {bad_f} are not ported: the sweep has "
+            f"{sorted(FORMAT_BUILDERS)} (the others follow their engines, "
+            "ROADMAP queue A items 2, 4, 7, 8 and 11)")
+    bad_w = [w for w in workloads if w not in WORKLOADS]
+    if bad_w:
+        raise NotImplementedError(
+            f"workloads {bad_w} are not ported: the sweep runs spmv only "
+            "(the others are ROADMAP queue A item 8)")
+
+
+def load_matrix(spec: str, cfg: BenchConfig):
+    """spec: an 11-arg synthetic parameter line (a ``.mtx`` path raises).
+    Applies the config's transforms, then RCM (True, or "auto" = only where
+    it narrows the band). Returns (host, name, params)."""
+    t0 = time.time()
+    if spec.endswith(".mtx") or os.path.exists(spec):
+        raise NotImplementedError(
+            f"{spec}: Matrix Market input is not ported (ROADMAP queue A "
+            "item 1, io/matrix_market.py)")
+    params = ArtificialParams.from_args(spec.split())
+    host, _ = artificial_matrix_generation(params)
+    name = params.name or "synthetic"
+    if cfg.matrix_transform:
+        tf = {"spd": make_spd, "dd": make_diag_dominant}[cfg.matrix_transform]
+        host = tf(host)
+        name = f"{name}_{cfg.matrix_transform}"   # honest labeling
+    if cfg.fix_diagonal_zeros:
+        host = fix_diagonal_zeros(host)
+    if cfg.use_rcm_reordering == "auto":
+        host, _ = rcm_if_beneficial(host)
+    elif cfg.use_rcm_reordering:
+        host, _ = rcm_reorder(host)
+    t_read = time.time() - t0
+    print(f"# read+transform {name}: m={host.m} nnz={host.nnz} "
+          f"({t_read:.2f}s)", flush=True)
+    return host, name, params
+
+
+class SweepDoneLog:
+    """Idempotent per-pair records (SURVEY §5.4): keys of completed (DONE)
+    or gated (FAIL) (matrix, format, impl, workload) pairs, so a restarted
+    sweep process skips finished work."""
+
+    def __init__(self, out_dir):
+        self.path = os.path.join(out_dir, "done.log")
+        self.done = set()
+        if os.path.exists(self.path):
+            with open(self.path) as f:
+                for ln in f:
+                    tag, _, key = ln.strip().partition(" ")
+                    if tag in ("DONE", "FAIL"):   # FAIL = gated garbage row:
+                        self.done.add(key)        # permanent, don't re-run
+
+    def skip(self, *key) -> bool:
+        return "/".join(map(str, key)) in self.done
+
+    def mark(self, tag, *key):
+        with open(self.path, "a") as f:
+            f.write(f"{tag} {'/'.join(map(str, key))}\n")
+        if tag == "DONE":
+            self.done.add("/".join(map(str, key)))
+
+
+def run_sweep(matrices: Sequence[str],
+              formats: Sequence[str] = ("csr", "closg"),
+              workloads: Sequence[str] = ("spmv",),
+              out_dir: str = "out_logs",
+              config: Optional[BenchConfig] = None,
+              device="cuda") -> list:
+    """Benchmark every (matrix, format) pair on ``device``; returns the
+    ``BenchResult`` list and appends each to ``<out_dir>/<fmt>_spmv.csv``."""
+    check_sweep_args(formats, workloads)
+    cfg = config or BenchConfig.from_env()
+    if cfg.dtype != "float32":
+        raise NotImplementedError(f"dtype {cfg.dtype}: the port's engines "
+                                  "are float32")
+    device = torch.device(device)
+    os.makedirs(out_dir, exist_ok=True)
+    results = []
+    label_written = set()
+    donelog = SweepDoneLog(out_dir)
+
+    for spec in matrices:
+        host, name, params = load_matrix(spec, cfg)
+        feats = extract_features(host)
+        for fmt in formats:
+            t0 = time.time()
+            try:
+                A = FORMAT_BUILDERS[fmt](host)
+            except SUITABILITY_ERRORS as e:
+                print(f"# {fmt} build refused {name}: "
+                      f"{type(e).__name__}: {e}", flush=True)
+                continue
+            t_convert = time.time() - t0
+            print(f"# convert {name} -> {fmt}: {t_convert:.2f}s", flush=True)
+            A = A.to(device)
+            impl = ("cuda" if device.type == "cuda" and fmt != "csr"
+                    else "torch")
+            if donelog.skip(name, fmt, impl, "spmv"):
+                continue
+            r = bench_spmv(host, A, config=cfg, impl=impl, matrix_name=name,
+                           time_convert=t_convert)
+            del A   # release the format's device buffers before the next
+            try:
+                _gate_result(r, "spmv")
+            except BenchGateError as e:
+                donelog.mark("FAIL", name, fmt, impl, "spmv")
+                print(f"# GATE-FAIL {name}/{fmt}/{impl}/spmv: {e}",
+                      flush=True)
+                continue
+            results.append(r)
+            csv_path = os.path.join(out_dir, f"{fmt}_spmv.csv")
+            with open(csv_path, "a") as f:
+                if csv_path not in label_written and f.tell() == 0:
+                    f.write(csv_labels(synthetic=True) + "\n")
+                label_written.add(csv_path)
+                f.write(csv_row_synthetic(r, params, feats) + "\n")
+            donelog.mark("DONE", name, fmt, impl, "spmv")
+            print(f"# {name} {fmt}/{impl} spmv: "
+                  f"{r.nnz_per_s/1e9:.3f} Gnnz/s median="
+                  f"{r.time_iter_median*1e6:.0f}us "
+                  f"mape={r.metrics.mape:.2e}", flush=True)
+    return results
+
+
+def _gate_result(r, workload):
+    """NaN metrics must be a loud FAILURE, not a committed CSV row."""
+    for v, tag in ((r.metrics.mape, "mape"), (r.metrics.max_ae, "max_ae")):
+        if not np.isfinite(v):
+            raise BenchGateError(f"{workload}: non-finite {tag} ({v})")

@@ -4,8 +4,8 @@ Counterpart of ``spmv_research_tpu/io/native.py``. It loads the same
 ``native/libsparse_host.so`` (the C++ stays single-sourced) and keeps the
 same behaviour: when the library is missing but its sources exist, try
 ``make -C native`` once. Only the entry points the port's modules call are
-bound (COO→CSR, RCM, feature extraction, the Clos Euler edge coloring); the
-MTX parser, the Waksman router and the SELLW packer follow their modules.
+bound (COO→CSR, RCM, feature extraction, the Clos Euler edge coloring, the
+SELLW packer); the MTX parser and the Waksman router follow their modules.
 
 This is a host library: its numpy fallbacks give the same results (the
 Euler coloring a different but equally valid one) more slowly, and are not a
@@ -16,16 +16,19 @@ from __future__ import annotations
 
 import ctypes
 import os
+import threading
 from typing import Optional
 
 import numpy as np
 
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
+_LOCK = threading.Lock()
 
 _c_i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _c_i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _c_f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+_c_f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -55,16 +58,24 @@ def _try_build() -> None:
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
+    # under a lock: the chunked CLOSG build routes two chunks in threads,
+    # and a second caller must not see _TRIED before _LIB is set (it would
+    # take the numpy tier: valid, but different program arrays)
+    with _LOCK:
+        if not _TRIED:
+            _load()
+    return _LIB
+
+
+def _load() -> None:
     global _LIB, _TRIED
-    if _TRIED:
-        return _LIB
     _TRIED = True
     path = _find_lib()
     if path is None:
         _try_build()
         path = _find_lib()
     if path is None:
-        return None
+        return
     lib = ctypes.CDLL(path)
 
     lib.coo_to_csr.restype = None
@@ -88,8 +99,15 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.euler_edge_color.argtypes = [
             _c_i64p, _c_i64p, ctypes.c_int64, ctypes.c_int32, _c_i32p]
 
+    if hasattr(lib, "sellw_pack2"):  # stale pre-SELLW .so: degrade politely
+        lib.sellw_pack2.restype = ctypes.c_int64
+        lib.sellw_pack2.argtypes = [
+            _c_i64p, _c_i32p, _c_f32p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, _c_i32p, ctypes.c_void_p]
+
     _LIB = lib
-    return _LIB
 
 
 def have_native() -> bool:
@@ -145,3 +163,37 @@ def euler_edge_color_native(left, right, levels):
     color = np.empty(left.size, np.int32)
     rc = lib.euler_edge_color(left, right, left.size, levels, color)
     return color if rc == 0 else None
+
+
+def have_sellw_pack() -> bool:
+    lib = get_lib()
+    return lib is not None and hasattr(lib, "sellw_pack2")
+
+
+def sellw_pack_native(ia, ja, a_f32, m, part_cap: int = 128):
+    """Two-pass native SELLW packer (``sellw_pack2``; the library's
+    ``sellw_pack`` is it with part_cap = 128): count, allocate exact, pack.
+
+    Returns (word (nchunks·8,128) int32, vals likewise float32,
+    wrow (nchunks·8,), pair (nchunks,), bids (nchunks,) uint8, max_part)."""
+    lib = get_lib()
+    ia = np.ascontiguousarray(ia, np.int64)
+    ja = np.ascontiguousarray(ja, np.int32)
+    a_f32 = np.ascontiguousarray(a_f32, np.float32)
+    mp = np.zeros(1, np.int32)
+
+    def call(cap, count_only, *bufs):
+        return lib.sellw_pack2(ia, ja, a_f32, m, cap, count_only, part_cap,
+                               *bufs, mp, None)
+
+    n = call(0, 1, None, None, None, None, None)
+    word = np.zeros((max(int(n), 1) * 8, 128), np.int32)
+    vals = np.zeros((max(int(n), 1) * 8, 128), np.float32)
+    wrow = np.zeros(max(int(n), 1) * 8, np.int32)
+    pair = np.zeros(max(int(n), 1), np.int32)
+    bids = np.zeros(max(int(n), 1), np.uint8)
+    n2 = call(int(n), 0, *(b.ctypes.data_as(ctypes.c_void_p)
+                           for b in (word, vals, wrow, pair, bids)))
+    assert n2 == n, (n2, n)
+    return (word[: int(n) * 8], vals[: int(n) * 8], wrow[: int(n) * 8],
+            pair[: int(n)], bids[: int(n)], int(mp[0]))

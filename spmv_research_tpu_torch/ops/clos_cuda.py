@@ -19,134 +19,51 @@ wrapper                  replaces
 
 Each wrapper takes the kernel's plain PyTorch version (``*_torch``) only when
 its tensors lie on the CPU. For CUDA tensors it launches the kernel or raises;
-nothing falls back. ``LAUNCHES`` counts, per wrapper, the calls that launched
-its kernel. The ``_t_fwd``/``_t_bwd`` transposes between the layers stay
+nothing falls back. ``LAUNCHES`` counts, per wrapper, its kernel launches
+(K3's three kinds together). The ``_t_fwd``/``_t_bwd`` transposes between the layers stay
 PyTorch copies (``clos.py``), as they were XLA ops in the JAX package.
 
 The kernels are compiled by ``nvcc`` from ``csrc/closg.cu`` at first CUDA use
-into ``spmv_research_tpu_torch/_build/`` (git-ignored), keyed on a hash of the
-source and flags; importing this module builds and loads nothing.
+(``cuda_lib.CudaLib``); importing this module builds and loads nothing.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from typing import Optional, Sequence
+from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 
 from .clos import SPARE_BITS, SPARE_SHIFT, _stage_bit, invreg_torch
 from .clos_route import LANES, SUB
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "closg.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from .cuda_lib import CudaLib, check as _check, on_cuda as _on_cuda
+from .cuda_lib import stream as _stream
 
 LAUNCHES = {"closg_front": 0, "clos_invreg": 0, "closg_r3_scan_yext": 0}
 
-_LIB: Optional[ctypes.CDLL] = None
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.closg_invreg.argtypes = [p, p, p, i64, i32, p]
+    lib.closg_front.argtypes = [p, p, p, p, i64, p, i64, p]
+    lib.closg_scan_step.argtypes = [p, p, p, p, i32, i64, p]
+    lib.closg_yext.argtypes = [p, p, p, p, p, p, i32, p]
+    for fn in (lib.closg_invreg, lib.closg_front, lib.closg_scan_step,
+               lib.closg_yext):
+        fn.restype = i32
+
+
+_CUDA = CudaLib("closg", _bind)
+SOURCE = _CUDA.source
+build = _CUDA.build
+build_log = _CUDA.build_log
+_launch = _CUDA.launch
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CLOSG CUDA kernels cannot be "
-                           "built (put the CUDA toolkit's bin on PATH)")
-    return path
-
-
-def build() -> str:
-    """Compile ``csrc/closg.cu`` unless a library for this exact source and
-    flag set exists; returns the library's path. nvcc's output (``-Xptxas
-    -v``: registers, shared memory, spills per kernel) is kept beside it as
-    ``.log``."""
-    with open(SOURCE, "rb") as f:
-        src = f.read()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = os.path.join(BUILD_DIR, f"libclosg_{key}.so")
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    with open(lib[:-3] + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
-
-
-def build_log() -> str:
-    """nvcc's output for the current source (after :func:`build`)."""
-    with open(build()[:-3] + ".log") as f:
-        return f.read()
-
-
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(build())
-        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.closg_error_string.restype = ctypes.c_char_p
-        lib.closg_error_string.argtypes = [i32]
-        lib.closg_invreg.argtypes = [p, p, p, i64, i32, p]
-        lib.closg_front.argtypes = [p, p, p, p, i64, p, i64, p]
-        lib.closg_scan_step.argtypes = [p, p, p, p, i32, i64, p]
-        lib.closg_yext.argtypes = [p, p, p, p, p, p, i32, p]
-        for fn in (lib.closg_invreg, lib.closg_front, lib.closg_scan_step,
-                   lib.closg_yext):
-            fn.restype = i32
-        _LIB = lib
-    return _LIB
-
-
-def _launch(name: str, *args) -> None:
-    lib = _lib()
-    rc = getattr(lib, name)(*args)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc}: "
-                           f"{lib.closg_error_string(rc).decode()}")
-
-
-def _on_cuda(*ts: torch.Tensor) -> bool:
-    """True when every tensor is on one CUDA device, False when every tensor
-    is on the CPU; raises otherwise."""
-    devs = {t.device for t in ts}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev.type == "cuda"
-
-
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _check_slots(n_slots: int, lanes: int) -> None:
@@ -282,13 +199,15 @@ def closg_r3_scan_yext(v, perm_r3, scan_hi, ysel_w, wstart, acc_ptr, acc_src,
     with torch.cuda.device(v.device):
         _launch("closg_invreg", v.data_ptr(), perm_r3.data_ptr(), a.data_ptr(),
                 n, LANES, stream)
+        LAUNCHES["closg_r3_scan_yext"] += 1
         for k in stages:
             _launch("closg_scan_step", a.data_ptr(), b.data_ptr(),
                     perm_r3.data_ptr(), hi_ptr, k, n, stream)
+            LAUNCHES["closg_r3_scan_yext"] += 1
             a, b = b, a
         if n_batches:
             _launch("closg_yext", a.data_ptr(), ysel_w.data_ptr(),
                     wstart.data_ptr(), acc_ptr.data_ptr(), acc_src.data_ptr(),
                     y.data_ptr(), n_batches, stream)
-    LAUNCHES["closg_r3_scan_yext"] += 1
+            LAUNCHES["closg_r3_scan_yext"] += 1
     return y

@@ -1,8 +1,9 @@
 """CLOSG: row-gather + lane-pick front end on the Clos SpMV pipeline.
 
-Counterpart of ``spmv_research_tpu/ops/clos_gather.py`` for the single-
-program main path: the ``ClosG`` program, its builder (carried over so that
-it emits identical program arrays), the float64 host executor
+Counterpart of ``spmv_research_tpu/ops/clos_gather.py``: the ``ClosG``
+program and the row-chunked ``ClosGChunked`` (one ``ClosG`` per row block
+past the 2^20-slot cap), their builders (carried over so that they emit
+identical program arrays), the float64 host executor
 ``execute_closg_numpy``, and two SpMV impls:
 
 * ``"cuda"`` — the hand-written kernels of ``clos_cuda.py`` (the pallas
@@ -17,15 +18,16 @@ The pipeline: ``closg_front`` (window gather × value, then the r1 layer) →
 (r3 layer, capped segmented scan, y extraction).
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-queue-A item): row chunking past 2^20 slots, the long-row split, the XL tier,
-the value-LUT and fused-window front ends, and the W=0 candidate-plane back
-end. The SpMM scan follows with the other workloads.
+item): the long-row split, the XL tier, the value-LUT and fused-window front
+ends, and the W=0 candidate-plane back end. The SpMM scan follows with the
+other workloads.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Tuple, Union
 
 import numpy as np
 import torch
@@ -109,6 +111,39 @@ class ClosG:
         return int(sum(l.numel() * l.element_size() for l in leaves))
 
 
+@dataclasses.dataclass(frozen=True)
+class ClosGChunked:
+    """Row-chunked CLOSG: one Clos program per ≤2^20-slot row block (field
+    for field the JAX ``ClosGChunked``). The chunks share x; y is the
+    concatenation of the per-chunk y."""
+
+    chunks: Tuple[ClosG, ...]
+    shape: Tuple[int, int]
+    nnz: int
+    nnz_expanded: int
+    row_split: Tuple[int, ...]   # chunk row boundaries, len = len(chunks)+1
+
+    format_name = "CLOSG"
+
+    @property
+    def m(self):
+        return self.shape[0]
+
+    @property
+    def n(self):
+        return self.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.chunks[0].device
+
+    def to(self, device) -> "ClosGChunked":
+        return _move(self, device)
+
+    def mem_footprint_bytes(self) -> int:
+        return int(sum(c.mem_footprint_bytes() for c in self.chunks))
+
+
 def _accum_order(border: np.ndarray, yext_classes) -> tuple:
     """Per-batch order of the accumulate records: ``(acc_ptr, acc_src)``.
 
@@ -163,6 +198,13 @@ def from_jax_program(leaves: dict, meta: dict) -> ClosG:
     return _closg({k: np.array(leaves[k]) for k in DATA_FIELDS}, meta)
 
 
+def _rows_slice(csr: HostCSR, r0: int, r1: int) -> HostCSR:
+    lo, hi = int(csr.ia[r0]), int(csr.ia[r1])
+    return HostCSR(ia=(csr.ia[r0:r1 + 1] - csr.ia[r0]).astype(csr.ia.dtype),
+                   ja=csr.ja[lo:hi], a=csr.a[lo:hi],
+                   m=r1 - r0, n=csr.n)
+
+
 def _closg_need(csr: HostCSR, r0: int, r1: int) -> int:
     """Exact slot need of rows [r0, r1) (mirrors build_clos_gather)."""
     lo, hi = int(csr.ia[r0]), int(csr.ia[r1])
@@ -176,23 +218,56 @@ def _closg_need(csr: HostCSR, r0: int, r1: int) -> int:
 SPLIT_ROW_NNZ = 16384    # rows past this break the windowed y extraction
 
 
-def build_clos_gather_auto(csr: HostCSR, max_N: int = 1 << 20) -> ClosG:
-    """``build_clos_gather`` where one program holds the matrix.
+def build_clos_gather_auto(csr: HostCSR, max_N: int = 1 << 20,
+                           max_chunks: int = 12
+                           ) -> Union[ClosG, ClosGChunked]:
+    """``build_clos_gather`` with row chunking past ``max_N`` slots.
 
-    The JAX package's ``build_clos_gather_auto`` also splits long rows,
-    chunks rows past ``max_N`` slots and goes to the XL tier; those are not
-    ported, and such a matrix raises ``NotImplementedError`` here instead of
-    falling back to anything."""
+    As the JAX package's ``build_clos_gather_auto``: one program where it
+    holds the matrix, else row-contiguous chunks of at most ``max_N`` slots
+    each, built two at a time. Two of its branches are not ported and raise
+    ``NotImplementedError`` instead of falling back to anything: the
+    long-row split (rows past ``SPLIT_ROW_NNZ``) and the XL tier (more than
+    ``max_chunks`` chunks)."""
     heavy_n = int((csr.row_lengths() > SPLIT_ROW_NNZ).sum())
     if 0 < heavy_n <= 4096:
         raise NotImplementedError(
             f"{heavy_n} rows exceed {SPLIT_ROW_NNZ} nnz: the long-row split "
-            "(RSPLIT) is not ported (ROADMAP queue A, corpus coverage)")
-    if _closg_need(csr, 0, csr.m) > max_N:
+            "(RSPLIT) is not ported (ROADMAP queue A item 5)")
+    if _closg_need(csr, 0, csr.m) <= max_N:
+        return build_clos_gather(csr, max_N=max_N)
+    est_chunks = _closg_need(csr, 0, csr.m) / (0.9 * max_N) + 1
+    if est_chunks > max_chunks:
         raise NotImplementedError(
-            f"matrix needs more than {max_N} CLOSG slots: row-chunked and XL "
-            "CLOSG are not ported (ROADMAP queue A, corpus coverage / XL tier)")
-    return build_clos_gather(csr, max_N=max_N)
+            f"matrix needs ~{est_chunks:.0f} CLOSG chunks > {max_chunks}: "
+            "the XL tier (CLOSGX) is not ported (ROADMAP queue A item 7)")
+    splits = [0]
+    r0 = 0
+    nnz_per_row = max(csr.nnz / max(csr.m, 1), 1e-9)
+    while r0 < csr.m:
+        r1 = min(csr.m, r0 + max(int(0.8 * max_N / nnz_per_row), 1))
+        # stops at one row: the JAX loop spins forever when a single row
+        # needs more than max_N slots; here the check below raises
+        while _closg_need(csr, r0, r1) > max_N and r1 > r0 + 1:
+            r1 = r0 + max((r1 - r0) * 3 // 4, 1)
+        while r1 < csr.m:
+            r_try = min(csr.m, r1 + max((r1 - r0) // 8, 1))
+            if _closg_need(csr, r0, r_try) > max_N:
+                break
+            r1 = r_try
+        if _closg_need(csr, r0, r1) > max_N:
+            raise ClosRoutingError(
+                f"rows [{r0},{r1}) exceed a single clos-gather program")
+        splits.append(r1)
+        r0 = r1
+    with ThreadPoolExecutor(2) as ex:
+        chunks = tuple(ex.map(
+            lambda i: build_clos_gather(
+                _rows_slice(csr, splits[i], splits[i + 1]), max_N=max_N),
+            range(len(splits) - 1)))
+    return ClosGChunked(chunks=chunks, shape=(csr.m, csr.n), nnz=csr.nnz,
+                        nnz_expanded=csr.nnz_expanded,
+                        row_split=tuple(splits))
 
 
 def build_clos_gather(csr: HostCSR, max_N: int = 1 << 20) -> ClosG:
@@ -435,18 +510,22 @@ def _pipeline(A: ClosG, x: torch.Tensor, front, invreg, back) -> torch.Tensor:
 
 
 @register_spmv("CLOSG", "torch")
-def spmv_closg_torch(A: ClosG, x: torch.Tensor) -> torch.Tensor:
+def spmv_closg_torch(A, x: torch.Tensor) -> torch.Tensor:
     """CLOSG in plain PyTorch, on any device (the kernels' plain versions)."""
+    if isinstance(A, ClosGChunked):
+        return torch.cat([spmv_closg_torch(c, x) for c in A.chunks])
     return _pipeline(A, x, K.closg_front_torch, K.clos_invreg_torch,
                      K.closg_r3_scan_yext_torch)
 
 
 @register_spmv("CLOSG", "cuda")
-def spmv_closg_cuda(A: ClosG, x: torch.Tensor) -> torch.Tensor:
+def spmv_closg_cuda(A, x: torch.Tensor) -> torch.Tensor:
     """CLOSG through the hand-written CUDA kernels (CUDA tensors only)."""
     if x.device.type != "cuda" or A.device != x.device:
         raise ValueError(f"CLOSG/cuda needs the program and x on one CUDA "
                          f"device, got {A.device} and {x.device}")
+    if isinstance(A, ClosGChunked):
+        return torch.cat([spmv_closg_cuda(c, x) for c in A.chunks])
     return _pipeline(A, x, K.closg_front, K.clos_invreg, K.closg_r3_scan_yext)
 
 
@@ -454,9 +533,11 @@ def _np(t) -> np.ndarray:
     return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
-def execute_closg_numpy(A: ClosG, x: np.ndarray) -> np.ndarray:
+def execute_closg_numpy(A, x: np.ndarray) -> np.ndarray:
     """float64 host reference of the compiled program (full scan, candidate
     planes), as in the JAX package."""
+    if isinstance(A, ClosGChunked):
+        return np.concatenate([execute_closg_numpy(c, x) for c in A.chunks])
     from .clos_route import InVregPlanes, ClosPerm, apply_clos_numpy
 
     def unpack(leaf):

@@ -169,3 +169,85 @@ def test_cuda_impl_refuses_cpu_tensors(case):
     _, A, _, x = case
     with pytest.raises(ValueError, match="CUDA"):
         spmv(A, torch.from_numpy(x), impl="cuda")
+
+
+# ------------------------------------------------------- row-chunked CLOSG
+
+CHUNK_N = 1 << 13       # a small max_N, so the 2000-row twin needs chunks
+
+
+@pytest.fixture(scope="module")
+def chunked():
+    """(JAX ClosGChunked, the port's own build, JAX host, x)."""
+    from spmv_research_tpu.ops.clos_gather import (
+        build_clos_gather_auto as jax_auto)
+    from spmv_research_tpu_torch.core.host import HostCSR
+    from spmv_research_tpu_torch.ops import build_clos_gather_auto
+
+    hj = _jax_host("twin")
+    Aj = jax_auto(hj, max_N=CHUNK_N)
+    A = build_clos_gather_auto(HostCSR.from_arrays(hj.ia, hj.ja, hj.a, hj.m,
+                                                   hj.n), max_N=CHUNK_N)
+    x = np.random.Generator(np.random.PCG64(7)).uniform(0.0, 1.0, hj.n)
+    return Aj, A, hj, x.astype(np.float32)
+
+
+def test_chunked_program_identical(chunked):
+    from spmv_research_tpu_torch.ops import ClosGChunked
+    Aj, A, _, _ = chunked
+    assert isinstance(A, ClosGChunked) and len(A.chunks) > 1
+    assert (A.shape, A.nnz, A.nnz_expanded, A.row_split) == (
+        Aj.shape, Aj.nnz, Aj.nnz_expanded, Aj.row_split)
+    for c, cj in zip(A.chunks, Aj.chunks, strict=True):
+        for f in DATA_FIELDS:
+            assert np.array_equal(getattr(c, f).numpy(),
+                                  np.asarray(getattr(cj, f))), f
+        assert ({f: getattr(c, f) for f in META_FIELDS}
+                == {f: getattr(cj, f) for f in META_FIELDS})
+
+
+def test_chunked_torch_matches_jax_pallas(chunked):
+    Aj, A, hj, x = chunked
+    want = np.asarray(jax_spmv(Aj, jnp.asarray(x), impl="pallas"))
+    got = spmv(A, torch.from_numpy(x)).numpy()
+    scale = np.abs(hj.to_scipy()) @ np.abs(x).astype(np.float64) + 1e-30
+    assert got.shape == (hj.m,)
+    assert np.max(np.abs(got - want) / scale) <= 1e-6
+    x64 = x.astype(np.float64)
+    assert np.array_equal(execute_closg_numpy(A, x64),
+                          jax_execute_numpy(Aj, x64))
+
+
+def test_chunked_program_moves_whole(chunked):
+    """Tentpole repair: ``.to`` reaches the tensors of every chunk."""
+    _, A, _, _ = chunked
+    B = A.to("meta")
+    assert B.device.type == "meta" and B.row_split == A.row_split
+    for c in B.chunks:
+        assert all(getattr(c, f).device.type == "meta"
+                   for f in DATA_FIELDS + ("acc_ptr", "acc_src"))
+    assert all(c.device.type == "cpu" for c in A.chunks)
+
+
+def test_chunked_scaled_copy_gives_scaled_y(chunked):
+    """Tentpole repair: the bench's timing copy scales every chunk's values,
+    so y of the copy is c·y."""
+    from spmv_research_tpu_torch.harness.bench import _scale_for_iteration
+    from spmv_research_tpu_torch.core.host import HostCSR
+    _, A, hj, x = chunked
+    host = HostCSR.from_arrays(hj.ia, hj.ja, hj.a, hj.m, hj.n)
+    c = 1.0 / float(np.abs(host.to_scipy()).sum(axis=1).max())
+    xt = torch.from_numpy(x)
+    y, y_s = spmv(A, xt).double(), spmv(_scale_for_iteration(host, A),
+                                         xt).double()
+    assert torch.allclose(y_s, c * y, rtol=1e-6, atol=0)
+    assert not torch.allclose(y_s, y, rtol=1e-3)
+
+
+def test_chunked_auto_refuses_the_xl_tier():
+    from spmv_research_tpu_torch.core.host import HostCSR
+    from spmv_research_tpu_torch.ops import build_clos_gather_auto
+    hj = _jax_host("twin")
+    host = HostCSR.from_arrays(hj.ia, hj.ja, hj.a, hj.m, hj.n)
+    with pytest.raises(NotImplementedError, match="XL"):
+        build_clos_gather_auto(host, max_N=CHUNK_N, max_chunks=1)

@@ -28,6 +28,7 @@ from spmv_research_tpu_torch.core.host import HostCOO, HostCSR
 from spmv_research_tpu_torch.gen import generate_from_line
 from spmv_research_tpu_torch.ops.clos_gather import (
     DATA_FIELDS, META_FIELDS, build_clos_gather, build_clos_gather_auto)
+from spmv_research_tpu_torch.ops.clos_route import ClosRoutingError
 
 from torch_cases import TWIN_LINE, capped_scan_matrix
 
@@ -111,8 +112,14 @@ def test_build_auto_refuses_what_is_not_ported():
     mat.sort_indices()
     h = HostCSR.from_scipy(mat)
     assert build_clos_gather_auto(h).N == 8192
-    with pytest.raises(NotImplementedError, match="XL"):
+    # a program has at least 8192 slots: no row block fits in 4096
+    with pytest.raises(ClosRoutingError, match="exceed a single"):
         build_clos_gather_auto(h, max_N=4096)
+    wide = sp.random(3000, 3000, 0.003, random_state=3, format="csr")
+    wide.sort_indices()
+    with pytest.raises(NotImplementedError, match="XL"):
+        build_clos_gather_auto(HostCSR.from_scipy(wide), max_N=8192,
+                               max_chunks=4)
     long_row = sp.csr_matrix((np.ones(20000), (np.zeros(20000, int),
                                                np.arange(20000))),
                              shape=(30000, 30000))
@@ -127,3 +134,26 @@ def test_port_imports_no_jax():
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+def test_native_library_loads_once_under_threads(monkeypatch):
+    """The chunked CLOSG build routes chunks in threads: every thread must
+    see the loaded library, never the numpy tier's None."""
+    import threading
+    from spmv_research_tpu_torch.io import native
+    monkeypatch.setattr(native, "_TRIED", False)
+    monkeypatch.setattr(native, "_LIB", None)
+    start = threading.Barrier(8)
+    got = []
+
+    def load():
+        start.wait()
+        got.append(native.get_lib())
+
+    threads = [threading.Thread(target=load) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(got) == 8 and got[0] is not None
+    assert all(lib is got[0] for lib in got)

@@ -1,11 +1,12 @@
-"""The CLOSG CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``gpu``: they need a CUDA device and nvcc, and skip without them.
 On the GPU machine, which has no JAX for ``tests/conftest.py``, run them
 with ``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q``.
 Tolerances: K1 and K2 are gathers and one product per slot and must match
 exactly; K3 runs the same additions in the same order as its plain version
-and is held to 1e-6 of max |y| (fp32 add-order slack).
+and is held to 1e-6 of max |y| (fp32 add-order slack). The SELLW and SELLR
+kernels add in their plain versions' order and must match exactly.
 """
 
 import numpy as np
@@ -19,8 +20,11 @@ from spmv_research_tpu_torch.gen import generate_from_line
 from spmv_research_tpu_torch.ops import build_clos_gather, spmv
 from spmv_research_tpu_torch.ops import clos_cuda as K
 from spmv_research_tpu_torch.ops.clos import _t_bwd, _t_fwd
+from spmv_research_tpu_torch.ops import sell_cuda as KS
+from spmv_research_tpu_torch.ops import sellr, sellw
 
-from torch_cases import TWIN_LINE, capped_scan_matrix
+from torch_cases import (TWIN_LINE, banded_matrix, capped_scan_matrix,
+                         dirty_sellr_matrix)
 
 pytestmark = pytest.mark.gpu
 
@@ -92,3 +96,82 @@ def test_wrappers_refuse_bad_input(cuda):
     A = build_clos_gather(HostCSR.from_scipy(mat)).to(cuda)
     with pytest.raises(ValueError, match="CUDA"):
         spmv(A.to("cpu"), torch.ones(100), impl="cuda")
+
+
+def _x(n, cuda):
+    x = np.random.Generator(np.random.PCG64(7)).uniform(-1.0, 1.0, n)
+    return x, torch.as_tensor(x, dtype=torch.float32, device=cuda)
+
+
+def _close_to_scipy(mat, x, y):
+    scale = np.abs(mat) @ np.abs(x) + 1e-30
+    got = y.double().cpu().numpy()
+    assert np.max(np.abs(got - mat @ x) / scale) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", ["g1", "g2", "g4", "stream"])
+def test_sellw_kernel_matches_plain_version(cuda, kind, monkeypatch):
+    if kind == "stream":    # the streamed-wins program kind, at a small n
+        monkeypatch.setattr(sellw, "_X_VMEM_LIMIT", 512)
+        mat, G = banded_matrix(400, 1030, 60, 8, 3), 2
+    else:
+        mat, G = banded_matrix(1200, 1200, 160, 14, 2), int(kind[1])
+    A = sellw.build_sellw(HostCSR.from_scipy(mat), group=G).to(cuda)
+    assert A.stream_wins == (kind == "stream") and A.G == G
+    x, xd = _x(mat.shape[1], cuda)
+    args = (A.word, A.vals, A.wrow, xd, sellw.class_plan(A), G)
+    KS.reset_launch_counts()
+    got = KS.sellw_planes(*args, stream_wins=A.stream_wins)
+    want = KS.sellw_planes_torch(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    key = "sellw_stream" if A.stream_wins else "sellw"
+    n_launched = sum(1 for _, cnt, _ in sellw.class_plan(A) if cnt)
+    assert KS.LAUNCHES[key] == n_launched >= 1
+    assert sum(KS.LAUNCHES.values()) == n_launched
+    _close_to_scipy(mat, x, spmv(A, xd))               # CUDA tensor: "cuda"
+
+
+@pytest.mark.parametrize("kind", ["multi_step", "dirty"])
+def test_sellr_kernels_match_plain_version(cuda, kind):
+    if kind == "dirty":
+        mat, factor = dirty_sellr_matrix(), 12.0
+    else:
+        mat, factor = banded_matrix(2000, 2000, 400, 80, 0), 4.0
+    A = sellr.build_sellr(HostCSR.from_scipy(mat),
+                          max_slot_factor=factor).to(cuda)
+    x, xd = _x(mat.shape[1], cuda)
+    args = (A.word, A.vals, A.smeta, A.gptr, A.gchunk, xd, A.nchunks,
+            A.stages, A.rolls)
+    place = (A.word, A.vals, A.smeta, xd, A.nchunks, A.stages, A.rolls)
+    KS.reset_launch_counts()
+    R = KS.sellr_place(*place)
+    R_plain = KS.sellr_place_torch(*place)
+    got = KS.sellr_flush(R_plain, A.gptr, A.gchunk)
+    want = KS.sellr_flush_torch(R_plain, A.gptr, A.gchunk)
+    torch.cuda.synchronize()
+    assert torch.equal(R, R_plain) and torch.equal(got, want)
+    assert KS.LAUNCHES == {"sellw": 0, "sellw_stream": 0, "sellr_place": 1,
+                           "sellr_flush": 1}
+    assert torch.equal(KS.sellr_y(*args), KS.sellr_y_torch(*args))
+    _close_to_scipy(mat, x, spmv(A, xd))
+
+
+def test_sell_wrappers_refuse_bad_input(cuda):
+    A = sellw.build_sellw(HostCSR.from_scipy(
+        banded_matrix(300, 300, 40, 6, 1))).to(cuda)
+    xd = torch.zeros(300, device=cuda)
+    plan = sellw.class_plan(A)
+    with pytest.raises(ValueError, match="several devices"):
+        KS.sellw_planes(A.word, A.vals, A.wrow, xd.cpu(), plan, A.G)
+    with pytest.raises(TypeError):
+        KS.sellw_planes(A.word.float(), A.vals, A.wrow, xd, plan, A.G)
+    with pytest.raises(ValueError, match="contiguous"):
+        KS.sellw_planes(A.word, A.vals, A.wrow, xd, ((64, 1, 3),), A.G)
+    R = sellr.build_sellr(HostCSR.from_scipy(
+        banded_matrix(300, 300, 40, 6, 1))).to(cuda)
+    with pytest.raises(ValueError, match="several devices"):
+        KS.sellr_y(R.word, R.vals, R.smeta, R.gptr.cpu(), R.gchunk, xd,
+                   R.nchunks, R.stages, R.rolls)
+    with pytest.raises(ValueError, match="CUDA"):
+        spmv(R.to("cpu"), torch.ones(300), impl="cuda")

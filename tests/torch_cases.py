@@ -26,3 +26,61 @@ def capped_scan_matrix(seed=1234):
     mat.sum_duplicates()
     mat.sort_indices()
     return mat
+
+
+# datasets/validation_twins.txt's shipsec1 line (the SuiteSparse DNVS
+# ship-section FEM matrix), cut to 2000 rows: banded, so SELLR and SELLW
+# both accept it
+BANDED_LINE = ("2000 2000 55.4637761404 11.0748106399 normal random "
+               "0.0458755451 0.8390381452 1.7123850245 0.8734443677 14 "
+               "shipsec1_twin")
+
+
+def banded_matrix(m, n, band, nnzpr_hi, seed):
+    """tests/test_sellr.py's _band: rows of 1..nnzpr_hi-1 random columns in
+    a window of ``band`` columns that follows the diagonal."""
+    rng = np.random.default_rng(seed)
+    rows, cols = [], []
+    for r in range(m):
+        k = rng.integers(1, nnzpr_hi)
+        c0 = max(0, min(n - 1 - band, int(r * n / m) - band // 2))
+        cs = np.unique(rng.integers(c0, min(c0 + band, n), k))
+        rows += [r] * len(cs)
+        cols += list(cs)
+    vals = np.random.default_rng(seed + 1).standard_normal(len(rows))
+    mat = sp.csr_matrix((vals, (rows, cols)), shape=(m, n))
+    mat.sort_indices()
+    return mat
+
+
+def dirty_sellr_matrix():
+    """tests/test_sellr.py:78's matrix: a band plus one 1900-nnz row, whose
+    128-lane parts land far from their target sublanes, so SELLR needs
+    wrap rolls and dirty (one-by-one flushed) chunks."""
+    mat = banded_matrix(2000, 2000, 150, 7, 6).tolil()
+    mat[500, :1900] = 1.5
+    mat = mat.tocsr()
+    mat.sort_indices()
+    return mat
+
+
+def tridiagonal(n, seed):
+    """Seeded n×n tridiagonal matrix, values uniform in [-1, 1)."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    diags = [rng.uniform(-1, 1, n - 1), rng.uniform(-1, 1, n),
+             rng.uniform(-1, 1, n - 1)]
+    mat = sp.diags(diags, [-1, 0, 1], shape=(n, n), format="csr")
+    mat.sort_indices()
+    return mat
+
+
+def scattered_matrix(seed=5):
+    """2000 × 200000, 6 uniformly scattered nnz per row: no column
+    locality, so SELLR and SELLW refuse it."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    m, n, k = 2000, 200000, 6
+    cols = np.sort(rng.choice(n, (m, k)), axis=1).reshape(-1)
+    mat = sp.csr_matrix((rng.uniform(-1, 1, m * k), cols,
+                         np.arange(0, m * k + 1, k)), shape=(m, n))
+    mat.sum_duplicates()
+    return mat
