@@ -37,7 +37,38 @@ failure (non-zero exit, no result line):
    csr, sellr, sellw and closg, counters reset before and read after (the
    SELLW, SELLR and CLOSG kernels must each have launched); four CSV rows
    under the JAX labels; each engine's y within 1e-5 of |A|·|x| of the
-   longdouble gold; the 8 error metrics per row.
+   longdouble gold; the 8 error metrics per row;
+9. the opt-in front ends on the scircuit twin: a value-LUT program (values
+   quantised to 64 seeded levels) and a ``fuse_windows=True`` program; B4
+   and B7 against their plain versions (exact) and timed; one SpMV of each
+   through ``ops.spmv`` between a reset and a read of the counters, y within
+   1e-5 of |A|·|x| of the gold;
+10. the gupta3 twin (validation_twins.txt:30): ``build_best`` (asserts a
+    chunked CLOSG with W = 0 in every chunk), B5 and B6 against their plain
+    versions on every chunk (exact; the widest timed), one SpMV through
+    ``ops.spmv`` between a reset and a read of the counters, y within 1e-5
+    of |A|·|x|; device times of CLOSG/cuda, DENSE/torch, CSR/torch and the
+    cuSPARSE product (a library yardstick), and the traced chain of 50;
+11. the mip1 twin (validation_twins.txt:31): ``build_best`` (asserts an
+    RSPLIT over a CLOSGX), K1, K2 and B15 on the stacked planes against
+    their plain versions (exact) and timed, one SpMV as in phase 10, y
+    within 1e-5 of |A|·|x|, device times and the traced chain;
+12. the sweep on the gupta3 and mip1 lines with formats csr, closg and
+    dense: rows CLOSG/cuda, DENSE/torch and CSR/torch on gupta3, RSPLIT/cuda
+    and CSR/torch on mip1 (its 17.7 GB dense plane is refused); B5, B6 and
+    B15 must have launched; each y within 1e-5 of |A|·|x| of the gold;
+13. the program kind ``build_clos_gather_auto`` gives four more twins of
+    validation_twins.txt (RCM where the matrix is square): ASIC_680k (:17)
+    an RSPLIT over a 6-chunk CLOSG with W = 1, 1, 1, 1, 32, 32; pwtk (:33) a
+    13-chunk CLOSGX with W = 8; rail4284 (:32) and TSOPF_RS_b2383 (:36)
+    refused by the XL builder's guards. Host work only.
+
+Every kernel entry carries its bound: the larger of the bytes the function
+must move (each input read once, each output written once, a gather
+counting the elements it picks) over the card's data-sheet memory rate and
+its fp32 operations over the fp32 peak (``utils/roofline.py``), from this
+run's inputs. ``library_ms`` is null: no single PyTorch call computes one of
+these kernels' functions (phases 10 and 11 time cuSPARSE's whole SpMV).
 
 Device times hold the card busy (a flush of 1 GiB, then a spin kernel) while
 the host enqueues the timed call, so they time the device's work and not
@@ -60,7 +91,37 @@ import numpy as np
 SHIPSEC1_LINE = ("140874 140874 55.4637761404 11.0748106399 normal random "
                  "0.0458755451 0.8390381452 1.7123850245 0.8734443677 14 "
                  "shipsec1")
+# validation_twins.txt:30 and :31: the Gupta linear-programming matrix
+# (dense rows: W = 0 chunks) and the mip1 mixed-integer matrix (rows past
+# 16,384 nnz and more than 12 chunks: RSPLIT over CLOSGX)
+GUPTA3_LINE = ("16783 16783 555.5280343204 1233.5202594143 normal random "
+               "0.5718415058 25.4109083495 1.9016586927 0.9767488489 14 "
+               "gupta3")
+MIP1_LINE = ("66463 66463 155.7681567188 350.7443175355 normal random "
+             "0.5902849043 425.2424451736 1.9249020001 0.9614697347 14 mip1")
+# validation_twins.txt line → the program build_clos_gather_auto must give:
+# ("RSPLIT", chunk W of the inner ClosGChunked), ("CLOSGX", chunks, W), or
+# ("refused", the start of the ClosRoutingError message)
+TWINS = "datasets/validation_twins.txt"
+KINDS = {17: ("RSPLIT", [1, 1, 1, 1, 32, 32]),
+         32: ("refused", "rows [2048,2176) exceed one XL chunk"),
+         33: ("CLOSGX", 13, 8),
+         36: ("refused", "XL chunk fell back to legacy extraction")}
 STREAM_N = 1_200_000      # > 2^20 columns: a stream_wins SELLW program
+CLOSG_SRC = "spmv_research_tpu_torch/csrc/closg.cu"
+SELL_SRC = "spmv_research_tpu_torch/csrc/sell.cu"
+# the TPU kernel each CLOSG wrapper replaces, and its tolerance against the
+# plain version (K3 alone adds accumulate records: fp32 add-order slack)
+REPLACES = {
+    "closg_front": "spmv_research_tpu/ops/clos_gather.py:675",
+    "closg_front_lut": "spmv_research_tpu/ops/clos_gather.py:734",
+    "closg_front_win": "spmv_research_tpu/ops/clos_gather.py:602",
+    "clos_invreg": "spmv_research_tpu/ops/clos_pallas.py:52",
+    "closg_r3_scan_yext": "spmv_research_tpu/ops/clos_pallas.py:117",
+    "closg_r3_scan": "spmv_research_tpu/ops/clos_pallas.py:106",
+    "closg_cand_yext": "spmv_research_tpu/ops/clos_gather.py:752",
+    "closgx_r3_scan_yext": "spmv_research_tpu/ops/clos_xl.py:252",
+}
 
 
 def fail(msg: str) -> None:
@@ -75,10 +136,12 @@ def log(msg: str) -> None:
 class DeviceTimer:
     """Mean device ms per call of fn, each call timed alone with CUDA events
     after a 1 GiB L2 flush (larger than the 50 MB L2) and a spin kernel of
-    ``hold_ms`` that keeps the card busy while the host enqueues the call."""
+    ``hold_ms`` that keeps the card busy while the host enqueues the call.
+    ``spec`` holds the card's data-sheet rates, for the kernels' bounds."""
 
-    def __init__(self, hold_ms: float = 8.0):
+    def __init__(self, spec, hold_ms: float = 8.0):
         import torch
+        self.spec = spec
         self.flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -106,12 +169,27 @@ class DeviceTimer:
             total += e0.elapsed_time(e1)
         return total / iters
 
+    def bound(self, nbytes: float, ops: float) -> tuple:
+        """(bound_ms, bound_by): bytes over the memory rate or fp32
+        operations over the fp32 peak, whichever takes longer."""
+        t_bytes = nbytes / self.spec.hbm_bw * 1e3
+        t_ops = ops / (self.spec.peak_tflops * 1e12) * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                            "operations")
 
-def check_kernel(timer, name, source, replaces, cases, tol_fn):
+
+def nbytes(*ts) -> int:
+    """Bytes of the tensors among ``ts`` (other arguments count 0)."""
+    import torch
+    return sum(t.numel() * t.element_size() for t in ts
+               if isinstance(t, torch.Tensor))
+
+
+def check_kernel(timer, name, source, replaces, cases, tol_fn, work):
     """Kernel vs plain version on the same inputs for each (kern, plain) of
     ``cases`` (tolerance from the plain result), then both timed on the
-    first case; the kernels-JSON entry (launches filled in by the path that
-    launches it)."""
+    first case, whose (bytes, fp32 operations) are ``work``; the
+    kernels-JSON entry (launches filled in by the path that launches it)."""
     import torch
     err = 0.0
     for i, (kern, plain) in enumerate(cases):
@@ -123,38 +201,98 @@ def check_kernel(timer, name, source, replaces, cases, tol_fn):
             fail(f"{name}: case {i}: kernel vs plain max|d|={e} > {tol}")
         err = max(err, e)
     ms, plain_ms = timer.ms(cases[0][0]), timer.ms(cases[0][1])
+    bound_ms, bound_by = timer.bound(*work)
     log(f"# {name}: max|d|={err} over {len(cases)} case(s), tol "
-        f"{tol_fn.__doc__}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        f"{tol_fn.__doc__}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}: {work[0]} B, {work[1]} ops)")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
 
 
-def closg_checks(timer, K, programs, xd, suffix=""):
-    """K1, K2 and K3 against their plain versions on each CLOSG program of
-    ``programs`` (the first is timed), at the shapes its SpMV gives them."""
+def closg_stages(K, A, xd):
+    """(kernel, args, (bytes, ops)) for each kernel of one CLOSG program's
+    SpMV, each stage's input made by the plain versions of the stages
+    before it (the kernels match them exactly)."""
     from spmv_research_tpu_torch.ops.clos import _t_bwd, _t_fwd
-    cases = {"closg_front": [], "clos_invreg": [], "closg_r3_scan_yext": []}
+    N = A.N
+    if A.fused_win:
+        front = ("closg_front_win", (A.gbase, A.nbids, A.perm_r1, A.vals_cs,
+                                     xd, A.dense_blocks))
+    elif A.use_vlut:
+        front = ("closg_front_lut", (A.rowidx, A.perm_r1, A.vals_cs, xd))
+    else:
+        front = ("closg_front", (A.rowidx, A.perm_r1, A.vals_cs, xd))
+    yield front[0], front[1], (nbytes(*front[1]) + 4 * N, N)
+    v = getattr(K, front[0] + "_torch")(*front[1])
+    mid = (_t_fwd(v, A.V), A.perm_r2)
+    yield "clos_invreg", mid, (nbytes(*mid) + 4 * N, 0)
+    v = _t_bwd(K.clos_invreg_torch(*mid), A.V)
+    if A.W:
+        stages = A.scan_cap or A.scan_stages
+        back = (v, A.perm_r3, A.scan_hi, A.ysel_w, A.wstart, A.acc_ptr,
+                A.acc_src, stages)
+        y_bytes = 4 * (A.acc_ptr.numel() - 1) * 1024
+        # a segmented prefix sum needs one addition per slot, whatever
+        # number of stages this scan takes
+        yield "closg_r3_scan_yext", back, (
+            nbytes(*back) + y_bytes, N + 1024 * A.acc_src.numel())
+        return
+    scan = (v, A.perm_r3, A.scan_hi, A.scan_stages)
+    yield "closg_r3_scan", scan, (nbytes(*scan) + 4 * N, N)
+    cand = (K.closg_r3_scan_torch(*scan), A.ycand, A.ysel)
+    # ycand, ysel and y, plus the one scanned element each y element picks
+    yield "closg_cand_yext", cand, (nbytes(A.ycand, A.ysel)
+                                    + 8 * A.ysel.numel(), 0)
+
+
+def closgx_stages(K, A, xd):
+    """As ``closg_stages`` for a CLOSGX stack: K1 and K2 over the stacked
+    planes, then B15 over all chunks at once."""
+    from spmv_research_tpu_torch.ops.clos import _t_bwd, _t_fwd
+    C, N, V = A.n_chunks, A.N, A.V
+    front = (A.rowidx.view(-1), A.r1.view(-1, 128), A.vals.view(-1, 128), xd)
+    yield "closg_front", front, (nbytes(*front) + 4 * C * N, C * N)
+    mid = (_t_fwd(K.closg_front_torch(*front), V), A.r2.view(-1, V // 8))
+    yield "clos_invreg", mid, (nbytes(*mid) + 4 * C * N, 0)
+    back = (_t_bwd(K.clos_invreg_torch(*mid), V), A.r3.view(-1, 128),
+            A.ysel_w.view(-1, 128), A.wstart_abs.view(-1), A.stages, N)
+    yield "closgx_r3_scan_yext", back, (nbytes(*back) + 4 * A.ysel_w.numel(),
+                                        C * N)
+
+
+def closg_checks(timer, K, programs, xd, suffix="", stages=closg_stages,
+                 names=None):
+    """The kernels of each program's SpMV (``names``: only these) against
+    their plain versions, at the shapes its SpMV gives them; each kernel
+    timed on the first program that runs it."""
+    cases, work = {}, {}
     for A in programs:
-        front = (A.rowidx, A.perm_r1, A.vals_cs, xd)
-        mid = (_t_fwd(K.closg_front_torch(*front), A.V), A.perm_r2)
-        back = (_t_bwd(K.clos_invreg_torch(*mid), A.V), A.perm_r3, A.scan_hi,
-                A.ysel_w, A.wstart, A.acc_ptr, A.acc_src,
-                A.scan_cap or A.scan_stages)
-        for name, args in (("closg_front", front), ("clos_invreg", mid),
-                           ("closg_r3_scan_yext", back)):
-            cases[name].append(
+        for name, args, w in stages(K, A, xd):
+            if names is not None and name not in names:
+                continue
+            cases.setdefault(name, []).append(
                 (lambda f=getattr(K, name), a=args: f(*a),
                  lambda f=getattr(K, name + "_torch"), a=args: f(*a)))
-    src = "spmv_research_tpu_torch/csrc/closg.cu"
-    return [check_kernel(timer, name + suffix, src, replaces, cases[name], tol)
-            for name, replaces, tol in (
-                ("closg_front", "spmv_research_tpu/ops/clos_gather.py:675",
-                 exact),
-                ("clos_invreg", "spmv_research_tpu/ops/clos_pallas.py:52",
-                 exact),
-                ("closg_r3_scan_yext",
-                 "spmv_research_tpu/ops/clos_pallas.py:117", rel_max))]
+            work.setdefault(name, w)
+    return [check_kernel(timer, name + suffix, CLOSG_SRC, REPLACES[name],
+                         cases[name],
+                         rel_max if name == "closg_r3_scan_yext" else exact,
+                         work[name])
+            for name in cases]
+
+
+def counted_spmv(A, xd, *libs):
+    """One SpMV through ``ops.spmv`` between a reset and a read of the
+    launch counters of ``libs`` (the kernel modules): (y, launches)."""
+    import torch
+    from spmv_research_tpu_torch.ops import spmv
+    for lib in libs:
+        lib.reset_launch_counts()
+    y = spmv(A, xd)
+    torch.cuda.synchronize()
+    return y, {k: v for lib in libs for k, v in lib.LAUNCHES.items()}
 
 
 def trace_chain(fn, x, n: int = 50) -> str:
@@ -211,6 +349,42 @@ def rel_to_absax(mat, x, y):
     return float(np.max(np.abs(y - mat @ x) / scale))
 
 
+def check_gold(label, host, x, y, gold=None):
+    """y (a device tensor or array) against the longdouble gold of ``host``
+    within 1e-5 of |A|·|x|; returns the relative error."""
+    y = np.asarray(y.double().cpu().numpy() if hasattr(y, "cpu") else y)
+    if gold is None:
+        gold = host.spmv_gold_fast(x).astype(np.float64)
+    scale = np.abs(host.to_scipy()) @ np.abs(x) + 1e-30
+    rel = float(np.max(np.abs(y - gold) / scale))
+    if not (y.shape == (host.m,) and np.isfinite(y).all() and rel <= 1e-5):
+        fail(f"{label} y: shape {y.shape}, finite {np.isfinite(y).all()}, "
+             f"max |y-gold|/(|A||x|) = {rel}")
+    log(f"# {label} y vs longdouble gold: max rel (|A||x|) = {rel}")
+    return rel
+
+
+def time_candidates(timer, label, fns, traced, xd):
+    """One SpMV's device time for each of ``fns`` (label → fn(x)), and the
+    traced chain of 50 for those named in ``traced``."""
+    for key, fn in fns.items():
+        log(f"# {label} {key}: one SpMV, device time "
+            f"{timer.ms(lambda: fn(xd), iters=10):.4f} ms")
+        if key in traced:
+            log(f"# {label} {key}, traced chain of 50: {trace_chain(fn, xd)}")
+
+
+def cusparse(host, dev):
+    """The host matrix as a torch sparse CSR tensor on ``dev``: its product
+    with x is cuSPARSE's SpMV, a library yardstick the port never calls."""
+    import torch
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(host.ia, dtype=torch.int32),
+        torch.as_tensor(host.ja, dtype=torch.int32),
+        torch.as_tensor(host.a, dtype=torch.float32),
+        size=(host.m, host.n)).to(dev)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -225,26 +399,37 @@ def main() -> None:
         from spmv_research_tpu_torch.harness import BenchConfig, run_sweep
         from spmv_research_tpu_torch.harness.bench import csv_labels
         from spmv_research_tpu_torch.io import native
-        from spmv_research_tpu_torch.ops import (ClosG, ClosGChunked, SellR,
-                                                 SellW, build_sellw, spmv)
+        from spmv_research_tpu_torch.ops import (ClosG, ClosGChunked, ClosGX,
+                                                 RowSplit, SellR, SellW,
+                                                 build_clos_gather,
+                                                 build_clos_gather_auto,
+                                                 build_dense, build_sellw,
+                                                 spmv)
         from spmv_research_tpu_torch.ops import clos_cuda as K
+        from spmv_research_tpu_torch.ops.clos_route import ClosRoutingError
         from spmv_research_tpu_torch.ops import sell_cuda as KS
         from spmv_research_tpu_torch.ops.sellw import class_plan
+        from spmv_research_tpu_torch.utils.roofline import device_spec
     except ImportError as e:
         fail(f"the port is not importable here ({e}): run from the repo root")
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(dev)
+    spec = device_spec(dev)
+    if spec is None:
+        fail(f"no data-sheet rates for {kind} in utils/roofline.py")
+    torch.backends.cuda.matmul.allow_tf32 = False     # DENSE: full fp32
     t_start = time.perf_counter()
 
-    # --- 1. the card and the host library -----------------------------------
+    # --- 1. the card and the host library ---
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     log(smi.stdout.strip().splitlines()[0])
     log(f"# torch {torch.__version__} cuda {torch.version.cuda}; "
-        f"native host library loaded: {native.have_native()}")
+        f"native host library loaded: {native.have_native()}; data sheet: "
+        f"{spec.hbm_bw / 1e12} TB/s, {spec.peak_tflops} TFLOP/s fp32")
 
-    # --- 2. build the kernels (one nvcc per source, together) ---------------
+    # --- 2. build the kernels (one nvcc per source, together) ---
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as ex:
         list(ex.map(lambda lib: lib.build(), (K, KS)))
@@ -255,7 +440,7 @@ def main() -> None:
             ln.strip() for ln in lib.build_log().splitlines()
             if "registers" in ln or "spill" in ln))
 
-    # --- 3. the scircuit program ----------------------------------------------
+    # --- 3. the scircuit program ---
     t0 = time.perf_counter()
     host, _ = generate_from_line(bench.SCIRCUIT_LINE)
     host, _ = rcm_if_beneficial(host)
@@ -273,11 +458,13 @@ def main() -> None:
         f"{A.mem_footprint_bytes() / 1e6:.2f}")
     A = A.to(dev)
 
-    # --- 4. CLOSG kernels against their plain versions ------------------------
-    timer = DeviceTimer()
+    # --- 4. CLOSG kernels against their plain versions ---
+    timer = DeviceTimer(spec)
     x = np.random.Generator(np.random.PCG64(7)).uniform(0.0, 1.0, A.n)
     xd = torch.as_tensor(x, dtype=torch.float32, device=dev)
     kernels = closg_checks(timer, K, [A], xd)
+    log(f"# launches during one scircuit CLOSG SpMV: "
+        f"{counted_spmv(A, xd, K)[1]}")
     csr = build_csr(host).to(dev)
     for key, fn in (("CLOSG/cuda", lambda: spmv(A, xd, impl="cuda")),
                     ("CSR/torch", lambda: spmv(csr, xd, impl="torch"))):
@@ -285,7 +472,7 @@ def main() -> None:
             f"{timer.ms(fn):.4f} ms")
     del csr
 
-    # --- 5. the bench path -----------------------------------------------------
+    # --- 5. the bench path ---
     K.reset_launch_counts()
     run = bench.run(dev)
     torch.cuda.synchronize()
@@ -299,21 +486,14 @@ def main() -> None:
     if run.json["detail"]["best_impl"] != "cuda":
         log("# note: CSR/torch beat CLOSG/cuda")
     Am = run.formats["CLOSG"][0]
-    y = spmv(Am, torch.as_tensor(x, dtype=torch.float32, device=dev))
-    y = y.double().cpu().numpy()
-    gold = run.host.spmv_gold_fast(x).astype(np.float64)
-    scale = np.abs(run.host.to_scipy()) @ np.abs(x) + 1e-30
-    rel = float(np.max(np.abs(y - gold) / scale))
-    if not (y.shape == (run.host.m,) and np.isfinite(y).all() and rel <= 1e-5):
-        fail(f"CLOSG/cuda y: shape {y.shape}, finite {np.isfinite(y).all()}, "
-             f"max |y-gold|/(|A||x|) = {rel}")
-    log(f"# CLOSG/cuda y vs longdouble gold: max rel (|A||x|) = {rel}")
+    check_gold("CLOSG/cuda", run.host, x, spmv(Am, torch.as_tensor(
+        x, dtype=torch.float32, device=dev)))
     for key, r in run.results.items():
         log_metrics(key, r.metrics)
     del run, Am
     log(f"# phases 1-5 done at {time.perf_counter() - t_start:.0f}s")
 
-    # --- 6. the shipsec1 programs ----------------------------------------------
+    # --- 6. the shipsec1 programs ---
     t0 = time.perf_counter()
     ship, _ = generate_from_line(SHIPSEC1_LINE)
     ship, _ = rcm_if_beneficial(ship)
@@ -346,37 +526,48 @@ def main() -> None:
     Ar, Aw, Ac = Ar.to(dev), Aw.to(dev), Ac.to(dev)
     xs = np.random.Generator(np.random.PCG64(7)).uniform(0.0, 1.0, ship.n)
     xsd = torch.as_tensor(xs, dtype=torch.float32, device=dev)
-    sell_src = "spmv_research_tpu_torch/csrc/sell.cu"
     w_args = (Aw.word, Aw.vals, Aw.wrow, xsd, class_plan(Aw), Aw.G)
     p_args = (Ar.word, Ar.vals, Ar.smeta, xsd, Ar.nchunks, Ar.stages,
               Ar.rolls)
     f_args = (KS.sellr_place_torch(*p_args), Ar.gptr, Ar.gchunk)
-    k_sellw = check_kernel(timer, "sellw", sell_src,
+    sell_ops = 2 * Aw.vals.numel()        # a product and a sum per slot
+    k_sellw = check_kernel(timer, "sellw", SELL_SRC,
                            "spmv_research_tpu/ops/sellw.py:490",
                            [(lambda: KS.sellw_planes(*w_args),
-                             lambda: KS.sellw_planes_torch(*w_args))], exact)
-    k_sellr = [check_kernel(timer, f"sellr_{part}", sell_src,
+                             lambda: KS.sellw_planes_torch(*w_args))], exact,
+                           (nbytes(*w_args)
+                            + nbytes(KS.sellw_planes_torch(*w_args)),
+                            sell_ops))
+    p_out = f_args[0]
+    f_out = KS.sellr_flush_torch(*f_args)
+    k_sellr = [check_kernel(timer, f"sellr_{part}", SELL_SRC,
                             "spmv_research_tpu/ops/sellr.py:402",
                             [(lambda f=getattr(KS, f"sellr_{part}"), a=args:
                               f(*a),
                               lambda f=getattr(KS, f"sellr_{part}_torch"),
-                              a=args: f(*a))], exact)
-               for part, args in (("place", p_args), ("flush", f_args))]
+                              a=args: f(*a))], exact, work)
+               for part, args, work in (
+                   ("place", p_args, (nbytes(*p_args) + nbytes(p_out),
+                                      2 * Ar.vals.numel())),
+                   ("flush", f_args, (nbytes(*f_args) + nbytes(f_out),
+                                      p_out.numel())))]
     # K1-K3 at the chunks' own shapes, the widest chunk timed
     k_chunks = closg_checks(timer, K, sorted(Ac.chunks, key=lambda c: -c.N),
                             xsd, suffix="_chunked")
+    for key, F in (("SELLR", Ar), ("SELLW", Aw), ("CLOSG", Ac)):
+        log(f"# launches during one shipsec1 {key} SpMV: "
+            f"{counted_spmv(F, xsd, K, KS)[1]}")
     csr = build_csr(ship).to(dev)
-    for key, fn in (("SELLR/cuda", lambda v: spmv(Ar, v, impl="cuda")),
-                    ("SELLW/cuda", lambda v: spmv(Aw, v, impl="cuda")),
-                    ("CLOSG/cuda", lambda v: spmv(Ac, v, impl="cuda")),
-                    ("CSR/torch", lambda v: spmv(csr, v, impl="torch"))):
-        log(f"# shipsec1 {key}: one SpMV, device time "
-            f"{timer.ms(lambda: fn(xsd), iters=10):.4f} ms")
-        log(f"# shipsec1 {key}, traced chain of 50: {trace_chain(fn, xsd)}")
-    del Ar, Aw, Ac, csr, fmts, w_args, p_args, f_args
+    time_candidates(timer, "shipsec1", {
+        "SELLR/cuda": lambda v: spmv(Ar, v, impl="cuda"),
+        "SELLW/cuda": lambda v: spmv(Aw, v, impl="cuda"),
+        "CLOSG/cuda": lambda v: spmv(Ac, v, impl="cuda"),
+        "CSR/torch": lambda v: spmv(csr, v, impl="torch")},
+        ("SELLR/cuda", "SELLW/cuda", "CLOSG/cuda", "CSR/torch"), xsd)
+    del Ar, Aw, Ac, csr, fmts, w_args, p_args, f_args, p_out, f_out
     log(f"# phase 6 done at {time.perf_counter() - t_start:.0f}s")
 
-    # --- 7. the streamed SELLW program -----------------------------------------
+    # --- 7. the streamed SELLW program ---
     rng = np.random.Generator(np.random.PCG64(11))
     import scipy.sparse as sp
     tri = sp.diags([rng.uniform(-1, 1, STREAM_N - 1),
@@ -395,11 +586,14 @@ def main() -> None:
     xt = rng.uniform(-1.0, 1.0, STREAM_N)
     xtd = torch.as_tensor(xt, dtype=torch.float32, device=dev)
     s_args = (As.word, As.vals, As.wrow, xtd, class_plan(As), As.G)
-    k_stream = check_kernel(timer, "sellw_stream", sell_src,
+    k_stream = check_kernel(timer, "sellw_stream", SELL_SRC,
                             "spmv_research_tpu/ops/sellw.py:521",
                             [(lambda: KS.sellw_planes(*s_args,
                                                       stream_wins=True),
-                              lambda: KS.sellw_planes_torch(*s_args))], exact)
+                              lambda: KS.sellw_planes_torch(*s_args))], exact,
+                            (nbytes(*s_args)
+                             + nbytes(KS.sellw_planes_torch(*s_args)),
+                             2 * As.vals.numel()))
     KS.reset_launch_counts()
     y = spmv(As, xtd)
     torch.cuda.synchronize()
@@ -415,7 +609,7 @@ def main() -> None:
         f"{timer.ms(lambda: spmv(As, xtd), iters=10):.4f} ms")
     del As, s_args, y, tri
 
-    # --- 8. the sweep path -----------------------------------------------------
+    # --- 8. the sweep path ---
     cfg = BenchConfig(min_num_loops=64, min_time_s=1.0,
                       use_rcm_reordering="auto")
     formats = ("csr", "sellr", "sellw", "closg")
@@ -427,42 +621,240 @@ def main() -> None:
         torch.cuda.synchronize()
         launches = {**K.LAUNCHES, **KS.LAUNCHES}
         log(f"# launches during the sweep path: {launches}")
-        for name in ("sellw", "sellr_place", "sellr_flush", *K.LAUNCHES):
+        for name in ("sellw", "sellr_place", "sellr_flush", "closg_front",
+                     "clos_invreg", "closg_r3_scan_yext"):
             if launches[name] <= 0:
                 fail(f"the sweep path never launched {name}")
-        for fmt in formats:
-            with open(os.path.join(out_dir, f"{fmt}_spmv.csv")) as f:
-                lines = f.read().splitlines()
-            if lines[0] != csv_labels(synthetic=True) or len(lines) != 2:
-                fail(f"{fmt}_spmv.csv: {len(lines)} lines, labels "
-                     f"{'ok' if lines[0] == csv_labels(True) else 'wrong'}")
+        check_csvs(out_dir, formats, csv_labels)
     for k in (k_sellw, *k_sellr, *k_chunks):
         k["launches"] = launches[k["name"].removesuffix("_chunked")]
-    got = sorted(f"{r.format_name}/{r.impl}" for r in results)
-    if got != ["CLOSG/cuda", "CSR/torch", "SELLR/cuda", "SELLW/cuda"]:
-        fail(f"sweep results {got}")
-    gold = ship.spmv_gold_fast(xs).astype(np.float64)
-    scale = np.abs(ship.to_scipy()) @ np.abs(xs) + 1e-30
-    for r in results:
-        rel = float(np.max(np.abs(r.y - gold) / scale))
-        key = f"{r.format_name}/{r.impl}"
-        log(f"# sweep {key}: {r.nnz_per_s / 1e9:.4f} Gnnz/s median="
-            f"{r.time_iter_median * 1e6:.1f}us min="
-            f"{r.time_iter_min * 1e6:.1f}us max="
-            f"{r.time_iter_max * 1e6:.1f}us loops={r.num_loops} "
-            f"convert={r.time_convert:.2f}s; y vs longdouble gold: max rel "
-            f"(|A||x|) = {rel}")
-        log_metrics(key, r.metrics)
-        if not (r.y.shape == (ship.m,) and np.isfinite(r.y).all()
-                and rel <= 1e-5):
-            fail(f"sweep {key} y: max |y-gold|/(|A||x|) = {rel}")
+    check_rows(results, ["CLOSG/cuda", "CSR/torch", "SELLR/cuda",
+                         "SELLW/cuda"], {"shipsec1": ship}, xs)
+    del ship, results
+    log(f"# phases 7-8 done at {time.perf_counter() - t_start:.0f}s")
+
+    # --- 9. the opt-in front ends on the scircuit twin ---
+    rng = np.random.Generator(np.random.PCG64(13))
+    levels = rng.uniform(-1.0, 1.0, 64)
+    hq = HostCSR.from_arrays(host.ia, host.ja,
+                             levels[rng.integers(0, 64, host.nnz)],
+                             host.m, host.n)
+    t0 = time.perf_counter()
+    Al = build_clos_gather(hq, value_lut=True)
+    Af = build_clos_gather(host, fuse_windows=True)
+    log(f"# opt-in programs ({time.perf_counter() - t0:.1f}s): LUT "
+        f"use_vlut={Al.use_vlut} footprint_MB="
+        f"{Al.mem_footprint_bytes() / 1e6:.2f}; fused fused_win="
+        f"{Af.fused_win} dense_blocks={Af.dense_blocks} "
+        f"nbids={Af.nbids.numel()} footprint_MB="
+        f"{Af.mem_footprint_bytes() / 1e6:.2f}")
+    if not (Al.use_vlut and Af.fused_win and Al.N == Af.N == 1 << 20):
+        fail("the scircuit opt-in programs lost their front end")
+    Al, Af = Al.to(dev), Af.to(dev)
+    k_opt = []
+    for label, Ao, hh, name in (("LUT", Al, hq, "closg_front_lut"),
+                                ("fused", Af, host, "closg_front_win")):
+        k = closg_checks(timer, K, [Ao], xd, names=(name,))[0]
+        y, launches = counted_spmv(Ao, xd, K)
+        log(f"# launches during one {label} SpMV: {launches}")
+        k["launches"] = launches[name]
+        if k["launches"] <= 0:
+            fail(f"the {label} SpMV never launched {name}")
+        check_gold(f"CLOSG/cuda ({label})", hh, x, y)
+        log(f"# scircuit CLOSG/cuda ({label}): one SpMV, device time "
+            f"{timer.ms(lambda: spmv(Ao, xd), iters=10):.4f} ms")
+        k_opt.append(k)
+    del Al, Af, hq, host
+    log(f"# phase 9 done at {time.perf_counter() - t_start:.0f}s")
+
+    # --- 10. the gupta3 twin: W = 0 chunks ---
+    t0 = time.perf_counter()
+    gup, _ = generate_from_line(GUPTA3_LINE)
+    gup, _ = rcm_if_beneficial(gup)
+    log(f"# gupta3 twin: m={gup.m} nnz={gup.nnz} max row "
+        f"{int(gup.row_lengths().max())} (generate + RCM "
+        f"{time.perf_counter() - t0:.1f}s)")
+    fmts = build_best(gup)
+    Ag = fmts["CLOSG"][0]
+    if not (isinstance(Ag, ClosGChunked)
+            and all(c.W == 0 for c in Ag.chunks)):
+        fail(f"gupta3: expected a chunked CLOSG with W = 0 in every chunk, "
+             f"got {type(Ag).__name__} W "
+             f"{[c.W for c in getattr(Ag, 'chunks', (Ag,))]}")
+    log(f"# gupta3 candidates {sorted(fmts)}; CLOSG cold build "
+        f"{fmts['CLOSG'][1]['build_s']:.2f}s: {len(Ag.chunks)} chunks, "
+        f"row_split={Ag.row_split}, N={[c.N for c in Ag.chunks]}, "
+        f"C={[c.C for c in Ag.chunks]}, stages="
+        f"{[len(c.scan_stages) for c in Ag.chunks]}, scan_hi="
+        f"{[tuple(c.scan_hi.shape) for c in Ag.chunks]}, footprint_MB="
+        f"{Ag.mem_footprint_bytes() / 1e6:.2f}")
+    Ag = Ag.to(dev)
+    xg = np.random.Generator(np.random.PCG64(7)).uniform(0.0, 1.0, gup.n)
+    xgd = torch.as_tensor(xg, dtype=torch.float32, device=dev)
+    k_w0 = closg_checks(timer, K, sorted(Ag.chunks, key=lambda c: -c.N),
+                        xgd, names=("closg_r3_scan", "closg_cand_yext"))
+    y, launches = counted_spmv(Ag, xgd, K)
+    log(f"# launches during one gupta3 SpMV: {launches}")
+    for k in k_w0:
+        k["launches"] = launches[k["name"]]
+        if k["launches"] <= 0:
+            fail(f"the gupta3 SpMV never launched {k['name']}")
+    gold_g = gup.spmv_gold_fast(xg).astype(np.float64)
+    check_gold("gupta3 CLOSG/cuda", gup, xg, y, gold_g)
+    t0 = time.perf_counter()
+    Ad = build_dense(gup).to(dev)
+    log(f"# gupta3 DENSE: plane {tuple(Ad.mat.shape)}, "
+        f"{Ad.mem_footprint_bytes() / 1e9:.3f} GB (build + copy "
+        f"{time.perf_counter() - t0:.1f}s)")
+    check_gold("gupta3 DENSE/torch", gup, xg, spmv(Ad, xgd), gold_g)
+    csr, lib = build_csr(gup).to(dev), cusparse(gup, dev)
+    time_candidates(timer, "gupta3", {
+        "CLOSG/cuda": lambda v: spmv(Ag, v, impl="cuda"),
+        "DENSE/torch": lambda v: spmv(Ad, v, impl="torch"),
+        "CSR/torch": lambda v: spmv(csr, v, impl="torch"),
+        "cuSPARSE (library)": lambda v: lib @ v.unsqueeze(1)},
+        ("CLOSG/cuda", "CSR/torch"), xgd)
+    del Ag, Ad, csr, lib, fmts, y
+    log(f"# phase 10 done at {time.perf_counter() - t_start:.0f}s")
+
+    # --- 11. the mip1 twin: RSPLIT over CLOSGX ---
+    t0 = time.perf_counter()
+    mip, _ = generate_from_line(MIP1_LINE)
+    mip, _ = rcm_if_beneficial(mip)
+    lengths = mip.row_lengths()
+    log(f"# mip1 twin: m={mip.m} nnz={mip.nnz} rows past 16,384 nnz "
+        f"{int((lengths > 16384).sum())}, max row {int(lengths.max())} "
+        f"(generate + RCM {time.perf_counter() - t0:.1f}s)")
+    fmts = build_best(mip)
+    Ax = fmts["CLOSG"][0]
+    if not (isinstance(Ax, RowSplit) and isinstance(Ax.inner, ClosGX)):
+        fail(f"mip1: expected RSPLIT over CLOSGX, got {type(Ax).__name__} "
+             f"over {type(getattr(Ax, 'inner', None)).__name__}")
+    X = Ax.inner
+    log(f"# mip1 candidates {sorted(fmts)}; cold build "
+        f"{fmts['CLOSG'][1]['build_s']:.2f}s: RSPLIT H="
+        f"{Ax.heavy_rows.numel()} n_extra={Ax.n_extra} kmax="
+        f"{Ax.gidx.shape[1]} over CLOSGX C={X.n_chunks} N={X.N} "
+        f"stages={X.stages} W={X.W} mrp={X.mrp} footprint_MB="
+        f"{Ax.mem_footprint_bytes() / 1e6:.2f}")
+    Ax = Ax.to(dev)
+    xm = np.random.Generator(np.random.PCG64(7)).uniform(0.0, 1.0, mip.n)
+    xmd = torch.as_tensor(xm, dtype=torch.float32, device=dev)
+    k_xl = closg_checks(timer, K, [Ax.inner], xmd, stages=closgx_stages)
+    y, launches = counted_spmv(Ax, xmd, K)
+    log(f"# launches during one mip1 SpMV: {launches}")
+    for k in k_xl:
+        k["launches"] = launches[k["name"]]
+        if k["launches"] <= 0:
+            fail(f"the mip1 SpMV never launched {k['name']}")
+        if k["name"] != "closgx_r3_scan_yext":
+            k["name"] += "_xl"
+    gold_m = mip.spmv_gold_fast(xm).astype(np.float64)
+    check_gold("mip1 RSPLIT/cuda", mip, xm, y, gold_m)
+    csr, lib = build_csr(mip).to(dev), cusparse(mip, dev)
+    time_candidates(timer, "mip1", {
+        "RSPLIT/cuda": lambda v: spmv(Ax, v, impl="cuda"),
+        "CSR/torch": lambda v: spmv(csr, v, impl="torch"),
+        "cuSPARSE (library)": lambda v: lib @ v.unsqueeze(1)},
+        ("RSPLIT/cuda", "CSR/torch"), xmd)
+    del Ax, X, csr, lib, fmts, y
+    log(f"# phase 11 done at {time.perf_counter() - t_start:.0f}s")
+
+    # --- 12. the sweep on the gupta3 and mip1 lines ---
+    formats = ("csr", "closg", "dense")
+    with tempfile.TemporaryDirectory() as out_dir:
+        K.reset_launch_counts()
+        results = run_sweep([GUPTA3_LINE, MIP1_LINE], formats=formats,
+                            out_dir=out_dir, config=cfg)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        log(f"# launches during the gupta3 + mip1 sweep: {launches}")
+        for name in ("closg_front", "clos_invreg", "closg_r3_scan",
+                     "closg_cand_yext", "closgx_r3_scan_yext"):
+            if launches[name] <= 0:
+                fail(f"the gupta3 + mip1 sweep never launched {name}")
+        check_csvs(out_dir, formats, csv_labels,
+                   rows={"csr": 2, "closg": 2, "dense": 1})
+    check_rows(results, ["CLOSG/cuda", "CSR/torch", "CSR/torch",
+                         "DENSE/torch", "RSPLIT/cuda"],
+               {"gupta3": gup, "mip1": mip}, None,
+               {"gupta3": (xg, gold_g), "mip1": (xm, gold_m)})
+    del gup, mip, results
+    log(f"# phase 12 done at {time.perf_counter() - t_start:.0f}s")
+
+    # --- 13. the program kinds of four more twins ---
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           TWINS)) as f:
+        twins = f.read().splitlines()
+    for no, want in KINDS.items():
+        t0 = time.perf_counter()
+        tw, _ = generate_from_line(twins[no - 1])
+        if tw.m == tw.n:                    # RCM needs a square matrix
+            tw, _ = rcm_if_beneficial(tw)
+        try:
+            Ak = build_clos_gather_auto(tw)
+            got = program_kind(Ak, RowSplit, ClosGChunked, ClosGX)
+            shape = (f"{got}, footprint_MB="
+                     f"{Ak.mem_footprint_bytes() / 1e6:.2f}")
+            del Ak
+        except ClosRoutingError as e:
+            got = ("refused", str(e)[:len(want[1])])
+            shape = f"refused: {e}"
+        log(f"# {TWINS}:{no} {twins[no - 1].split()[-1]}: m={tw.m} n={tw.n} "
+            f"nnz={tw.nnz}; generate + RCM + build "
+            f"{time.perf_counter() - t0:.1f}s: {shape}")
+        if got != want:
+            fail(f"{TWINS}:{no}: program {got}, want {want}")
+    del tw
     log(f"# all phases done at {time.perf_counter() - t_start:.0f}s")
 
-    kernels += [*k_chunks, k_sellw, k_stream, *k_sellr]
+    kernels += [*k_chunks, k_sellw, k_stream, *k_sellr, *k_opt, *k_w0,
+                *k_xl]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def program_kind(A, RowSplit, ClosGChunked, ClosGX):
+    """("RSPLIT", inner chunk W) for an RSPLIT over a ClosGChunked,
+    ("CLOSGX", chunks, W), else the format's name."""
+    if isinstance(A, RowSplit) and isinstance(A.inner, ClosGChunked):
+        return ("RSPLIT", [c.W for c in A.inner.chunks])
+    if isinstance(A, ClosGX):
+        return ("CLOSGX", A.n_chunks, A.W)
+    return (A.format_name,)
+
+
+def check_csvs(out_dir, formats, csv_labels, rows=None) -> None:
+    """Each format's CSV: the JAX labels, then its rows (one per matrix
+    unless ``rows`` says otherwise)."""
+    for fmt in formats:
+        with open(os.path.join(out_dir, f"{fmt}_spmv.csv")) as f:
+            lines = f.read().splitlines()
+        want = 1 + (rows or {}).get(fmt, 1)
+        if lines[0] != csv_labels(synthetic=True) or len(lines) != want:
+            fail(f"{fmt}_spmv.csv: {len(lines)} lines (want {want}), labels "
+                 f"{'ok' if lines[0] == csv_labels(True) else 'wrong'}")
+
+
+def check_rows(results, want, hosts, x, golds=None) -> None:
+    """The sweep's rows are ``want`` (sorted FORMAT/impl), and each row's y
+    is within 1e-5 of |A|·|x| of its matrix's longdouble gold."""
+    got = sorted(f"{r.format_name}/{r.impl}" for r in results)
+    if got != sorted(want):
+        fail(f"sweep results {got}, want {sorted(want)}")
+    for r in results:
+        host = hosts[r.matrix_name]
+        xr, gold = (golds or {}).get(r.matrix_name, (x, None))
+        key = f"{r.matrix_name} {r.format_name}/{r.impl}"
+        log(f"# sweep {key}: {r.nnz_per_s / 1e9:.4f} Gnnz/s median="
+            f"{r.time_iter_median * 1e6:.1f}us min="
+            f"{r.time_iter_min * 1e6:.1f}us max="
+            f"{r.time_iter_max * 1e6:.1f}us loops={r.num_loops} "
+            f"convert={r.time_convert:.2f}s")
+        check_gold(f"sweep {key}", host, xr, r.y, gold)
+        log_metrics(key, r.metrics)
 
 
 def log_metrics(key, m) -> None:

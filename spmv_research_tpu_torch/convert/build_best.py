@@ -2,7 +2,9 @@
 
 Counterpart of ``spmv_research_tpu/convert/build_pallas.py:build_best``, in
 the JAX order: SELLR, then SELLW (the column-locality engines; their
-builders refuse matrices without locality), then CLOSG. CLOS and BFLY, the
+builders refuse matrices without locality), then CLOSG, whose entry holds
+whatever ``build_clos_gather_auto`` returns: a ``ClosG``, a
+``ClosGChunked``, a ``RowSplit`` or a ``ClosGX``. CLOS and BFLY, the
 JAX package's fallbacks behind CLOSG, are not ported: where CLOSG refuses a
 matrix this raises ``NotImplementedError``. The format cache
 (``convert/cache.py``) is not ported either: every build is a cold build,

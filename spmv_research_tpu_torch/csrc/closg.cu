@@ -1,4 +1,6 @@
-// Hand-written Hopper (sm_90a) kernels of the CLOSG SpMV main path.
+// Hand-written Hopper (sm_90a) kernels of the CLOSG SpMV engine: the front
+// ends (plain, value-LUT, fused windows), the in-vreg layer, the segmented
+// scan, and the three y extractions (windowed, candidate-plane, CLOSGX).
 //
 // Built by spmv_research_tpu_torch/ops/clos_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
@@ -11,8 +13,9 @@
 // rows of L lanes (L = 128, or V/8 for the r2 layer), grouped in 8-row tiles.
 // One packed uint32 word per slot holds the in-vreg layer's indices: bits
 // [0,7) lane1, [7,10) sublane rotation, [10,17) lane2, and a 15-bit payload
-// [17,32) (r1: x lane λ; r3: scan guards). Words use all 32 bits, so they are
-// read as uint32_t.
+// [17,32) (r1: x lane λ in [17,24), then the value index [24,31) or the
+// window rotation [24,27); r3: scan guards). Words use all 32 bits, so they
+// are read as uint32_t.
 //
 // One in-vreg layer, for output (s, l'):
 //   c  = lane2(w[s,l'])
@@ -66,7 +69,14 @@ __global__ void invreg_kernel(const float* __restrict__ v,
 // which come from L2 (x is 4 bytes per column; the scircuit twin's is
 // 684 KB). The TPU kernel copied each sublane's 128-wide x window into VMEM
 // first; here each thread reads its own x element directly (columns past n
-// read as 0, the zero padding of the x plane), so any x size is served.
+// read as 0, the zero padding of the x plane), so any x size is served:
+// this is also the non-LUT mode of `_gmul_r1_kernel` (x past 4 MB).
+//
+// B4 (kLut) — replaces the value-LUT mode of clos_gather.py
+// `_gmul_r1_kernel`: the value is entry (w >> 24) & 0x7F of the 128-entry
+// dictionary (row 0 of the (8,128) dictionary plane), staged in shared
+// memory; the value plane is not read at all (8 bytes per slot).
+template <bool kLut>
 __global__ void front_kernel(const int32_t* __restrict__ rowidx,
                              const uint32_t* __restrict__ word,
                              const float* __restrict__ vals,
@@ -74,36 +84,80 @@ __global__ void front_kernel(const int32_t* __restrict__ rowidx,
                              float* __restrict__ out) {
   __shared__ uint32_t w_sh[kBlockSlots];
   __shared__ float v_sh[kBlockSlots];
+  __shared__ float dict_sh[kLanes];
   const int64_t off = (int64_t)blockIdx.x * kBlockSlots;
   const int t = threadIdx.x;
+  if (kLut && t < kLanes) dict_sh[t] = vals[t];
   const uint32_t wd = word[off + t];
   w_sh[t] = wd;
   const int64_t col = (int64_t)rowidx[(off + t) / kLanes] * kLanes +
                       ((wd >> 17) & 0x7F);
   const float xv = col < n_x ? x[col] : 0.0f;
+  if (kLut) __syncthreads();
+  v_sh[t] = xv * (kLut ? dict_sh[(wd >> 24) & 0x7F] : vals[off + t]);
+  __syncthreads();
+  out[off + t] = invreg_pick(w_sh, v_sh, t, 7);
+}
+
+// B7 `closg_front_win` — replaces spmv_research_tpu/ops/clos_gather.py
+// `_gmul_r1_win_kernel` (fused windows). The TPU kernel sliced one (8,128)
+// window per 8-sublane group from a VMEM-resident compacted x plane and
+// resolved each slot by a rotation select. Here each thread resolves its
+// own x row, xr = gbase[s/8] + ((s%8 + rot) & 7) with rot = (w >> 24) & 7,
+// the x block is nbids[xr] (or xr itself when every block is non-empty:
+// nbids == nullptr), and rows past the n_nb compacted rows read 0 (the TPU
+// kernel's 8-row overrun pad). Bound: device memory, as K1.
+__global__ void front_win_kernel(const int32_t* __restrict__ gbase,
+                                 const int32_t* __restrict__ nbids,
+                                 int64_t n_nb,
+                                 const uint32_t* __restrict__ word,
+                                 const float* __restrict__ vals,
+                                 const float* __restrict__ x, int64_t n_x,
+                                 float* __restrict__ out) {
+  __shared__ uint32_t w_sh[kBlockSlots];
+  __shared__ float v_sh[kBlockSlots];
+  const int64_t off = (int64_t)blockIdx.x * kBlockSlots;
+  const int t = threadIdx.x;
+  const uint32_t wd = word[off + t];
+  w_sh[t] = wd;
+  const int64_t s = (off + t) / kLanes;
+  const int64_t xr = (int64_t)gbase[s / kSub] +
+                     (((s % kSub) + ((wd >> 24) & 0x7)) & (kSub - 1));
+  float xv = 0.0f;
+  if (nbids == nullptr || xr < n_nb) {
+    const int64_t blk = nbids == nullptr ? xr : (int64_t)nbids[xr];
+    const int64_t col = blk * kLanes + ((wd >> 17) & 0x7F);
+    if (col < n_x) xv = x[col];
+  }
   v_sh[t] = xv * vals[off + t];
   __syncthreads();
   out[off + t] = invreg_pick(w_sh, v_sh, t, 7);
 }
 
-// K3(b) one Hillis–Steele stage of the capped segmented scan — part of the
-// replacement of spmv_research_tpu/ops/clos_pallas.py `_r3_scan_yext_kernel`:
+// One Hillis–Steele stage of the segmented scan — part of K3 (replacing
+// spmv_research_tpu/ops/clos_pallas.py `_r3_scan_yext_kernel`), of B5
+// (`_r3_scan_kernel_noval`) and of B15 (clos_xl.py
+// `_r3_scan_yext_dyn_kernel`):
 //   dst[p] = src[p] + (guard_k[p] ? src[p - 2^k] : 0)
 // with guard_k bit 17+k of the r3 word (k < 15) or bit k-15 of scan_hi.
-// The shift wraps mod n like the JAX package's roll; a set guard never
-// wraps. Each stage reads the previous stage's whole array, so stages
+// The slots are runs of `chunk` (a power of two: one program, or one of
+// CLOSGX's stacked chunks), and the shift wraps within its run like the
+// JAX package's roll; a set guard never wraps, so no value crosses a
+// chunk. Each stage reads the previous stage's whole array, so stages
 // ping-pong two buffers, one launch each. Bound: device memory, 12 bytes
 // per slot per stage.
 __global__ void scan_step_kernel(const float* __restrict__ src,
                                  float* __restrict__ dst,
                                  const uint32_t* __restrict__ w3,
                                  const uint32_t* __restrict__ hi, int k,
-                                 int64_t n) {
+                                 int64_t n, int64_t chunk) {
   const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
   const uint32_t g = k < 15 ? (w3[p] >> (17 + k)) & 1u
                             : (hi[p] >> (k - 15)) & 1u;
-  const float shifted = g ? src[(p - (int64_t(1) << k)) & (n - 1)] : 0.0f;
+  const int64_t base = p & ~(chunk - 1);
+  const float shifted =
+      g ? src[base + ((p - base - (int64_t(1) << k)) & (chunk - 1))] : 0.0f;
   dst[p] = src[p] + shifted;
 }
 
@@ -126,6 +180,9 @@ __device__ __forceinline__ float y_pick(const float* __restrict__ scr,
 // instead of looping over the record's W window octaves as the TPU kernel
 // did. Bound: the scattered 4-byte reads of the scanned plane (one per
 // matrix row, from L2 for the records' nearby windows).
+// B15's extraction is the same kernel with acc_ptr == nullptr (CLOSGX
+// chunks carry no accumulate records) over all stacked chunks' batches,
+// each window start already offset by its chunk's rows.
 __global__ void yext_kernel(const float* __restrict__ scr,
                             const uint32_t* __restrict__ ysel_w,
                             const int32_t* __restrict__ wstart,
@@ -137,9 +194,31 @@ __global__ void yext_kernel(const float* __restrict__ scr,
   const int j = threadIdx.x % kLanes;
   const int64_t row = (int64_t)bd * kSub + g;
   float acc = y_pick(scr, ysel_w, wstart, row, j);
-  for (int r = acc_ptr[bd]; r < acc_ptr[bd + 1]; ++r)
-    acc = acc + y_pick(scr, ysel_w, wstart, (int64_t)acc_src[r] * kSub + g, j);
+  if (acc_ptr != nullptr)
+    for (int r = acc_ptr[bd]; r < acc_ptr[bd + 1]; ++r)
+      acc = acc + y_pick(scr, ysel_w, wstart, (int64_t)acc_src[r] * kSub + g,
+                         j);
   y[row * kLanes + j] = acc;
+}
+
+// B6 `closg_cand_yext` — replaces spmv_research_tpu/ops/clos_gather.py
+// `_extract_y_kernel` (the W = 0 back end's extraction). One thread per y
+// element (j, l): cid = bits [7,14) and lane = bits [0,7) of ysel[j,l],
+// y = scr[ycand[cid*m_rows + j], lane]. The candidates are read in place:
+// the TPU path first copied the C candidate planes out with an XLA gather
+// and then looped over C in the kernel. Empty rows read slot nnz, which
+// the scan leaves exactly 0. Bound: ysel and y (8 bytes per element) plus
+// one scattered 4-byte read each.
+__global__ void cand_yext_kernel(const float* __restrict__ scr,
+                                 const int32_t* __restrict__ ycand,
+                                 const uint32_t* __restrict__ ysel,
+                                 int64_t m_rows, float* __restrict__ y) {
+  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= m_rows * kLanes) return;
+  const uint32_t sel = ysel[e];
+  const int64_t row =
+      ycand[(int64_t)((sel >> 7) & 0x7F) * m_rows + e / kLanes];
+  y[e] = scr[row * kLanes + (sel & 0x7F)];
 }
 
 }  // namespace
@@ -161,29 +240,48 @@ int closg_invreg(const void* v, const void* word, void* out, int64_t n_slots,
   return (int)cudaGetLastError();
 }
 
-// n_slots: a multiple of 1024 (rows of 128 lanes).
+// n_slots: a multiple of 1024 (rows of 128 lanes). lut != 0: vals is the
+// (8,128) dictionary plane.
 int closg_front(const void* rowidx, const void* perm_r1, const void* vals,
                 const void* x, int64_t n_x, void* out, int64_t n_slots,
-                void* stream) {
-  front_kernel<<<(unsigned)(n_slots / kBlockSlots), kBlockSlots, 0,
-                 (cudaStream_t)stream>>>(
-      (const int32_t*)rowidx, (const uint32_t*)perm_r1, (const float*)vals,
-      (const float*)x, n_x, (float*)out);
+                int lut, void* stream) {
+  const unsigned blocks = (unsigned)(n_slots / kBlockSlots);
+  if (lut)
+    front_kernel<true><<<blocks, kBlockSlots, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)rowidx, (const uint32_t*)perm_r1, (const float*)vals,
+        (const float*)x, n_x, (float*)out);
+  else
+    front_kernel<false><<<blocks, kBlockSlots, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)rowidx, (const uint32_t*)perm_r1, (const float*)vals,
+        (const float*)x, n_x, (float*)out);
   return (int)cudaGetLastError();
 }
 
-// n_slots: a power of two; scan_hi may be null when k < 15.
+// nbids may be null (every x block is non-empty: no compaction).
+int closg_front_win(const void* gbase, const void* nbids, int64_t n_nb,
+                    const void* perm_r1, const void* vals, const void* x,
+                    int64_t n_x, void* out, int64_t n_slots, void* stream) {
+  front_win_kernel<<<(unsigned)(n_slots / kBlockSlots), kBlockSlots, 0,
+                     (cudaStream_t)stream>>>(
+      (const int32_t*)gbase, (const int32_t*)nbids, n_nb,
+      (const uint32_t*)perm_r1, (const float*)vals, (const float*)x, n_x,
+      (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// chunk: a power of two dividing n_slots; scan_hi may be null when k < 15.
 int closg_scan_step(const void* src, void* dst, const void* perm_r3,
                     const void* scan_hi, int k, int64_t n_slots,
-                    void* stream) {
+                    int64_t chunk, void* stream) {
   const int threads = 256;
   scan_step_kernel<<<(unsigned)((n_slots + threads - 1) / threads), threads,
                      0, (cudaStream_t)stream>>>(
       (const float*)src, (float*)dst, (const uint32_t*)perm_r3,
-      (const uint32_t*)scan_hi, k, n_slots);
+      (const uint32_t*)scan_hi, k, n_slots, chunk);
   return (int)cudaGetLastError();
 }
 
+// acc_ptr and acc_src may be null (no accumulate records).
 int closg_yext(const void* scr, const void* ysel_w, const void* wstart,
                const void* acc_ptr, const void* acc_src, void* y,
                int n_batches, void* stream) {
@@ -191,6 +289,18 @@ int closg_yext(const void* scr, const void* ysel_w, const void* wstart,
                 (cudaStream_t)stream>>>(
       (const float*)scr, (const uint32_t*)ysel_w, (const int32_t*)wstart,
       (const int32_t*)acc_ptr, (const int32_t*)acc_src, (float*)y);
+  return (int)cudaGetLastError();
+}
+
+int closg_cand_yext(const void* scr, const void* ycand, const void* ysel,
+                    int64_t m_rows, void* y, void* stream) {
+  const int threads = 256;
+  const int64_t n = m_rows * kLanes;
+  if (n == 0) return 0;
+  cand_yext_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
+                     (cudaStream_t)stream>>>(
+      (const float*)scr, (const int32_t*)ycand, (const uint32_t*)ysel,
+      m_rows, (float*)y);
   return (int)cudaGetLastError();
 }
 

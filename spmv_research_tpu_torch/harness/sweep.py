@@ -12,14 +12,17 @@ Differences from the JAX sweep, each deliberate:
 * matrices are synthetic 11-arg parameter lines; a ``.mtx`` spec raises
   ``NotImplementedError`` (the Matrix Market reader is ROADMAP queue A
   item 1);
-* ``FORMAT_BUILDERS`` holds ``csr``, ``sellr``, ``sellw`` and ``closg``, and
-  the workload is ``spmv``: any other name raises before the sweep starts;
-* the impls are the device's: on a CUDA device the engines run ``cuda`` and
-  CSR runs ``torch``; on the CPU everything runs ``torch``;
+* ``FORMAT_BUILDERS`` holds ``csr``, ``sellr``, ``sellw``, ``closg`` (whose
+  builder may return a CLOSG, RSPLIT or CLOSGX program, as in the JAX sweep)
+  and ``dense``, and the workload is ``spmv``: any other name raises before
+  the sweep starts;
+* the impls are the device's (``ops.dispatch.default_impl``): on a CUDA
+  device the engines run ``cuda`` and the library formats (CSR, DENSE) run
+  ``torch``; on the CPU everything runs ``torch``;
 * a builder's suitability error (``SellRBuildError``, ``SellWBuildError``,
-  ``ClosRoutingError``) is printed and the format skipped, as in the JAX
-  sweep; any other exception propagates (no retries: a GPU fault is not
-  transient);
+  ``ClosRoutingError``, ``DenseBuildError``) is printed and the format
+  skipped, as in the JAX sweep; any other exception propagates (no retries:
+  a GPU fault is not transient);
 * the TPU-worker-crash handling (``_fatal_runtime``, exit code 3, the
   ``CRASH`` records) has no counterpart on the GPU.
 """
@@ -37,8 +40,10 @@ from ..convert import (build_csr, extract_features, fix_diagonal_zeros,
                        make_diag_dominant, make_spd, rcm_reorder)
 from ..convert.reorder import rcm_if_beneficial
 from ..gen import ArtificialParams, artificial_matrix_generation
+from ..ops import default_impl
 from ..ops.clos_gather import build_clos_gather_auto
 from ..ops.clos_route import ClosRoutingError
+from ..ops.densemv import DenseBuildError, build_dense
 from ..ops.sellr import SellRBuildError, build_sellr
 from ..ops.sellw import SellWBuildError, build_sellw
 from .bench import bench_spmv, csv_labels, csv_row_synthetic
@@ -48,11 +53,13 @@ FORMAT_BUILDERS = {
     "csr": build_csr,
     "sellr": build_sellr,
     "sellw": build_sellw,
-    "closg": build_clos_gather_auto,
+    "closg": build_clos_gather_auto,   # CLOSG, RSPLIT or CLOSGX
+    "dense": build_dense,
 }
 WORKLOADS = ("spmv",)
 # a builder raising one of these refuses the matrix: the format is skipped
-SUITABILITY_ERRORS = (SellRBuildError, SellWBuildError, ClosRoutingError)
+SUITABILITY_ERRORS = (SellRBuildError, SellWBuildError, ClosRoutingError,
+                      DenseBuildError)
 
 
 class BenchGateError(RuntimeError):
@@ -66,7 +73,7 @@ def check_sweep_args(formats: Sequence[str], workloads: Sequence[str]) -> None:
         raise NotImplementedError(
             f"formats {bad_f} are not ported: the sweep has "
             f"{sorted(FORMAT_BUILDERS)} (the others follow their engines, "
-            "ROADMAP queue A items 2, 4, 7, 8 and 11)")
+            "ROADMAP queue A items 2, 5, 8 and 11)")
     bad_w = [w for w in workloads if w not in WORKLOADS]
     if bad_w:
         raise NotImplementedError(
@@ -160,8 +167,7 @@ def run_sweep(matrices: Sequence[str],
             t_convert = time.time() - t0
             print(f"# convert {name} -> {fmt}: {t_convert:.2f}s", flush=True)
             A = A.to(device)
-            impl = ("cuda" if device.type == "cuda" and fmt != "csr"
-                    else "torch")
+            impl = default_impl(A.format_name, device)
             if donelog.skip(name, fmt, impl, "spmv"):
                 continue
             r = bench_spmv(host, A, config=cfg, impl=impl, matrix_name=name,

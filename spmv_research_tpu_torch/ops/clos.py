@@ -56,9 +56,12 @@ def invreg_torch(v: torch.Tensor, word: torch.Tensor) -> torch.Tensor:
 
 
 def _t_fwd(v: torch.Tensor, V: int) -> torch.Tensor:
-    """(8V, 128) slot layout -> transposed (8·1024, V/8) layout."""
-    return v.reshape(V, BLK).t().contiguous().view(SUB * BLK, V // SUB)
+    """(8V, 128) slot layout -> transposed (8·1024, V/8) layout; a stack of
+    C such planes (CLOSGX) is transposed plane by plane in one copy."""
+    return (v.reshape(-1, V, BLK).transpose(1, 2).contiguous()
+            .view(-1, V // SUB))
 
 
 def _t_bwd(v: torch.Tensor, V: int) -> torch.Tensor:
-    return v.reshape(BLK, V).t().contiguous().view(SUB * V, LANES)
+    return (v.reshape(-1, BLK, V).transpose(1, 2).contiguous()
+            .view(-1, LANES))

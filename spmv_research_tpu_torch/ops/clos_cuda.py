@@ -1,27 +1,43 @@
-"""The CLOSG main path's CUDA kernels: build, wrappers, plain versions.
+"""The CLOSG engine's CUDA kernels: build, wrappers, plain versions.
 
-Counterpart of the main-path parts of ``spmv_research_tpu/ops/clos_pallas.py``
-and ``spmv_research_tpu/ops/clos_gather.py``. Three kernels, one per Pallas
-kernel the main path runs (sources and design notes in ``csrc/closg.cu``):
+Counterpart of the CLOSG parts of ``spmv_research_tpu/ops/clos_pallas.py``,
+``spmv_research_tpu/ops/clos_gather.py`` and ``spmv_research_tpu/ops/clos_xl.py``.
+One wrapper per Pallas kernel (sources and design notes in ``csrc/closg.cu``):
 
-=======================  =====================================================
-wrapper                  replaces
-=======================  =====================================================
-``closg_front``          ``clos_gather.py:_gmul_r1_dma_kernel`` (x window
-                         gather × value, then the r1 layer)
-``clos_invreg``          ``clos_pallas.py:_invreg_kernel`` (one in-vreg layer;
-                         the r2 layer)
-``closg_r3_scan_yext``   ``clos_pallas.py:_r3_scan_yext_kernel`` (r3 layer,
-                         capped segmented scan, y extraction) — three
-                         launches on the GPU: the r3 layer, one per scan
-                         stage, the extraction
-=======================  =====================================================
+=========================  ===================================================
+wrapper                    replaces
+=========================  ===================================================
+``closg_front``            ``clos_gather.py:_gmul_r1_dma_kernel`` (x window
+                           gather × value, then the r1 layer); also the
+                           non-LUT mode of ``_gmul_r1_kernel``, since the
+                           kernel reads x from device memory at any n
+``closg_front_lut``        ``clos_gather.py:_gmul_r1_kernel`` in value-LUT
+                           mode (the value from a 128-entry dictionary)
+``closg_front_win``        ``clos_gather.py:_gmul_r1_win_kernel`` (fused
+                           windows: x row = base of the 8-row group + a
+                           per-slot rotation)
+``clos_invreg``            ``clos_pallas.py:_invreg_kernel`` (one in-vreg
+                           layer; the r2 layer)
+``closg_r3_scan_yext``     ``clos_pallas.py:_r3_scan_yext_kernel`` (r3 layer,
+                           capped segmented scan, windowed y extraction) —
+                           launches: the r3 layer, one per scan stage, the
+                           extraction
+``closg_r3_scan``          ``clos_pallas.py:_r3_scan_kernel_noval`` (r3 layer
+                           + full scan, the W = 0 back end's first half) —
+                           launches: the r3 layer, one per scan stage
+``closg_cand_yext``        ``clos_gather.py:_extract_y_kernel`` (W = 0: per y
+                           slot, a pick from one of C candidate rows)
+``closgx_r3_scan_yext``    ``clos_xl.py:_r3_scan_yext_dyn_kernel`` (the CLOSGX
+                           back end over all stacked chunks at once) —
+                           launches: the r3 layer, one per stage, the
+                           extraction
+=========================  ===================================================
 
 Each wrapper takes the kernel's plain PyTorch version (``*_torch``) only when
 its tensors lie on the CPU. For CUDA tensors it launches the kernel or raises;
-nothing falls back. ``LAUNCHES`` counts, per wrapper, its kernel launches
-(K3's three kinds together). The ``_t_fwd``/``_t_bwd`` transposes between the layers stay
-PyTorch copies (``clos.py``), as they were XLA ops in the JAX package.
+nothing falls back. ``LAUNCHES`` counts, per wrapper, its kernel launches.
+The ``_t_fwd``/``_t_bwd`` transposes between the layers stay PyTorch copies
+(``clos.py``), as they were XLA ops in the JAX package.
 
 The kernels are compiled by ``nvcc`` from ``csrc/closg.cu`` at first CUDA use
 (``cuda_lib.CudaLib``); importing this module builds and loads nothing.
@@ -40,17 +56,22 @@ from .clos_route import LANES, SUB
 from .cuda_lib import CudaLib, check as _check, on_cuda as _on_cuda
 from .cuda_lib import stream as _stream
 
-LAUNCHES = {"closg_front": 0, "clos_invreg": 0, "closg_r3_scan_yext": 0}
+LAUNCHES = {"closg_front": 0, "closg_front_lut": 0, "closg_front_win": 0,
+            "clos_invreg": 0, "closg_r3_scan_yext": 0, "closg_r3_scan": 0,
+            "closg_cand_yext": 0, "closgx_r3_scan_yext": 0}
+VLUT_SHIFT = SPARE_SHIFT + 7    # r1 bits [24,31): value index / rotation
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.closg_invreg.argtypes = [p, p, p, i64, i32, p]
-    lib.closg_front.argtypes = [p, p, p, p, i64, p, i64, p]
-    lib.closg_scan_step.argtypes = [p, p, p, p, i32, i64, p]
+    lib.closg_front.argtypes = [p, p, p, p, i64, p, i64, i32, p]
+    lib.closg_front_win.argtypes = [p, p, i64, p, p, p, i64, p, i64, p]
+    lib.closg_scan_step.argtypes = [p, p, p, p, i32, i64, i64, p]
     lib.closg_yext.argtypes = [p, p, p, p, p, p, i32, p]
-    for fn in (lib.closg_invreg, lib.closg_front, lib.closg_scan_step,
-               lib.closg_yext):
+    lib.closg_cand_yext.argtypes = [p, p, p, i64, p, p]
+    for fn in (lib.closg_invreg, lib.closg_front, lib.closg_front_win,
+               lib.closg_scan_step, lib.closg_yext, lib.closg_cand_yext):
         fn.restype = i32
 
 
@@ -78,23 +99,62 @@ def _check_slots(n_slots: int, lanes: int) -> None:
 clos_invreg_torch = invreg_torch
 
 
+def _x2d(x: torch.Tensor) -> torch.Tensor:
+    x_rows = (x.shape[0] + LANES - 1) // LANES
+    return F.pad(x, (0, x_rows * LANES - x.shape[0])).view(x_rows, LANES)
+
+
+def _lam(perm_r1: torch.Tensor) -> torch.Tensor:
+    return ((perm_r1 >> SPARE_SHIFT) & 0x7F).long()
+
+
 def closg_front_torch(rowidx: torch.Tensor, perm_r1: torch.Tensor,
                       vals_cs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """wins[s] = x2d[rowidx[s]]; v = wins[s, λ] · vals_cs; then the r1 layer
     (``_gmul_dma`` of the JAX package)."""
-    x_rows = (x.shape[0] + LANES - 1) // LANES
-    x2d = F.pad(x, (0, x_rows * LANES - x.shape[0])).view(x_rows, LANES)
-    lam = ((perm_r1 >> SPARE_SHIFT) & 0x7F).long()
-    g = torch.gather(x2d[rowidx.long()], 1, lam)
+    g = torch.gather(_x2d(x)[rowidx.long()], 1, _lam(perm_r1))
+    return invreg_torch(g * vals_cs, perm_r1)
+
+
+def closg_front_lut_torch(rowidx: torch.Tensor, perm_r1: torch.Tensor,
+                          vals_cs: torch.Tensor,
+                          x: torch.Tensor) -> torch.Tensor:
+    """As ``closg_front_torch``, with each slot's value read from the
+    dictionary ``vals_cs[0]`` at index r1 bits [24,31) (value-LUT mode of
+    ``_gmul_r1_kernel``)."""
+    g = torch.gather(_x2d(x)[rowidx.long()], 1, _lam(perm_r1))
+    val = vals_cs[0][((perm_r1 >> VLUT_SHIFT) & 0x7F).long()]
+    return invreg_torch(g * val, perm_r1)
+
+
+def closg_front_win_torch(gbase: torch.Tensor, nbids: torch.Tensor,
+                          perm_r1: torch.Tensor, vals_cs: torch.Tensor,
+                          x: torch.Tensor, dense_blocks: bool) -> torch.Tensor:
+    """Fused-window front end (``_gmul_win``): slot (s, l) reads the x row
+    ``gbase[s/8] + ((s%8 + rot) & 7)`` of the compacted x plane (the
+    non-empty blocks ``nbids``, or every block if ``dense_blocks``), rot =
+    r1 bits [24,27); rows past the plane read 0 (the JAX package's 8-row
+    overrun pad)."""
+    x2c = _x2d(x) if dense_blocks else _x2d(x)[nbids.long()]
+    x2c = F.pad(x2c, (0, 0, 0, SUB))
+    s = torch.arange(perm_r1.shape[0], device=x.device).unsqueeze(1)
+    rot = ((perm_r1 >> VLUT_SHIFT) & 0x7).long()
+    xr = gbase.long()[s // SUB] + ((s % SUB + rot) & (SUB - 1))
+    g = x2c[xr, _lam(perm_r1)]
     return invreg_torch(g * vals_cs, perm_r1)
 
 
 def _scan_torch(u: torch.Tensor, w3: torch.Tensor, hi: torch.Tensor,
-                stages: Sequence[int]) -> torch.Tensor:
+                stages: Sequence[int], chunk: int) -> torch.Tensor:
+    """The guarded shift-add stages over flat slots, the shift rolling
+    within each run of ``chunk`` slots (one program, or one CLOSGX chunk)."""
+    u = u.view(-1, chunk)
+    w3, hi = w3.view(-1, chunk), hi.reshape(-1)
+    hi = hi.view(-1, chunk) if hi.numel() == w3.numel() else hi
     for k in stages:
         guard = _stage_bit(k, w3, hi)
-        u = u + torch.where(guard, torch.roll(u, 1 << k), 0.0)
-    return u
+        u = u + torch.where(guard, torch.roll(u, 1 << k, dims=1), 0.0)
+    return u.reshape(-1)
 
 
 def _y_pick(scr, ysel_w, wstart, rows):
@@ -105,15 +165,22 @@ def _y_pick(scr, ysel_w, wstart, rows):
     return torch.where(empty, 0.0, val)
 
 
+def closg_r3_scan_torch(v, perm_r3, scan_hi,
+                        stages: Sequence[int]) -> torch.Tensor:
+    """r3 layer, then the scan stages ``stages``: the scanned (8V, 128)
+    plane (``_r3_scan_kernel_noval``)."""
+    _check_hi(stages, scan_hi, v.numel())
+    return _scan_torch(invreg_torch(v, perm_r3).reshape(-1),
+                       perm_r3.reshape(-1), scan_hi, stages,
+                       v.numel()).view(-1, LANES)
+
+
 def closg_r3_scan_yext_torch(v, perm_r3, scan_hi, ysel_w, wstart, acc_ptr,
                              acc_src, stages: Sequence[int]) -> torch.Tensor:
     """r3 layer, the scan stages ``stages`` (capped: in-row window sums),
     then y extraction — base records, then the accumulate records in the
     order ``acc_ptr``/``acc_src`` give. Returns y as (8·n_batches, 128)."""
-    _check_hi(stages, scan_hi, v.numel())
-    u = _scan_torch(invreg_torch(v, perm_r3).reshape(-1), perm_r3.reshape(-1),
-                    scan_hi.reshape(-1), stages)
-    scr = u.view(-1, LANES)
+    scr = closg_r3_scan_torch(v, perm_r3, scan_hi, stages)
     n_batches = acc_ptr.shape[0] - 1
     dev = v.device
     y = _y_pick(scr, ysel_w, wstart, torch.arange(n_batches * SUB, device=dev))
@@ -126,6 +193,30 @@ def closg_r3_scan_yext_torch(v, perm_r3, scan_hi, ysel_w, wstart, acc_ptr,
         rows_s = (src.unsqueeze(1) * SUB + g).reshape(-1)
         y[rows_d] = y[rows_d] + _y_pick(scr, ysel_w, wstart, rows_s)
     return y
+
+
+def closg_cand_yext_torch(scr: torch.Tensor, ycand: torch.Tensor,
+                          ysel: torch.Tensor) -> torch.Tensor:
+    """W = 0 extraction (``_extract_y_kernel``): y[j, l] is lane ysel bits
+    [0,7) of scan row ``ycand[cid·m_rows + j]``, cid = ysel bits [7,14).
+    Returns y as (m_rows, 128)."""
+    m_rows = ysel.shape[0]
+    cid = ((ysel >> 7) & 0x7F).long()
+    j = torch.arange(m_rows, device=ysel.device).unsqueeze(1)
+    return scr[ycand.long()[cid * m_rows + j], (ysel & 0x7F).long()]
+
+
+def closgx_r3_scan_yext_torch(v, r3, ysel_w, wstart_abs, stages: int,
+                              chunk_slots: int) -> torch.Tensor:
+    """CLOSGX back end over C stacked chunks of ``chunk_slots`` slots: r3
+    layer, ``stages`` full scan stages (guards in r3's spare bits, the shift
+    within each chunk), then every y batch of every chunk extracted in
+    place from its window (``wstart_abs`` = the chunk's own window start +
+    chunk·rows). Returns the stacked y, (C·mrp, 128)."""
+    u = _scan_torch(invreg_torch(v, r3).reshape(-1), r3.reshape(-1),
+                    r3.new_zeros(1), range(stages), chunk_slots)
+    rows = torch.arange(ysel_w.shape[0], device=v.device)
+    return _y_pick(u.view(-1, LANES), ysel_w, wstart_abs, rows)
 
 
 def _check_hi(stages: Sequence[int], scan_hi: torch.Tensor, n: int) -> None:
@@ -150,24 +241,124 @@ def clos_invreg(v: torch.Tensor, word: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _front(key, rowidx, perm_r1, vals_cs, x, lut: bool) -> torch.Tensor:
+    S = rowidx.shape[0]
+    _check(rowidx, "rowidx", torch.int32, (S,))
+    _check(perm_r1, "perm_r1", torch.int32, (S, LANES))
+    _check(vals_cs, "vals_cs", torch.float32, (SUB, LANES) if lut
+           else (S, LANES))
+    _check(x, "x", torch.float32, (x.shape[0],))
+    _check_slots(S * LANES, LANES)
+    out = torch.empty_like(perm_r1, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        _launch("closg_front", rowidx.data_ptr(), perm_r1.data_ptr(),
+                vals_cs.data_ptr(), x.data_ptr(), x.shape[0], out.data_ptr(),
+                S * LANES, int(lut), _stream(x))
+    LAUNCHES[key] += 1
+    return out
+
+
 def closg_front(rowidx: torch.Tensor, perm_r1: torch.Tensor,
                 vals_cs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Window gather × value, then the r1 layer (kernel K1): (8V, 128)."""
     if not _on_cuda(rowidx, perm_r1, vals_cs, x):
         return closg_front_torch(rowidx, perm_r1, vals_cs, x)
-    S = rowidx.shape[0]
-    _check(rowidx, "rowidx", torch.int32, (S,))
+    return _front("closg_front", rowidx, perm_r1, vals_cs, x, lut=False)
+
+
+def closg_front_lut(rowidx: torch.Tensor, perm_r1: torch.Tensor,
+                    vals_cs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """K1 with the value read from the (8, 128) dictionary plane's row 0
+    at r1 bits [24,31) (kernel B4)."""
+    if not _on_cuda(rowidx, perm_r1, vals_cs, x):
+        return closg_front_lut_torch(rowidx, perm_r1, vals_cs, x)
+    return _front("closg_front_lut", rowidx, perm_r1, vals_cs, x, lut=True)
+
+
+def closg_front_win(gbase: torch.Tensor, nbids: torch.Tensor,
+                    perm_r1: torch.Tensor, vals_cs: torch.Tensor,
+                    x: torch.Tensor, dense_blocks: bool) -> torch.Tensor:
+    """Fused-window front end (kernel B7): (8V, 128)."""
+    if not _on_cuda(gbase, nbids, perm_r1, vals_cs, x):
+        return closg_front_win_torch(gbase, nbids, perm_r1, vals_cs, x,
+                                     dense_blocks)
+    S = perm_r1.shape[0]
+    _check(gbase, "gbase", torch.int32, (S // SUB,))
+    _check(nbids, "nbids", torch.int32, (nbids.shape[0],))
     _check(perm_r1, "perm_r1", torch.int32, (S, LANES))
     _check(vals_cs, "vals_cs", torch.float32, (S, LANES))
     _check(x, "x", torch.float32, (x.shape[0],))
     _check_slots(S * LANES, LANES)
     out = torch.empty_like(vals_cs)
     with torch.cuda.device(x.device):
-        _launch("closg_front", rowidx.data_ptr(), perm_r1.data_ptr(),
-                vals_cs.data_ptr(), x.data_ptr(), x.shape[0], out.data_ptr(),
-                S * LANES, _stream(x))
-    LAUNCHES["closg_front"] += 1
+        _launch("closg_front_win", gbase.data_ptr(),
+                None if dense_blocks else nbids.data_ptr(), nbids.shape[0],
+                perm_r1.data_ptr(), vals_cs.data_ptr(), x.data_ptr(),
+                x.shape[0], out.data_ptr(), S * LANES, _stream(x))
+    LAUNCHES["closg_front_win"] += 1
     return out
+
+
+def _check_back(v, word, chunk: int) -> None:
+    n = v.numel()
+    _check(v, "v", torch.float32, (n // LANES, LANES))
+    _check(word, "perm_r3", torch.int32, v.shape)
+    _check_slots(n, LANES)
+    if chunk < 1 or chunk & (chunk - 1) or n % chunk:
+        raise ValueError(f"{n} slots are not whole power-of-two chunks of "
+                         f"{chunk}")
+
+
+def _r3_scan_launch(key, v, perm_r3, hi_ptr, stages: Sequence[int],
+                    chunk: int) -> torch.Tensor:
+    """The r3 layer, then one launch per scan stage (ping-pong buffers)."""
+    n = v.numel()
+    a = torch.empty_like(v)
+    b = torch.empty_like(v)
+    stream = _stream(v)
+    _launch("closg_invreg", v.data_ptr(), perm_r3.data_ptr(), a.data_ptr(),
+            n, LANES, stream)
+    LAUNCHES[key] += 1
+    for k in stages:
+        _launch("closg_scan_step", a.data_ptr(), b.data_ptr(),
+                perm_r3.data_ptr(), hi_ptr, k, n, chunk, stream)
+        LAUNCHES[key] += 1
+        a, b = b, a
+    return a
+
+
+def closg_r3_scan(v, perm_r3, scan_hi, stages: Sequence[int]) -> torch.Tensor:
+    """r3 layer + full segmented scan (kernel B5): the scanned (8V, 128)
+    plane. Stages ≥ 15 read their guards from ``scan_hi``."""
+    if not _on_cuda(v, perm_r3, scan_hi):
+        return closg_r3_scan_torch(v, perm_r3, scan_hi, stages)
+    n = v.numel()
+    _check_back(v, perm_r3, n)
+    _check(scan_hi, "scan_hi", torch.int32)
+    _check_hi(stages, scan_hi, n)
+    with torch.cuda.device(v.device):
+        return _r3_scan_launch(
+            "closg_r3_scan", v, perm_r3,
+            scan_hi.data_ptr() if scan_hi.numel() == n else None, stages, n)
+
+
+def closg_cand_yext(scr: torch.Tensor, ycand: torch.Tensor,
+                    ysel: torch.Tensor) -> torch.Tensor:
+    """W = 0 candidate-plane y extraction (kernel B6): (m_rows, 128)."""
+    if not _on_cuda(scr, ycand, ysel):
+        return closg_cand_yext_torch(scr, ycand, ysel)
+    m_rows = ysel.shape[0]
+    _check(scr, "scr", torch.float32, (scr.shape[0], LANES))
+    _check(ysel, "ysel", torch.int32, (m_rows, LANES))
+    _check(ycand, "ycand", torch.int32)
+    if ycand.numel() % max(m_rows, 1):
+        raise ValueError("ycand holds no whole number of candidate rows")
+    y = torch.empty((m_rows, LANES), dtype=scr.dtype, device=scr.device)
+    with torch.cuda.device(scr.device):
+        _launch("closg_cand_yext", scr.data_ptr(), ycand.data_ptr(),
+                ysel.data_ptr(), m_rows, y.data_ptr(), _stream(scr))
+    LAUNCHES["closg_cand_yext"] += 1
+    return y
 
 
 def closg_r3_scan_yext(v, perm_r3, scan_hi, ysel_w, wstart, acc_ptr, acc_src,
@@ -178,36 +369,52 @@ def closg_r3_scan_yext(v, perm_r3, scan_hi, ysel_w, wstart, acc_ptr, acc_src,
                                         acc_ptr, acc_src, stages)
     n = v.numel()
     n_batches = acc_ptr.shape[0] - 1
-    _check(v, "v", torch.float32, (n // LANES, LANES))
-    _check(perm_r3, "perm_r3", torch.int32, v.shape)
+    _check_back(v, perm_r3, n)
     _check(scan_hi, "scan_hi", torch.int32)
     _check(ysel_w, "ysel_w", torch.int32, (ysel_w.shape[0], LANES))
     _check(wstart, "wstart", torch.int32, (ysel_w.shape[0],))
     _check(acc_ptr, "acc_ptr", torch.int32)
     _check(acc_src, "acc_src", torch.int32)
-    _check_slots(n, LANES)
-    if n & (n - 1):
-        raise ValueError(f"slot count {n} is not a power of two")
     if ysel_w.shape[0] < n_batches * SUB:
         raise ValueError("ysel_w holds fewer records than y batches")
     _check_hi(stages, scan_hi, n)
-    hi_ptr = scan_hi.data_ptr() if scan_hi.numel() == n else None
-    a = torch.empty_like(v)
-    b = torch.empty_like(v)
     y = torch.empty((n_batches * SUB, LANES), dtype=v.dtype, device=v.device)
-    stream = _stream(v)
     with torch.cuda.device(v.device):
-        _launch("closg_invreg", v.data_ptr(), perm_r3.data_ptr(), a.data_ptr(),
-                n, LANES, stream)
-        LAUNCHES["closg_r3_scan_yext"] += 1
-        for k in stages:
-            _launch("closg_scan_step", a.data_ptr(), b.data_ptr(),
-                    perm_r3.data_ptr(), hi_ptr, k, n, stream)
-            LAUNCHES["closg_r3_scan_yext"] += 1
-            a, b = b, a
+        a = _r3_scan_launch(
+            "closg_r3_scan_yext", v, perm_r3,
+            scan_hi.data_ptr() if scan_hi.numel() == n else None, stages, n)
         if n_batches:
             _launch("closg_yext", a.data_ptr(), ysel_w.data_ptr(),
                     wstart.data_ptr(), acc_ptr.data_ptr(), acc_src.data_ptr(),
-                    y.data_ptr(), n_batches, stream)
+                    y.data_ptr(), n_batches, _stream(v))
             LAUNCHES["closg_r3_scan_yext"] += 1
+    return y
+
+
+def closgx_r3_scan_yext(v, r3, ysel_w, wstart_abs, stages: int,
+                        chunk_slots: int) -> torch.Tensor:
+    """CLOSGX back end over all stacked chunks at once (kernel B15): the r3
+    layer, ``stages`` scan steps whose shift stays inside its chunk, and
+    one extraction launch over every chunk's y batches. (C·mrp, 128)."""
+    if not _on_cuda(v, r3, ysel_w, wstart_abs):
+        return closgx_r3_scan_yext_torch(v, r3, ysel_w, wstart_abs, stages,
+                                         chunk_slots)
+    _check_back(v, r3, chunk_slots)
+    if stages > SPARE_BITS:
+        raise ValueError(f"{stages} scan stages: CLOSGX keeps every guard "
+                         f"in r3's {SPARE_BITS} spare bits")
+    rows = ysel_w.shape[0]
+    _check(ysel_w, "ysel_w", torch.int32, (rows, LANES))
+    _check(wstart_abs, "wstart_abs", torch.int32, (rows,))
+    if rows % SUB:
+        raise ValueError("ysel_w holds no whole number of y batches")
+    y = torch.empty((rows, LANES), dtype=v.dtype, device=v.device)
+    with torch.cuda.device(v.device):
+        a = _r3_scan_launch("closgx_r3_scan_yext", v, r3, None,
+                            range(stages), chunk_slots)
+        if rows:
+            _launch("closg_yext", a.data_ptr(), ysel_w.data_ptr(),
+                    wstart_abs.data_ptr(), None, None, y.data_ptr(),
+                    rows // SUB, _stream(v))
+            LAUNCHES["closgx_r3_scan_yext"] += 1
     return y

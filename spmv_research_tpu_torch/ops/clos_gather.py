@@ -3,7 +3,7 @@
 Counterpart of ``spmv_research_tpu/ops/clos_gather.py``: the ``ClosG``
 program and the row-chunked ``ClosGChunked`` (one ``ClosG`` per row block
 past the 2^20-slot cap), their builders (carried over so that they emit
-identical program arrays), the float64 host executor
+identical program arrays, every option included), the float64 host executor
 ``execute_closg_numpy``, and two SpMV impls:
 
 * ``"cuda"`` — the hand-written kernels of ``clos_cuda.py`` (the pallas
@@ -13,21 +13,25 @@ identical program arrays), the float64 host executor
   accumulate ("extra pick") records, so kernel and plain version compute
   the same function.
 
-The pipeline: ``closg_front`` (window gather × value, then the r1 layer) →
-``_t_fwd`` → ``clos_invreg`` (r2 layer) → ``_t_bwd`` → ``closg_r3_scan_yext``
-(r3 layer, capped segmented scan, y extraction).
+The pipeline: a front end (window gather × value, then the r1 layer; the
+value may come from a 128-entry dictionary, ``use_vlut``, and the window
+from a per-8-row base plus a rotation, ``fused_win``) → ``_t_fwd`` →
+``clos_invreg`` (r2 layer) → ``_t_bwd`` → a back end. Programs with windowed
+extraction (W > 0) run ``closg_r3_scan_yext`` (r3 layer, capped segmented
+scan, y extraction); W = 0 programs, whose 128-row groups span more than 64
+window octaves, run ``closg_r3_scan`` (r3 layer, full scan) and then
+``closg_cand_yext`` (per y slot, a pick from one of C candidate rows).
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the long-row split, the XL tier, the value-LUT and fused-window front
-ends, and the W=0 candidate-plane back end. The SpMM scan follows with the
-other workloads.
+``build_clos_gather_auto`` also routes a matrix to the long-row split
+(``rowsplit.py``) and to the XL tier (``clos_xl.py``), as the JAX builder
+does. The SpMM scan follows with the other workloads.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
-from typing import Tuple, Union
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -58,8 +62,11 @@ class ClosG:
     that add into it, in the order the JAX package applies them."""
 
     rowidx: torch.Tensor       # (8V,) int32 x2d row feeding sublane s
-    vals_cs: torch.Tensor      # (8V, 128) values in padded column-sorted order
-    perm_r1: torch.Tensor      # spare bits [17,24): per-slot x lane λ
+    vals_cs: torch.Tensor      # (8V, 128) values in padded column-sorted
+    #                            order; (8, 128) dictionary rows if use_vlut
+    perm_r1: torch.Tensor      # spare bits [17,24): per-slot x lane λ;
+    #                            [24,31): value index (use_vlut), or
+    #                            [24,27): window rotation (fused_win)
     perm_r2: torch.Tensor      # (8·1024, V/8)
     perm_r3: torch.Tensor      # spare bits: scan guards (low stages)
     ycand: torch.Tensor        # (C·m_rows,) int32 scan-output row ids
@@ -68,8 +75,8 @@ class ClosG:
     wstart: torch.Tensor       # (records·8,) int32 per-group window start row
     border: torch.Tensor       # (records,) int32 src | dst<<16, class order
     scan_hi: torch.Tensor      # (8V,128) guards of stages ≥ 15, or (8,128) dummy
-    gbase: torch.Tensor
-    nbids: torch.Tensor
+    gbase: torch.Tensor        # (8V/8,) int32 window base row (fused_win)
+    nbids: torch.Tensor        # (n_nonempty,) int32 nonempty x2d blocks
     acc_ptr: torch.Tensor      # (n_batches+1,) int32 derived, see _accum_order
     acc_src: torch.Tensor      # (n_accum,) int32 derived
     shape: Tuple[int, int]
@@ -152,7 +159,8 @@ def _accum_order(border: np.ndarray, yext_classes) -> tuple:
     ``bs == bd``), then each accumulate record adds into batch ``bd``. GPU
     blocks run in parallel, so the records that add into one batch are
     listed here in that order, and one block applies them in turn — the sums
-    are the JAX package's, and deterministic."""
+    are the JAX package's, and deterministic. A W = 0 program has no
+    classes: zero batches, and ``border`` is never read."""
     border = np.asarray(border).astype(np.int64)
     bs, bd = border & 0xFFFF, border >> 16
     base_ids, acc_ids = [], []
@@ -177,6 +185,9 @@ def _accum_order(border: np.ndarray, yext_classes) -> tuple:
 
 def _closg(arrays: dict, meta: dict) -> ClosG:
     """ClosG from numpy program arrays and meta fields (on the CPU)."""
+    if meta["use_vlut"] and meta["fused_win"]:
+        raise ClosRoutingError("a program cannot carry both the value LUT "
+                               "and fused windows (both use r1 bits 24+)")
     acc_ptr, acc_src = _accum_order(arrays["border"], meta["yext_classes"])
     t = {k: torch.from_numpy(np.ascontiguousarray(arrays[k]))
          for k in DATA_FIELDS}
@@ -189,12 +200,8 @@ def from_jax_program(leaves: dict, meta: dict) -> ClosG:
 
     ``leaves`` maps each data field to its array (``np.asarray`` of the JAX
     leaf), ``meta`` each meta field to its value, so both packages can run
-    the identical program."""
+    the identical program (any front end, any back end)."""
     meta = {k: meta[k] for k in META_FIELDS}
-    if meta["use_vlut"] or meta["fused_win"]:
-        raise NotImplementedError(
-            "value-LUT and fused-window CLOSG front ends are not ported "
-            "(ROADMAP queue B: B4, B7)")
     return _closg({k: np.array(leaves[k]) for k in DATA_FIELDS}, meta)
 
 
@@ -219,35 +226,48 @@ SPLIT_ROW_NNZ = 16384    # rows past this break the windowed y extraction
 
 
 def build_clos_gather_auto(csr: HostCSR, max_N: int = 1 << 20,
-                           max_chunks: int = 12
-                           ) -> Union[ClosG, ClosGChunked]:
-    """``build_clos_gather`` with row chunking past ``max_N`` slots.
+                           value_lut: bool = False, max_chunks: int = 12,
+                           split_rows: bool = True):
+    """``build_clos_gather`` with the JAX builder's routing: the long-row
+    split, one program, row chunks, or the XL tier.
 
-    As the JAX package's ``build_clos_gather_auto``: one program where it
-    holds the matrix, else row-contiguous chunks of at most ``max_N`` slots
-    each, built two at a time. Two of its branches are not ported and raise
-    ``NotImplementedError`` instead of falling back to anything: the
-    long-row split (rows past ``SPLIT_ROW_NNZ``) and the XL tier (more than
-    ``max_chunks`` chunks)."""
-    heavy_n = int((csr.row_lengths() > SPLIT_ROW_NNZ).sum())
-    if 0 < heavy_n <= 4096:
-        raise NotImplementedError(
-            f"{heavy_n} rows exceed {SPLIT_ROW_NNZ} nnz: the long-row split "
-            "(RSPLIT) is not ported (ROADMAP queue A item 5)")
+    * 1 to 4096 rows longer than ``SPLIT_ROW_NNZ``: the rows are split into
+      sub-rows of at most 256 nnz (``rowsplit.split_long_rows``), the split
+      matrix is built by this function again (without the split) and
+      wrapped in a ``RowSplit``;
+    * a matrix that fits ``max_N`` slots: one ``ClosG``;
+    * more than ``max_chunks`` chunks expected: ``clos_xl.build_clos_gather_xl``
+      (stacked uniform chunks);
+    * otherwise row-contiguous chunks of at most ``max_N`` slots each, built
+      two at a time (``ClosGChunked``).
+
+    The constants (12 chunks, 16,384 nnz, 4,096 rows) are the JAX
+    package's, so that the same matrix gets the same program. The chunk loop
+    stops at one row and raises ``ClosRoutingError`` where the JAX loop
+    spins (a single row past ``max_N`` slots, or ``max_N`` < 8192)."""
+    if split_rows:
+        from .rowsplit import DEFAULT_T, split_long_rows, wrap_row_split
+        heavy_n = int((csr.row_lengths() > SPLIT_ROW_NNZ).sum())
+        if 0 < heavy_n <= 4096:
+            csr2, heavy, seg_ptr = split_long_rows(
+                csr, DEFAULT_T, threshold=SPLIT_ROW_NNZ)
+            inner = build_clos_gather_auto(csr2, max_N=max_N,
+                                           value_lut=value_lut,
+                                           max_chunks=max_chunks,
+                                           split_rows=False)
+            return wrap_row_split(inner, (csr.m, csr.n), csr.nnz,
+                                  csr.nnz_expanded, heavy, seg_ptr)
     if _closg_need(csr, 0, csr.m) <= max_N:
-        return build_clos_gather(csr, max_N=max_N)
+        return build_clos_gather(csr, max_N=max_N, value_lut=value_lut)
     est_chunks = _closg_need(csr, 0, csr.m) / (0.9 * max_N) + 1
     if est_chunks > max_chunks:
-        raise NotImplementedError(
-            f"matrix needs ~{est_chunks:.0f} CLOSG chunks > {max_chunks}: "
-            "the XL tier (CLOSGX) is not ported (ROADMAP queue A item 7)")
+        from .clos_xl import build_clos_gather_xl
+        return build_clos_gather_xl(csr, chunk_N=max_N)
     splits = [0]
     r0 = 0
     nnz_per_row = max(csr.nnz / max(csr.m, 1), 1e-9)
     while r0 < csr.m:
         r1 = min(csr.m, r0 + max(int(0.8 * max_N / nnz_per_row), 1))
-        # stops at one row: the JAX loop spins forever when a single row
-        # needs more than max_N slots; here the check below raises
         while _closg_need(csr, r0, r1) > max_N and r1 > r0 + 1:
             r1 = r0 + max((r1 - r0) * 3 // 4, 1)
         while r1 < csr.m:
@@ -263,18 +283,32 @@ def build_clos_gather_auto(csr: HostCSR, max_N: int = 1 << 20,
     with ThreadPoolExecutor(2) as ex:
         chunks = tuple(ex.map(
             lambda i: build_clos_gather(
-                _rows_slice(csr, splits[i], splits[i + 1]), max_N=max_N),
+                _rows_slice(csr, splits[i], splits[i + 1]), max_N=max_N,
+                value_lut=value_lut),
             range(len(splits) - 1)))
     return ClosGChunked(chunks=chunks, shape=(csr.m, csr.n), nnz=csr.nnz,
                         nnz_expanded=csr.nnz_expanded,
                         row_split=tuple(splits))
 
 
-def build_clos_gather(csr: HostCSR, max_N: int = 1 << 20) -> ClosG:
+def build_clos_gather(csr: HostCSR, max_N: int = 1 << 20,
+                      value_lut: bool = False, fuse_windows: bool = False,
+                      force_N: int = 0, cap_scan: bool = True,
+                      class_pow2: bool = False) -> ClosG:
     """Compile host CSR into one CLOSG program (float32 values).
 
-    Carried over from the JAX builder with its defaults (no value LUT, no
-    fused windows, scan capping on); the program arrays are identical."""
+    Carried over from the JAX builder with its options and defaults; the
+    program arrays are identical. ``value_lut``: a matrix with at most 128
+    distinct values (the zero padding included) keeps a 7-bit dictionary
+    index per slot in r1 bits [24,31) and an (8, 128) dictionary plane
+    instead of the value plane. ``fuse_windows``: each 8-row group reads its
+    x rows from one base row plus a per-slot rotation (r1 bits [24,27)) over
+    the non-empty x blocks; exclusive with ``value_lut``. ``force_N``: pad the
+    program to exactly that many slots (uniform XL chunks). ``cap_scan=False``
+    keeps the full scan (no accumulate records). ``class_pow2``: round the
+    extraction window classes up to powers of two (one class set for all XL
+    chunks). The JAX ``host_arrays`` flag has no counterpart: the port
+    always builds CPU tensors, moved with ``.to``."""
     dt = np.dtype(np.float32)
     m, n, nnz = csr.m, csr.n, csr.nnz
 
@@ -296,6 +330,11 @@ def build_clos_gather(csr: HostCSR, max_N: int = 1 << 20) -> ClosG:
     # read it during y extraction)
     need = max(nnz + 1, m, S_needed * LANES, 8 * BLK)
     N = 1 << int(need - 1).bit_length()
+    if force_N:
+        if need > force_N:
+            raise ClosRoutingError(
+                f"chunk needs {need} slots > forced N={force_N}")
+        N = force_N
     if N > max_N:
         raise ClosRoutingError(f"matrix too large for clos-gather (N={N})")
     V = N // BLK
@@ -310,10 +349,50 @@ def build_clos_gather(csr: HostCSR, max_N: int = 1 << 20) -> ClosG:
     rowidx[: S_needed] = for_blocks
     lam = np.zeros(N, np.uint32)
     lam[cs_slot] = (cols[css] % LANES).astype(np.uint32)
-    nbids = np.zeros(1, np.int32)
-    gbase = np.zeros(1, np.int32)
+
+    # --- fused-window front end ---------------------------------------------
+    # rowidx is sorted, so after compacting away the empty x2d blocks every
+    # 8-sublane group reads at most 8 consecutive compacted x rows: one base
+    # row per group (gbase) plus a per-sublane rotation (r1 bits [24,27))
+    # name the row; the value-LUT index wants the same bits, so the two are
+    # exclusive.
+    nb = np.flatnonzero(subl_per_blk > 0)
+    fused_win = (fuse_windows and not value_lut
+                 and (nb.size + SUB) * LANES * 4 <= (4 << 20))
+    if fused_win:
+        rank = np.zeros(n_blocks, np.int64)
+        rank[nb] = np.arange(nb.size)
+        rowidx_c = np.zeros(S, np.int64)
+        rowidx_c[:S_needed] = rank[for_blocks]
+        gbase = rowidx_c.reshape(-1, SUB)[:, 0]
+        wrot = (rowidx_c - np.repeat(gbase, SUB)
+                - (np.arange(S) % SUB)) % SUB
+        assert int((rowidx_c - np.repeat(gbase, SUB)).max(initial=0)) < SUB
+        lam = lam | (wrot.astype(np.uint32)[np.arange(N) // LANES] << 7)
+        dense_blocks = nb.size == n_blocks
+        nbids = nb.astype(np.int32)
+        gbase = gbase.astype(np.int32)
+    else:
+        dense_blocks = True
+        nbids = np.zeros(1, np.int32)
+        gbase = np.zeros(1, np.int32)
     vals_cs = np.zeros(N, dtype=dt)
     vals_cs[cs_slot] = csr.a[css].astype(dt)
+
+    # --- value LUT -------------------------------------------------------------
+    # At most 128 distinct values (the zero padding included): the value of
+    # a slot is a 7-bit dictionary index in r1 bits [24,31), and the value
+    # plane becomes one (8, 128) plane whose row 0 is the dictionary.
+    lut = False
+    if value_lut:
+        uniq = np.unique(vals_cs)            # includes the 0.0 padding value
+        if uniq.shape[0] <= LANES:
+            lut = True
+            vidx = np.searchsorted(uniq, vals_cs).astype(np.uint32)
+            lam |= vidx << 7                  # spare payload: lam | vidx<<7
+            dict_pad = np.zeros(LANES, dt)
+            dict_pad[: uniq.shape[0]] = uniq
+            vals_cs = np.broadcast_to(dict_pad, (SUB, LANES)).copy()
 
     # --- perm: padded column-sorted slot -> CSR slot -----------------------
     perm = route_clos(cs_slot, css.astype(np.int64), N)
@@ -373,6 +452,9 @@ def build_clos_gather(csr: HostCSR, max_N: int = 1 << 20) -> ClosG:
     smin = np.where(has, smin, 0)
     smax = np.where(has, np.maximum(smax, smin), 0)
     w_g = (smax - smin) // SUB + 1                     # octaves per group
+    if class_pow2:      # XL: classes must be uniform across chunks
+        w_g = np.power(2, np.ceil(np.log2(np.maximum(w_g, 1)))
+                       ).astype(w_g.dtype)
     W = int(w_g.max()) if m_rows_pad else 1
     if W <= 64:            # cid is 9 bits [7,16)
         wstart = np.minimum(smin, S - SUB * w_g).astype(np.int32)
@@ -393,7 +475,7 @@ def build_clos_gather(csr: HostCSR, max_N: int = 1 << 20) -> ClosG:
                 yext_classes.append((int(c), int(base), int(counts[c]), 0))
                 base += int(counts[c])
         border = border | (border << 16)               # (src | dst<<16)
-    else:  # extreme skew: the legacy candidate-plane back end (not ported)
+    else:  # extreme skew: the candidate-plane back end (ycand, ysel)
         W = 0
         wstart = np.zeros(SUB, np.int32)
         ysel_w = np.zeros((SUB, LANES), np.uint32)
@@ -407,7 +489,7 @@ def build_clos_gather(csr: HostCSR, max_N: int = 1 << 20) -> ClosG:
     # extra picks at end−c·2^K, shipped as accumulate records (accum=1)
     # appended to ysel_w/wstart/border.
     scan_cap = scan_stages
-    if W and len(scan_stages) > 4:
+    if cap_scan and W and len(scan_stages) > 4:
         bits_full = len(scan_stages)
         # the JAX package's cost model: one scan stage ~ 9 extra-batch
         # extractions; ties break toward more capping (smaller K)
@@ -473,7 +555,7 @@ def build_clos_gather(csr: HostCSR, max_N: int = 1 << 20) -> ClosG:
 
     arrays = dict(
         rowidx=rowidx,
-        vals_cs=vals_cs.reshape(S, LANES),
+        vals_cs=vals_cs if lut else vals_cs.reshape(S, LANES),
         perm_r1=_pack(perm.r1, lam),
         perm_r2=_pack(perm.r2),
         perm_r3=_pack(perm.r3, scan_guards & spare_mask),
@@ -489,23 +571,33 @@ def build_clos_gather(csr: HostCSR, max_N: int = 1 << 20) -> ClosG:
         shape=(m, n), nnz=nnz, nnz_expanded=csr.nnz_expanded,
         N=N, V=V, x_rows=int((n + LANES - 1) // LANES),
         scan_stages=scan_stages, C=C, W=W,
-        yext_classes=tuple(yext_classes), use_vlut=False,
-        fused_win=False, dense_blocks=True, scan_cap=scan_cap)
+        yext_classes=tuple(yext_classes), use_vlut=lut,
+        fused_win=fused_win, dense_blocks=dense_blocks, scan_cap=scan_cap)
     return _closg(arrays, meta)
 
 
-def _pipeline(A: ClosG, x: torch.Tensor, front, invreg, back) -> torch.Tensor:
-    if not A.W:
-        raise NotImplementedError(
-            "W=0 (extreme-skew candidate-plane) CLOSG back end is not ported "
-            "(ROADMAP queue B: B5, B6)")
-    x = x.to(A.vals_cs.dtype)
-    v = front(A.rowidx, A.perm_r1, A.vals_cs, x)
-    v = _t_fwd(v, A.V)
-    v = invreg(v, A.perm_r2)
-    v = _t_bwd(v, A.V)
-    y = back(v, A.perm_r3, A.scan_hi, A.ysel_w, A.wstart, A.acc_ptr,
-             A.acc_src, A.scan_cap or A.scan_stages)
+def _pipeline(A: ClosG, x: torch.Tensor, plain: bool) -> torch.Tensor:
+    """One program's SpMV through the wrappers of ``clos_cuda`` (``plain``:
+    their plain PyTorch versions, on any device)."""
+    def k(name):
+        return getattr(K, name + "_torch" if plain else name)
+
+    x = x.to(torch.float32)
+    if A.fused_win:
+        v = k("closg_front_win")(A.gbase, A.nbids, A.perm_r1, A.vals_cs, x,
+                                 A.dense_blocks)
+    elif A.use_vlut:
+        v = k("closg_front_lut")(A.rowidx, A.perm_r1, A.vals_cs, x)
+    else:
+        v = k("closg_front")(A.rowidx, A.perm_r1, A.vals_cs, x)
+    v = _t_bwd(k("clos_invreg")(_t_fwd(v, A.V), A.perm_r2), A.V)
+    if A.W:
+        y = k("closg_r3_scan_yext")(v, A.perm_r3, A.scan_hi, A.ysel_w,
+                                    A.wstart, A.acc_ptr, A.acc_src,
+                                    A.scan_cap or A.scan_stages)
+    else:
+        scr = k("closg_r3_scan")(v, A.perm_r3, A.scan_hi, A.scan_stages)
+        y = k("closg_cand_yext")(scr, A.ycand, A.ysel)
     return y.reshape(-1)[: A.m]
 
 
@@ -514,8 +606,7 @@ def spmv_closg_torch(A, x: torch.Tensor) -> torch.Tensor:
     """CLOSG in plain PyTorch, on any device (the kernels' plain versions)."""
     if isinstance(A, ClosGChunked):
         return torch.cat([spmv_closg_torch(c, x) for c in A.chunks])
-    return _pipeline(A, x, K.closg_front_torch, K.clos_invreg_torch,
-                     K.closg_r3_scan_yext_torch)
+    return _pipeline(A, x, plain=True)
 
 
 @register_spmv("CLOSG", "cuda")
@@ -526,11 +617,21 @@ def spmv_closg_cuda(A, x: torch.Tensor) -> torch.Tensor:
                          f"device, got {A.device} and {x.device}")
     if isinstance(A, ClosGChunked):
         return torch.cat([spmv_closg_cuda(c, x) for c in A.chunks])
-    return _pipeline(A, x, K.closg_front, K.clos_invreg, K.closg_r3_scan_yext)
+    return _pipeline(A, x, plain=False)
 
 
 def _np(t) -> np.ndarray:
     return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def unpack_layer(leaf):
+    """A packed layer word plane as the three index planes of
+    ``clos_route.apply_clos_numpy``."""
+    from .clos_route import InVregPlanes
+    w = _np(leaf).view(np.uint32)
+    return InVregPlanes(lane1=(w & 0x7F).astype(np.int64),
+                        subrot=((w >> ROT_SHIFT) & 0x7).astype(np.int64),
+                        lane2=((w >> LANE2_SHIFT) & 0x7F).astype(np.int64))
 
 
 def execute_closg_numpy(A, x: np.ndarray) -> np.ndarray:
@@ -538,13 +639,7 @@ def execute_closg_numpy(A, x: np.ndarray) -> np.ndarray:
     planes), as in the JAX package."""
     if isinstance(A, ClosGChunked):
         return np.concatenate([execute_closg_numpy(c, x) for c in A.chunks])
-    from .clos_route import InVregPlanes, ClosPerm, apply_clos_numpy
-
-    def unpack(leaf):
-        w = _np(leaf).view(np.uint32)
-        return InVregPlanes(lane1=(w & 0x7F).astype(np.int64),
-                            subrot=((w >> ROT_SHIFT) & 0x7).astype(np.int64),
-                            lane2=((w >> LANE2_SHIFT) & 0x7F).astype(np.int64))
+    from .clos_route import ClosPerm, apply_clos_numpy
 
     V = A.V
     n_rows = A.x_rows
@@ -555,10 +650,15 @@ def execute_closg_numpy(A, x: np.ndarray) -> np.ndarray:
     r1w = _np(A.perm_r1).view(np.uint32)
     lam = (r1w >> SPARE_SHIFT) & 0x7F
     w = np.take_along_axis(wins, lam.astype(np.int64), axis=1)
-    w = (w * _np(A.vals_cs).astype(np.float64)).reshape(-1)
-    w = apply_clos_numpy(w, ClosPerm(V=V, r1=unpack(A.perm_r1),
-                                     r2=unpack(A.perm_r2),
-                                     r3=unpack(A.perm_r3)))
+    if A.use_vlut:
+        drow = _np(A.vals_cs)[0].astype(np.float64)
+        vals = drow[((r1w >> (SPARE_SHIFT + 7)) & 0x7F).astype(np.int64)]
+    else:
+        vals = _np(A.vals_cs).astype(np.float64)
+    w = (w * vals).reshape(-1)
+    w = apply_clos_numpy(w, ClosPerm(V=V, r1=unpack_layer(A.perm_r1),
+                                     r2=unpack_layer(A.perm_r2),
+                                     r3=unpack_layer(A.perm_r3)))
     sg = (_np(A.perm_r3).view(np.uint32).reshape(-1)
           >> SPARE_SHIFT).astype(np.uint64)
     hi = _np(A.scan_hi).view(np.uint32).reshape(-1)

@@ -1,7 +1,7 @@
 """The port's sweep command line — the counterpart of ``tools/sweep.py``.
 
     python -m spmv_research_tpu_torch.sweep --matrix "<11-arg line>" \
-        [--matrices FILE] --formats csr sellr sellw closg --out DIR \
+        [--matrices FILE] --formats csr sellr sellw closg dense --out DIR \
         [--device cuda]
 
 Matrix list files hold one synthetic parameter line per line (``#`` starts

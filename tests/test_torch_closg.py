@@ -245,9 +245,15 @@ def test_chunked_scaled_copy_gives_scaled_y(chunked):
 
 
 def test_chunked_auto_refuses_the_xl_tier():
+    """Past ``max_chunks`` the chunk loop is not taken: the matrix goes to
+    the XL tier, as in the JAX builder (the port used to raise here)."""
+    from spmv_research_tpu.ops.clos_gather import (
+        build_clos_gather_auto as jax_auto)
     from spmv_research_tpu_torch.core.host import HostCSR
-    from spmv_research_tpu_torch.ops import build_clos_gather_auto
+    from spmv_research_tpu_torch.ops import ClosGX, build_clos_gather_auto
     hj = _jax_host("twin")
     host = HostCSR.from_arrays(hj.ia, hj.ja, hj.a, hj.m, hj.n)
-    with pytest.raises(NotImplementedError, match="XL"):
-        build_clos_gather_auto(host, max_N=CHUNK_N, max_chunks=1)
+    A = build_clos_gather_auto(host, max_N=CHUNK_N, max_chunks=1)
+    Aj = jax_auto(hj, max_N=CHUNK_N, max_chunks=1)
+    assert isinstance(A, ClosGX) and Aj.format_name == "CLOSGX"
+    assert A.n_chunks == Aj.n_chunks > 1

@@ -1,0 +1,149 @@
+"""CLOSG's two opt-in front ends in the port (kernels B4 and B7) against the
+JAX package.
+
+* Value LUT (``value_lut=True``, B4): a matrix with at most 128 distinct
+  values keeps a 7-bit dictionary index per slot in r1 bits [24,31) and an
+  (8, 128) dictionary plane instead of the value plane
+  (``_gmul_r1_kernel`` with ``lut=True``).
+* Fused windows (``fuse_windows=True``, B7): each 8-row group reads its x
+  rows from one base row plus a per-slot rotation in r1 bits [24,27), over
+  the non-empty x blocks (``_gmul_r1_win_kernel``); once with every block
+  non-empty and once with empty blocks compacted away.
+
+Both packages build the program from the same matrix and must give
+identical arrays. The Pallas kernels run in interpret mode; the port runs
+the plain versions, which its wrappers take for CPU tensors. A front end is
+one gather and one product per slot, so it must match exactly; y is held to
+1e-6 of |A|·|x| against the JAX pallas path.
+"""
+
+from functools import lru_cache, partial
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from spmv_research_tpu.core.host import HostCSR as JaxHostCSR
+from spmv_research_tpu.ops import spmv as jax_spmv
+from spmv_research_tpu.ops.bfly_pallas import _call
+from spmv_research_tpu.ops.clos_gather import (_gmul_r1_kernel, _gmul_win,
+                                               _windows)
+from spmv_research_tpu.ops.clos_gather import build_clos_gather as jax_build
+
+from spmv_research_tpu_torch.core.host import HostCSR
+from spmv_research_tpu_torch.ops import build_clos_gather, spmv
+from spmv_research_tpu_torch.ops import clos_cuda as K
+from spmv_research_tpu_torch.ops.clos_gather import (
+    DATA_FIELDS, META_FIELDS, from_jax_program)
+from spmv_research_tpu_torch.ops.clos_route import ClosRoutingError
+
+from torch_cases import random_matrix
+
+
+def _compacted_matrix():
+    """600 × 4000 with columns only in every third 128-column block, so the
+    fused front end compacts the x plane (dense_blocks False)."""
+    mat = random_matrix(600, 4000, 0.02, 11).tocoo()
+    keep = (mat.col // 128) % 3 == 0
+    out = type(mat)((mat.data[keep], (mat.row[keep], mat.col[keep])),
+                    shape=mat.shape).tocsr()
+    out.sort_indices()
+    return out
+
+
+CASES = {
+    "lut": (lambda: random_matrix(400, 400, 0.02, 7, levels=64),
+            dict(value_lut=True)),
+    "fused": (lambda: random_matrix(500, 700, 0.01, 3),
+              dict(fuse_windows=True)),
+    "fused_compacted": (_compacted_matrix, dict(fuse_windows=True)),
+}
+
+
+@lru_cache(maxsize=None)
+def _case(name):
+    """(name, matrix, JAX ClosG, the port's own ClosG, x)."""
+    make, opts = CASES[name]
+    mat = make()
+    Aj = jax_build(JaxHostCSR.from_scipy(mat), **opts)
+    A = build_clos_gather(HostCSR.from_scipy(mat), **opts)
+    x = np.random.Generator(np.random.PCG64(7)).uniform(-1.0, 1.0,
+                                                        mat.shape[1])
+    return name, mat, Aj, A, x.astype(np.float32)
+
+
+@pytest.fixture(params=sorted(CASES))
+def case(request):
+    return _case(request.param)
+
+
+def test_program_identical(case):
+    name, _, Aj, A, _ = case
+    assert A.use_vlut == (name == "lut") and A.fused_win == (name != "lut")
+    if name == "lut":
+        assert tuple(A.vals_cs.shape) == (8, 128)
+    else:
+        assert A.dense_blocks == (name == "fused")
+    for f in DATA_FIELDS:
+        assert np.array_equal(getattr(A, f).numpy(),
+                              np.asarray(getattr(Aj, f))), f
+    assert ({f: getattr(A, f) for f in META_FIELDS}
+            == {f: getattr(Aj, f) for f in META_FIELDS})
+
+
+def test_front_matches_pallas_front(case):
+    name, _, Aj, A, x = case
+    xt = torch.from_numpy(x)
+    if name == "lut":
+        want = _call(partial(_gmul_r1_kernel, True),
+                     _windows(Aj, jnp.asarray(x)), Aj.perm_r1, Aj.vals_cs)
+        got = K.closg_front_lut_torch(A.rowidx, A.perm_r1, A.vals_cs, xt)
+        wrapped = K.closg_front_lut(A.rowidx, A.perm_r1, A.vals_cs, xt)
+    else:
+        want = _gmul_win(Aj, jnp.asarray(x))
+        args = (A.gbase, A.nbids, A.perm_r1, A.vals_cs, xt, A.dense_blocks)
+        got = K.closg_front_win_torch(*args)
+        wrapped = K.closg_front_win(*args)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert torch.equal(wrapped, got)     # CPU tensors: the plain version
+
+
+@pytest.mark.parametrize("name", ["fused", "fused_compacted"])
+def test_fused_window_row_is_the_gathered_row(name):
+    """The builder's assert (clos_gather.py:309) makes base + rotation name
+    the x row x2d[rowidx[s]] of every slot: the fused front end equals K1's
+    plain version on the same words and values."""
+    _, _, _, A, x = _case(name)
+    xt = torch.from_numpy(x)
+    assert torch.equal(
+        K.closg_front_win_torch(A.gbase, A.nbids, A.perm_r1, A.vals_cs, xt,
+                                A.dense_blocks),
+        K.closg_front_torch(A.rowidx, A.perm_r1, A.vals_cs, xt))
+
+
+def test_y_matches_jax_pallas(case):
+    _, mat, Aj, A, x = case
+    want = np.asarray(jax_spmv(Aj, jnp.asarray(x), impl="pallas"))
+    got = spmv(A, torch.from_numpy(x)).numpy()       # CPU tensor: "torch"
+    scale = np.abs(mat) @ np.abs(x).astype(np.float64) + 1e-30
+    assert got.shape == (mat.shape[0],)
+    assert np.max(np.abs(got - want) / scale) <= 1e-6
+    B = from_jax_program({f: np.asarray(getattr(Aj, f)) for f in DATA_FIELDS},
+                         {f: getattr(Aj, f) for f in META_FIELDS})
+    assert torch.equal(spmv(B, torch.from_numpy(x)), torch.from_numpy(got))
+
+
+def test_lut_and_fused_windows_are_exclusive():
+    """Both options use r1 bits 24+: the builder keeps the LUT, and a
+    program that claims both is refused."""
+    _, mat, Aj, _, _ = _case("lut")
+    A = build_clos_gather(HostCSR.from_scipy(mat), value_lut=True,
+                          fuse_windows=True)
+    assert A.use_vlut and not A.fused_win
+    meta = {f: getattr(Aj, f) for f in META_FIELDS}
+    meta["fused_win"] = True
+    with pytest.raises(ClosRoutingError, match="both"):
+        from_jax_program({f: np.asarray(getattr(Aj, f)) for f in DATA_FIELDS},
+                         meta)

@@ -115,16 +115,17 @@ def test_build_auto_refuses_what_is_not_ported():
     # a program has at least 8192 slots: no row block fits in 4096
     with pytest.raises(ClosRoutingError, match="exceed a single"):
         build_clos_gather_auto(h, max_N=4096)
+    # the XL tier and the long-row split are ported: past max_chunks the
+    # matrix gets a CLOSGX stack, a row past 16,384 nnz the RSPLIT wrapper
     wide = sp.random(3000, 3000, 0.003, random_state=3, format="csr")
     wide.sort_indices()
-    with pytest.raises(NotImplementedError, match="XL"):
-        build_clos_gather_auto(HostCSR.from_scipy(wide), max_N=8192,
-                               max_chunks=4)
+    assert build_clos_gather_auto(HostCSR.from_scipy(wide), max_N=8192,
+                                  max_chunks=4).format_name == "CLOSGX"
     long_row = sp.csr_matrix((np.ones(20000), (np.zeros(20000, int),
                                                np.arange(20000))),
                              shape=(30000, 30000))
-    with pytest.raises(NotImplementedError, match="RSPLIT"):
-        build_clos_gather_auto(HostCSR.from_scipy(long_row))
+    A = build_clos_gather_auto(HostCSR.from_scipy(long_row))
+    assert A.format_name == "RSPLIT" and A.heavy_rows.tolist() == [0]
 
 
 def test_port_imports_no_jax():

@@ -6,7 +6,9 @@ with ``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q``.
 Tolerances: K1 and K2 are gathers and one product per slot and must match
 exactly; K3 runs the same additions in the same order as its plain version
 and is held to 1e-6 of max |y| (fp32 add-order slack). The SELLW and SELLR
-kernels add in their plain versions' order and must match exactly.
+kernels add in their plain versions' order and must match exactly, as must
+B4-B7 and B15 (gathers, one product per slot, and scan stages that add in
+the plain versions' order).
 """
 
 import numpy as np
@@ -17,14 +19,19 @@ import torch
 from spmv_research_tpu_torch.convert.reorder import rcm_if_beneficial
 from spmv_research_tpu_torch.core.host import HostCSR
 from spmv_research_tpu_torch.gen import generate_from_line
-from spmv_research_tpu_torch.ops import build_clos_gather, spmv
+from spmv_research_tpu_torch.ops import (build_clos_gather,
+                                         build_clos_gather_auto,
+                                         build_clos_gather_xl, build_dense,
+                                         spmv)
+from spmv_research_tpu_torch.ops import clos_gather as cg
 from spmv_research_tpu_torch.ops import clos_cuda as K
 from spmv_research_tpu_torch.ops.clos import _t_bwd, _t_fwd
 from spmv_research_tpu_torch.ops import sell_cuda as KS
 from spmv_research_tpu_torch.ops import sellr, sellw
 
 from torch_cases import (TWIN_LINE, banded_matrix, capped_scan_matrix,
-                         dirty_sellr_matrix)
+                         dirty_sellr_matrix, random_matrix, skewed_matrix,
+                         skewed_xl_matrix, w0_matrix)
 
 pytestmark = pytest.mark.gpu
 
@@ -175,3 +182,103 @@ def test_sell_wrappers_refuse_bad_input(cuda):
                    R.nchunks, R.stages, R.rolls)
     with pytest.raises(ValueError, match="CUDA"):
         spmv(R.to("cpu"), torch.ones(300), impl="cuda")
+
+
+def _r3_input(A, xd):
+    v = K.closg_front(A.rowidx, A.perm_r1, A.vals_cs, xd)
+    return _t_bwd(K.clos_invreg(_t_fwd(v, A.V), A.perm_r2), A.V)
+
+
+@pytest.mark.parametrize("case", ["w0", "scan_hi"])
+def test_w0_back_end_kernels_match_plain_versions(cuda, case):
+    """B5 (r3 layer + full scan; stage 15 reads scan_hi in the second case)
+    and B6 (candidate-plane extraction)."""
+    mat = (w0_matrix(130, 520) if case == "w0"
+           else w0_matrix(130, 600, heavy=33000))
+    A = build_clos_gather(HostCSR.from_scipy(mat)).to(cuda)
+    assert A.W == 0 and (len(A.scan_stages) > 15) == (case == "scan_hi")
+    x, xd = _x(mat.shape[1], cuda)
+    v = _r3_input(A, xd)
+    K.reset_launch_counts()
+    scr = K.closg_r3_scan(v, A.perm_r3, A.scan_hi, A.scan_stages)
+    y = K.closg_cand_yext(scr, A.ycand, A.ysel)
+    torch.cuda.synchronize()
+    assert torch.equal(scr, K.closg_r3_scan_torch(v, A.perm_r3, A.scan_hi,
+                                                  A.scan_stages))
+    assert torch.equal(y, K.closg_cand_yext_torch(scr, A.ycand, A.ysel))
+    assert K.LAUNCHES["closg_r3_scan"] == 1 + len(A.scan_stages)
+    assert K.LAUNCHES["closg_cand_yext"] == 1
+    _close_to_scipy(mat, x, spmv(A, xd))
+
+
+@pytest.mark.parametrize("case", ["lut", "fused", "fused_compacted"])
+def test_opt_in_front_ends_match_plain_versions(cuda, case):
+    """B4 (value LUT) and B7 (fused windows, with and without compaction)."""
+    if case == "lut":
+        mat, opts = random_matrix(400, 400, 0.02, 7, levels=64), \
+            dict(value_lut=True)
+    else:
+        mat = random_matrix(600, 4000 if case == "fused_compacted" else 700,
+                            0.02, 11).tocoo()
+        if case == "fused_compacted":      # every third x block non-empty
+            keep = (mat.col // 128) % 3 == 0
+            mat = type(mat)((mat.data[keep], (mat.row[keep], mat.col[keep])),
+                            shape=mat.shape)
+        mat, opts = mat.tocsr(), dict(fuse_windows=True)
+    A = build_clos_gather(HostCSR.from_scipy(mat), **opts).to(cuda)
+    x, xd = _x(mat.shape[1], cuda)
+    K.reset_launch_counts()
+    if case == "lut":
+        assert A.use_vlut
+        args = (A.rowidx, A.perm_r1, A.vals_cs, xd)
+        got, want = K.closg_front_lut(*args), K.closg_front_lut_torch(*args)
+        key = "closg_front_lut"
+    else:
+        assert A.fused_win and A.dense_blocks == (case == "fused")
+        args = (A.gbase, A.nbids, A.perm_r1, A.vals_cs, xd, A.dense_blocks)
+        got, want = K.closg_front_win(*args), K.closg_front_win_torch(*args)
+        key = "closg_front_win"
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and K.LAUNCHES[key] == 1
+    _close_to_scipy(mat, x, spmv(A, xd))
+
+
+def test_closgx_kernels_match_plain_versions(cuda):
+    """K1 and K2 on the stacked planes and B15 over all chunks at once."""
+    from spmv_research_tpu_torch.ops.clos_route import LANES
+    mat = random_matrix(4000, 900, 0.008, 5)
+    A = build_clos_gather_xl(HostCSR.from_scipy(mat),
+                             chunk_N=8192).to(cuda)
+    x, xd = _x(mat.shape[1], cuda)
+    V = A.V
+    front = (A.rowidx.view(-1), A.r1.view(-1, LANES), A.vals.view(-1, LANES),
+             xd)
+    v1 = K.closg_front(*front)
+    assert torch.equal(v1, K.closg_front_torch(*front))
+    mid = (_t_fwd(v1, V), A.r2.view(-1, V // 8))
+    v2 = K.clos_invreg(*mid)
+    assert torch.equal(v2, K.clos_invreg_torch(*mid))
+    back = (_t_bwd(v2, V), A.r3.view(-1, LANES), A.ysel_w.view(-1, LANES),
+            A.wstart_abs.view(-1), A.stages, A.N)
+    K.reset_launch_counts()
+    y = K.closgx_r3_scan_yext(*back)
+    torch.cuda.synchronize()
+    assert torch.equal(y, K.closgx_r3_scan_yext_torch(*back))
+    assert K.LAUNCHES["closgx_r3_scan_yext"] == A.stages + 2
+    _close_to_scipy(mat, x, spmv(A, xd))
+
+
+def test_rowsplit_and_dense_on_the_card(cuda, monkeypatch):
+    """RSPLIT over one CLOSG program and over CLOSGX (the split threshold
+    lowered), and DENSE's torch.matmul, each within 1e-5 of |A|·|x|."""
+    from spmv_research_tpu_torch.ops import ClosG, ClosGX
+    monkeypatch.setattr(cg, "SPLIT_ROW_NNZ", 512)
+    for mat, kw, inner in ((skewed_matrix(), {}, ClosG),
+                           (skewed_xl_matrix(),
+                            dict(max_N=8192, max_chunks=1), ClosGX)):
+        A = build_clos_gather_auto(HostCSR.from_scipy(mat), **kw)
+        assert A.format_name == "RSPLIT" and isinstance(A.inner, inner)
+        x, xd = _x(mat.shape[1], cuda)
+        _close_to_scipy(mat, x, spmv(A.to(cuda), xd))
+        _close_to_scipy(mat, x, spmv(build_dense(HostCSR.from_scipy(mat))
+                                     .to(cuda), xd))

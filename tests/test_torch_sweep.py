@@ -80,6 +80,37 @@ def test_sweep_skips_refused_formats(tmp_path, capsys):
     assert "sellw build refused wide_scatter: SellWBuildError" in out
 
 
+def test_sweep_rowsplit_and_dense_rows(tmp_path, monkeypatch, capsys):
+    """``closg`` yields an RSPLIT row where rows are long (the split
+    threshold and part size lowered to 16 nnz for the 2000-row twin),
+    ``dense`` a DENSE row, and a dense plane past the budget is refused and
+    skipped."""
+    import spmv_research_tpu_torch.ops.clos_gather as cg
+    from spmv_research_tpu_torch.harness import sweep as sweep_mod
+    from spmv_research_tpu_torch.ops import build_dense, rowsplit
+    monkeypatch.setattr(cg, "SPLIT_ROW_NNZ", 16)
+    monkeypatch.setattr(rowsplit, "DEFAULT_T", 16)
+    res = run_sweep([TWIN_LINE], formats=("closg", "dense"),
+                    out_dir=str(tmp_path), config=BenchConfig(**TINY),
+                    device="cpu")
+    assert [(r.format_name, r.impl) for r in res] == [("RSPLIT", "torch"),
+                                                      ("DENSE", "torch")]
+    for r in res:
+        assert r.metrics.max_rel_err < 1e-5 and r.num_loops >= 2
+    for fmt in ("closg", "dense"):
+        lines = (tmp_path / f"{fmt}_spmv.csv").read_text().splitlines()
+        assert lines[0] == jax_bench.csv_labels(synthetic=True)
+        assert len(lines) == 2
+        assert f",{'RSPLIT' if fmt == 'closg' else 'DENSE'}_torch," in lines[1]
+    monkeypatch.setitem(sweep_mod.FORMAT_BUILDERS, "dense",
+                        lambda h: build_dense(h, max_bytes=1 << 20))
+    assert run_sweep([TWIN_LINE], formats=("dense",),
+                     out_dir=str(tmp_path / "refused"),
+                     config=BenchConfig(**TINY), device="cpu") == []
+    assert ("dense build refused scircuit_twin: DenseBuildError"
+            in capsys.readouterr().out)
+
+
 def test_sweep_resumes_from_done_log(sweep_out):
     out, _ = sweep_out
     log = SweepDoneLog(str(out))

@@ -84,3 +84,74 @@ def scattered_matrix(seed=5):
                          np.arange(0, m * k + 1, k)), shape=(m, n))
     mat.sum_duplicates()
     return mat
+
+
+def w0_matrix(m=130, k=520, heavy=0, seed=3):
+    """m rows of k distinct random columns each over max(4096, heavy)
+    columns (the middle row holds ``heavy`` nnz instead, if given). The row
+    ends of one 128-row group lie k/128 slot rows apart, so with k = 520 a
+    group spans more than 64 window octaves and CLOSG builds its W = 0
+    (candidate-plane) back end; a row past 2^15 nnz needs scan stage 15,
+    whose guards live in the scan_hi plane."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    n = max(4096, heavy)
+    rows, cols = [], []
+    for i in range(m):
+        kk = heavy if heavy and i == m // 2 else k
+        rows.append(np.full(kk, i))
+        cols.append(rng.choice(n, kk, replace=False))
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    mat = sp.csr_matrix((rng.uniform(-1, 1, rows.size), (rows, cols)),
+                        shape=(m, n))
+    mat.sort_indices()
+    return mat
+
+
+def random_matrix(m, n, density, seed, levels=0):
+    """Seeded uniform random m × n matrix, values uniform in [-1, 1), or
+    drawn from ``levels`` seeded values (a quantised matrix)."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    mat = sp.random(m, n, density=density, format="csr",
+                    random_state=np.random.RandomState(seed),
+                    data_rvs=lambda s: rng.uniform(-1, 1, s))
+    if levels:
+        mat.data = rng.choice(rng.uniform(-1, 1, levels), mat.nnz)
+    mat.sort_indices()
+    return mat
+
+
+def skewed_matrix(seed=1234):
+    """tests/test_rowsplit.py's _skewed_host: a sparse 600 × 600 background
+    plus rows of 1500 (capped at 600 columns), 900, 641 and 100 nnz."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    m = n = 600
+    bg = sp.random(m, n, density=0.004, random_state=np.random.RandomState(3),
+                   format="lil")
+    for r, deg in ((7, 1500), (200, 900), (599, 641), (300, 100)):
+        cols = rng.choice(n, size=min(deg, n), replace=False)
+        bg[r, cols] = rng.uniform(0.5, 1.0, cols.size)
+    mat = bg.tocsr()
+    mat.sum_duplicates()
+    mat.sort_indices()
+    return mat
+
+
+def skewed_xl_matrix():
+    """3000 × 800 uniform background plus three rows of 700 nnz: past a
+    lowered split threshold of 512, and at max_N = 8192 the split matrix
+    needs several chunks (RSPLIT over CLOSGX with max_chunks = 1)."""
+    mat = random_matrix(3000, 800, 0.01, 9).tolil()
+    rng = np.random.Generator(np.random.PCG64(10))
+    for r in (5, 1700, 2999):
+        cols = rng.choice(800, 700, replace=False)
+        mat[r, cols] = rng.uniform(-1, 1, 700)
+    mat = mat.tocsr()
+    mat.sort_indices()
+    return mat
+
+
+def rel_err(mat, x, y):
+    """max |y − A·x| / (|A|·|x|), in float64."""
+    x = np.asarray(x, np.float64)
+    scale = np.abs(mat) @ np.abs(x) + 1e-30
+    return float(np.max(np.abs(np.asarray(y, np.float64) - mat @ x) / scale))
