@@ -9,9 +9,9 @@ failure (non-zero exit, no result line):
 
 1. the card (``nvidia-smi`` name and power limit) and whether the native
    host library loaded;
-2. build the CUDA kernels from ``spmv_research_tpu_torch/csrc/closg.cu``
-   and ``csrc/sell.cu`` (one nvcc each, started together) and print their
-   ptxas lines;
+2. build the CUDA kernels from ``spmv_research_tpu_torch/csrc/closg.cu``,
+   ``csrc/sell.cu`` and ``csrc/btile.cu`` (one nvcc each, started
+   together) and print their ptxas lines;
 3. generate the full-size scircuit twin (bench.py's line), RCM, build the
    CLOSG program (asserts N = 2^20, one program) and print its fields;
 4. each CLOSG kernel against its plain PyTorch version on the card, at the
@@ -61,14 +61,33 @@ failure (non-zero exit, no result line):
     validation_twins.txt (RCM where the matrix is square): ASIC_680k (:17)
     an RSPLIT over a 6-chunk CLOSG with W = 1, 1, 1, 1, 32, 32; pwtk (:33) a
     13-chunk CLOSGX with W = 8; rail4284 (:32) and TSOPF_RS_b2383 (:36)
-    refused by the XL builder's guards. Host work only.
+    refused by the XL builder's guards. Host work only;
+14. the K-dimension workloads at K = 128 (``k_dim_phase``): gupta3's and
+    shipsec1's BTILE programs (ntiles, nsteps, slots/nnz, MB printed), B16a
+    and B16b against their plain versions on both (within 1e-5 of |A|·|X|
+    per element and of Σ|a||b| per slot) and timed on gupta3's beside
+    cuSPARSE's SpMM and SDDMM; shipsec1's SELLW
+    SpMM kernel B12 against its plain version (exact), timed beside
+    cuSPARSE's SpMM; one CLOSG SpMM on gupta3 at K = 8 through ``ops.spmm``
+    (B5 and B6 launch 8× their per-SpMV count; Y within 1e-5 of |A|·|X|);
+    the sweep with workloads spmm and sddmm, formats csr, btile, dense and
+    sellw, on the gupta3 and shipsec1 lines: its ten rows and six CSVs
+    under the JAX labels, B16a (its product and its chunks' combine), B16b
+    and B12 launched, every row within
+    1e-5 of the fp64 gold's |·| yardstick, the 8 error metrics printed;
+    then each row's call timed alone on the card.
 
 Every kernel entry carries its bound: the larger of the bytes the function
 must move (each input read once, each output written once, a gather
 counting the elements it picks) over the card's data-sheet memory rate and
 its fp32 operations over the fp32 peak (``utils/roofline.py``), from this
-run's inputs. ``library_ms`` is null: no single PyTorch call computes one of
-these kernels' functions (phases 10 and 11 time cuSPARSE's whole SpMV).
+run's inputs. ``library_ms`` is null for the SpMV kernels: no single
+PyTorch call computes one of their functions (phases 10 and 11 time
+cuSPARSE's whole SpMV); the SpMM and SDDMM kernels have cuSPARSE's
+(``torch.sparse.mm``, ``torch.sparse.sampled_addmm``), which the port never
+calls. B16a's entry also carries ``combine_launches``, the sweep's launches
+of its second kernel (the sum of a band's chunk partials); its ``ms`` is
+the wrapper's, both launches.
 
 Device times hold the card busy (a flush of 1 GiB, then a spin kernel) while
 the host enqueues the timed call, so they time the device's work and not
@@ -108,6 +127,10 @@ KINDS = {17: ("RSPLIT", [1, 1, 1, 1, 32, 32]),
          33: ("CLOSGX", 13, 8),
          36: ("refused", "XL chunk fell back to legacy extraction")}
 STREAM_N = 1_200_000      # > 2^20 columns: a stream_wins SELLW program
+# the JAX package's SpMM/SDDMM CSV labels (spmv_research_tpu/harness/
+# sweep.py:_labels_for)
+WORKLOAD_LABELS = ("matrix_name,format_name,impl,K,time_iter_median,gflops,"
+                   "num_loops,mape,max_ae")
 CLOSG_SRC = "spmv_research_tpu_torch/csrc/closg.cu"
 SELL_SRC = "spmv_research_tpu_torch/csrc/sell.cu"
 # the TPU kernel each CLOSG wrapper replaces, and its tolerance against the
@@ -185,30 +208,38 @@ def nbytes(*ts) -> int:
                if isinstance(t, torch.Tensor))
 
 
-def check_kernel(timer, name, source, replaces, cases, tol_fn, work):
+def check_kernel(timer, name, source, replaces, cases, tol_fn, work,
+                 library=None):
     """Kernel vs plain version on the same inputs for each (kern, plain) of
-    ``cases`` (tolerance from the plain result), then both timed on the
-    first case, whose (bytes, fp32 operations) are ``work``; the
+    ``cases`` (tolerance ``tol_fn`` of the plain result, or a case's own
+    third element: a number, or a tensor of per-element limits), then both
+    timed on the first case, whose (bytes, fp32 operations) are ``work``,
+    and ``library`` (one PyTorch call of the same function) if given; the
     kernels-JSON entry (launches filled in by the path that launches it)."""
     import torch
     err = 0.0
-    for i, (kern, plain) in enumerate(cases):
+    for i, (kern, plain, *own_tol) in enumerate(cases):
         got, want = kern(), plain()
         torch.cuda.synchronize()
-        e = float((got - want).abs().max())
-        tol = tol_fn(want)
-        if not (e <= tol):
-            fail(f"{name}: case {i}: kernel vs plain max|d|={e} > {tol}")
+        d = (got - want).abs()
+        e = float(d.max())
+        case_tol = own_tol[0] if own_tol else tol_fn
+        tol = case_tol(want)
+        if not bool((d <= tol).all()):
+            fail(f"{name}: case {i}: kernel vs plain max|d|={e} past the "
+                 f"tolerance ({case_tol.__doc__})")
         err = max(err, e)
     ms, plain_ms = timer.ms(cases[0][0]), timer.ms(cases[0][1])
+    library_ms = timer.ms(library) if library else None
     bound_ms, bound_by = timer.bound(*work)
     log(f"# {name}: max|d|={err} over {len(cases)} case(s), tol "
         f"{tol_fn.__doc__}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by}: {work[0]} B, {work[1]} ops)")
+        f"library {library_ms} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{work[0]} B, {work[1]} ops)")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "library_ms": library_ms}
 
 
 def closg_stages(K, A, xd):
@@ -405,6 +436,7 @@ def main() -> None:
                                                  build_clos_gather_auto,
                                                  build_dense, build_sellw,
                                                  spmv)
+        from spmv_research_tpu_torch.ops import btile_cuda as KB
         from spmv_research_tpu_torch.ops import clos_cuda as K
         from spmv_research_tpu_torch.ops.clos_route import ClosRoutingError
         from spmv_research_tpu_torch.ops import sell_cuda as KS
@@ -431,11 +463,11 @@ def main() -> None:
 
     # --- 2. build the kernels (one nvcc per source, together) ---
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        list(ex.map(lambda lib: lib.build(), (K, KS)))
+    with ThreadPoolExecutor(3) as ex:
+        list(ex.map(lambda lib: lib.build(), (K, KS, KB)))
     log(f"# kernels built in {time.perf_counter() - t0:.2f}s "
-        f"({K.SOURCE}, {KS.SOURCE})")
-    for lib in (K, KS):
+        f"({K.SOURCE}, {KS.SOURCE}, {KB.SOURCE})")
+    for lib in (K, KS, KB):
         log(f"# nvcc {os.path.basename(lib.SOURCE)}: " + " | ".join(
             ln.strip() for ln in lib.build_log().splitlines()
             if "registers" in ln or "spill" in ln))
@@ -564,7 +596,7 @@ def main() -> None:
         "CLOSG/cuda": lambda v: spmv(Ac, v, impl="cuda"),
         "CSR/torch": lambda v: spmv(csr, v, impl="torch")},
         ("SELLR/cuda", "SELLW/cuda", "CLOSG/cuda", "CSR/torch"), xsd)
-    del Ar, Aw, Ac, csr, fmts, w_args, p_args, f_args, p_out, f_out
+    del Ar, Ac, csr, fmts, w_args, p_args, f_args, p_out, f_out
     log(f"# phase 6 done at {time.perf_counter() - t_start:.0f}s")
 
     # --- 7. the streamed SELLW program ---
@@ -625,12 +657,13 @@ def main() -> None:
                      "clos_invreg", "closg_r3_scan_yext"):
             if launches[name] <= 0:
                 fail(f"the sweep path never launched {name}")
-        check_csvs(out_dir, formats, csv_labels)
+        check_csvs(out_dir, csv_labels(synthetic=True),
+                   {f"{f}_spmv": 1 for f in formats})
     for k in (k_sellw, *k_sellr, *k_chunks):
         k["launches"] = launches[k["name"].removesuffix("_chunked")]
     check_rows(results, ["CLOSG/cuda", "CSR/torch", "SELLR/cuda",
                          "SELLW/cuda"], {"shipsec1": ship}, xs)
-    del ship, results
+    del results
     log(f"# phases 7-8 done at {time.perf_counter() - t_start:.0f}s")
 
     # --- 9. the opt-in front ends on the scircuit twin ---
@@ -694,6 +727,7 @@ def main() -> None:
     k_w0 = closg_checks(timer, K, sorted(Ag.chunks, key=lambda c: -c.N),
                         xgd, names=("closg_r3_scan", "closg_cand_yext"))
     y, launches = counted_spmv(Ag, xgd, K)
+    gup_launches = launches
     log(f"# launches during one gupta3 SpMV: {launches}")
     for k in k_w0:
         k["launches"] = launches[k["name"]]
@@ -714,7 +748,7 @@ def main() -> None:
         "CSR/torch": lambda v: spmv(csr, v, impl="torch"),
         "cuSPARSE (library)": lambda v: lib @ v.unsqueeze(1)},
         ("CLOSG/cuda", "CSR/torch"), xgd)
-    del Ag, Ad, csr, lib, fmts, y
+    del Ad, csr, lib, fmts, y
     log(f"# phase 10 done at {time.perf_counter() - t_start:.0f}s")
 
     # --- 11. the mip1 twin: RSPLIT over CLOSGX ---
@@ -773,13 +807,13 @@ def main() -> None:
                      "closg_cand_yext", "closgx_r3_scan_yext"):
             if launches[name] <= 0:
                 fail(f"the gupta3 + mip1 sweep never launched {name}")
-        check_csvs(out_dir, formats, csv_labels,
-                   rows={"csr": 2, "closg": 2, "dense": 1})
+        check_csvs(out_dir, csv_labels(synthetic=True),
+                   {"csr_spmv": 2, "closg_spmv": 2, "dense_spmv": 1})
     check_rows(results, ["CLOSG/cuda", "CSR/torch", "CSR/torch",
                          "DENSE/torch", "RSPLIT/cuda"],
                {"gupta3": gup, "mip1": mip}, None,
                {"gupta3": (xg, gold_g), "mip1": (xm, gold_m)})
-    del gup, mip, results
+    del mip, results
     log(f"# phase 12 done at {time.perf_counter() - t_start:.0f}s")
 
     # --- 13. the program kinds of four more twins ---
@@ -806,14 +840,242 @@ def main() -> None:
         if got != want:
             fail(f"{TWINS}:{no}: program {got}, want {want}")
     del tw
+    log(f"# phase 13 done at {time.perf_counter() - t_start:.0f}s")
+
+    # --- 14. the K-dimension workloads ---
+    k_kdim = k_dim_phase(timer, dev, gup, ship, Ag, Aw, gup_launches, cfg)
+    del gup, ship, Ag, Aw
     log(f"# all phases done at {time.perf_counter() - t_start:.0f}s")
 
     kernels += [*k_chunks, k_sellw, k_stream, *k_sellr, *k_opt, *k_w0,
-                *k_xl]
+                *k_xl, *k_kdim]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def k_dim_phase(timer, dev, gup, ship, Ag, Aw, gup_launches, cfg) -> list:
+    """Phase 14, the K-dimension workloads at K = 128 (phases 10's gupta3
+    and 6's shipsec1 hosts, their CLOSG and SELLW programs, one gupta3
+    SpMV's launch counts): B16a and B16b against their plain versions on
+    both twins' BTILE programs and timed on gupta3's, B12 against its plain
+    version, each timed beside a library call, one CLOSG SpMM through
+    ``ops.spmm``,
+    and the spmm/sddmm sweep over both lines. Memory: CSR/torch's SDDMM at
+    K = 128 gathers two nnz × K planes (9.4 GB on gupta3, 14 GB with the
+    product), and the plain BTILE versions hold a step's product per step
+    (2.2 GB on shipsec1): all inside the card's 80 GB."""
+    import dataclasses
+    import torch
+    import torch.nn.functional as F
+    from spmv_research_tpu_torch.harness import run_sweep
+    from spmv_research_tpu_torch.harness.workloads import (sddmm_gold,
+                                                           sddmm_inputs,
+                                                           spmm_inputs)
+    from spmv_research_tpu_torch.convert import build_csr
+    from spmv_research_tpu_torch.ops import (build_btile, build_dense, sddmm,
+                                             spmm)
+    from spmv_research_tpu_torch.ops import btile_cuda as KB
+    from spmv_research_tpu_torch.ops import clos_cuda as K
+    from spmv_research_tpu_torch.ops import sell_cuda as KS
+    from spmv_research_tpu_torch.ops.sellw import class_plan
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: the workloads' comparisons need full fp32")
+    k = 128
+
+    # 1. BTILE: B16a and B16b, checked on gupta3's and shipsec1's programs,
+    # timed on gupta3's
+    def btile_case(label, host):
+        """(program, X, A, B, SpMM args, SDDMM args, |A|·|X| per element)
+        of ``host``'s BTILE program at K = 128 on the card."""
+        t0 = time.perf_counter()
+        Ab = build_btile(host)
+        log(f"# {label} BTILE ({time.perf_counter() - t0:.1f}s): ntiles="
+            f"{Ab.ntiles} nsteps={Ab.nsteps} bands={Ab.ngroups} slots/nnz="
+            f"{Ab.ntiles * 1024 / Ab.nnz:.2f} MB="
+            f"{Ab.mem_footprint_bytes() / 1e6:.1f} (slab "
+            f"{Ab.tiles.numel() * 4 / 1e6:.1f}, pattern "
+            f"{Ab.patt.numel() / 1e6:.1f})")
+        Ab = Ab.to(dev)
+        Xd, Ad, Bd = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                      for a in (spmm_inputs(host, k), *sddmm_inputs(host, k)))
+        xp = F.pad(Xd, (0, 0, 0, Ab.ncb * 128 - host.n))
+        ap = F.pad(Ad, (0, 0, 0, Ab.ngroups * 1024 - host.m))
+        bp = F.pad(Bd, (0, 0, 0, Ab.ncb * 128 - host.n))
+        s_args = (Ab.tiles, Ab.tgt, Ab.step_g, Ab.step_cb, Ab.step_nt,
+                  Ab.band_ptr, xp, Ab.ngroups, Ab.max_band_steps)
+        d_args = (Ab.patt, Ab.tgt, Ab.step_g, Ab.step_cb, Ab.step_nt, ap, bp)
+        # |A|·|X| per element (X ≥ 0; |A| from the tiles)
+        yard = KB.btile_spmm_torch(Ab.tiles.abs(), *s_args[1:])
+        return Ab, Xd, Ad, Bd, s_args, d_args, yard
+
+    def tol_c(want):
+        """1e-5 of Σ|a||b| per slot (the plain result: a, b ≥ 0)"""
+        return 1e-5 * want.abs()
+
+    Ab, Xd, Ad, Bd, s_args, d_args, yard_y = btile_case("gupta3", gup)
+    _, _, _, _, s_ship, d_ship, yard_ship = btile_case("shipsec1", ship)
+
+    def tol_y(_):
+        """1e-5 of |A|·|X| per element"""
+        return 1e-5 * yard_y
+
+    def tol_ship(_):
+        """1e-5 of |A|·|X| per element (shipsec1)"""
+        return 1e-5 * yard_ship
+
+    lib = cusparse(gup, dev)
+    live = Ab.ntiles * 1024                      # live tile slots
+    # the function's operations are 2·nnz·K; the kernel multiplies every
+    # live slot, stored zeros included (2·live·K), which is logged beside
+    tile_ms, _ = timer.bound(0, 2 * live * k)
+    log(f"# btile_spmm: the kernel's tile products are {2 * live * k} "
+        f"operations, {live / gup.nnz:.2f} slots per nnz, {tile_ms:.4f} ms "
+        f"at the fp32 peak; the function needs {2 * gup.nnz * k}")
+    k_spmm = check_kernel(
+        timer, "btile_spmm", "spmv_research_tpu_torch/csrc/btile.cu",
+        "spmv_research_tpu/ops/btile.py:215",
+        [(lambda: KB.btile_spmm(*s_args), lambda: KB.btile_spmm_torch(
+            *s_args)),
+         (lambda: KB.btile_spmm(*s_ship), lambda: KB.btile_spmm_torch(
+             *s_ship), tol_ship)], tol_y,
+        (4 * live + 4 * live // 128 + nbytes(Ab.step_cb, Ab.step_nt,
+                                             Ab.band_ptr, Xd)
+         + 4 * Ab.ngroups * 1024 * k, 2 * gup.nnz * k),
+        library=lambda: torch.sparse.mm(lib, Xd))
+    k_sddmm = check_kernel(
+        timer, "btile_sddmm", "spmv_research_tpu_torch/csrc/btile.cu",
+        "spmv_research_tpu/ops/btile.py:316",
+        [(lambda: KB.btile_sddmm(*d_args), lambda: KB.btile_sddmm_torch(
+            *d_args)),
+         (lambda: KB.btile_sddmm(*d_ship), lambda: KB.btile_sddmm_torch(
+             *d_ship))], tol_c,
+        (live + 4 * live // 128 + nbytes(Ab.step_g, Ab.step_cb, Ab.step_nt,
+                                         Ad, Bd) + 4 * Ab.tiles.numel(),
+         2 * gup.nnz * k),
+        library=lambda: torch.sparse.sampled_addmm(lib, Ad, Bd.t(),
+                                                   beta=0.0))
+    del s_ship, d_ship, yard_ship
+    log(f"# gupta3 BTILE one SpMM through ops.spmm, device time "
+        f"{timer.ms(lambda: spmm(Ab, Xd), iters=10):.4f} ms; one SDDMM "
+        f"{timer.ms(lambda: sddmm(Ab, Ad, Bd), iters=10):.4f} ms")
+    del Ab, s_args, d_args, yard_y, Xd, Ad, Bd, lib
+
+    # 2. shipsec1 SELLW: B12
+    Xs = spmm_inputs(ship, k)
+    Xsd = torch.as_tensor(Xs, dtype=torch.float32, device=dev)
+    w_args = (Aw.word, Aw.vals, Aw.wrow, Xsd.t().contiguous(), class_plan(Aw),
+              Aw.G)
+    planes = KS.sellw_spmm_planes_torch(*w_args)
+    lib = cusparse(ship, dev)
+    k_b12 = check_kernel(
+        timer, "sellw_spmm", SELL_SRC, "spmv_research_tpu/ops/sellw.py:634",
+        [(lambda: KS.sellw_spmm_planes(*w_args),
+          lambda: KS.sellw_spmm_planes_torch(*w_args))], exact,
+        (nbytes(*w_args) + nbytes(planes), 2 * Aw.vals.numel() * k),
+        library=lambda: torch.sparse.mm(lib, Xsd))
+    log(f"# shipsec1 SELLW one SpMM through ops.spmm, device time "
+        f"{timer.ms(lambda: spmm(Aw, Xsd), iters=10):.4f} ms")
+    del w_args, planes, lib, Xsd
+
+    # 3. one CLOSG SpMM (the column loop) on gupta3 at K = 8
+    X8 = np.random.Generator(np.random.PCG64(7)).uniform(0, 1, (gup.n, 8))
+    K.reset_launch_counts()
+    Y8 = spmm(Ag, torch.as_tensor(X8, dtype=torch.float32, device=dev))
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    log(f"# launches during one gupta3 CLOSG SpMM (K = 8): {launches}")
+    for name in ("closg_r3_scan", "closg_cand_yext"):
+        if launches[name] != 8 * gup_launches[name]:
+            fail(f"the CLOSG SpMM launched {name} {launches[name]} times, "
+                 f"not 8 × {gup_launches[name]}")
+    check_y("gupta3 CLOSG/cuda SpMM", gup, X8, Y8.double().cpu().numpy())
+
+    # 4. the spmm/sddmm sweep on both lines
+    formats = ("csr", "btile", "dense", "sellw")
+    kcfg = dataclasses.replace(cfg, k_dim=k)
+    with tempfile.TemporaryDirectory() as out_dir:
+        for lib_ in (K, KS, KB):
+            lib_.reset_launch_counts()
+        results = run_sweep([GUPTA3_LINE, SHIPSEC1_LINE], formats=formats,
+                            workloads=("spmm", "sddmm"), out_dir=out_dir,
+                            config=kcfg, device=dev)
+        torch.cuda.synchronize()
+        launches = {**KS.LAUNCHES, **KB.LAUNCHES}
+        log(f"# launches during the spmm/sddmm sweep: {launches}")
+        for kk in (k_spmm, k_sddmm, k_b12):
+            kk["launches"] = launches[kk["name"]]
+            if kk["launches"] <= 0:
+                fail(f"the spmm/sddmm sweep never launched {kk['name']}")
+        # B16a's second launch, its chunks' combine (bands are cut on both)
+        k_spmm["combine_launches"] = launches["btile_combine"]
+        if launches["btile_combine"] <= 0:
+            fail("the spmm/sddmm sweep never launched btile_combine")
+        rows = {"csr_spmm": 2, "csr_sddmm": 2, "btile_spmm": 2,
+                "btile_sddmm": 2, "dense_spmm": 1, "sellw_spmm": 1}
+        got_files = sorted(f for f in os.listdir(out_dir) if f.endswith(".csv"))
+        if got_files != sorted(f"{f}.csv" for f in rows):
+            fail(f"spmm/sddmm sweep CSVs {got_files}")
+        check_csvs(out_dir, WORKLOAD_LABELS, rows)
+    want = sorted(["gupta3 CSR/torch spmm", "gupta3 BTILE/cuda spmm",
+                   "gupta3 DENSE/torch spmm", "gupta3 CSR/torch sddmm",
+                   "gupta3 BTILE/cuda sddmm", "shipsec1 CSR/torch spmm",
+                   "shipsec1 BTILE/cuda spmm", "shipsec1 SELLW/cuda spmm",
+                   "shipsec1 CSR/torch sddmm", "shipsec1 BTILE/cuda sddmm"])
+    got = sorted(f"{r.matrix_name} {r.format_name}/{r.impl} {r.workload}"
+                 for r in results)
+    if got != want:
+        fail(f"spmm/sddmm sweep rows {got}, want {want}")
+    hosts = {"gupta3": gup, "shipsec1": ship}
+    for r in results:
+        host = hosts[r.matrix_name]
+        key = f"{r.matrix_name} {r.format_name}/{r.impl} {r.workload}"
+        log(f"# sweep {key}: {r.gflops:.2f} GFLOPS median="
+            f"{r.time_iter_median * 1e6:.1f}us loops={r.num_loops}")
+        if r.workload == "spmm":
+            check_y(f"sweep {key}", host, spmm_inputs(host, k), r.out)
+        else:
+            Am, Bm = sddmm_inputs(host, k)
+            gold = sddmm_gold(host, Am, Bm)     # = Σ|a||b|: a, b ≥ 0
+            rel = float(np.max(np.abs(r.out - gold) / (gold + 1e-30)))
+            if not (r.out.shape == (host.nnz,) and rel <= 1e-5):
+                fail(f"sweep {key}: shape {r.out.shape}, max |C-gold|/"
+                     f"(Σ|a||b|) = {rel}")
+            log(f"# sweep {key} vs fp64 gold: max rel (Σ|a||b|) = {rel}")
+        log_metrics(key, r.metrics)
+    # 5. the device time of each row's call (one call timed alone)
+    for name, host, fmts in (
+            ("gupta3", gup, (("CSR", build_csr), ("BTILE", build_btile),
+                             ("DENSE", build_dense))),
+            ("shipsec1", ship, (("CSR", build_csr), ("BTILE", build_btile),
+                                ("SELLW", lambda _: Aw)))):
+        X = torch.as_tensor(spmm_inputs(host, k), dtype=torch.float32,
+                            device=dev)
+        Ad, Bd = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                  for a in sddmm_inputs(host, k))
+        for fmt, build in fmts:
+            Fm = build(host).to(dev)
+            log(f"# {name} {fmt} spmm: one call, device time "
+                f"{timer.ms(lambda: spmm(Fm, X), iters=5):.4f} ms")
+            if fmt in ("CSR", "BTILE"):
+                log(f"# {name} {fmt} sddmm: one call, device time "
+                    f"{timer.ms(lambda: sddmm(Fm, Ad, Bd), iters=5):.4f} ms")
+            del Fm
+        del X, Ad, Bd
+    return [k_spmm, k_sddmm, k_b12]
+
+
+def check_y(label, host, X, Y) -> None:
+    """Y (m, K) against the fp64 product within 1e-5 of |A|·|X|."""
+    mat = host.to_scipy()
+    scale = np.abs(mat) @ np.abs(X) + 1e-30
+    rel = float(np.max(np.abs(Y - mat @ X) / scale))
+    if not (Y.shape == (host.m, X.shape[1]) and np.isfinite(Y).all()
+            and rel <= 1e-5):
+        fail(f"{label}: shape {Y.shape}, max |Y-gold|/(|A||X|) = {rel}")
+    log(f"# {label} vs fp64 gold: max rel (|A||X|) = {rel}")
 
 
 def program_kind(A, RowSplit, ClosGChunked, ClosGX):
@@ -826,16 +1088,15 @@ def program_kind(A, RowSplit, ClosGChunked, ClosGX):
     return (A.format_name,)
 
 
-def check_csvs(out_dir, formats, csv_labels, rows=None) -> None:
-    """Each format's CSV: the JAX labels, then its rows (one per matrix
-    unless ``rows`` says otherwise)."""
-    for fmt in formats:
-        with open(os.path.join(out_dir, f"{fmt}_spmv.csv")) as f:
+def check_csvs(out_dir, labels, rows) -> None:
+    """Each CSV ``<name>.csv`` of ``rows`` (name -> row count): the JAX
+    labels, then that many rows."""
+    for name, n in rows.items():
+        with open(os.path.join(out_dir, f"{name}.csv")) as f:
             lines = f.read().splitlines()
-        want = 1 + (rows or {}).get(fmt, 1)
-        if lines[0] != csv_labels(synthetic=True) or len(lines) != want:
-            fail(f"{fmt}_spmv.csv: {len(lines)} lines (want {want}), labels "
-                 f"{'ok' if lines[0] == csv_labels(True) else 'wrong'}")
+        if lines[0] != labels or len(lines) != 1 + n:
+            fail(f"{name}.csv: {len(lines)} lines (want {1 + n}), labels "
+                 f"{'ok' if lines[0] == labels else 'wrong'}")
 
 
 def check_rows(results, want, hosts, x, golds=None) -> None:

@@ -67,45 +67,90 @@ __device__ __forceinline__ float scan_pick(uint32_t w, float val, int32_t wr,
 }
 
 // SELLW — replaces spmv_research_tpu/ops/sellw.py `_sellw_kernel` and
-// `_sellw_stream_kernel`. One block per chunk of one stage class. The TPU
-// kernels first copied each sublane's 128-wide x row into VMEM (or, for
-// n > 2^20, streamed windows that XLA pre-gathered); here each thread reads
-// its x element straight from device memory, so one kernel serves both
-// program kinds and a stream_wins program moves 12 B/slot less.
-// Output: G planes, plane g at rows [g*npad, (g+1)*npad); row c of plane g
-// is the sum over sublanes 0..7, in order, of the part ends whose bid is g.
-// Bound: device memory, 8 bytes per slot (word, value), x from L2 (its rows
-// are shared by neighbouring chunks), 512*G bytes written per chunk.
-__global__ void __launch_bounds__(kChunk)
+// `_sellw_stream_kernel` (SpMV: entry sellw_spmv, one column, NC = 1) and
+// `_sellw_spmm_kernel` (SpMM: entry sellw_spmm, n_cols columns, NC = 4).
+// One block per chunk of one stage class. The TPU kernels first copied each
+// sublane's 128-wide x row into VMEM (or, for n > 2^20, streamed windows
+// that XLA pre-gathered); here each thread reads its x element straight
+// from device memory, so one kernel serves both program kinds and a
+// stream_wins program moves 12 B/slot less. For SpMM the block keeps its
+// slot's word, value and x row index in registers and runs the SpMV
+// pipeline for NC columns of X at a time (column k's x at x + k * n_x: X
+// transposed, so a sublane's 128 lanes read one 512-byte row), one shared
+// buffer pair per column, so that the NC columns share each scan stage's
+// barrier and their x loads are in flight together (two blocks of 1024
+// threads fit an SM at 32 registers a thread); the TPU kernel re-ran
+// the pipeline per column of a k-tile of 8 with word and vals resident in
+// VMEM. Word and vals are read once for all columns, and stream_wins
+// programs take the same kernel. Each column's arithmetic is the SpMV's,
+// step for step (scan_pick's).
+// Output: per column k, G planes at out + k * plane_stride, plane g at rows
+// [g*npad, (g+1)*npad); row c of plane g is the sum over sublanes 0..7, in
+// order, of the part ends whose bid is g.
+// Bound: device memory. SpMV: 8 bytes per slot (word, value), x from L2
+// (its rows are shared by neighbouring chunks), 512*G bytes written per
+// chunk. SpMM: the same 8 bytes per slot once, then per column x and the
+// 512*G bytes of planes per chunk, which dominate at K = 128.
+template <int NC>
+__global__ void __launch_bounds__(kChunk, 2)
     sellw_kernel(const uint32_t* __restrict__ word,
                  const float* __restrict__ vals,
                  const int32_t* __restrict__ wrow,
-                 const float* __restrict__ x, int64_t n_x,
-                 float* __restrict__ out, int64_t npad, int64_t chunk0,
-                 int stages, int G) {
-  __shared__ float buf[2][kChunk];
+                 const float* __restrict__ x, int64_t n_x, int n_cols,
+                 float* __restrict__ out, int64_t plane_stride, int64_t npad,
+                 int64_t chunk0, int stages, int G) {
+  __shared__ float buf[2][NC][kChunk];
   __shared__ int8_t tag[kChunk];
   const int t = threadIdx.x;
+  const int row = t & ~(kLanes - 1);
+  const int l = t & (kLanes - 1);
   const int64_t c = chunk0 + blockIdx.x;
   const int64_t off = c * kChunk + t;
   const uint32_t w = word[off];
-  const float e = scan_pick(w, vals[off], wrow[c * kSub + t / kLanes], x,
-                            n_x, stages, buf);
-  // the last scan stage's reads are done: buf[1] is free for E when stages
-  // is even (cur = 0), buf[0] when it is odd; write E to the buffer the
-  // pick did not read
-  float* E = buf[(stages & 1) ^ 1];
-  const bool live = (w >> 21) & 1u;
-  E[t] = e;
-  tag[t] = live ? (int8_t)((w >> 22) & (uint32_t)(G - 1)) : (int8_t)-1;
-  __syncthreads();
-  if (t < G * kLanes) {
-    const int g = t / kLanes;
-    const int l = t % kLanes;
-    float acc = 0.0f;
-    for (int s = 0; s < kSub; ++s)
-      acc = acc + (tag[s * kLanes + l] == g ? E[s * kLanes + l] : 0.0f);
-    out[(g * npad + c) * kLanes + l] = acc;
+  const float val = vals[off];
+  const int64_t col =
+      (int64_t)wrow[c * kSub + t / kLanes] * kLanes + (w & 0x7F);
+  const int pick = row + ((w >> 14) & 0x7F);
+  tag[t] = (w >> 21) & 1u ? (int8_t)((w >> 22) & (uint32_t)(G - 1))
+                          : (int8_t)-1;
+  for (int k0 = 0; k0 < n_cols; k0 += NC) {
+    const int nc = min(NC, n_cols - k0);
+    if (k0) __syncthreads();  // the last columns' sums have read E
+#pragma unroll
+    for (int q = 0; q < NC; ++q) {
+      // the x plane's zero padding past n_x, as scan_pick
+      const float xv = q < nc && col < n_x ? x[(k0 + q) * n_x + col] : 0.0f;
+      buf[0][q][t] = __fmul_rn(xv, val);
+    }
+    __syncthreads();
+    int cur = 0;
+    for (int k = 0; k < stages; ++k) {
+      const bool guard = (w >> (7 + k)) & 1u;
+      const int src = row + ((l - (1 << k)) & 127);
+#pragma unroll
+      for (int q = 0; q < NC; ++q) {
+        float v = buf[cur][q][t];
+        if (guard) v = v + buf[cur][q][src];
+        buf[cur ^ 1][q][t] = v;
+      }
+      __syncthreads();
+      cur ^= 1;
+    }
+    // the last stage's reads of buf[cur ^ 1] are done: E goes there, the
+    // buffer the picks do not read
+#pragma unroll
+    for (int q = 0; q < NC; ++q) buf[cur ^ 1][q][t] = buf[cur][q][pick];
+    __syncthreads();
+    if (t < G * kLanes) {
+      const int g = t / kLanes;
+      for (int q = 0; q < nc; ++q) {
+        const float* E = buf[cur ^ 1][q];
+        float acc = 0.0f;
+        for (int s = 0; s < kSub; ++s)
+          acc = acc + (tag[s * kLanes + l] == g ? E[s * kLanes + l] : 0.0f);
+        out[(k0 + q) * plane_stride + (g * npad + c) * kLanes + l] = acc;
+      }
+    }
   }
 }
 
@@ -190,9 +235,22 @@ int sellw_spmv(const void* word, const void* vals, const void* wrow,
                const void* x, int64_t n_x, void* out, int64_t npad,
                int64_t chunk0, int64_t n_chunks, int stages, int G,
                void* stream) {
-  sellw_kernel<<<(unsigned)n_chunks, kChunk, 0, (cudaStream_t)stream>>>(
+  sellw_kernel<1><<<(unsigned)n_chunks, kChunk, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)word, (const float*)vals, (const int32_t*)wrow,
-      (const float*)x, n_x, (float*)out, npad, chunk0, stages, G);
+      (const float*)x, n_x, 1, (float*)out, 0, npad, chunk0, stages, G);
+  return (int)cudaGetLastError();
+}
+
+// As sellw_spmv for the n_cols columns of xt (n_cols, n_x); column k's G
+// planes start at out + k * plane_stride.
+int sellw_spmm(const void* word, const void* vals, const void* wrow,
+               const void* xt, int64_t n_x, int n_cols, void* out,
+               int64_t plane_stride, int64_t npad, int64_t chunk0,
+               int64_t n_chunks, int stages, int G, void* stream) {
+  sellw_kernel<4><<<(unsigned)n_chunks, kChunk, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)word, (const float*)vals, (const int32_t*)wrow,
+      (const float*)xt, n_x, n_cols, (float*)out, plane_stride, npad, chunk0,
+      stages, G);
   return (int)cudaGetLastError();
 }
 

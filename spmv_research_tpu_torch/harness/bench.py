@@ -140,7 +140,8 @@ def bench_spmv(host: HostCSR, A, *, config: Optional[BenchConfig] = None,
     fn = lambda v: spmv_dispatch(A_t, v, impl=impl)  # noqa: E731
     time_chain(fn, xd, cfg.warmup_iters, 0.0, batch=cfg.warmup_iters)
     t_start = time.perf_counter()
-    samples = time_chain(fn, xd, cfg.min_num_loops, cfg.min_time_s)
+    samples = time_chain(fn, xd, cfg.min_num_loops, cfg.min_time_s,
+                         batch=cfg.inner_iters or 64)
     t_total = time.perf_counter() - t_start
     t_med = max(float(np.median(samples)), 1e-12)
 

@@ -1,10 +1,11 @@
 """Typed benchmark configuration.
 
 Counterpart of ``spmv_research_tpu/harness/config.py``, carried over for the
-fields the SpMV protocol and the sweep read: the timing protocol (reference
-``bench_spmv.cpp:335-384``), the value type and the matrix transforms, with
-the reference's env-var overrides (``from_env``). The workload and
-distribution fields follow the slices that use them.
+fields the SpMV, SpMM and SDDMM protocols and the sweep read: the timing
+protocol (reference ``bench_spmv.cpp:335-384``), the value type, the matrix
+transforms and the K dimension, with the reference's env-var overrides
+(``from_env``). The solver and distribution fields follow the slices that
+use them.
 """
 
 from __future__ import annotations
@@ -30,6 +31,10 @@ class BenchConfig:
     min_num_loops: int = 64
     min_time_s: float = 2.0
     warmup_iters: int = 20          # role of the GPU 1000-iter warmup (:287-294)
+    # calls per timed batch of the chain, the JAX field's role (calls fused
+    # per timed step): here the calls between one synchronise and the next
+    # of the SpMV, SpMM and SDDMM chains (None: 64)
+    inner_iters: Optional[int] = None
 
     # --- numerics ---
     dtype: str = "float32"          # ValueType (f64 gold is always host-side)
@@ -41,6 +46,9 @@ class BenchConfig:
     fix_diagonal_zeros: bool = False
     matrix_transform: Optional[str] = None  # spd | dd (solver-dataset analogs)
 
+    # --- workloads ---
+    k_dim: int = 128                # SDDMM/SpMM K (K_DIM env, config.sh:138-143)
+
     @staticmethod
     def from_env() -> "BenchConfig":
         """Honor the reference's env-var names for these fields."""
@@ -49,6 +57,7 @@ class BenchConfig:
         c.use_rcm_reordering = ("auto" if rcm == "auto"
                                 else bool(_env("USE_RCM_REORDERING", int, 0)))
         c.fix_diagonal_zeros = bool(_env("FIX_DIAGONAL_ZEROS", int, 0))
+        c.k_dim = _env("K_DIM", int, c.k_dim)
         c.min_num_loops = _env("MIN_NUM_LOOPS", int, c.min_num_loops)
         c.min_time_s = _env("MIN_TIME_S", float, c.min_time_s)
         return c

@@ -1,11 +1,14 @@
-"""Sweep runner for the SpMV workload — the run.sh / proc_run.sh analog.
+"""Sweep runner for the SpMV, SpMM and SDDMM workloads — the run.sh /
+proc_run.sh analog.
 
 Counterpart of ``spmv_research_tpu/harness/sweep.py``. It iterates
-matrices × formats on one torch device with the JAX sweep's output
-discipline: one CSV file per format (``<fmt>_spmv.csv``) with the labels row
-first and the JAX package's synthetic schema (``csv_labels`` /
-``csv_row_synthetic``), human lines on stdout, and an idempotent done-log
-(``done.log``) so that a restarted sweep skips finished pairs.
+matrices × formats × workloads on one torch device with the JAX sweep's
+output discipline: one CSV file per (format, workload) pair
+(``<fmt>_<workload>.csv``) with the labels row first (SpMV: the JAX
+package's synthetic schema, ``csv_labels`` / ``csv_row_synthetic``; SpMM
+and SDDMM: its ``matrix_name,format_name,impl,K,...`` schema), human lines
+on stdout, and an idempotent done-log (``done.log``) so that a restarted
+sweep skips finished pairs.
 
 Differences from the JAX sweep, each deliberate:
 
@@ -13,16 +16,18 @@ Differences from the JAX sweep, each deliberate:
   ``NotImplementedError`` (the Matrix Market reader is ROADMAP queue A
   item 1);
 * ``FORMAT_BUILDERS`` holds ``csr``, ``sellr``, ``sellw``, ``closg`` (whose
-  builder may return a CLOSG, RSPLIT or CLOSGX program, as in the JAX sweep)
-  and ``dense``, and the workload is ``spmv``: any other name raises before
-  the sweep starts;
+  builder may return a CLOSG, RSPLIT or CLOSGX program, as in the JAX
+  sweep), ``dense`` and ``btile``, and the workloads are ``spmv``, ``spmm``
+  and ``sddmm``: any other name raises before the sweep starts;
 * the impls are the device's (``ops.dispatch.default_impl``): on a CUDA
   device the engines run ``cuda`` and the library formats (CSR, DENSE) run
-  ``torch``; on the CPU everything runs ``torch``;
+  ``torch``; on the CPU everything runs ``torch``. A (format, workload)
+  pair with no such impl (BTILE SpMV; DENSE, SELLW and the CLOS engines'
+  SDDMM) is skipped, as ``available_impls`` skips it in the JAX sweep;
 * a builder's suitability error (``SellRBuildError``, ``SellWBuildError``,
-  ``ClosRoutingError``, ``DenseBuildError``) is printed and the format
-  skipped, as in the JAX sweep; any other exception propagates (no retries:
-  a GPU fault is not transient);
+  ``ClosRoutingError``, ``DenseBuildError``, ``BTileBuildError``) is
+  printed and the format skipped, as in the JAX sweep; any other exception
+  propagates (no retries: a GPU fault is not transient);
 * the TPU-worker-crash handling (``_fatal_runtime``, exit code 3, the
   ``CRASH`` records) has no counterpart on the GPU.
 """
@@ -40,14 +45,16 @@ from ..convert import (build_csr, extract_features, fix_diagonal_zeros,
                        make_diag_dominant, make_spd, rcm_reorder)
 from ..convert.reorder import rcm_if_beneficial
 from ..gen import ArtificialParams, artificial_matrix_generation
-from ..ops import default_impl
+from ..ops import available_impls, default_impl
+from ..ops.btile import BTileBuildError, build_btile
 from ..ops.clos_gather import build_clos_gather_auto
 from ..ops.clos_route import ClosRoutingError
 from ..ops.densemv import DenseBuildError, build_dense
 from ..ops.sellr import SellRBuildError, build_sellr
 from ..ops.sellw import SellWBuildError, build_sellw
-from .bench import bench_spmv, csv_labels, csv_row_synthetic
+from .bench import BenchResult, bench_spmv, csv_labels, csv_row_synthetic
 from .config import BenchConfig
+from .workloads import BenchGateError, bench_sddmm, bench_spmm
 
 FORMAT_BUILDERS = {
     "csr": build_csr,
@@ -55,15 +62,14 @@ FORMAT_BUILDERS = {
     "sellw": build_sellw,
     "closg": build_clos_gather_auto,   # CLOSG, RSPLIT or CLOSGX
     "dense": build_dense,
+    "btile": build_btile,
 }
-WORKLOADS = ("spmv",)
+WORKLOADS = ("spmv", "spmm", "sddmm")
 # a builder raising one of these refuses the matrix: the format is skipped
 SUITABILITY_ERRORS = (SellRBuildError, SellWBuildError, ClosRoutingError,
-                      DenseBuildError)
-
-
-class BenchGateError(RuntimeError):
-    """A result that must not become a CSV row (non-finite error metrics)."""
+                      DenseBuildError, BTileBuildError)
+WORKLOAD_LABELS = ("matrix_name,format_name,impl,K,time_iter_median,gflops,"
+                   "num_loops,mape,max_ae")
 
 
 def check_sweep_args(formats: Sequence[str], workloads: Sequence[str]) -> None:
@@ -77,8 +83,9 @@ def check_sweep_args(formats: Sequence[str], workloads: Sequence[str]) -> None:
     bad_w = [w for w in workloads if w not in WORKLOADS]
     if bad_w:
         raise NotImplementedError(
-            f"workloads {bad_w} are not ported: the sweep runs spmv only "
-            "(the others are ROADMAP queue A item 8)")
+            f"workloads {bad_w} are not ported: the sweep runs "
+            f"{', '.join(WORKLOADS)} (CG, BiCGStab, SpGEMM and trisolve are "
+            "ROADMAP queue A item 8)")
 
 
 def load_matrix(spec: str, cfg: BenchConfig):
@@ -140,8 +147,10 @@ def run_sweep(matrices: Sequence[str],
               out_dir: str = "out_logs",
               config: Optional[BenchConfig] = None,
               device="cuda") -> list:
-    """Benchmark every (matrix, format) pair on ``device``; returns the
-    ``BenchResult`` list and appends each to ``<out_dir>/<fmt>_spmv.csv``."""
+    """Benchmark every (matrix, format, workload) triple on ``device`` that
+    the format has an impl for; returns the results (``BenchResult`` for
+    SpMV, ``WorkloadResult`` otherwise) and appends each to
+    ``<out_dir>/<fmt>_<workload>.csv``."""
     check_sweep_args(formats, workloads)
     cfg = config or BenchConfig.from_env()
     if cfg.dtype != "float32":
@@ -168,31 +177,41 @@ def run_sweep(matrices: Sequence[str],
             print(f"# convert {name} -> {fmt}: {t_convert:.2f}s", flush=True)
             A = A.to(device)
             impl = default_impl(A.format_name, device)
-            if donelog.skip(name, fmt, impl, "spmv"):
-                continue
-            r = bench_spmv(host, A, config=cfg, impl=impl, matrix_name=name,
-                           time_convert=t_convert)
-            del A   # release the format's device buffers before the next
-            try:
-                _gate_result(r, "spmv")
-            except BenchGateError as e:
-                donelog.mark("FAIL", name, fmt, impl, "spmv")
-                print(f"# GATE-FAIL {name}/{fmt}/{impl}/spmv: {e}",
+            for workload in workloads:
+                if impl not in available_impls(workload, A.format_name):
+                    print(f"# {A.format_name}/{impl} has no {workload}: "
+                          "skipped", flush=True)
+                    continue
+                if donelog.skip(name, fmt, impl, workload):
+                    continue
+                r = _run_one(host, A, workload, impl, cfg, name, t_convert)
+                try:
+                    _gate_result(r, workload)
+                except BenchGateError as e:
+                    donelog.mark("FAIL", name, fmt, impl, workload)
+                    print(f"# GATE-FAIL {name}/{fmt}/{impl}/{workload}: {e}",
+                          flush=True)
+                    continue
+                results.append(r)
+                csv_path = os.path.join(out_dir, f"{fmt}_{workload}.csv")
+                with open(csv_path, "a") as f:
+                    if csv_path not in label_written and f.tell() == 0:
+                        f.write(_labels_for(workload) + "\n")
+                    label_written.add(csv_path)
+                    f.write(_row_for(r, workload, params, feats) + "\n")
+                donelog.mark("DONE", name, fmt, impl, workload)
+                print(f"# {name} {fmt}/{impl} {workload}: {_summary(r)}",
                       flush=True)
-                continue
-            results.append(r)
-            csv_path = os.path.join(out_dir, f"{fmt}_spmv.csv")
-            with open(csv_path, "a") as f:
-                if csv_path not in label_written and f.tell() == 0:
-                    f.write(csv_labels(synthetic=True) + "\n")
-                label_written.add(csv_path)
-                f.write(csv_row_synthetic(r, params, feats) + "\n")
-            donelog.mark("DONE", name, fmt, impl, "spmv")
-            print(f"# {name} {fmt}/{impl} spmv: "
-                  f"{r.nnz_per_s/1e9:.3f} Gnnz/s median="
-                  f"{r.time_iter_median*1e6:.0f}us "
-                  f"mape={r.metrics.mape:.2e}", flush=True)
+            del A   # release the format's device buffers before the next
     return results
+
+
+def _run_one(host, A, workload, impl, cfg, name, t_convert):
+    if workload == "spmv":
+        return bench_spmv(host, A, config=cfg, impl=impl, matrix_name=name,
+                          time_convert=t_convert)
+    bench = {"spmm": bench_spmm, "sddmm": bench_sddmm}[workload]
+    return bench(host, A, config=cfg, impl=impl, matrix_name=name)
 
 
 def _gate_result(r, workload):
@@ -200,3 +219,23 @@ def _gate_result(r, workload):
     for v, tag in ((r.metrics.mape, "mape"), (r.metrics.max_ae, "max_ae")):
         if not np.isfinite(v):
             raise BenchGateError(f"{workload}: non-finite {tag} ({v})")
+
+
+def _labels_for(workload):
+    return csv_labels(synthetic=True) if workload == "spmv" else WORKLOAD_LABELS
+
+
+def _row_for(r, workload, params, feats):
+    if workload == "spmv":
+        return csv_row_synthetic(r, params, feats)
+    return (f"{r.matrix_name},{r.format_name},{r.impl},{r.k},"
+            f"{r.time_iter_median:.9f},{r.gflops:.4f},{r.num_loops},"
+            f"{r.mape:.6g},{r.max_ae:.6g}")
+
+
+def _summary(r):
+    if isinstance(r, BenchResult):
+        return (f"{r.nnz_per_s/1e9:.3f} Gnnz/s median="
+                f"{r.time_iter_median*1e6:.0f}us mape={r.metrics.mape:.2e}")
+    return (f"{r.gflops:.2f} GFLOPS median={r.time_iter_median*1e6:.0f}us "
+            f"mape={r.mape:.2e}")

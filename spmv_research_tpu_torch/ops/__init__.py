@@ -1,11 +1,14 @@
-from .dispatch import spmv, available_impls, default_impl
-from . import reference    # registers CSR/torch
+from .dispatch import spmv, spmm, sddmm, available_impls, default_impl
+from . import reference    # registers CSR/torch (SpMV, SpMM, SDDMM)
 from . import clos_gather  # registers CLOSG/torch and CLOSG/cuda
 from . import rowsplit     # registers RSPLIT/torch and RSPLIT/cuda
 from . import clos_xl      # registers CLOSGX/torch and CLOSGX/cuda
 from . import densemv      # registers DENSE/torch
 from . import sellw        # registers SELLW/torch and SELLW/cuda
 from . import sellr        # registers SELLR/torch and SELLR/cuda
+from . import btile        # registers BTILE/torch and BTILE/cuda (no SpMV)
+from .btile import (BTile, BTileBuildError, btile_from_jax, build_btile,
+                    execute_btile_numpy, sddmm_slab_to_csr_values)
 from .clos_gather import (ClosG, ClosGChunked, build_clos_gather,
                           build_clos_gather_auto, execute_closg_numpy,
                           from_jax_program)

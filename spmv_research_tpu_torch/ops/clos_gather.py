@@ -38,7 +38,7 @@ import torch
 
 from ..core.formats import _move
 from ..core.host import HostCSR
-from .dispatch import register_spmv
+from .dispatch import register_spmm_column_loop, register_spmv
 from .clos_route import BLK, LANES, SUB, ClosRoutingError, route_clos
 from .clos import (LANE2_SHIFT, ROT_SHIFT, SPARE_BITS, SPARE_SHIFT, _pack,
                    _t_fwd, _t_bwd)
@@ -618,6 +618,10 @@ def spmv_closg_cuda(A, x: torch.Tensor) -> torch.Tensor:
     if isinstance(A, ClosGChunked):
         return torch.cat([spmv_closg_cuda(c, x) for c in A.chunks])
     return _pipeline(A, x, plain=False)
+
+
+# SpMM: one SpMV per column of X, for both impls (the JAX lax.scan)
+register_spmm_column_loop("CLOSG")
 
 
 def _np(t) -> np.ndarray:

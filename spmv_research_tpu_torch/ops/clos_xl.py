@@ -33,7 +33,7 @@ import torch
 
 from ..core.formats import _move
 from ..core.host import HostCSR
-from .dispatch import register_spmv
+from .dispatch import register_spmm_column_loop, register_spmv
 from .clos import SPARE_SHIFT, _t_bwd, _t_fwd
 from .clos_route import BLK, LANES, SUB, ClosRoutingError
 from . import clos_cuda as K
@@ -283,6 +283,10 @@ def spmv_closgx_cuda(A: ClosGX, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"CLOSGX/cuda needs the program and x on one CUDA "
                          f"device, got {A.device} and {x.device}")
     return _pipeline(A, x, plain=False)
+
+
+# SpMM: one SpMV per column of X, for both impls (the JAX lax.scan)
+register_spmm_column_loop("CLOSGX")
 
 
 def execute_closgx_numpy(A: ClosGX, x: np.ndarray) -> np.ndarray:

@@ -4,10 +4,11 @@ Counterpart of ``spmv_research_tpu/ops/densemv.py``. Matrices whose group
 column windows are too wide for every gather engine and which have no
 column locality (the human_gene1 / TSOPF_RS_b2383 / gupta3 class, density
 ≳ 1%) are densified, and the SpMV becomes a full-width matrix-vector
-product that streams the plane at device-memory speed.
+product that streams the plane at device-memory speed (SpMM: a
+matrix-matrix product).
 
 The product is ``torch.matmul`` (cuBLAS on a card): the JAX package left it
-to XLA's ``jnp.dot`` outside any Pallas kernel, so a library product stands
+to XLA's ``jnp.dot`` outside any Pallas kernel (SpMV and SpMM), so a library product stands
 here and no kernel is written. On a card it runs in full float32 (PyTorch's
 default, ``torch.backends.cuda.matmul.allow_tf32`` False); the impl refuses
 to run with TF32 switched on.
@@ -27,7 +28,7 @@ import torch.nn.functional as F
 
 from ..core.formats import _move
 from ..core.host import HostCSR
-from .dispatch import register_spmv
+from .dispatch import register_spmm, register_spmv
 
 _RB, _CB = 8, 128                       # fp32 tile multiples
 
@@ -85,10 +86,21 @@ def build_dense(host: HostCSR, max_bytes: int = 6 << 30) -> DenseMV:
                    nnz_expanded=host.nnz_expanded)
 
 
-@register_spmv("DENSE", "torch")
-def spmv_dense_torch(A: DenseMV, x: torch.Tensor) -> torch.Tensor:
-    if x.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+def _check_precision(X: torch.Tensor) -> None:
+    if X.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("DENSE needs full float32 products: switch "
                            "torch.backends.cuda.matmul.allow_tf32 off")
+
+
+@register_spmv("DENSE", "torch")
+def spmv_dense_torch(A: DenseMV, x: torch.Tensor) -> torch.Tensor:
+    _check_precision(x)
     xp = F.pad(x.to(A.mat.dtype), (0, A.mat.shape[1] - x.shape[0]))
     return torch.matmul(A.mat, xp)[: A.m]
+
+
+@register_spmm("DENSE", "torch")
+def spmm_dense_torch(A: DenseMV, X: torch.Tensor) -> torch.Tensor:
+    _check_precision(X)
+    Xp = F.pad(X.to(A.mat.dtype), (0, 0, 0, A.mat.shape[1] - X.shape[0]))
+    return torch.matmul(A.mat, Xp)[: A.m]

@@ -31,7 +31,7 @@ import torch
 from ..core.formats import _move
 from ..core.host import INDEX_DTYPE, HostCSR
 from . import dispatch
-from .dispatch import register_spmv
+from .dispatch import register_spmm_column_loop, register_spmv
 
 DEFAULT_T = 256
 _PB = 128     # extras padded per heavy row to a multiple of this
@@ -189,6 +189,10 @@ def spmv_rowsplit_torch(A: RowSplit, x: torch.Tensor) -> torch.Tensor:
 def spmv_rowsplit_cuda(A: RowSplit, x: torch.Tensor) -> torch.Tensor:
     """RSPLIT through the inner format's ``cuda`` impl (its kernels)."""
     return _combine(A, dispatch.spmv(A.inner, x, impl="cuda"))
+
+
+# SpMM: one SpMV per column of X, for both impls (the JAX lax.scan)
+register_spmm_column_loop("RSPLIT")
 
 
 def execute_rowsplit_numpy(A: RowSplit, y2: np.ndarray) -> np.ndarray:

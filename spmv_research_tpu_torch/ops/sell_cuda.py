@@ -4,17 +4,22 @@ Counterpart of the Pallas kernels of ``spmv_research_tpu/ops/sellw.py`` and
 ``spmv_research_tpu/ops/sellr.py`` (sources and design notes in
 ``csrc/sell.cu``):
 
-================  =========================================================
-wrapper           replaces
-================  =========================================================
-``sellw_planes``  ``sellw.py:_sellw_kernel`` and ``:_sellw_stream_kernel``
-                  (one launch per stage class; one kernel for both program
-                  kinds, counted apart: ``sellw`` and ``sellw_stream``)
-``sellr_place``   ``sellr.py:_sellr_kernel``, with ``sellr_flush``: the
-                  placed chunk planes R
-``sellr_flush``   the run-flush of R into y, one block per y group in the
-                  order the host listed
-================  =========================================================
+======================  ===================================================
+wrapper                 replaces
+======================  ===================================================
+``sellw_planes``        ``sellw.py:_sellw_kernel`` and
+                        ``:_sellw_stream_kernel`` (one launch per stage
+                        class; one kernel for both program kinds, counted
+                        apart: ``sellw`` and ``sellw_stream``)
+``sellw_spmm_planes``   ``sellw.py:_sellw_spmm_kernel``: the same kernel
+                        over the columns of X, word and vals read once for
+                        all of them (one launch per stage class, counted as
+                        ``sellw_spmm``)
+``sellr_place``         ``sellr.py:_sellr_kernel``, with ``sellr_flush``:
+                        the placed chunk planes R
+``sellr_flush``         the run-flush of R into y, one block per y group in
+                        the order the host listed
+======================  ===================================================
 
 ``sellr_y`` chains the two SELLR wrappers. Each wrapper takes the kernels'
 plain PyTorch version (``*_torch``) only when its tensors lie on the CPU.
@@ -43,17 +48,20 @@ from .cuda_lib import CudaLib, check, on_cuda, stream
 SELLR_NB = 64            # SELLR chunks per smeta step
 SELLR_SMEM_BLK = 1024    # smeta ints per step
 
-LAUNCHES = {"sellw": 0, "sellw_stream": 0, "sellr_place": 0,
-            "sellr_flush": 0}
+LAUNCHES = {"sellw": 0, "sellw_stream": 0, "sellw_spmm": 0,
+            "sellr_place": 0, "sellr_flush": 0}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.sellw_spmv.argtypes = [p, p, p, p, i64, p, i64, i64, i64, i32, i32,
                                p]
+    lib.sellw_spmm.argtypes = [p, p, p, p, i64, i32, p, i64, i64, i64, i64,
+                               i32, i32, p]
     lib.sellr_place.argtypes = [p, p, p, p, i64, p, i64, i32, p]
     lib.sellr_flush.argtypes = [p, p, p, p, i32, p]
-    for fn in (lib.sellw_spmv, lib.sellr_place, lib.sellr_flush):
+    for fn in (lib.sellw_spmv, lib.sellw_spmm, lib.sellr_place,
+               lib.sellr_flush):
         fn.restype = i32
 
 
@@ -114,6 +122,14 @@ def sellw_planes_torch(word, vals, wrow, x, classes: Sequence[Tuple[int, int,
     return out
 
 
+def sellw_spmm_planes_torch(word, vals, wrow, xt, classes, G: int
+                            ) -> torch.Tensor:
+    """SELLW's planes for each column of X: (K, G·npad + 1, 128), from
+    ``xt`` = Xᵀ (K, n), ``sellw_planes_torch`` column by column."""
+    return torch.stack([sellw_planes_torch(word, vals, wrow, xt[k], classes,
+                                           G) for k in range(xt.shape[0])])
+
+
 def sellr_place_torch(word, vals, smeta, x, nchunks: int, stages: int,
                       rolls) -> torch.Tensor:
     """SELLR's placed chunk planes R (nchunks·8, 128): each part sum moved to
@@ -166,10 +182,38 @@ def _check_chunks(word, vals, rows_of_8: torch.Tensor, x) -> int:
     check(word, "word", torch.int32, (S, LANES))
     check(vals, "vals", torch.float32, (S, LANES))
     check(rows_of_8, "wrow/smeta", torch.int32)
-    check(x, "x", torch.float32, (x.shape[0],))
+    check(x, "x", torch.float32)
+    if x.dim() != 1:
+        raise ValueError(f"x: expected one dimension, got {tuple(x.shape)}")
     if S % SUB:
         raise ValueError(f"{S} sublanes is not a whole number of chunks")
     return S // SUB
+
+
+def _check_classes(classes, npad: int, G: int) -> int:
+    """Stage classes contiguous from chunk 0; returns the chunks covered."""
+    if G not in (1, 2, 4, 8):
+        raise ValueError(f"group G={G} is not 1, 2, 4 or 8")
+    covered = 0
+    for start, cnt, stages in classes:
+        if start != covered or stages > 7:
+            raise ValueError(f"stage classes {classes} are not contiguous "
+                             "from chunk 0 with at most 7 stages")
+        covered += cnt
+    if covered > npad:
+        raise ValueError(f"stage classes cover {covered} > {npad} chunks")
+    return covered
+
+
+def _planes_out(vals, cols: int, G: int, npad: int, covered: int):
+    """(cols, G·npad + 1, 128) output with the rows no launch writes (the
+    zero row, chunks past the classes) zeroed."""
+    out = torch.empty((cols, G * npad + 1, LANES), dtype=vals.dtype,
+                      device=vals.device)
+    out[:, -1].zero_()
+    if covered < npad:
+        out[:, :-1].view(cols, G, npad, LANES)[:, :, covered:].zero_()
+    return out
 
 
 def sellw_planes(word, vals, wrow, x, classes: Sequence[Tuple[int, int, int]],
@@ -181,21 +225,8 @@ def sellw_planes(word, vals, wrow, x, classes: Sequence[Tuple[int, int, int]],
         return sellw_planes_torch(word, vals, wrow, x, classes, G)
     npad = _check_chunks(word, vals, wrow, x)
     check(wrow, "wrow", torch.int32, (npad * SUB,))
-    if G not in (1, 2, 4, 8):
-        raise ValueError(f"group G={G} is not 1, 2, 4 or 8")
-    covered = 0
-    for start, cnt, stages in classes:
-        if start != covered or stages > 7:
-            raise ValueError(f"stage classes {classes} are not contiguous "
-                             "from chunk 0 with at most 7 stages")
-        covered += cnt
-    if covered > npad:
-        raise ValueError(f"stage classes cover {covered} > {npad} chunks")
-    out = torch.empty((G * npad + 1, LANES), dtype=vals.dtype,
-                      device=vals.device)
-    out[-1].zero_()
-    if covered < npad:
-        out[:-1].view(G, npad, LANES)[:, covered:].zero_()
+    covered = _check_classes(classes, npad, G)
+    out = _planes_out(vals, 1, G, npad, covered)[0]
     key = "sellw_stream" if stream_wins else "sellw"
     st = stream(x)
     with torch.cuda.device(x.device):
@@ -205,6 +236,34 @@ def sellw_planes(word, vals, wrow, x, classes: Sequence[Tuple[int, int, int]],
                              wrow.data_ptr(), x.data_ptr(), x.shape[0],
                              out.data_ptr(), npad, start, cnt, stages, G, st)
                 LAUNCHES[key] += 1
+    return out
+
+
+def sellw_spmm_planes(word, vals, wrow, xt, classes: Sequence[Tuple[int, int,
+                      int]], G: int) -> torch.Tensor:
+    """SELLW's planes for each column of X (the kernel; see
+    ``sellw_spmm_planes_torch``), from ``xt`` = Xᵀ (K, n) contiguous."""
+    if not on_cuda(word, vals, wrow, xt):
+        return sellw_spmm_planes_torch(word, vals, wrow, xt, classes, G)
+    check(xt, "xt", torch.float32)
+    if xt.dim() != 2:
+        raise ValueError(f"xt: expected (K, n), got {tuple(xt.shape)}")
+    npad = _check_chunks(word, vals, wrow, xt.view(-1))
+    check(wrow, "wrow", torch.int32, (npad * SUB,))
+    covered = _check_classes(classes, npad, G)
+    cols, n_x = xt.shape
+    out = _planes_out(vals, cols, G, npad, covered)
+    if cols:
+        st = stream(xt)
+        with torch.cuda.device(xt.device):
+            for start, cnt, stages in classes:
+                if cnt:
+                    _CUDA.launch("sellw_spmm", word.data_ptr(),
+                                 vals.data_ptr(), wrow.data_ptr(),
+                                 xt.data_ptr(), n_x, cols, out.data_ptr(),
+                                 out.shape[1] * LANES, npad, start, cnt,
+                                 stages, G, st)
+                    LAUNCHES["sellw_spmm"] += 1
     return out
 
 

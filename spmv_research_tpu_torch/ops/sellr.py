@@ -40,7 +40,7 @@ import torch
 from ..core.formats import _move
 from ..core.host import HostCSR
 from .clos_route import LANES, SUB
-from .dispatch import register_spmv
+from .dispatch import register_spmm_column_loop, register_spmv
 from . import sell_cuda as K
 from .sellw import _guard_bits, pick_scan_numpy
 
@@ -425,6 +425,10 @@ def spmv_sellr_cuda(A: SellR, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"SELLR/cuda needs the program and x on one CUDA "
                          f"device, got {A.device} and {x.device}")
     return K.sellr_y(*_args(A, x)).reshape(-1)[: A.m]
+
+
+# SpMM: one SpMV per column of X, for both impls (as the JAX spmm_sellr_xla)
+register_spmm_column_loop("SELLR")
 
 
 def _np(t) -> np.ndarray:

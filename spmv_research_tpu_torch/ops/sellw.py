@@ -4,12 +4,14 @@ Counterpart of ``spmv_research_tpu/ops/sellw.py`` (SpMV): the ``SellW``
 program, its builder with both packer tiers (carried over so that it emits
 identical program arrays: the native ``sellw_pack2`` for G = 2 and fp32, the
 Python packer otherwise), the float64 host executor ``execute_sellw_numpy``,
-and two SpMV impls:
+and two impls each of SpMV and SpMM:
 
 * ``"cuda"`` — the hand-written kernel of ``sell_cuda.py`` (the pallas
-  impl's counterpart; one kernel serves both the x-resident and the
-  ``stream_wins`` program, since the card has no VMEM limit on x);
-* ``"torch"`` — the same function in plain PyTorch.
+  impls' counterpart; one kernel serves both the x-resident and the
+  ``stream_wins`` program, since the card has no VMEM limit on x, and with
+  a loop over X's columns it is the SpMM kernel too);
+* ``"torch"`` — the same functions in plain PyTorch (SpMM: the SpMV's plain
+  version column by column, like the JAX ``spmm_sellw_xla``).
 
 Layout (see the JAX module for the design): chunks of 8×128 slots, each
 serving a group of ``G`` adjacent 128-row y blocks; each sublane is bound to
@@ -20,8 +22,7 @@ and ``_combine_y`` sums the ``K`` partial rows of each y block.
 
 The constants ``CHUNK_PAD`` and ``_X_VMEM_LIMIT`` and the ``stream_wins``
 flag are TPU-derived and kept so that the programs stay identical. The
-SpMM kernel and the source-index plane of the double-single build follow
-their workloads.
+source-index plane of the double-single build follows its workload.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import torch
 from ..core.formats import _move
 from ..core.host import HostCSR
 from .clos_route import LANES, SUB
-from .dispatch import register_spmv
+from .dispatch import register_spmm, register_spmv
 from . import sell_cuda as K
 
 CHUNK_PAD = 64          # chunks are padded to a multiple of this at build
@@ -379,8 +380,10 @@ def class_plan(A: SellW):
 
 
 def _combine_y(A: SellW, planes: torch.Tensor) -> torch.Tensor:
-    """y[b] = Σ_k planes[yidx[k, b]] (``planes`` ends in the zero row)."""
-    return planes[A.yidx.long()].sum(dim=0).reshape(-1)[: A.m]
+    """y[b] = Σ_k planes[yidx[k, b]] (``planes`` ends in the zero row); for
+    planes (K, G·npad + 1, 128) of K columns, y (K, m) in one gather."""
+    y = planes[..., A.yidx.long(), :].sum(dim=-3)
+    return y.flatten(-2)[..., : A.m]
 
 
 @register_spmv("SELLW", "torch")
@@ -391,15 +394,42 @@ def spmv_sellw_torch(A: SellW, x: torch.Tensor) -> torch.Tensor:
     return _combine_y(A, planes)
 
 
-@register_spmv("SELLW", "cuda")
-def spmv_sellw_cuda(A: SellW, x: torch.Tensor) -> torch.Tensor:
-    """SELLW through the hand-written CUDA kernel (CUDA tensors only)."""
+def _check_cuda(A: SellW, x: torch.Tensor) -> None:
     if x.device.type != "cuda" or A.device != x.device:
         raise ValueError(f"SELLW/cuda needs the program and x on one CUDA "
                          f"device, got {A.device} and {x.device}")
+
+
+@register_spmv("SELLW", "cuda")
+def spmv_sellw_cuda(A: SellW, x: torch.Tensor) -> torch.Tensor:
+    """SELLW through the hand-written CUDA kernel (CUDA tensors only)."""
+    _check_cuda(A, x)
     planes = K.sellw_planes(A.word, A.vals, A.wrow, x.to(A.vals.dtype),
                             class_plan(A), A.G, stream_wins=A.stream_wins)
     return _combine_y(A, planes)
+
+
+def _xt(A: SellW, X: torch.Tensor) -> torch.Tensor:
+    return X.to(A.vals.dtype).t().contiguous()
+
+
+@register_spmm("SELLW", "torch")
+def spmm_sellw_torch(A: SellW, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X in plain PyTorch: the SpMV's planes column by column, then
+    one ``_combine_y`` over all columns."""
+    planes = K.sellw_spmm_planes_torch(A.word, A.vals, A.wrow, _xt(A, X),
+                                       class_plan(A), A.G)
+    return _combine_y(A, planes).t()
+
+
+@register_spmm("SELLW", "cuda")
+def spmm_sellw_cuda(A: SellW, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X through the hand-written SpMM kernel (CUDA tensors only),
+    for x-resident and ``stream_wins`` programs alike."""
+    _check_cuda(A, X)
+    planes = K.sellw_spmm_planes(A.word, A.vals, A.wrow, _xt(A, X),
+                                 class_plan(A), A.G)
+    return _combine_y(A, planes).t()
 
 
 def _np(t) -> np.ndarray:

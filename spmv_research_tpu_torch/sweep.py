@@ -1,13 +1,16 @@
 """The port's sweep command line — the counterpart of ``tools/sweep.py``.
 
     python -m spmv_research_tpu_torch.sweep --matrix "<11-arg line>" \
-        [--matrices FILE] --formats csr sellr sellw closg dense --out DIR \
-        [--device cuda]
+        [--matrices FILE] --formats csr sellr sellw closg dense btile \
+        [--workloads spmv spmm sddmm] --out DIR [--device cuda]
 
 Matrix list files hold one synthetic parameter line per line (``#`` starts
 a comment), e.g. ``datasets/validation_twins.txt``. The config comes from
 the reference's env vars (``BenchConfig.from_env``: ``USE_RCM_REORDERING``
-= 0, 1 or auto, ``FIX_DIAGONAL_ZEROS``, ``MIN_NUM_LOOPS``, ``MIN_TIME_S``).
+= 0, 1 or auto, ``FIX_DIAGONAL_ZEROS``, ``MIN_NUM_LOOPS``, ``MIN_TIME_S``,
+and ``K_DIM``, the SpMM/SDDMM K, default 128). Each (format, workload) pair
+writes ``<fmt>_<workload>.csv``; a pair the format has no impl for is
+skipped.
 Formats and workloads the port does not have raise before any work starts.
 """
 

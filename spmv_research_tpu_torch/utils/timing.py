@@ -1,13 +1,14 @@
-"""Per-iteration timing of a chain of dependent SpMVs.
+"""Per-iteration timing of a chain of dependent SpMVs (or SpMMs, SDDMMs).
 
 Counterpart of ``spmv_research_tpu/utils/timing.py``. The protocol is kept:
 each iteration applies ``fn`` and folds its output back into its input as
-``x + y·1e-30`` (y resized to x's shape for non-square matrices), so no
-iteration is independent of the one before. On a CUDA device each iteration
-is bracketed by CUDA events on the current stream, which time the device's
-own clock; the JAX package's differential lo/hi chains existed only because
-``block_until_ready`` did not synchronise on its TPU runtime, and are not
-needed here. On the CPU, where PyTorch runs synchronously, the host clock
+``x + y·1e-30`` (y resized to x's shape: for non-square matrices, and for
+a 2-D X, whose fold takes the output's elements in order, cycled or cut to
+X's size), so no iteration is independent of the one before. On a CUDA
+device each iteration is bracketed by CUDA events on the current stream,
+which time the device's own clock; the JAX package's differential lo/hi
+chains existed only because ``block_until_ready`` did not synchronise on
+its TPU runtime, and are not needed here. On the CPU, where PyTorch runs synchronously, the host clock
 times each iteration; the result names its device so that a CPU time is
 never read as a device time.
 """
@@ -22,11 +23,13 @@ import torch
 
 
 def fold(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """x + y·1e-30: the next iterate depends on every element of y."""
+    """x + y·1e-30, y resized to x's shape: the next iterate depends on y."""
+    n = x.numel()
     y = y.reshape(-1).to(x.dtype)
-    if y.shape != x.shape:
-        y = y.repeat(-(-x.shape[0] // y.shape[0]))[: x.shape[0]]
-    return x + y * 1e-30
+    if y.numel() < n:
+        y = y.repeat(-(-n // y.numel()))
+    # a longer y is cut, not copied: an SDDMM slab can be 100× X's size
+    return x + y[:n].view(x.shape) * 1e-30
 
 
 def time_chain(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,

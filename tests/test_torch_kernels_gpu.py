@@ -8,7 +8,10 @@ exactly; K3 runs the same additions in the same order as its plain version
 and is held to 1e-6 of max |y| (fp32 add-order slack). The SELLW and SELLR
 kernels add in their plain versions' order and must match exactly, as must
 B4-B7 and B15 (gathers, one product per slot, and scan stages that add in
-the plain versions' order).
+the plain versions' order), and B12, the SELLW SpMM kernel (the SpMV
+kernel's pipeline per column). B16a and B16b, BTILE's SpMM and SDDMM, sum
+their products in another order than ``torch.bmm``: they are held to 1e-5
+of |A|·|X| per element and of Σ|a||b| per slot.
 """
 
 import numpy as np
@@ -19,17 +22,19 @@ import torch
 from spmv_research_tpu_torch.convert.reorder import rcm_if_beneficial
 from spmv_research_tpu_torch.core.host import HostCSR
 from spmv_research_tpu_torch.gen import generate_from_line
-from spmv_research_tpu_torch.ops import (build_clos_gather,
+from spmv_research_tpu_torch.ops import (build_btile, build_clos_gather,
                                          build_clos_gather_auto,
                                          build_clos_gather_xl, build_dense,
-                                         spmv)
+                                         sddmm, spmm, spmv)
+from spmv_research_tpu_torch.ops import btile_cuda as KB
 from spmv_research_tpu_torch.ops import clos_gather as cg
 from spmv_research_tpu_torch.ops import clos_cuda as K
 from spmv_research_tpu_torch.ops.clos import _t_bwd, _t_fwd
 from spmv_research_tpu_torch.ops import sell_cuda as KS
 from spmv_research_tpu_torch.ops import sellr, sellw
 
-from torch_cases import (TWIN_LINE, banded_matrix, capped_scan_matrix,
+from torch_cases import (TWIN_LINE, banded_matrix, btile_banded,
+                         capped_scan_matrix,
                          dirty_sellr_matrix, random_matrix, skewed_matrix,
                          skewed_xl_matrix, w0_matrix)
 
@@ -158,8 +163,8 @@ def test_sellr_kernels_match_plain_version(cuda, kind):
     want = KS.sellr_flush_torch(R_plain, A.gptr, A.gchunk)
     torch.cuda.synchronize()
     assert torch.equal(R, R_plain) and torch.equal(got, want)
-    assert KS.LAUNCHES == {"sellw": 0, "sellw_stream": 0, "sellr_place": 1,
-                           "sellr_flush": 1}
+    assert KS.LAUNCHES == {"sellw": 0, "sellw_stream": 0, "sellw_spmm": 0,
+                           "sellr_place": 1, "sellr_flush": 1}
     assert torch.equal(KS.sellr_y(*args), KS.sellr_y_torch(*args))
     _close_to_scipy(mat, x, spmv(A, xd))
 
@@ -282,3 +287,91 @@ def test_rowsplit_and_dense_on_the_card(cuda, monkeypatch):
         _close_to_scipy(mat, x, spmv(A.to(cuda), xd))
         _close_to_scipy(mat, x, spmv(build_dense(HostCSR.from_scipy(mat))
                                      .to(cuda), xd))
+
+
+@pytest.mark.parametrize("kind", ["g2", "g4", "stream"])
+def test_sellw_spmm_kernel_matches_plain_version(cuda, kind, monkeypatch):
+    """B12 over K = 10 columns: the planes equal the plain version's."""
+    if kind == "stream":
+        monkeypatch.setattr(sellw, "_X_VMEM_LIMIT", 512)
+        mat, G = banded_matrix(400, 1030, 60, 8, 3), 2
+    else:
+        mat, G = banded_matrix(1200, 1200, 160, 14, 2), int(kind[1])
+    A = sellw.build_sellw(HostCSR.from_scipy(mat), group=G).to(cuda)
+    X = np.random.Generator(np.random.PCG64(8)).uniform(
+        -1.0, 1.0, (mat.shape[1], 10))
+    Xd = torch.as_tensor(X, dtype=torch.float32, device=cuda)
+    args = (A.word, A.vals, A.wrow, Xd.t().contiguous(), sellw.class_plan(A),
+            G)
+    KS.reset_launch_counts()
+    got = KS.sellw_spmm_planes(*args)
+    want = KS.sellw_spmm_planes_torch(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    n_launched = sum(1 for _, cnt, _ in sellw.class_plan(A) if cnt)
+    assert KS.LAUNCHES["sellw_spmm"] == n_launched >= 1
+    Y = spmm(A, Xd).double().cpu().numpy()            # CUDA tensor: "cuda"
+    scale = np.abs(mat) @ np.abs(X) + 1e-30
+    assert np.max(np.abs(Y - mat @ X) / scale) <= 1e-5
+
+
+def _btile_case(cuda, k, empty_band=False):
+    mat = btile_banded(2500, 2500, 12, 200, 1)
+    if empty_band:             # rows [1024, 2048) empty: a filler step
+        mat = mat.tolil()
+        mat[1024:2048] = 0
+        mat = mat.tocsr()
+        mat.eliminate_zeros()
+    A = build_btile(HostCSR.from_scipy(mat)).to(cuda)
+    rng = np.random.Generator(np.random.PCG64(k))
+    m, n = mat.shape
+    return mat, A, *(torch.as_tensor(rng.uniform(-1, 1, s),
+                                     dtype=torch.float32, device=cuda)
+                     for s in ((n, k), (m, k), (n, k)))
+
+
+@pytest.mark.parametrize("k, empty_band", [(16, False), (37, False),
+                                           (8, True)])
+def test_btile_kernels_match_plain_versions(cuda, k, empty_band,
+                                            monkeypatch):
+    """B16a (SpMM; K = 37 pads X to 64 columns; bands cut into chunks, and
+    whole bands in the empty-band case) and B16b (SDDMM; K = 37 takes two
+    registers per lane), on three bands."""
+    if empty_band:
+        monkeypatch.setattr(KB, "spmm_blocks", lambda _: 1)
+    mat, A, X, Am, Bm = _btile_case(cuda, k, empty_band)
+    kp = -(-k // KB.SPMM_KS) * KB.SPMM_KS
+    nchunk, _ = KB._chunks(A.ngroups, kp // KB.SPMM_KS, A.nsteps,
+                           A.max_band_steps, kp, KB.spmm_blocks(X.device))
+    assert (nchunk > 1) != empty_band
+    KB.reset_launch_counts()
+    Y = spmm(A, X)                                     # CUDA tensor: "cuda"
+    Y_plain = spmm(A, X, impl="torch")
+    yard = spmm(A.to("cpu"), X.abs().cpu()).to(cuda)   # |A|·|X|, A ≥ 0
+    C = sddmm(A, Am, Bm)
+    C_plain = sddmm(A, Am, Bm, impl="torch")
+    dots = sddmm(A, Am.abs(), Bm.abs(), impl="torch")  # Σ|a||b| per slot
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES == {"btile_spmm": 1, "btile_combine": int(nchunk > 1),
+                           "btile_sddmm": 1}
+    assert ((Y - Y_plain).abs() <= 1e-5 * yard).all()
+    assert ((C - C_plain).abs() <= 1e-5 * dots).all()
+    assert not C[A.patt == 0].any()
+    if empty_band:
+        assert not Y[1024:2048].any()
+    Xh = X.double().cpu().numpy()
+    scale = np.abs(mat) @ np.abs(Xh) + 1e-30
+    got = Y.double().cpu().numpy()
+    assert np.max(np.abs(got - mat @ Xh) / scale) <= 1e-5
+
+
+def test_btile_wrappers_refuse_bad_input(cuda):
+    _, A, X, Am, Bm = _btile_case(cuda, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        spmm(A, X.cpu(), impl="cuda")
+    big = torch.zeros((Am.shape[0], 300), device=cuda)
+    with pytest.raises(ValueError, match="K ≤ 256"):
+        sddmm(A, big, torch.zeros((Bm.shape[0], 300), device=cuda))
+    with pytest.raises(ValueError, match="several devices"):
+        KB.btile_spmm(A.tiles, A.tgt.cpu(), A.step_g, A.step_cb, A.step_nt,
+                      A.band_ptr, X, A.ngroups, A.max_band_steps)

@@ -7,7 +7,9 @@ program arrays (``np.array_equal``) and meta fields, on both packer tiers
 identical program (carried over with ``sellw_from_jax``) against the JAX
 pallas impl in interpret mode, within 1e-6 of |A|·|x| (the kernel sums
 sublanes in order; XLA's reduction order is unspecified); the float64 host
-executors must agree exactly.
+executors must agree exactly. SpMM: the port's ``"torch"`` impl (the SpMV's
+plain version per column, one combine) against ``spmm_sellw_xla`` and,
+once, the pallas SpMM kernel in interpret mode, at K not a multiple of 8.
 """
 
 import numpy as np
@@ -19,13 +21,13 @@ import jax.numpy as jnp
 import spmv_research_tpu.io.native as jax_native
 import spmv_research_tpu.ops.sellw as jax_sellw
 from spmv_research_tpu.core.host import HostCSR as JaxHostCSR
-from spmv_research_tpu.ops import spmv as jax_spmv
+from spmv_research_tpu.ops import spmm as jax_spmm, spmv as jax_spmv
 
 import spmv_research_tpu_torch.io.native as native
 import spmv_research_tpu_torch.ops.sellw as sellw
 from spmv_research_tpu_torch.core.host import HostCSR
 from spmv_research_tpu_torch.ops import sell_cuda as K
-from spmv_research_tpu_torch.ops import spmv
+from spmv_research_tpu_torch.ops import spmm, spmv
 
 from torch_cases import banded_matrix, scattered_matrix
 
@@ -123,6 +125,52 @@ def test_torch_impl_matches_jax_pallas(case):
     assert np.max(np.abs(got - want) / _scale(mat, x)) <= 1e-6
 
 
+def _X(n, k, seed=8):
+    rng = np.random.Generator(np.random.PCG64(seed))
+    return rng.uniform(-1.0, 1.0, (n, k)).astype(np.float32)
+
+
+def _near_spmm(mat, X, got, want, tol=1e-6):
+    scale = np.abs(mat) @ np.abs(X).astype(np.float64) + 1e-30
+    assert got.shape == np.shape(want) == (mat.shape[0], X.shape[1])
+    assert np.max(np.abs(got - np.asarray(want)) / scale) <= tol
+
+
+def test_spmm_torch_impl_matches_jax_xla(case):
+    mat, Aj, A, _ = case
+    X = _X(mat.shape[1], 3)
+    want = jax_spmm(Aj, jnp.asarray(X), impl="xla")
+    _near_spmm(mat, X, spmm(A, torch.from_numpy(X)).numpy(), want)
+
+
+def test_spmm_torch_impl_matches_jax_pallas(monkeypatch):
+    """The JAX SpMM kernel in interpret mode, K = 10: a full k-tile of 8
+    and a ragged one of 2. Chunks are padded to 8, not 64, so that the
+    interpreter unrolls 64 row copies per column and not 512."""
+    monkeypatch.setattr(jax_sellw, "CHUNK_PAD", 8)
+    mat = banded_matrix(300, 300, 40, 6, 1)
+    Aj = jax_sellw.build_sellw(JaxHostCSR.from_scipy(mat))
+    A = sellw.sellw_from_jax(*_leaves(Aj))
+    assert A.wrow.shape[0] == 8 * 8
+    X = _X(mat.shape[1], 10)
+    want = jax_spmm(Aj, jnp.asarray(X), impl="pallas")
+    _near_spmm(mat, X, spmm(A, torch.from_numpy(X)).numpy(), want)
+
+
+def test_spmm_wrapper_takes_plain_version_on_cpu(case):
+    mat, _, A, _ = case
+    X = _X(mat.shape[1], 3)
+    xt = torch.from_numpy(X).t().contiguous()
+    args = (A.word, A.vals, A.wrow, xt, sellw.class_plan(A), A.G)
+    K.reset_launch_counts()
+    planes = K.sellw_spmm_planes(*args)
+    assert torch.equal(planes, K.sellw_spmm_planes_torch(*args))
+    assert not any(K.LAUNCHES.values())
+    for k in range(3):      # column k's planes are the SpMV's on X[:, k]
+        assert torch.equal(planes[k], K.sellw_planes_torch(
+            A.word, A.vals, A.wrow, xt[k], sellw.class_plan(A), A.G))
+
+
 def test_execute_sellw_numpy_identical(case):
     _, Aj, A, x = case
     x64 = x.astype(np.float64)
@@ -150,6 +198,8 @@ def test_program_moves_whole_and_refuses_cuda_impl_on_cpu(case):
     assert B.classes == A.classes and B.device.type == "meta"
     with pytest.raises(ValueError, match="CUDA"):
         spmv(A, torch.from_numpy(x), impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        spmm(A, torch.from_numpy(x)[:, None], impl="cuda")
 
 
 def test_scattered_matrix_refused():

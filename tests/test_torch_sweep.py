@@ -123,8 +123,8 @@ def test_sweep_resumes_from_done_log(sweep_out):
 def test_sweep_refuses_unported_names(tmp_path):
     with pytest.raises(NotImplementedError, match="bfly"):
         check_sweep_args(["csr", "bfly"], ["spmv"])
-    with pytest.raises(NotImplementedError, match="spmm"):
-        run_sweep([BANDED_LINE], formats=("csr",), workloads=("spmm",),
+    with pytest.raises(NotImplementedError, match="cg"):
+        run_sweep([BANDED_LINE], formats=("csr",), workloads=("cg",),
                   out_dir=str(tmp_path), device="cpu")
     with pytest.raises(NotImplementedError, match="Matrix Market"):
         load_matrix("matrix.mtx", BenchConfig())
@@ -166,13 +166,13 @@ def test_load_matrix_matches_jax(rcm):
 def test_config_from_env_matches_jax(monkeypatch):
     for env in ({"USE_RCM_REORDERING": "auto", "MIN_NUM_LOOPS": "7"},
                 {"USE_RCM_REORDERING": "1", "FIX_DIAGONAL_ZEROS": "1",
-                 "MIN_TIME_S": "0.5"}):
+                 "MIN_TIME_S": "0.5", "K_DIM": "64"}):
         for k, v in env.items():
             monkeypatch.setenv(k, v)
         c, cj = BenchConfig.from_env(), JaxBenchConfig.from_env()
         for f in ("use_rcm_reordering", "fix_diagonal_zeros",
                   "matrix_transform", "min_num_loops", "min_time_s",
-                  "warmup_iters", "dtype"):
+                  "warmup_iters", "dtype", "k_dim", "inner_iters"):
             assert getattr(c, f) == getattr(cj, f), f
 
 

@@ -53,6 +53,20 @@ def banded_matrix(m, n, band, nnzpr_hi, seed):
     return mat
 
 
+def btile_banded(m, n, nnz_row, bw, seed):
+    """tests/test_btile.py's _banded: nnz_row entries per row within bw
+    columns of the scaled diagonal, values uniform in [0.1, 1)."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(m), nnz_row)
+    ctr = (rows * n) // max(m, 1)
+    cols = np.clip(ctr + rng.integers(-bw, bw + 1, rows.size), 0, n - 1)
+    vals = rng.uniform(0.1, 1.0, rows.size)
+    mat = sp.coo_matrix((vals, (rows, cols)), shape=(m, n)).tocsr()
+    mat.sum_duplicates()
+    mat.sort_indices()
+    return mat
+
+
 def dirty_sellr_matrix():
     """tests/test_sellr.py:78's matrix: a band plus one 1900-nnz row, whose
     128-lane parts land far from their target sublanes, so SELLR needs
