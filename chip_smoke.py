@@ -75,17 +75,32 @@ failure (non-zero exit, no result line):
     under the JAX labels, B16a (its product and its chunks' combine), B16b
     and B12 launched, every row within
     1e-5 of the fp64 gold's |·| yardstick, the 8 error metrics printed;
-    then each row's call timed alone on the card.
+    then each row's call timed alone on the card;
+15. double-single and solvers (``ds_phase``): the shipsec1 twin with RCM
+    (``USE_RCM_REORDERING=1``, as ``load_matrix`` makes it), SELLWDS and
+    CSRDS built (chunks, classes, MiB, seconds); B13 against its plain
+    version on every stage class (exact) and timed beside cuSPARSE's fp64
+    CSR SpMV, its launches per SpMV counted; the fp64 results of
+    SELLWDS/cuda and CSRDS/torch through ``spmv_f64`` against the
+    longdouble gold (max relative error < 1e-10) and their fp32 entries
+    within 1e-6 of the fp32-x gold, CSR/torch's fp32 gate logged beside
+    them; the spmv sweep with RCM on and formats csr, sellw, sellwds and
+    csrds (the DS rows judged at the fp64 gate, B13 launched); a traced
+    chain of 50 per DS candidate; the CG sweep on shipsec1_spd (csr,
+    sellw, sellwds) and the BiCGStab sweep on scircuit_dd (csr, closg),
+    every row converged with a relative residual < 1e-5, and one counted
+    solve of each (B13's and B1-B3's launches per solve).
 
 Every kernel entry carries its bound: the larger of the bytes the function
 must move (each input read once, each output written once, a gather
 counting the elements it picks) over the card's data-sheet memory rate and
 its fp32 operations over the fp32 peak (``utils/roofline.py``), from this
-run's inputs. ``library_ms`` is null for the SpMV kernels: no single
+run's inputs. ``library_ms`` is null for the fp32 SpMV kernels: no single
 PyTorch call computes one of their functions (phases 10 and 11 time
 cuSPARSE's whole SpMV); the SpMM and SDDMM kernels have cuSPARSE's
-(``torch.sparse.mm``, ``torch.sparse.sampled_addmm``), which the port never
-calls. B16a's entry also carries ``combine_launches``, the sweep's launches
+(``torch.sparse.mm``, ``torch.sparse.sampled_addmm``), and B13, whose
+function is an fp64-accurate SpMV, cuSPARSE's fp64 CSR SpMV (a float64
+``torch.sparse_csr`` product), none of which the port ever calls. B16a's entry also carries ``combine_launches``, the sweep's launches
 of its second kernel (the sum of a band's chunk partials); its ``ms`` is
 the wrapper's, both launches.
 
@@ -844,11 +859,16 @@ def main() -> None:
 
     # --- 14. the K-dimension workloads ---
     k_kdim = k_dim_phase(timer, dev, gup, ship, Ag, Aw, gup_launches, cfg)
-    del gup, ship, Ag, Aw
+    del gup, Ag, Aw
+    log(f"# phase 14 done at {time.perf_counter() - t_start:.0f}s")
+
+    # --- 15. double-single and solvers ---
+    del ship
+    k_ds = ds_phase(timer, dev, cfg)
     log(f"# all phases done at {time.perf_counter() - t_start:.0f}s")
 
     kernels += [*k_chunks, k_sellw, k_stream, *k_sellr, *k_opt, *k_w0,
-                *k_xl, *k_kdim]
+                *k_xl, *k_kdim, *k_ds]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1067,6 +1087,208 @@ def k_dim_phase(timer, dev, gup, ship, Ag, Aw, gup_launches, cfg) -> list:
     return [k_spmm, k_sddmm, k_b12]
 
 
+def ds_phase(timer, dev, cfg) -> list:
+    """Phase 15, double-single and solvers: on the shipsec1 twin with RCM
+    (the sweep's host for ``USE_RCM_REORDERING=1``, and the x of its bench)
+    the SELLWDS and CSRDS programs, B13 against its plain version and timed
+    beside cuSPARSE's fp64 SpMV, the fp64 gate, the DS spmv sweep rows and
+    their traces; CG on shipsec1_spd and BiCGStab on scircuit_dd through
+    the sweep, and one counted solve of each."""
+    import dataclasses
+    import torch
+    from spmv_research_tpu_torch import bench
+    from spmv_research_tpu_torch.convert import build_csr
+    from spmv_research_tpu_torch.harness import run_sweep
+    from spmv_research_tpu_torch.harness.bench import csv_labels
+    from spmv_research_tpu_torch.harness.metrics import check_accuracy
+    from spmv_research_tpu_torch.harness.sweep import load_matrix
+    from spmv_research_tpu_torch.ops import (build_clos_gather_auto,
+                                             build_csrds, build_sellwds, spmv)
+    from spmv_research_tpu_torch.ops import clos_cuda as K
+    from spmv_research_tpu_torch.ops import sell_cuda as KS
+    from spmv_research_tpu_torch.ops.compensated import SEG, _split_f64
+    from spmv_research_tpu_torch.ops.sellw import class_plan
+    from spmv_research_tpu_torch.solvers import solve_bicgstab, solve_cg
+
+    t_phase = time.perf_counter()
+    # 1. the programs
+    dcfg = dataclasses.replace(cfg, use_rcm_reordering=True)
+    ship = load_matrix(SHIPSEC1_LINE, dcfg)[0]
+    xs = np.random.Generator(np.random.PCG64(7)).uniform(0.0, 1.0, ship.n)
+    t0 = time.perf_counter()
+    Ads = build_sellwds(ship)
+    t_w = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Acs = build_csrds(ship)
+    t_c = time.perf_counter() - t0
+    B = Ads.base
+    plan = class_plan(B)
+    log(f"# shipsec1 SELLWDS (build {t_w:.2f}s): nchunks={B.nchunks} "
+        f"npad={B.wrow.numel() // 8} G={B.G} K={B.K} stages={B.stages} "
+        f"classes={B.classes} MiB={Ads.mem_footprint_bytes() / 2**20:.1f}")
+    log(f"# shipsec1 CSRDS (build {t_c:.2f}s): "
+        f"{Acs.vhi.shape[0] - 1} segments x {SEG}, kseg={Acs.kseg}, "
+        f"MiB={Acs.mem_footprint_bytes() / 2**20:.1f}")
+    Ads, Acs = Ads.to(dev), Acs.to(dev)
+    B = Ads.base
+    xsd = torch.as_tensor(xs, dtype=torch.float32, device=dev)
+
+    # 2. B13 against its plain version, timed beside cuSPARSE's fp64 SpMV
+    xh, xl = (torch.as_tensor(v, device=dev) for v in _split_f64(xs))
+    args = (B.word, B.vals, Ads.vlo, B.wrow, xh, xl, plan, B.G)
+    planes = KS.sellwds_planes_torch(*args)
+    # per slot: TwoProd and the cross terms (20 operations) and 7 per scan
+    # stage of its class; per chunk lane and y block, 8 TwoSum folds (8
+    # each)
+    ops = sum(cnt * 1024 * (20 + 7 * st) + cnt * 128 * B.G * 64
+              for _, cnt, st in plan)
+    lib64 = torch.sparse_csr_tensor(
+        torch.as_tensor(ship.ia, dtype=torch.int32),
+        torch.as_tensor(ship.ja, dtype=torch.int32),
+        torch.as_tensor(ship.a, dtype=torch.float64),
+        size=(ship.m, ship.n)).to(dev)
+    x64 = torch.as_tensor(xs, dtype=torch.float64, device=dev)
+    k_b13 = check_kernel(
+        timer, "sellwds", SELL_SRC, "spmv_research_tpu/ops/sellw_ds.py:154",
+        [(lambda: KS.sellwds_planes(*args),
+          lambda: KS.sellwds_planes_torch(*args))], exact,
+        (nbytes(*args) + nbytes(planes), ops),
+        library=lambda: lib64 @ x64.unsqueeze(1))
+    y, launches = counted_spmv(Ads, xsd, KS)
+    log(f"# launches during one shipsec1 SELLWDS SpMV: {launches} "
+        f"({len(plan)} stage classes)")
+    if launches["sellwds"] != sum(1 for _, cnt, _ in plan if cnt):
+        fail(f"one SELLWDS SpMV launched B13 {launches['sellwds']} times")
+    y64 = (lib64 @ x64.unsqueeze(1)).squeeze(1).cpu().numpy()
+    log(f"# cuSPARSE fp64 SpMV vs longdouble gold: max rel = "
+        f"{check_accuracy(ship, xs, y64, np.float64).max_rel_err}")
+    del planes, y, lib64, x64, y64
+
+    # 3. the fp64 gate (and the fp32 entries, and CSR/torch's fp32 row)
+    gold32 = ship.to_scipy() @ xs.astype(np.float32).astype(np.float64)
+    for label, A in (("SELLWDS/cuda", Ads), ("CSRDS/torch", Acs)):
+        t0 = time.perf_counter()
+        y = A.spmv_f64(xs)
+        t_f64 = time.perf_counter() - t0
+        m = check_accuracy(ship, xs, y, value_dtype=np.float64)
+        log(f"# {label} spmv_f64 ({t_f64:.2f}s on the host clock) vs "
+            f"longdouble gold: max rel = {m.max_rel_err}, fp64 gate "
+            f"(1e-10) passed={m.passed}")
+        if not (y.shape == (ship.m,) and np.isfinite(y).all() and m.passed
+                and m.max_rel_err < 1e-10):
+            fail(f"{label} fails the fp64 gate: max rel {m.max_rel_err}")
+        y32 = spmv(A, xsd).double().cpu().numpy()
+        rel32 = float(np.max(np.abs(y32 - gold32)
+                             / np.maximum(np.abs(gold32), 1e-300)))
+        log(f"# {label} fp32 entry vs the fp32-x gold: max rel = {rel32}")
+        if not rel32 < 1e-6:
+            fail(f"{label} fp32 entry: max rel {rel32} past 1e-6")
+    csr = build_csr(ship).to(dev)
+    m = check_accuracy(ship, xs, spmv(csr, xsd).double().cpu().numpy(),
+                       value_dtype=np.float32)
+    log(f"# CSR/torch (fp32, for contrast) vs longdouble gold: max rel = "
+        f"{m.max_rel_err}, fp32 gate (1e-7) passed={m.passed}")
+    del csr
+
+    # 4. the spmv sweep rows, RCM on
+    formats = ("csr", "sellw", "sellwds", "csrds")
+    with tempfile.TemporaryDirectory() as out_dir:
+        KS.reset_launch_counts()
+        results = run_sweep([SHIPSEC1_LINE], formats=formats,
+                            out_dir=out_dir, config=dcfg, device=dev)
+        torch.cuda.synchronize()
+        launches = dict(KS.LAUNCHES)
+        log(f"# launches during the DS spmv sweep: {launches}")
+        for name in ("sellw", "sellwds"):
+            if launches[name] <= 0:
+                fail(f"the DS spmv sweep never launched {name}")
+        check_csvs(out_dir, csv_labels(synthetic=True),
+                   {f"{f}_spmv": 1 for f in formats})
+    k_b13["launches"] = launches["sellwds"]
+    check_rows(results, ["CSR/torch", "SELLW/cuda", "SELLWDS/cuda",
+                         "CSRDS/torch"], {"shipsec1": ship}, xs)
+    for r in results:
+        ds = r.format_name in ("SELLWDS", "CSRDS")
+        if ds != (r.roofline_kind == "csr64") or (ds and not (
+                r.metrics.passed and r.metrics.max_rel_err < 1e-10)):
+            fail(f"sweep {r.format_name}/{r.impl}: roofline "
+                 f"{r.roofline_kind}, max rel {r.metrics.max_rel_err}")
+        log(f"# sweep {r.format_name}/{r.impl}: roofline_frac "
+            f"{r.roofline_frac:.4f} ({r.roofline_kind}), achieved "
+            f"{r.achieved_gbps:.1f} GB/s")
+    del results
+
+    # 5. the DS candidates, one SpMV each and a traced chain of 50
+    time_candidates(timer, "shipsec1", {
+        "SELLWDS/cuda": lambda v: spmv(Ads, v, impl="cuda"),
+        "CSRDS/torch": lambda v: spmv(Acs, v, impl="torch")},
+        ("SELLWDS/cuda", "CSRDS/torch"), xsd)
+    del Ads, Acs, args, xh, xl, ship
+    log(f"# phase 15 DS part done in {time.perf_counter() - t_phase:.0f}s")
+
+    # 6. CG on shipsec1_spd, 7. BiCGStab on scircuit_dd
+    def bench_b(m):
+        """bench_cg's b: uniform in [0, 1) from PCG64(13)."""
+        return np.random.Generator(np.random.PCG64(13)).uniform(0, 1, m)
+
+    for workload, line, transform, fmts, libs, build, solve, rows in (
+            ("cg", SHIPSEC1_LINE, "spd", ("csr", "sellw", "sellwds"), (KS,),
+             build_sellwds, solve_cg,
+             ["CSR/torch", "SELLW/cuda", "SELLWDS/cuda"]),
+            ("bicgstab", bench.SCIRCUIT_LINE, "dd", ("csr", "closg"), (K,),
+             build_clos_gather_auto, solve_bicgstab,
+             ["CSR/torch", "CLOSG/cuda"])):
+        scfg = dataclasses.replace(
+            cfg, use_rcm_reordering=True if workload == "cg" else "auto",
+            matrix_transform=transform, cg_max_num_iters=50)
+        with tempfile.TemporaryDirectory() as out_dir:
+            for lib in libs:
+                lib.reset_launch_counts()
+            results = run_sweep([line], formats=fmts, workloads=(workload,),
+                                out_dir=out_dir, config=scfg, device=dev)
+            torch.cuda.synchronize()
+            launches = {k: v for lib in libs for k, v in lib.LAUNCHES.items()}
+            log(f"# launches during the {workload} sweep: {launches}")
+            check_csvs(out_dir, WORKLOAD_LABELS,
+                       {f"{f}_{workload}": 1 for f in fmts})
+        got = sorted(f"{r.format_name}/{r.impl}" for r in results)
+        if got != sorted(rows):
+            fail(f"{workload} sweep rows {got}, want {sorted(rows)}")
+        for r in results:
+            e = r.extra
+            log(f"# {workload} {r.matrix_name} {r.format_name}/{r.impl}: "
+                f"converged={e['converged']} iterations={r.num_loops} "
+                f"relative residual={e['relative_residual']} solve "
+                f"{e['solve_time'] * 1e3:.4f} ms, per iteration "
+                f"{r.time_iter_median * 1e6:.1f} us, {r.gflops:.2f} GFLOPS, "
+                f"first solve {e['compile_time']:.2f}s, preconditioner "
+                f"{e['precond_setup_time']:.3f}s")
+            if not (e["converged"] and e["relative_residual"] < 1e-5):
+                fail(f"{workload} {r.format_name}/{r.impl} did not converge "
+                     f"below 1e-5: {e}")
+        # one solve of the engine, counted
+        host = load_matrix(line, scfg)[0]
+        A = build(host).to(dev)
+        for lib in libs:
+            lib.reset_launch_counts()
+        x, info = solve(host, A, bench_b(host.m), max_iters=50, rtol=1e-6)
+        torch.cuda.synchronize()
+        launches = {k: v for lib in libs for k, v in lib.LAUNCHES.items()
+                    if v}
+        prog = getattr(A, "base", None)
+        shape = (f" (nchunks={prog.nchunks} K={prog.K} classes="
+                 f"{prog.classes})" if prog is not None else "")
+        log(f"# one {workload} solve on {type(A).__name__}{shape}: "
+            f"iterations={int(info['iterations'])} (loop "
+            f"{info['loop_iterations']}), converged="
+            f"{bool(info['converged'])}, launches {launches}")
+        if not launches:
+            fail(f"the counted {workload} solve launched no kernel")
+        del host, A, x, results
+    log(f"# phase 15 done in {time.perf_counter() - t_phase:.0f}s")
+    return [k_b13]
+
+
 def check_y(label, host, X, Y) -> None:
     """Y (m, K) against the fp64 product within 1e-5 of |A|·|X|."""
     mat = host.to_scipy()
@@ -1122,7 +1344,7 @@ def log_metrics(key, m) -> None:
     log(f"# {key} metrics: mae={m.mae} max_ae={m.max_ae} mse={m.mse} "
         f"mape={m.mape} smape={m.smape} lnQ_error={m.lnQ_error} "
         f"mlare={m.mlare} gmare={m.gmare} max_rel_err={m.max_rel_err} "
-        f"gate(1e-7) passed={m.passed}")
+        f"gate passed={m.passed} (1e-7; the DS rows' fp64 gate 1e-10)")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 // Hand-written Hopper (sm_90a) kernels of the column-locality engines,
-// SELLW and SELLR.
+// SELLW and SELLR, and of SELLW's double-single variant, SELLWDS.
 //
 // Built by spmv_research_tpu_torch/ops/sell_cuda.py (through cuda_lib.py)
 // with
@@ -221,6 +221,129 @@ __global__ void __launch_bounds__(kChunk)
   y[(int64_t)g * kChunk + t] = yv;
 }
 
+// Double-single arithmetic for SELLWDS. Every multiply, add and subtract is
+// an __f*_rn intrinsic: nvcc never contracts those into an fma, and Dekker's
+// TwoProd and Knuth's TwoSum are exact only when each step is rounded on its
+// own (the TPU kernel's arithmetic; an fma would change the error terms).
+__device__ __forceinline__ void two_sum(float a, float b, float& s,
+                                        float& e) {
+  s = __fadd_rn(a, b);
+  const float bb = __fsub_rn(s, a);
+  e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
+}
+
+// Dekker's split into 12 + 12-bit halves (4097 = 2^12 + 1); the builder
+// refuses |a| >= 8e34, where 4097 * a would overflow.
+__device__ __forceinline__ void split32(float a, float& hi, float& lo) {
+  const float c = __fmul_rn(a, 4097.0f);
+  hi = __fsub_rn(c, __fsub_rn(c, a));
+  lo = __fsub_rn(a, hi);
+}
+
+// SELLWDS (entry sellwds_spmv, kernel B13) — replaces
+// spmv_research_tpu/ops/sellw_ds.py `_sellwds_kernel`. SELLW's layout and
+// routing (one block of 1024 threads per chunk of one stage class, thread
+// (s, l), x read from device memory), with every value an (hi, lo) fp32
+// pair:
+//   1. the picks x hi[col] and x lo[col] of the slot;
+//   2. p + e = TwoProd(vhi, x hi) (Dekker: p = vhi * x hi, e = ((ahi * bhi
+//      - p) + ahi * blo + alo * bhi) + alo * blo), then e += vhi * x lo,
+//      then e += vlo * x hi;
+//   3. `stages` guarded stages of the segmented lane scan on the (s, e)
+//      pair: t = s + rs; bb = t - s; err = (s - (t - bb)) + (rs - bb);
+//      e = (e + re) + err; s = t, with (rs, re) the pair 2^k lanes back
+//      where the slot's guard bit 7 + k is set, else 0. Each stage reads
+//      the previous stage's whole row, so two shared buffers per plane
+//      ping-pong (16 KiB a block);
+//   4. the pick of the (s, e) pair at eidx;
+//   5. for each of the G y blocks of the chunk's group, a sequential TwoSum
+//      fold over sublanes 0..7 of the picks whose live bit (21) is set and
+//      whose bid (bits 22 and up) is that block's.
+// Output: plane g of out_s and out_e at rows [g*npad, (g+1)*npad), as
+// sellw_kernel's. Each chunk is computed on its own: the TPU kernel's grid
+// steps shared nothing but the resident x planes. The arithmetic is the
+// JAX kernel's step for step, in its order, so the plain PyTorch version
+// (every operation rounded on its own) gives the same bits.
+// Bound: device memory, 12 bytes per slot read (word, vhi, vlo), x hi and
+// lo from L2, 2 * 512 * G bytes written per chunk.
+__global__ void __launch_bounds__(kChunk)
+    sellwds_kernel(const uint32_t* __restrict__ word,
+                   const float* __restrict__ vhi,
+                   const float* __restrict__ vlo,
+                   const int32_t* __restrict__ wrow,
+                   const float* __restrict__ xh,
+                   const float* __restrict__ xl, int64_t n_x,
+                   float* __restrict__ out_s, float* __restrict__ out_e,
+                   int64_t npad, int64_t chunk0, int stages, int G) {
+  __shared__ float bs[2][kChunk];
+  __shared__ float be[2][kChunk];
+  __shared__ int8_t tag[kChunk];
+  const int t = threadIdx.x;
+  const int row = t & ~(kLanes - 1);
+  const int l = t & (kLanes - 1);
+  const int64_t c = chunk0 + blockIdx.x;
+  const int64_t off = c * kChunk + t;
+  const uint32_t w = word[off];
+  const float a = vhi[off];
+  const float b = vlo[off];
+  const int64_t col =
+      (int64_t)wrow[c * kSub + t / kLanes] * kLanes + (w & 0x7F);
+  // the x planes' zero padding past n_x
+  const float gh = col < n_x ? xh[col] : 0.0f;
+  const float gl = col < n_x ? xl[col] : 0.0f;
+  const float p = __fmul_rn(a, gh);
+  float ahi, alo, bhi, blo;
+  split32(a, ahi, alo);
+  split32(gh, bhi, blo);
+  float e = __fadd_rn(
+      __fadd_rn(__fadd_rn(__fsub_rn(__fmul_rn(ahi, bhi), p),
+                          __fmul_rn(ahi, blo)),
+                __fmul_rn(alo, bhi)),
+      __fmul_rn(alo, blo));
+  e = __fadd_rn(__fadd_rn(e, __fmul_rn(a, gl)), __fmul_rn(b, gh));
+  bs[0][t] = p;
+  be[0][t] = e;
+  tag[t] = (w >> 21) & 1u ? (int8_t)((w >> 22) & (uint32_t)(G - 1))
+                          : (int8_t)-1;
+  __syncthreads();
+  int cur = 0;
+  for (int k = 0; k < stages; ++k) {
+    const bool guard = (w >> (7 + k)) & 1u;
+    const int src = row + ((l - (1 << k)) & 127);
+    const float s0 = bs[cur][t];
+    const float rs = guard ? bs[cur][src] : 0.0f;
+    const float re = guard ? be[cur][src] : 0.0f;
+    const float s1 = __fadd_rn(s0, rs);
+    const float bb = __fsub_rn(s1, s0);
+    const float err =
+        __fadd_rn(__fsub_rn(s0, __fsub_rn(s1, bb)), __fsub_rn(rs, bb));
+    be[cur ^ 1][t] = __fadd_rn(__fadd_rn(be[cur][t], re), err);
+    bs[cur ^ 1][t] = s1;
+    __syncthreads();
+    cur ^= 1;
+  }
+  // the picks go to the buffers the last stage did not write
+  const int pick = row + ((w >> 14) & 0x7F);
+  bs[cur ^ 1][t] = bs[cur][pick];
+  be[cur ^ 1][t] = be[cur][pick];
+  __syncthreads();
+  if (t < G * kLanes) {
+    const int g = t / kLanes;
+    const float* Es = bs[cur ^ 1];
+    const float* Ee = be[cur ^ 1];
+    float S = 0.0f, E = 0.0f;
+    for (int si = 0; si < kSub; ++si) {
+      const bool m = tag[si * kLanes + l] == g;
+      float s1, e1;
+      two_sum(S, m ? Es[si * kLanes + l] : 0.0f, s1, e1);
+      S = s1;
+      E = __fadd_rn(__fadd_rn(E, e1), m ? Ee[si * kLanes + l] : 0.0f);
+    }
+    out_s[(g * npad + c) * kLanes + l] = S;
+    out_e[(g * npad + c) * kLanes + l] = E;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -270,6 +393,20 @@ int sellr_flush(const void* R, const void* gptr, const void* gchunk, void* y,
   sellr_flush_kernel<<<(unsigned)n_groups, kChunk, 0, (cudaStream_t)stream>>>(
       (const float*)R, (const int32_t*)gptr, (const int32_t*)gchunk,
       (float*)y);
+  return (int)cudaGetLastError();
+}
+
+// Chunks [chunk0, chunk0 + n_chunks) of one stage class; out_s and out_e
+// hold G planes of npad rows each.
+int sellwds_spmv(const void* word, const void* vhi, const void* vlo,
+                 const void* wrow, const void* xh, const void* xl,
+                 int64_t n_x, void* out_s, void* out_e, int64_t npad,
+                 int64_t chunk0, int64_t n_chunks, int stages, int G,
+                 void* stream) {
+  sellwds_kernel<<<(unsigned)n_chunks, kChunk, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)word, (const float*)vhi, (const float*)vlo,
+      (const int32_t*)wrow, (const float*)xh, (const float*)xl, n_x,
+      (float*)out_s, (float*)out_e, npad, chunk0, stages, G);
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,11 @@ Counterpart of ``spmv_research_tpu/harness/bench.py``, with the same
 ``BenchResult`` fields and CSV schemas. The protocol (SURVEY.md §6):
 
 * one un-scaled call checked against the extended-precision gold (the 8
-  error metrics and the ε gate of ``metrics.py``);
+  error metrics and the ε gate of ``metrics.py``); a double-single format
+  (one with an ``spmv_f64`` hook: CSRDS, SELLWDS) takes an fp64 x there,
+  returns an fp64 y and is judged at the fp64 gate (1e-10), while its
+  timed chain drives the registered fp32 entry, whose zero lo plane of x
+  does the same gathers and flops as a pair call;
 * warm-up calls (kernel build + steady clocks — the role of the GPU
   1000-iteration warm-up, ``bench_spmv.cpp:287-294``);
 * a timed chain of dependent SpMVs: at least ``min_num_loops`` iterations AND
@@ -13,7 +17,8 @@ Counterpart of ``spmv_research_tpu/harness/bench.py``, with the same
   the median is the headline (``:378-384``);
 * GFLOPS = 2·nnz_expanded / t_median ×1e-9 (``:404``), plus the roofline
   columns against the card's data-sheet bandwidth (NaN for a device without
-  one, such as the CPU).
+  one, such as the CPU); a double-single format's CSR roofline counts 8
+  bytes per value (``roofline_kind`` csr64), as its planes carry two.
 """
 
 from __future__ import annotations
@@ -85,7 +90,8 @@ SYNTH_LABELS = (
 
 # Device extension columns appended to either schema (the JAX package's
 # TPU_EXTRA_LABELS, unchanged). roofline_kind names the denominator of
-# roofline_frac: csr32 — fp32-CSR storage speed-of-light.
+# roofline_frac: csr32 — fp32-CSR storage speed-of-light; csr64 — the
+# fp64-CSR one, for the double-single formats.
 DEVICE_EXTRA_LABELS = (",achieved_GBps,roofline_frac,roofline_kind,"
                        "time_convert,time_compile")
 
@@ -129,11 +135,19 @@ def bench_spmv(host: HostCSR, A, *, config: Optional[BenchConfig] = None,
 
     # --- accuracy: single un-scaled call (its first call builds kernels) ---
     t0 = time.perf_counter()
-    y = spmv_dispatch(A, xd, impl=impl)
-    sync(device)
+    if hasattr(A, "spmv_f64"):
+        # double-single formats: fp64 x in, fp64 y out, judged at the fp64
+        # gate (bench_spmv.cpp:114-119); the timed chain below drives the
+        # registered fp32 entry
+        y = np.asarray(A.spmv_f64(x), dtype=np.float64)
+        value_dtype = np.dtype(np.float64)
+    else:
+        y = spmv_dispatch(A, xd, impl=impl)
+        sync(device)
+        y = y.double().cpu().numpy()
+        value_dtype = np.dtype(cfg.dtype)
     time_compile = time.perf_counter() - t0
-    y = y.double().cpu().numpy()
-    metrics = check_accuracy(host, x, y, value_dtype=np.dtype(cfg.dtype))
+    metrics = check_accuracy(host, x, y, value_dtype=value_dtype)
 
     # --- timing ---
     A_t = _scale_for_iteration(host, A) if A.m == A.n else A
@@ -151,9 +165,12 @@ def bench_spmv(host: HostCSR, A, *, config: Optional[BenchConfig] = None,
     csr_fp = host.mem_footprint_bytes(value_bytes=itemsize)
     fmt_fp = A.mem_footprint_bytes()
     # ONE roofline definition everywhere: the CSR-storage speed-of-light, on
-    # STORED nnz (see the JAX harness); achieved_GBps on the format footprint
-    sol_nnz_s = rl.csr_roofline_nnz_per_s(host.nnz, host.m, host.n, itemsize,
-                                          rl.device_spec(device))
+    # STORED nnz (see the JAX harness); achieved_GBps on the format footprint.
+    # Double-single formats carry 8 B of value per nnz (hi and lo planes):
+    # their fair roofline is the fp64-CSR stream.
+    val_bytes = 8 if hasattr(A, "spmv_f64") else itemsize
+    sol_nnz_s = rl.csr_roofline_nnz_per_s(host.nnz, host.m, host.n,
+                                          val_bytes, rl.device_spec(device))
     return BenchResult(
         matrix_name=matrix_name,
         format_name=A.format_name,
@@ -181,6 +198,7 @@ def bench_spmv(host: HostCSR, A, *, config: Optional[BenchConfig] = None,
         time_compile=time_compile,
         time_convert_cold=(time_convert if time_convert_cold is None
                            else time_convert_cold),
+        roofline_kind="csr64" if val_bytes == 8 else "csr32",
         y=y,
     )
 

@@ -1,11 +1,11 @@
 """Typed benchmark configuration.
 
 Counterpart of ``spmv_research_tpu/harness/config.py``, carried over for the
-fields the SpMV, SpMM and SDDMM protocols and the sweep read: the timing
-protocol (reference ``bench_spmv.cpp:335-384``), the value type, the matrix
-transforms and the K dimension, with the reference's env-var overrides
-(``from_env``). The solver and distribution fields follow the slices that
-use them.
+fields the SpMV, SpMM, SDDMM, CG and BiCGStab protocols and the sweep
+read: the timing protocol (reference ``bench_spmv.cpp:335-384``), the value
+type, the matrix transforms, the K dimension and the solvers' iteration cap
+and preconditioner, with the reference's env-var overrides (``from_env``).
+The distribution fields follow the slice that uses them.
 """
 
 from __future__ import annotations
@@ -48,6 +48,8 @@ class BenchConfig:
 
     # --- workloads ---
     k_dim: int = 128                # SDDMM/SpMM K (K_DIM env, config.sh:138-143)
+    cg_max_num_iters: int = 50      # CG_MAX_NUM_ITERS (config.sh:110-112)
+    solver_precond: str = "jacobi"  # jacobi (ic0 | ilu0: not ported yet)
 
     @staticmethod
     def from_env() -> "BenchConfig":
@@ -58,6 +60,7 @@ class BenchConfig:
                                 else bool(_env("USE_RCM_REORDERING", int, 0)))
         c.fix_diagonal_zeros = bool(_env("FIX_DIAGONAL_ZEROS", int, 0))
         c.k_dim = _env("K_DIM", int, c.k_dim)
+        c.cg_max_num_iters = _env("CG_MAX_NUM_ITERS", int, c.cg_max_num_iters)
         c.min_num_loops = _env("MIN_NUM_LOOPS", int, c.min_num_loops)
         c.min_time_s = _env("MIN_TIME_S", float, c.min_time_s)
         return c

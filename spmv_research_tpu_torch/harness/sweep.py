@@ -1,12 +1,13 @@
-"""Sweep runner for the SpMV, SpMM and SDDMM workloads — the run.sh /
-proc_run.sh analog.
+"""Sweep runner for the SpMV, SpMM, SDDMM, CG and BiCGStab workloads — the
+run.sh / proc_run.sh analog.
 
 Counterpart of ``spmv_research_tpu/harness/sweep.py``. It iterates
 matrices × formats × workloads on one torch device with the JAX sweep's
 output discipline: one CSV file per (format, workload) pair
 (``<fmt>_<workload>.csv``) with the labels row first (SpMV: the JAX
-package's synthetic schema, ``csv_labels`` / ``csv_row_synthetic``; SpMM
-and SDDMM: its ``matrix_name,format_name,impl,K,...`` schema), human lines
+package's synthetic schema, ``csv_labels`` / ``csv_row_synthetic``; SpMM,
+SDDMM, CG and BiCGStab: its ``matrix_name,format_name,impl,K,...`` schema,
+a solver's residual in the ``mape`` and ``max_ae`` columns), human lines
 on stdout, and an idempotent done-log (``done.log``) so that a restarted
 sweep skips finished pairs.
 
@@ -17,17 +18,24 @@ Differences from the JAX sweep, each deliberate:
   item 1);
 * ``FORMAT_BUILDERS`` holds ``csr``, ``sellr``, ``sellw``, ``closg`` (whose
   builder may return a CLOSG, RSPLIT or CLOSGX program, as in the JAX
-  sweep), ``dense`` and ``btile``, and the workloads are ``spmv``, ``spmm``
-  and ``sddmm``: any other name raises before the sweep starts;
+  sweep), ``dense``, ``btile`` and the double-single ``csrds`` and
+  ``sellwds``, and the workloads are ``spmv``, ``spmm``, ``sddmm``, ``cg``
+  and ``bicgstab``: any other name, and a solver preconditioner other than
+  Jacobi (``ic0`` and ``ilu0`` need ``solvers/ilu.py``), raises before the
+  sweep starts;
 * the impls are the device's (``ops.dispatch.default_impl``): on a CUDA
   device the engines run ``cuda`` and the library formats (CSR, DENSE) run
   ``torch``; on the CPU everything runs ``torch``. A (format, workload)
   pair with no such impl (BTILE SpMV; DENSE, SELLW and the CLOS engines'
-  SDDMM) is skipped, as ``available_impls`` skips it in the JAX sweep;
+  SDDMM) is skipped, as ``available_impls`` skips it in the JAX sweep; the
+  solvers run on the format's SpMV;
 * a builder's suitability error (``SellRBuildError``, ``SellWBuildError``,
-  ``ClosRoutingError``, ``DenseBuildError``, ``BTileBuildError``) is
-  printed and the format skipped, as in the JAX sweep; any other exception
-  propagates (no retries: a GPU fault is not transient);
+  ``ClosRoutingError``, ``DenseBuildError``, ``BTileBuildError``, and
+  ``DSRangeError``, a value too large for the double-single split) is
+  printed and the format skipped, as in the JAX sweep; a gated row
+  (non-finite metrics, a solve without progress) is printed and logged as
+  ``FAIL``; any other exception propagates (no retries: a GPU fault is not
+  transient);
 * the TPU-worker-crash handling (``_fatal_runtime``, exit code 3, the
   ``CRASH`` records) has no counterpart on the GPU.
 """
@@ -47,14 +55,17 @@ from ..convert.reorder import rcm_if_beneficial
 from ..gen import ArtificialParams, artificial_matrix_generation
 from ..ops import available_impls, default_impl
 from ..ops.btile import BTileBuildError, build_btile
+from ..ops.compensated import DSRangeError, build_csrds
 from ..ops.clos_gather import build_clos_gather_auto
 from ..ops.clos_route import ClosRoutingError
 from ..ops.densemv import DenseBuildError, build_dense
 from ..ops.sellr import SellRBuildError, build_sellr
 from ..ops.sellw import SellWBuildError, build_sellw
+from ..ops.sellw_ds import build_sellwds
+from ..solvers import check_precond
 from .bench import BenchResult, bench_spmv, csv_labels, csv_row_synthetic
 from .config import BenchConfig
-from .workloads import BenchGateError, bench_sddmm, bench_spmm
+from .workloads import BenchGateError, bench_cg, bench_sddmm, bench_spmm
 
 FORMAT_BUILDERS = {
     "csr": build_csr,
@@ -63,17 +74,22 @@ FORMAT_BUILDERS = {
     "closg": build_clos_gather_auto,   # CLOSG, RSPLIT or CLOSGX
     "dense": build_dense,
     "btile": build_btile,
+    "csrds": build_csrds,
+    "sellwds": build_sellwds,
 }
-WORKLOADS = ("spmv", "spmm", "sddmm")
+WORKLOADS = ("spmv", "spmm", "sddmm", "cg", "bicgstab")
+SOLVERS = ("cg", "bicgstab")        # workloads that run on the SpMV
 # a builder raising one of these refuses the matrix: the format is skipped
 SUITABILITY_ERRORS = (SellRBuildError, SellWBuildError, ClosRoutingError,
-                      DenseBuildError, BTileBuildError)
+                      DenseBuildError, BTileBuildError, DSRangeError)
 WORKLOAD_LABELS = ("matrix_name,format_name,impl,K,time_iter_median,gflops,"
                    "num_loops,mape,max_ae")
 
 
-def check_sweep_args(formats: Sequence[str], workloads: Sequence[str]) -> None:
-    """Raise on a format or workload the port does not have yet."""
+def check_sweep_args(formats: Sequence[str], workloads: Sequence[str],
+                     precond: str = "jacobi") -> None:
+    """Raise on a format, workload or (for the solvers) preconditioner the
+    port does not have yet."""
     bad_f = [f for f in formats if f not in FORMAT_BUILDERS]
     if bad_f:
         raise NotImplementedError(
@@ -84,8 +100,10 @@ def check_sweep_args(formats: Sequence[str], workloads: Sequence[str]) -> None:
     if bad_w:
         raise NotImplementedError(
             f"workloads {bad_w} are not ported: the sweep runs "
-            f"{', '.join(WORKLOADS)} (CG, BiCGStab, SpGEMM and trisolve are "
-            "ROADMAP queue A item 8)")
+            f"{', '.join(WORKLOADS)} (SpGEMM and trisolve are ROADMAP queue "
+            "A item 8)")
+    if any(w in SOLVERS for w in workloads):
+        check_precond(precond)
 
 
 def load_matrix(spec: str, cfg: BenchConfig):
@@ -151,8 +169,8 @@ def run_sweep(matrices: Sequence[str],
     the format has an impl for; returns the results (``BenchResult`` for
     SpMV, ``WorkloadResult`` otherwise) and appends each to
     ``<out_dir>/<fmt>_<workload>.csv``."""
-    check_sweep_args(formats, workloads)
     cfg = config or BenchConfig.from_env()
+    check_sweep_args(formats, workloads, cfg.solver_precond)
     if cfg.dtype != "float32":
         raise NotImplementedError(f"dtype {cfg.dtype}: the port's engines "
                                   "are float32")
@@ -178,14 +196,16 @@ def run_sweep(matrices: Sequence[str],
             A = A.to(device)
             impl = default_impl(A.format_name, device)
             for workload in workloads:
-                if impl not in available_impls(workload, A.format_name):
+                kernel = "spmv" if workload in SOLVERS else workload
+                if impl not in available_impls(kernel, A.format_name):
                     print(f"# {A.format_name}/{impl} has no {workload}: "
                           "skipped", flush=True)
                     continue
                 if donelog.skip(name, fmt, impl, workload):
                     continue
-                r = _run_one(host, A, workload, impl, cfg, name, t_convert)
                 try:
+                    r = _run_one(host, A, workload, impl, cfg, name,
+                                 t_convert)
                     _gate_result(r, workload)
                 except BenchGateError as e:
                     donelog.mark("FAIL", name, fmt, impl, workload)
@@ -210,15 +230,24 @@ def _run_one(host, A, workload, impl, cfg, name, t_convert):
     if workload == "spmv":
         return bench_spmv(host, A, config=cfg, impl=impl, matrix_name=name,
                           time_convert=t_convert)
+    if workload in SOLVERS:
+        return bench_cg(host, A, config=cfg, impl=impl, matrix_name=name,
+                        bicgstab=workload == "bicgstab",
+                        precond=cfg.solver_precond)
     bench = {"spmm": bench_spmm, "sddmm": bench_sddmm}[workload]
     return bench(host, A, config=cfg, impl=impl, matrix_name=name)
 
 
 def _gate_result(r, workload):
-    """NaN metrics must be a loud FAILURE, not a committed CSV row."""
-    for v, tag in ((r.metrics.mape, "mape"), (r.metrics.max_ae, "max_ae")):
+    """NaN metrics or a solve without progress must be a loud FAILURE, not
+    a committed CSV row."""
+    m = r.metrics if isinstance(r, BenchResult) else r
+    for v, tag in ((m.mape, "mape"), (m.max_ae, "max_ae")):
         if not np.isfinite(v):
             raise BenchGateError(f"{workload}: non-finite {tag} ({v})")
+    if workload in SOLVERS and m.mape >= 0.9:
+        raise BenchGateError(
+            f"{workload}: residual {m.mape:.3g} — no convergence progress")
 
 
 def _labels_for(workload):

@@ -170,21 +170,24 @@ def have_sellw_pack() -> bool:
     return lib is not None and hasattr(lib, "sellw_pack2")
 
 
-def sellw_pack_native(ia, ja, a_f32, m, part_cap: int = 128):
+def sellw_pack_native(ia, ja, a_f32, m, part_cap: int = 128,
+                      want_idx: bool = False):
     """Two-pass native SELLW packer (``sellw_pack2``; the library's
     ``sellw_pack`` is it with part_cap = 128): count, allocate exact, pack.
 
     Returns (word (nchunks·8,128) int32, vals likewise float32,
-    wrow (nchunks·8,), pair (nchunks,), bids (nchunks,) uint8, max_part)."""
+    wrow (nchunks·8,), pair (nchunks,), bids (nchunks,) uint8, max_part
+    [, idx (nchunks·8,128) int32: the source nnz of each slot, -1 where the
+    slot is empty, with ``want_idx``])."""
     lib = get_lib()
     ia = np.ascontiguousarray(ia, np.int64)
     ja = np.ascontiguousarray(ja, np.int32)
     a_f32 = np.ascontiguousarray(a_f32, np.float32)
     mp = np.zeros(1, np.int32)
 
-    def call(cap, count_only, *bufs):
+    def call(cap, count_only, *bufs, idx=None):
         return lib.sellw_pack2(ia, ja, a_f32, m, cap, count_only, part_cap,
-                               *bufs, mp, None)
+                               *bufs, mp, idx)
 
     n = call(0, 1, None, None, None, None, None)
     word = np.zeros((max(int(n), 1) * 8, 128), np.int32)
@@ -192,8 +195,13 @@ def sellw_pack_native(ia, ja, a_f32, m, part_cap: int = 128):
     wrow = np.zeros(max(int(n), 1) * 8, np.int32)
     pair = np.zeros(max(int(n), 1), np.int32)
     bids = np.zeros(max(int(n), 1), np.uint8)
+    idx = (np.zeros((max(int(n), 1) * 8, 128), np.int32) if want_idx
+           else None)
     n2 = call(int(n), 0, *(b.ctypes.data_as(ctypes.c_void_p)
-                           for b in (word, vals, wrow, pair, bids)))
+                           for b in (word, vals, wrow, pair, bids)),
+              idx=None if idx is None else idx.ctypes.data_as(
+                  ctypes.c_void_p))
     assert n2 == n, (n2, n)
-    return (word[: int(n) * 8], vals[: int(n) * 8], wrow[: int(n) * 8],
-            pair[: int(n)], bids[: int(n)], int(mp[0]))
+    out = (word[: int(n) * 8], vals[: int(n) * 8], wrow[: int(n) * 8],
+           pair[: int(n)], bids[: int(n)], int(mp[0]))
+    return out + (idx[: int(n) * 8],) if want_idx else out

@@ -7,8 +7,12 @@ from . import densemv      # registers DENSE/torch
 from . import sellw        # registers SELLW/torch and SELLW/cuda
 from . import sellr        # registers SELLR/torch and SELLR/cuda
 from . import btile        # registers BTILE/torch and BTILE/cuda (no SpMV)
+from . import compensated  # registers CSRDS/torch
+from . import sellw_ds     # registers SELLWDS/torch and SELLWDS/cuda
 from .btile import (BTile, BTileBuildError, btile_from_jax, build_btile,
                     execute_btile_numpy, sddmm_slab_to_csr_values)
+from .compensated import (CsrDS, DSRangeError, build_csrds, csrds_from_jax,
+                          spmv_csrds_f64, spmv_csrds_pair)
 from .clos_gather import (ClosG, ClosGChunked, build_clos_gather,
                           build_clos_gather_auto, execute_closg_numpy,
                           from_jax_program)
@@ -19,3 +23,6 @@ from .rowsplit import (RowSplit, execute_rowsplit_numpy, rowsplit_from_jax,
                        split_long_rows)
 from .sellw import SellW, SellWBuildError, build_sellw, execute_sellw_numpy
 from .sellr import SellR, SellRBuildError, build_sellr, execute_sellr_numpy
+from .sellw_ds import (SellWDS, build_sellwds, sellwds_from_jax,
+                       spmv_sellwds_cuda_pair, spmv_sellwds_f64,
+                       spmv_sellwds_torch_pair)

@@ -9,11 +9,13 @@ for the workloads SpMV, SpMM and SDDMM. The port has two impl names:
 
 With no ``impl=`` given, ``default_impl`` decides from the input tensor's
 device: a CPU tensor takes ``"torch"``; a CUDA tensor takes ``"cuda"``,
-except for the formats in ``LIBRARY_FORMATS`` (CSR and DENSE, library code
-in the JAX package too), which have only ``"torch"``. A format outside that
-set with no ``"cuda"`` impl raises on a CUDA tensor, and asking for
-``"cuda"`` with a CPU tensor raises. There is no other preference walk and
-no fallback.
+except for the formats in ``LIBRARY_FORMATS``, which have only ``"torch"``:
+CSR and DENSE (library code in the JAX package too) and CSRDS, the
+double-single CSR, which the JAX package computes in XLA and gives no
+Pallas kernel, so that it stays plain PyTorch on every device. A format
+outside that set with no ``"cuda"`` impl raises on a CUDA tensor, and
+asking for ``"cuda"`` with a CPU tensor raises. There is no other
+preference walk and no fallback.
 
 The engines whose JAX SpMM is a scan of their SpMV over X's columns
 (CLOSG, RSPLIT, CLOSGX, SELLR) register ``spmm_column_loop`` for both
@@ -33,7 +35,7 @@ _SDDMM: Dict[Tuple[str, str], Callable] = {}
 _TABLES = {"spmv": _SPMV, "spmm": _SPMM, "sddmm": _SDDMM}
 
 # formats computed by one library call on every device, by design
-LIBRARY_FORMATS = frozenset({"CSR", "DENSE"})
+LIBRARY_FORMATS = frozenset({"CSR", "DENSE", "CSRDS"})
 
 
 def _make_register(table):

@@ -19,6 +19,10 @@ wrapper                 replaces
                         the placed chunk planes R
 ``sellr_flush``         the run-flush of R into y, one block per y group in
                         the order the host listed
+``sellwds_planes``      ``sellw_ds.py:_sellwds_kernel``: SELLW's pipeline
+                        in double-single arithmetic, the s and e planes
+                        (one launch per stage class, counted as
+                        ``sellwds``)
 ======================  ===================================================
 
 ``sellr_y`` chains the two SELLR wrappers. Each wrapper takes the kernels'
@@ -27,8 +31,11 @@ For CUDA tensors it launches the kernel or raises; nothing falls back.
 ``LAUNCHES`` counts the kernel launches, beside each launch. The plain
 versions add in the kernels' order
 (sublanes 0..7 in turn, the roll sources by r, the run-flush chunk by
-chunk), so on the card kernel and plain version agree exactly. SELLW's
-``_combine_y`` (an XLA gather + sum in the JAX package) stays PyTorch.
+chunk), so on the card kernel and plain version agree exactly. B13's plain
+version rounds every product and sum on its own, as the kernel does with
+the ``__f*_rn`` intrinsics, so the two agree exactly too. SELLW's
+``_combine_y`` and SELLWDS's ``_combine_y_ds`` (XLA gathers and sums in the
+JAX package) stay PyTorch.
 
 The kernels are compiled by ``nvcc`` from ``csrc/sell.cu`` at first CUDA use
 (``cuda_lib.CudaLib``); importing this module builds and loads nothing.
@@ -43,13 +50,14 @@ import torch
 import torch.nn.functional as F
 
 from .clos_route import LANES, SUB
+from .compensated import _two_prod, _two_sum
 from .cuda_lib import CudaLib, check, on_cuda, stream
 
 SELLR_NB = 64            # SELLR chunks per smeta step
 SELLR_SMEM_BLK = 1024    # smeta ints per step
 
 LAUNCHES = {"sellw": 0, "sellw_stream": 0, "sellw_spmm": 0,
-            "sellr_place": 0, "sellr_flush": 0}
+            "sellr_place": 0, "sellr_flush": 0, "sellwds": 0}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -60,8 +68,10 @@ def _bind(lib: ctypes.CDLL) -> None:
                                i32, i32, p]
     lib.sellr_place.argtypes = [p, p, p, p, i64, p, i64, i32, p]
     lib.sellr_flush.argtypes = [p, p, p, p, i32, p]
+    lib.sellwds_spmv.argtypes = [p, p, p, p, p, p, i64, p, p, i64, i64, i64,
+                                 i32, i32, p]
     for fn in (lib.sellw_spmv, lib.sellw_spmm, lib.sellr_place,
-               lib.sellr_flush):
+               lib.sellr_flush, lib.sellwds_spmv):
         fn.restype = i32
 
 
@@ -128,6 +138,52 @@ def sellw_spmm_planes_torch(word, vals, wrow, xt, classes, G: int
     ``xt`` = Xᵀ (K, n), ``sellw_planes_torch`` column by column."""
     return torch.stack([sellw_planes_torch(word, vals, wrow, xt[k], classes,
                                            G) for k in range(xt.shape[0])])
+
+
+def sellwds_planes_torch(word, vhi, vlo, wrow, xh, xl,
+                         classes: Sequence[Tuple[int, int, int]],
+                         G: int) -> torch.Tensor:
+    """SELLWDS's s and e planes: (2, G·npad + 1, 128), each laid out as
+    ``sellw_planes_torch``'s (the zero row last). Per slot the Dekker
+    product of (vhi, x hi) plus the cross terms vhi·x lo + vlo·x hi, the
+    guarded TwoSum scan of the (s, e) pair, the pick at eidx, and per y
+    block of the group a sequential TwoSum fold over sublanes 0..7."""
+    npad = word.shape[0] // SUB
+    out = vhi.new_zeros((2, G * npad + 1, LANES))
+    rows = max(-(-xh.shape[0] // LANES), 1)
+    xh2, xl2 = _x2d(xh, rows), _x2d(xl, rows)
+    for start, cnt, stages in classes:
+        sl = slice(start * SUB, (start + cnt) * SUB)
+        w, a, b = word[sl], vhi[sl], vlo[sl]
+        wr, lane = wrow[sl].long(), (w & 0x7F).long()
+        gxh = torch.gather(xh2[wr], 1, lane)
+        gxl = torch.gather(xl2[wr], 1, lane)
+        s_, e_ = _two_prod(a, gxh)
+        e_ = e_ + a * gxl + b * gxh
+        for k in range(stages):
+            g = ((w >> (7 + k)) & 1) != 0
+            rsg = torch.where(g, torch.roll(s_, 1 << k, dims=1), 0.0)
+            re = torch.where(g, torch.roll(e_, 1 << k, dims=1), 0.0)
+            t = s_ + rsg
+            bb = t - s_
+            err = (s_ - (t - bb)) + (rsg - bb)
+            e_ = e_ + re + err
+            s_ = t
+        eidx = ((w >> 14) & 0x7F).long()
+        Es = torch.gather(s_, 1, eidx).view(cnt, SUB, LANES)
+        Ee = torch.gather(e_, 1, eidx).view(cnt, SUB, LANES)
+        live = ((w >> 21) & 1) != 0
+        bid = (w >> 22) & (G - 1)
+        for g in range(G):
+            mask = (live & (bid == g)).view(cnt, SUB, LANES)
+            S = torch.zeros_like(Es[:, 0])
+            E = torch.zeros_like(S)
+            for si in range(SUB):
+                S, e1 = _two_sum(S, torch.where(mask[:, si], Es[:, si], 0.0))
+                E = E + e1 + torch.where(mask[:, si], Ee[:, si], 0.0)
+            out[0, g * npad + start: g * npad + start + cnt] = S
+            out[1, g * npad + start: g * npad + start + cnt] = E
+    return out
 
 
 def sellr_place_torch(word, vals, smeta, x, nchunks: int, stages: int,
@@ -206,8 +262,9 @@ def _check_classes(classes, npad: int, G: int) -> int:
 
 
 def _planes_out(vals, cols: int, G: int, npad: int, covered: int):
-    """(cols, G·npad + 1, 128) output with the rows no launch writes (the
-    zero row, chunks past the classes) zeroed."""
+    """(cols, G·npad + 1, 128) output (cols: X's columns, or SELLWDS's s
+    and e planes) with the rows no launch writes (the zero row, chunks past
+    the classes) zeroed."""
     out = torch.empty((cols, G * npad + 1, LANES), dtype=vals.dtype,
                       device=vals.device)
     out[:, -1].zero_()
@@ -264,6 +321,32 @@ def sellw_spmm_planes(word, vals, wrow, xt, classes: Sequence[Tuple[int, int,
                                  out.shape[1] * LANES, npad, start, cnt,
                                  stages, G, st)
                     LAUNCHES["sellw_spmm"] += 1
+    return out
+
+
+def sellwds_planes(word, vhi, vlo, wrow, xh, xl,
+                   classes: Sequence[Tuple[int, int, int]],
+                   G: int) -> torch.Tensor:
+    """SELLWDS's s and e planes (kernel B13; see ``sellwds_planes_torch``)
+    from x's hi and lo planes ``xh``, ``xl``."""
+    if not on_cuda(word, vhi, vlo, wrow, xh, xl):
+        return sellwds_planes_torch(word, vhi, vlo, wrow, xh, xl, classes, G)
+    npad = _check_chunks(word, vhi, wrow, xh)
+    check(vlo, "vlo", torch.float32, tuple(vhi.shape))
+    check(xl, "xl", torch.float32, tuple(xh.shape))
+    check(wrow, "wrow", torch.int32, (npad * SUB,))
+    covered = _check_classes(classes, npad, G)
+    out = _planes_out(vhi, 2, G, npad, covered)
+    st = stream(xh)
+    with torch.cuda.device(xh.device):
+        for start, cnt, stages in classes:
+            if cnt:
+                _CUDA.launch("sellwds_spmv", word.data_ptr(), vhi.data_ptr(),
+                             vlo.data_ptr(), wrow.data_ptr(), xh.data_ptr(),
+                             xl.data_ptr(), xh.shape[0], out[0].data_ptr(),
+                             out[1].data_ptr(), npad, start, cnt, stages, G,
+                             st)
+                LAUNCHES["sellwds"] += 1
     return out
 
 

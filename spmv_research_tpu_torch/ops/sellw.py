@@ -21,8 +21,10 @@ The kernel writes G partial planes (plane g at rows [g·npad, (g+1)·npad)),
 and ``_combine_y`` sums the ``K`` partial rows of each y block.
 
 The constants ``CHUNK_PAD`` and ``_X_VMEM_LIMIT`` and the ``stream_wins``
-flag are TPU-derived and kept so that the programs stay identical. The
-source-index plane of the double-single build follows its workload.
+flag are TPU-derived and kept so that the programs stay identical. With
+``want_idx`` the builder also returns the source-index plane (the source
+nnz of each slot, -1 where it is empty), on which the double-single build
+(``sellw_ds.py``) places its lo value plane.
 """
 
 from __future__ import annotations
@@ -106,12 +108,14 @@ def _guard_bits(k: int) -> np.ndarray:
 
 def build_sellw(csr: HostCSR, dtype=np.float32,
                 max_chunk_factor: float = 4.0, group: int = 2,
-                part_cap: int = 8) -> SellW:
+                part_cap: int = 8, want_idx: bool = False):
     """Compile host CSR into a SELLW program (carried over from the JAX
     builder: ``group`` = G y blocks per chunk, ``part_cap`` splits parts
     longer than the cap). Raises :class:`SellWBuildError` when columns are
     so scattered that the slot count would exceed ``max_chunk_factor`` ×
-    nnz. x past ``_X_VMEM_LIMIT`` columns only sets ``stream_wins``."""
+    nnz. x past ``_X_VMEM_LIMIT`` columns only sets ``stream_wins``. With
+    ``want_idx`` returns ``(SellW, idx)``, idx the program's source-index
+    plane (int32, the shape of ``vals``, -1 in empty slots)."""
     dt = np.dtype(dtype)
     G = int(group)
     cap = int(part_cap)
@@ -154,9 +158,10 @@ def build_sellw(csr: HostCSR, dtype=np.float32,
     # algorithm as the Python loop below, ~50x faster)
     from ..io import native as _native
     if _native.have_sellw_pack() and dt == np.float32 and G == 2:
-        word_n, vals_n, wrow_n, pair_n, bids_n, max_part = \
-            _native.sellw_pack_native(ia, csr.ja, csr.a.astype(np.float32),
-                                      m, part_cap=cap)
+        packed = _native.sellw_pack_native(ia, csr.ja,
+                                           csr.a.astype(np.float32), m,
+                                           part_cap=cap, want_idx=want_idx)
+        word_n, vals_n, wrow_n, pair_n, bids_n, max_part = packed[:6]
         if pair_n.shape[0] > chunk_cap:
             raise SellWBuildError(
                 f"chunk count {pair_n.shape[0]} exceeded {chunk_cap} "
@@ -166,9 +171,10 @@ def build_sellw(csr: HostCSR, dtype=np.float32,
                                                 for g in range(G))
                                           for b in bids_n],
                            max_part, m, n, nnz, csr.nnz_expanded, x_rows,
-                           nblocks, dt, stream_wins, G)
+                           nblocks, dt, stream_wins, G,
+                           idx_u=packed[6] if want_idx else None)
 
-    wrow_l, word_l, vals_l = [], [], []
+    wrow_l, word_l, vals_l, idx_l = [], [], [], []
     chunk_pair, chunk_bids = [], []
     gb_cache = {k: _guard_bits(k) for k in range(1, LANES + 1)}
     max_part = 1
@@ -204,6 +210,7 @@ def build_sellw(csr: HostCSR, dtype=np.float32,
             wd = np.zeros((SUB, LANES), np.uint32)
             ex = np.zeros((SUB, LANES), np.uint32)  # eidx/emask (ORed last:
             vv = np.zeros((SUB, LANES), dt)         # lanes overlap slots)
+            iv = np.full((SUB, LANES), -1, np.int32)
             wr = np.zeros(SUB, np.int32)
             pos = [0] * SUB
             sub_of = {}         # x2d row -> open sublanes (in open order)
@@ -231,6 +238,8 @@ def build_sellw(csr: HostCSR, dtype=np.float32,
                     (cols_b[p:q] % LANES).astype(np.uint32)
                     | (gb_cache[k] << 7))
                 vv[s, pos[s]:pos[s] + k] = vals_b[p:q]
+                iv[s, pos[s]:pos[s] + k] = np.arange(e0 + p, e0 + q,
+                                                     dtype=np.int32)
                 ex[s, lane] = np.uint32(((pos[s] + k - 1) << 14)
                                         | (1 << 21) | (bid << 22))
                 pos[s] += k
@@ -240,6 +249,7 @@ def build_sellw(csr: HostCSR, dtype=np.float32,
             wrow_l.append(wr)
             word_l.append(wd)
             vals_l.append(vv)
+            idx_l.append(iv)
             chunk_pair.append(pb)
             chunk_bids.append(tuple(bids))
             queue = defer
@@ -253,9 +263,12 @@ def build_sellw(csr: HostCSR, dtype=np.float32,
               else np.zeros((0, LANES), dt))
     wrow_u = (np.concatenate(wrow_l) if wrow_l
               else np.zeros(0, np.int32))
+    idx_u = (np.concatenate(idx_l, axis=0) if wrow_l
+             else np.zeros((0, LANES), np.int32))
     return _emit_sellw(word_u, vals_u, wrow_u, chunk_pair, chunk_bids,
                        max_part, m, n, nnz, csr.nnz_expanded, x_rows,
-                       nblocks, dt, stream_wins, G)
+                       nblocks, dt, stream_wins, G,
+                       idx_u=idx_u if want_idx else None)
 
 
 def _stage_classes(word_u, nchunks):
@@ -284,15 +297,20 @@ def _stage_classes(word_u, nchunks):
 
 def _emit_sellw(word_u, vals_u, wrow_u, chunk_pair, chunk_bids, max_part,
                 m, n, nnz, nnz_expanded, x_rows, nblocks, dt,
-                stream_wins, G) -> SellW:
+                stream_wins, G, idx_u=None):
     """Sort chunks into stage classes, pad per class, build yidx, assemble
-    the program (shared tail of the native and Python packer tiers)."""
+    the program (shared tail of the native and Python packer tiers). With
+    ``idx_u`` (the source-index plane, -1 in empty slots) returns
+    ``(SellW, idx_padded)``, the plane laid out as ``vals``."""
     nchunks = len(chunk_pair)
     if nchunks:
         perm, klasses = _stage_classes(word_u, nchunks)
         word_u = word_u.reshape(nchunks, SUB, LANES)[perm].reshape(-1, LANES)
         vals_u = vals_u.reshape(nchunks, SUB, LANES)[perm].reshape(-1, LANES)
         wrow_u = wrow_u.reshape(nchunks, SUB)[perm].reshape(-1)
+        if idx_u is not None:
+            idx_u = idx_u.reshape(nchunks, SUB, LANES)[perm].reshape(
+                -1, LANES)
         chunk_pair = [chunk_pair[p] for p in perm]
         chunk_bids = [chunk_bids[p] for p in perm]
     else:
@@ -319,10 +337,15 @@ def _emit_sellw(word_u, vals_u, wrow_u, chunk_pair, chunk_bids, max_part,
     word = np.zeros((npad * SUB, LANES), np.uint32)
     vals = np.zeros((npad * SUB, LANES), dt)
     wrow = np.zeros(npad * SUB, np.int32)
+    idxp = (np.full((npad * SUB, LANES), -1, np.int32)
+            if idx_u is not None else None)
     for s0, d0, ln in zip(seg_src, seg_dst, seg_len):
         word[d0 * SUB: (d0 + ln) * SUB] = word_u[s0 * SUB: (s0 + ln) * SUB]
         vals[d0 * SUB: (d0 + ln) * SUB] = vals_u[s0 * SUB: (s0 + ln) * SUB]
         wrow[d0 * SUB: (d0 + ln) * SUB] = wrow_u[s0 * SUB: (s0 + ln) * SUB]
+        if idxp is not None:
+            idxp[d0 * SUB: (d0 + ln) * SUB] = idx_u[s0 * SUB:
+                                                    (s0 + ln) * SUB]
 
     # output rows: group-member g's partials live at [g·npad, (g+1)·npad),
     # the all-zero row at G·npad
@@ -343,13 +366,13 @@ def _emit_sellw(word_u, vals_u, wrow_u, chunk_pair, chunk_bids, max_part,
         yidx[slot[b], b] = row
         slot[b] += 1
 
-    return _sellw(dict(word=word.view(np.int32), vals=vals, wrow=wrow,
-                       yidx=yidx),
-                  dict(shape=(m, n), nnz=nnz, nnz_expanded=nnz_expanded,
-                       nchunks=nchunks, x_rows=x_rows, K=K,
-                       stages=int(max_part - 1).bit_length(),
-                       stream_wins=stream_wins, G=G,
-                       classes=tuple(classes)))
+    A = _sellw(dict(word=word.view(np.int32), vals=vals, wrow=wrow,
+                    yidx=yidx),
+               dict(shape=(m, n), nnz=nnz, nnz_expanded=nnz_expanded,
+                    nchunks=nchunks, x_rows=x_rows, K=K,
+                    stages=int(max_part - 1).bit_length(),
+                    stream_wins=stream_wins, G=G, classes=tuple(classes)))
+    return A if idxp is None else (A, idxp)
 
 
 def _sellw(arrays: dict, meta: dict) -> SellW:

@@ -106,18 +106,19 @@ def test_dense_moves_and_scales():
 
 
 def test_engine_without_cuda_impl_raises_on_the_card():
-    """Only the library formats (CSR, DENSE) take the plain version on a
-    CUDA tensor: an engine format with no cuda impl raises, it never runs
-    its plain version on the card."""
+    """Only the library formats (CSR, DENSE, and CSRDS, which the JAX
+    package computes in XLA) take the plain version on a CUDA tensor: an
+    engine format with no cuda impl raises, it never runs its plain version
+    on the card."""
     from spmv_research_tpu_torch.ops.dispatch import (LIBRARY_FORMATS,
                                                        _lookup, default_impl)
-    assert LIBRARY_FORMATS == {"CSR", "DENSE"}
+    assert LIBRARY_FORMATS == {"CSR", "DENSE", "CSRDS"}
     table = {("ENGINE", "torch"): lambda A, x: x}
     with pytest.raises(KeyError, match="ENGINE"):
         _lookup(table, "ENGINE", None, torch.device("cuda"))
     assert _lookup(table, "ENGINE", None, torch.device("cpu")) is \
         table[("ENGINE", "torch")]
-    for fmt in ("CLOSG", "RSPLIT", "CLOSGX", "SELLW", "SELLR"):
+    for fmt in ("CLOSG", "RSPLIT", "CLOSGX", "SELLW", "SELLR", "SELLWDS"):
         assert default_impl(fmt, torch.device("cuda")) == "cuda"
         assert default_impl(fmt, torch.device("cpu")) == "torch"
     for fmt in LIBRARY_FORMATS:

@@ -9,7 +9,8 @@ and is held to 1e-6 of max |y| (fp32 add-order slack). The SELLW and SELLR
 kernels add in their plain versions' order and must match exactly, as must
 B4-B7 and B15 (gathers, one product per slot, and scan stages that add in
 the plain versions' order), and B12, the SELLW SpMM kernel (the SpMV
-kernel's pipeline per column). B16a and B16b, BTILE's SpMM and SDDMM, sum
+kernel's pipeline per column), and B13, the double-single SELLW kernel
+(every product and sum rounded on its own, in the plain version's order). B16a and B16b, BTILE's SpMM and SDDMM, sum
 their products in another order than ``torch.bmm``: they are held to 1e-5
 of |A|·|X| per element and of Σ|a||b| per slot.
 """
@@ -31,11 +32,13 @@ from spmv_research_tpu_torch.ops import clos_gather as cg
 from spmv_research_tpu_torch.ops import clos_cuda as K
 from spmv_research_tpu_torch.ops.clos import _t_bwd, _t_fwd
 from spmv_research_tpu_torch.ops import sell_cuda as KS
-from spmv_research_tpu_torch.ops import sellr, sellw
+from spmv_research_tpu_torch.ops import sellr, sellw, sellw_ds
+from spmv_research_tpu_torch.ops.compensated import _split_f64
 
 from torch_cases import (TWIN_LINE, banded_matrix, btile_banded,
                          capped_scan_matrix,
-                         dirty_sellr_matrix, random_matrix, skewed_matrix,
+                         dirty_sellr_matrix, ds_banded, random_matrix,
+                         skewed_matrix,
                          skewed_xl_matrix, w0_matrix)
 
 pytestmark = pytest.mark.gpu
@@ -164,7 +167,7 @@ def test_sellr_kernels_match_plain_version(cuda, kind):
     torch.cuda.synchronize()
     assert torch.equal(R, R_plain) and torch.equal(got, want)
     assert KS.LAUNCHES == {"sellw": 0, "sellw_stream": 0, "sellw_spmm": 0,
-                           "sellr_place": 1, "sellr_flush": 1}
+                           "sellr_place": 1, "sellr_flush": 1, "sellwds": 0}
     assert torch.equal(KS.sellr_y(*args), KS.sellr_y_torch(*args))
     _close_to_scipy(mat, x, spmv(A, xd))
 
@@ -375,3 +378,50 @@ def test_btile_wrappers_refuse_bad_input(cuda):
     with pytest.raises(ValueError, match="several devices"):
         KB.btile_spmm(A.tiles, A.tgt.cpu(), A.step_g, A.step_cb, A.step_nt,
                       A.band_ptr, X, A.ngroups, A.max_band_steps)
+
+
+@pytest.mark.parametrize("G, seed", [(2, 0), (4, 6)])
+def test_sellwds_kernel_matches_plain_version(cuda, G, seed):
+    """B13: the s and e planes equal the plain version's bit for bit; the
+    fp64 result passes the fp64 gate, the fp32 entry lies within 1e-5 of
+    |A|·|x|."""
+    mat = ds_banded(2500, 50, seed=seed)
+    host = HostCSR.from_scipy(mat)
+    A = sellw_ds.build_sellwds(host, group=G).to(cuda)
+    B = A.base
+    x = np.random.default_rng(1).uniform(-1, 1, host.n)
+    xh, xl = (torch.as_tensor(v, device=cuda) for v in _split_f64(x))
+    args = (B.word, B.vals, A.vlo, B.wrow, xh, xl, sellw.class_plan(B), G)
+    KS.reset_launch_counts()
+    got = KS.sellwds_planes(*args)
+    want = KS.sellwds_planes_torch(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    n_launched = sum(1 for _, cnt, _ in sellw.class_plan(B) if cnt)
+    assert KS.LAUNCHES["sellwds"] == n_launched >= 1
+    assert sum(KS.LAUNCHES.values()) == n_launched
+    y = A.spmv_f64(x)                                  # CUDA program: "cuda"
+    assert np.array_equal(y, sellw_ds.spmv_sellwds_f64(A.to("cpu"), x))
+    gold = host.spmv_gold(x).astype(np.float64)
+    assert (np.abs(y - gold) / np.maximum(np.abs(gold), 1e-300)).max() < 1e-10
+    _close_to_scipy(mat, x.astype(np.float32).astype(np.float64),
+                    spmv(A, xh))
+
+
+def test_sellwds_wrapper_refuses_bad_input(cuda):
+    A = sellw_ds.build_sellwds(HostCSR.from_scipy(
+        ds_banded(300, 6, seed=1))).to(cuda)
+    B = A.base
+    xd = torch.zeros(300, device=cuda)
+    plan = sellw.class_plan(B)
+    with pytest.raises(ValueError, match="several devices"):
+        KS.sellwds_planes(B.word, B.vals, A.vlo, B.wrow, xd, xd.cpu(), plan,
+                          B.G)
+    with pytest.raises(ValueError, match="shape"):
+        KS.sellwds_planes(B.word, B.vals, A.vlo, B.wrow, xd, xd[:10], plan,
+                          B.G)
+    with pytest.raises(TypeError):
+        KS.sellwds_planes(B.word, B.vals, A.vlo.double(), B.wrow, xd, xd,
+                          plan, B.G)
+    with pytest.raises(ValueError, match="CUDA"):
+        spmv(A.to("cpu"), torch.ones(300), impl="cuda")

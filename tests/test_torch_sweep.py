@@ -123,8 +123,8 @@ def test_sweep_resumes_from_done_log(sweep_out):
 def test_sweep_refuses_unported_names(tmp_path):
     with pytest.raises(NotImplementedError, match="bfly"):
         check_sweep_args(["csr", "bfly"], ["spmv"])
-    with pytest.raises(NotImplementedError, match="cg"):
-        run_sweep([BANDED_LINE], formats=("csr",), workloads=("cg",),
+    with pytest.raises(NotImplementedError, match="spgemm"):
+        run_sweep([BANDED_LINE], formats=("csr",), workloads=("spgemm",),
                   out_dir=str(tmp_path), device="cpu")
     with pytest.raises(NotImplementedError, match="Matrix Market"):
         load_matrix("matrix.mtx", BenchConfig())
@@ -202,3 +202,97 @@ def test_build_best_keys_match_jax(which, monkeypatch, tmp_path):
         assert list(got) == ["SELLR", "SELLW", "CLOSG"]
     for _, info in got.values():
         assert info["build_s"] == info["cold_build_s"] > 0
+
+
+@pytest.mark.parametrize("workload, transform", [("cg", "spd"),
+                                                 ("bicgstab", "dd")])
+def test_sweep_solver_rows_on_ds_formats(tmp_path, workload, transform):
+    """The solvers through the sweep on the double-single formats: one row
+    per format under the JAX workload labels, each converged."""
+    from spmv_research_tpu.harness.sweep import _labels_for as jax_labels_for
+    cfg = BenchConfig(**dict(TINY, matrix_transform=transform,
+                             cg_max_num_iters=100))
+    res = run_sweep([BANDED_LINE], formats=("csrds", "sellwds"),
+                    workloads=(workload,), out_dir=str(tmp_path),
+                    config=cfg, device="cpu")
+    assert sorted((r.format_name, r.impl, r.workload) for r in res) == [
+        ("CSRDS", "torch", workload), ("SELLWDS", "torch", workload)]
+    labels = jax_labels_for(workload, True)
+    for fmt in ("csrds", "sellwds"):
+        lines = (tmp_path / f"{fmt}_{workload}.csv").read_text().splitlines()
+        assert lines[0] == labels and len(lines) == 2
+        row = lines[1].split(",")
+        assert len(row) == len(labels.split(","))
+        assert row[0] == f"shipsec1_twin_{transform}" and row[3] == "0"
+    for r in res:
+        assert r.extra["converged"] and r.mape < 1e-5
+
+
+def test_sweep_ds_spmv_rows_carry_fp64_metrics(tmp_path):
+    res = run_sweep([BANDED_LINE], formats=("csrds", "sellwds"),
+                    out_dir=str(tmp_path), config=BenchConfig(**TINY),
+                    device="cpu")
+    assert sorted(r.format_name for r in res) == ["CSRDS", "SELLWDS"]
+    for r in res:
+        assert r.roofline_kind == "csr64" and r.metrics.passed
+        assert r.metrics.max_rel_err < 1e-10
+    for fmt in ("csrds", "sellwds"):
+        lines = (tmp_path / f"{fmt}_spmv.csv").read_text().splitlines()
+        assert lines[0] == jax_bench.csv_labels(synthetic=True)
+        assert ",csr64," in lines[1]
+
+
+def test_sweep_refuses_ic0_before_any_work(tmp_path):
+    out = tmp_path / "out"
+    for p in ("ic0", "ilu0"):
+        with pytest.raises(NotImplementedError, match="solvers/ilu.py"):
+            run_sweep([BANDED_LINE], formats=("csr",), workloads=("cg",),
+                      out_dir=str(out), device="cpu",
+                      config=BenchConfig(**dict(TINY, solver_precond=p)))
+    assert not out.exists()
+    with pytest.raises(SystemExit):
+        cli.main(["--matrix", BANDED_LINE, "--device", "cpu", "--job",
+                  "formats=csr;workloads=cg;precond=ic0"])
+
+
+def test_sweep_skips_ds_range_refusal(tmp_path, monkeypatch, capsys):
+    from spmv_research_tpu_torch.harness import sweep as sweep_mod
+    from spmv_research_tpu_torch.ops import compensated
+    monkeypatch.setattr(compensated, "DS_MAX_ABS", 1e-3)
+    assert run_sweep([BANDED_LINE], formats=("csrds", "sellwds"),
+                     out_dir=str(tmp_path), config=BenchConfig(**TINY),
+                     device="cpu") == []
+    out = capsys.readouterr().out
+    assert "csrds build refused shipsec1_twin: DSRangeError" in out
+    assert "sellwds build refused shipsec1_twin: SellWBuildError" in out
+    assert sweep_mod.SUITABILITY_ERRORS[-1] is compensated.DSRangeError
+
+
+def test_cli_jobs_run_in_order(monkeypatch, tmp_path, capsys):
+    monkeypatch.setenv("MIN_NUM_LOOPS", "2")
+    monkeypatch.setenv("MIN_TIME_S", "0")
+    specs = tmp_path / "twins.txt"
+    specs.write_text(f"{BANDED_LINE}\n")
+    cli.main(["--matrix", BANDED_LINE, "--device", "cpu", "--job",
+              f"formats=csr,sellwds;workloads=cg;transform=spd;maxiters=40;"
+              f"out={tmp_path / 'cg'}", "--job",
+              f"mats={specs};formats=csr;workloads=bicgstab;transform=dd;"
+              f"out={tmp_path / 'bicg'}"])
+    out = capsys.readouterr().out
+    assert out.index("### job: formats=csr,sellwds") < out.index(
+        "### job: mats=")
+    for d, fmt, w in (("cg", "csr", "cg"), ("cg", "sellwds", "cg"),
+                      ("bicg", "csr", "bicgstab")):
+        lines = (tmp_path / d / f"{fmt}_{w}.csv").read_text().splitlines()
+        assert len(lines) == 2 and lines[1].startswith("shipsec1_twin_")
+    with pytest.raises(SystemExit):
+        cli.main(["--matrix", BANDED_LINE, "--job", "formats=csr;impls=xla"])
+
+
+def test_config_solver_fields_match_jax(monkeypatch):
+    c, cj = BenchConfig(), JaxBenchConfig()
+    assert (c.cg_max_num_iters, c.solver_precond) == (cj.cg_max_num_iters,
+                                                      cj.solver_precond)
+    monkeypatch.setenv("CG_MAX_NUM_ITERS", "77")
+    assert (BenchConfig.from_env().cg_max_num_iters
+            == JaxBenchConfig.from_env().cg_max_num_iters == 77)

@@ -169,3 +169,24 @@ def rel_err(mat, x, y):
     x = np.asarray(x, np.float64)
     scale = np.abs(mat) @ np.abs(x) + 1e-30
     return float(np.max(np.abs(np.asarray(y, np.float64) - mat @ x) / scale))
+
+
+def ds_banded(m=2500, max_k=50, seed=0, lognormal=True):
+    """tests/test_sellw_ds.py's _banded: rows of 1..max_k-1 columns within
+    ±250 of the diagonal, values uniform in [-1, 1) and, with
+    ``lognormal``, spread over many magnitudes (the double-single
+    formats' test matrix)."""
+    rng = np.random.default_rng(seed)
+    rows, cols, vals = [], [], []
+    for i in range(m):
+        k = int(rng.integers(1, max_k))
+        c = np.clip(i + rng.integers(-250, 250, k), 0, m - 1)
+        v = rng.uniform(-1, 1, k)
+        if lognormal:
+            v = v * rng.lognormal(0, 3, k)
+        rows += [i] * k
+        cols += c.tolist()
+        vals += v.tolist()
+    mat = sp.csr_matrix((vals, (rows, cols)), shape=(m, m))
+    mat.sum_duplicates()
+    return mat
