@@ -10,8 +10,8 @@ failure (non-zero exit, no result line):
 1. the card (``nvidia-smi`` name and power limit) and whether the native
    host library loaded;
 2. build the CUDA kernels from ``spmv_research_tpu_torch/csrc/closg.cu``,
-   ``csrc/sell.cu`` and ``csrc/btile.cu`` (one nvcc each, started
-   together) and print their ptxas lines;
+   ``csrc/sell.cu``, ``csrc/btile.cu`` and ``csrc/bfly.cu`` (one nvcc
+   each, started together) and print their ptxas lines;
 3. generate the full-size scircuit twin (bench.py's line), RCM, build the
    CLOSG program (asserts N = 2^20, one program) and print its fields;
 4. each CLOSG kernel against its plain PyTorch version on the card, at the
@@ -89,7 +89,23 @@ failure (non-zero exit, no result line):
     chain of 50 per DS candidate; the CG sweep on shipsec1_spd (csr,
     sellw, sellwds) and the BiCGStab sweep on scircuit_dd (csr, closg),
     every row converged with a relative residual < 1e-5, and one counted
-    solve of each (B13's and B1-B3's launches per solve).
+    solve of each (B13's and B1-B3's launches per solve);
+16. the fallback engines CLOS and BFLY (``fallback_phase``): the scircuit
+    twin as the sweep loads it (RCM where it narrows the band), CLOS
+    (asserts N = 2^20) and BFLY (N = 2^20, L = 20) built, cold build times
+    and program shapes logged; B8's three parts (fill, scan, valid) and
+    B9's three (exchange network, fill, scan) against their plain versions
+    on the program's own pipeline inputs (``torch.equal``) and timed; B10
+    (one cooperative launch) against its plain version and B9's chain
+    (``torch.equal``), timed beside cuSPARSE's fp32 SpMV; one counted
+    SpMV per engine (launches per SpMV), one SpMV's device time and a
+    traced chain of 50 per engine (and B10 and cuSPARSE timed alone); the
+    sweep with formats csr, clos and bfly (the B8 and B9 kernels must
+    launch, every row within 1e-5 of |A|·|x|); one counted B10 SpMV,
+    checked against the gold; then mac_econ_fwd500 (validation_twins.txt:6,
+    N = 2^21): ``build_clos`` refuses it, BFLY builds it and B9 equals its
+    plain versions there, and the sweep with clos and bfly skips clos as
+    unsuitable and gives a BFLY/cuda row within 1e-5.
 
 Every kernel entry carries its bound: the larger of the bytes the function
 must move (each input read once, each output written once, a gather
@@ -133,6 +149,11 @@ GUPTA3_LINE = ("16783 16783 555.5280343204 1233.5202594143 normal random "
                "gupta3")
 MIP1_LINE = ("66463 66463 155.7681567188 350.7443175355 normal random "
              "0.5902849043 425.2424451736 1.9249020001 0.9614697347 14 mip1")
+# validation_twins.txt:6, the SuiteSparse mac_econ_fwd500 economic model:
+# ~1.27M nnz, so N = 2^21 slots: past CLOS, inside BFLY
+MAC_ECON_LINE = ("206500 206500 6.1665326877 4.4358653323 normal random "
+                 "0.0019079565 6.1352901588 0.1766859930 0.3305090836 14 "
+                 "mac_econ_fwd500")
 # validation_twins.txt line → the program build_clos_gather_auto must give:
 # ("RSPLIT", chunk W of the inner ClosGChunked), ("CLOSGX", chunks, W), or
 # ("refused", the start of the ClosRoutingError message)
@@ -148,6 +169,7 @@ WORKLOAD_LABELS = ("matrix_name,format_name,impl,K,time_iter_median,gflops,"
                    "num_loops,mape,max_ae")
 CLOSG_SRC = "spmv_research_tpu_torch/csrc/closg.cu"
 SELL_SRC = "spmv_research_tpu_torch/csrc/sell.cu"
+BFLY_SRC = "spmv_research_tpu_torch/csrc/bfly.cu"
 # the TPU kernel each CLOSG wrapper replaces, and its tolerance against the
 # plain version (K3 alone adds accumulate records: fp32 add-order slack)
 REPLACES = {
@@ -159,6 +181,13 @@ REPLACES = {
     "closg_r3_scan": "spmv_research_tpu/ops/clos_pallas.py:106",
     "closg_cand_yext": "spmv_research_tpu/ops/clos_gather.py:752",
     "closgx_r3_scan_yext": "spmv_research_tpu/ops/clos_xl.py:252",
+    "clos_r3_fill": "spmv_research_tpu/ops/clos_pallas.py:84",
+    "clos_r3_scan": "spmv_research_tpu/ops/clos_pallas.py:95",
+    "clos_r3_valid": "spmv_research_tpu/ops/clos_pallas.py:182",
+    "bfly_xor_net": "spmv_research_tpu/ops/bfly_pallas.py:56",
+    "bfly_fill": "spmv_research_tpu/ops/bfly_pallas.py:66",
+    "bfly_scan": "spmv_research_tpu/ops/bfly_pallas.py:75",
+    "bfly_full": "spmv_research_tpu/ops/bfly_pallas.py:107",
 }
 
 
@@ -451,6 +480,7 @@ def main() -> None:
                                                  build_clos_gather_auto,
                                                  build_dense, build_sellw,
                                                  spmv)
+        from spmv_research_tpu_torch.ops import bfly_cuda as KF
         from spmv_research_tpu_torch.ops import btile_cuda as KB
         from spmv_research_tpu_torch.ops import clos_cuda as K
         from spmv_research_tpu_torch.ops.clos_route import ClosRoutingError
@@ -478,11 +508,11 @@ def main() -> None:
 
     # --- 2. build the kernels (one nvcc per source, together) ---
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as ex:
-        list(ex.map(lambda lib: lib.build(), (K, KS, KB)))
+    with ThreadPoolExecutor(4) as ex:
+        list(ex.map(lambda lib: lib.build(), (K, KS, KB, KF)))
     log(f"# kernels built in {time.perf_counter() - t0:.2f}s "
-        f"({K.SOURCE}, {KS.SOURCE}, {KB.SOURCE})")
-    for lib in (K, KS, KB):
+        f"({K.SOURCE}, {KS.SOURCE}, {KB.SOURCE}, {KF.SOURCE})")
+    for lib in (K, KS, KB, KF):
         log(f"# nvcc {os.path.basename(lib.SOURCE)}: " + " | ".join(
             ln.strip() for ln in lib.build_log().splitlines()
             if "registers" in ln or "spill" in ln))
@@ -865,10 +895,14 @@ def main() -> None:
     # --- 15. double-single and solvers ---
     del ship
     k_ds = ds_phase(timer, dev, cfg)
+    log(f"# phase 15 done at {time.perf_counter() - t_start:.0f}s")
+
+    # --- 16. the fallback engines CLOS and BFLY ---
+    k_fb = fallback_phase(timer, dev, cfg)
     log(f"# all phases done at {time.perf_counter() - t_start:.0f}s")
 
     kernels += [*k_chunks, k_sellw, k_stream, *k_sellr, *k_opt, *k_w0,
-                *k_xl, *k_kdim, *k_ds]
+                *k_xl, *k_kdim, *k_ds, *k_fb]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1287,6 +1321,234 @@ def ds_phase(timer, dev, cfg) -> list:
         del host, A, x, results
     log(f"# phase 15 done in {time.perf_counter() - t_phase:.0f}s")
     return [k_b13]
+
+
+def fallback_phase(timer, dev, cfg) -> list:
+    """Phase 16, the fallback engines: CLOS and BFLY on the scircuit twin
+    (B8, B9, B10 against their plain versions and timed, cuSPARSE beside
+    B10, counted and traced SpMVs, the csr/clos/bfly sweep, one counted
+    B10 SpMV), then mac_econ_fwd500 (CLOS refuses it, BFLY runs it)."""
+    import contextlib
+    import io
+    import torch
+    import torch.nn.functional as F
+    from spmv_research_tpu_torch import bench
+    from spmv_research_tpu_torch.harness import run_sweep
+    from spmv_research_tpu_torch.harness.bench import csv_labels
+    from spmv_research_tpu_torch.harness.sweep import load_matrix
+    from spmv_research_tpu_torch.ops import (build_bfly, build_clos, spmv,
+                                             spmv_bfly_cuda_fused)
+    from spmv_research_tpu_torch.ops import bfly as BF
+    from spmv_research_tpu_torch.ops import bfly_cuda as KF
+    from spmv_research_tpu_torch.ops import clos_cuda as K
+    from spmv_research_tpu_torch.ops.clos import _t_bwd, _t_fwd
+    from spmv_research_tpu_torch.ops.clos_route import ClosRoutingError
+
+    t_phase = time.perf_counter()
+    host = load_matrix(bench.SCIRCUIT_LINE, cfg)[0]
+    t0 = time.perf_counter()
+    Ac = build_clos(host)
+    t_c = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Ab = build_bfly(host)
+    t_b = time.perf_counter() - t0
+    log(f"# scircuit CLOS (cold build {t_c:.2f}s): N={Ac.N} V={Ac.V} "
+        f"fill_stages={Ac.fill_stages} scan_stages={len(Ac.scan_stages)} "
+        f"fill_hi={tuple(Ac.fill_hi.shape)} scan_hi="
+        f"{tuple(Ac.scan_hi.shape)} footprint_MB="
+        f"{Ac.mem_footprint_bytes() / 1e6:.2f}")
+    log(f"# scircuit BFLY (cold build {t_b:.2f}s): N={Ab.N} L={Ab.L} "
+        f"sigma_x={Ab.sigma_x} sigma_y={Ab.sigma_y} stages widen/fill/perm/"
+        f"scan/compact={len(Ab.widen_stages)}/{len(Ab.fill_stages)}/"
+        f"{len(Ab.perm_stages)}/{len(Ab.scan_stages)}/"
+        f"{len(Ab.compact_stages)} word planes "
+        f"{Ab.widen_B.shape[0]}/{Ab.perm_B.shape[0]}/{Ab.compact_B.shape[0]}"
+        f" footprint_MB={Ab.mem_footprint_bytes() / 1e6:.2f}")
+    if not (Ac.N == Ab.N == 1 << 20 and Ab.L == 20):
+        fail(f"scircuit: CLOS N={Ac.N}, BFLY N={Ab.N} L={Ab.L}; want 2^20")
+    Ac, Ab = Ac.to(dev), Ab.to(dev)
+    N = Ac.N
+    x = np.random.Generator(np.random.PCG64(7)).uniform(0.0, 1.0, host.n)
+    xd = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    lib = cusparse(host, dev)
+
+    def equal(name, kern, plain):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"{name}: kernel != plain version (max |d| "
+                 f"{float((got - want).abs().max())})")
+        return want
+
+    def entry(name, source, cases, work, library=None):
+        """torch.equal on every case, then check_kernel's times and the
+        kernels-JSON entry (its launches filled in by the sweep)."""
+        for kern, plain in cases:
+            equal(name, kern, plain)
+        return check_kernel(timer, name, source, REPLACES[name], cases,
+                            exact, work, library)
+
+    # B8 on the program's own pipeline inputs (the plain stages before it)
+    def net(v, r1, r2):
+        v = _t_fwd(K.clos_invreg_torch(v, r1), Ac.V)
+        return _t_bwd(K.clos_invreg_torch(v, r2), Ac.V)
+
+    hi = lambda t: t if t.numel() == N else None  # noqa: E731
+    u = net(F.pad(xd, (0, N - Ac.n)).view(-1, 128), Ac.widen_r1,
+            Ac.widen_r2)
+    fill = (u, Ac.widen_r3, Ac.fill_hi, Ac.fill_stages)
+    u = net(K.clos_r3_fill_torch(*fill), Ac.perm_r1, Ac.perm_r2)
+    scan = (u, Ac.perm_r3, Ac.vals, Ac.scan_hi, Ac.scan_stages)
+    u = net(K.clos_r3_scan_torch(*scan), Ac.compact_r1, Ac.compact_r2)
+    valid = (u, Ac.compact_r3)
+    k_b8 = [entry(name, CLOSG_SRC, [(lambda f=getattr(K, name), a=args:
+                                     f(*a),
+                                     lambda f=getattr(K, name + "_torch"),
+                                     a=args: f(*a))], work)
+            for name, args, work in (
+                ("clos_r3_fill", fill,
+                 (nbytes(u, Ac.widen_r3, hi(Ac.fill_hi)) + 4 * N, 0)),
+                # a product per slot and a prefix sum, one add per slot
+                ("clos_r3_scan", scan,
+                 (nbytes(u, Ac.perm_r3, Ac.vals, hi(Ac.scan_hi)) + 4 * N,
+                  2 * N)),
+                ("clos_r3_valid", valid, (nbytes(*valid) + 4 * N, 0)))]
+
+    # B9 on the program's own pipeline inputs, B10 against both
+    v0 = BF._spread_x(xd, Ab.n, N, Ab.sigma_x)
+    v1 = KF.bfly_xor_net_torch(v0, Ab.widen_B, Ab.widen_stages)
+    v2 = KF.bfly_fill_torch(v1, Ab.fill_words, Ab.fill_stages)
+    v3 = KF.bfly_xor_net_torch(v2, Ab.perm_B, Ab.perm_stages) * Ab.vals
+    v4 = KF.bfly_scan_torch(v3, Ab.scan_guards, Ab.scan_stages)
+    nets = [(v0, Ab.widen_B, Ab.widen_stages),
+            (v2, Ab.perm_B, Ab.perm_stages),
+            (v4, Ab.compact_B, Ab.compact_stages)]
+    case = lambda name, a: (  # noqa: E731
+        lambda: getattr(KF, name)(*a),
+        lambda: getattr(KF, name + "_torch")(*a))
+    k_b9 = [
+        # each stage's bit plane read once per network: v, the word planes
+        # the network uses, the output (the widen network timed)
+        entry("bfly_xor_net", BFLY_SRC, [case("bfly_xor_net", a)
+                                         for a in nets],
+              (nbytes(v0, Ab.widen_B) + 4 * N, 0)),
+        entry("bfly_fill", BFLY_SRC,
+              [case("bfly_fill", (v1, Ab.fill_words, Ab.fill_stages))],
+              (nbytes(v1, Ab.fill_words) + 4 * N, 0)),
+        entry("bfly_scan", BFLY_SRC,
+              [case("bfly_scan", (v3, Ab.scan_guards, Ab.scan_stages))],
+              (nbytes(v3, Ab.scan_guards) + 4 * N, N))]
+    planes = Ab.planes()
+    chain = KF.bfly_xor_net(v0, Ab.widen_B, Ab.widen_stages)
+    chain = KF.bfly_fill(chain, Ab.fill_words, Ab.fill_stages)
+    chain = KF.bfly_xor_net(chain, Ab.perm_B, Ab.perm_stages) * Ab.vals
+    chain = KF.bfly_scan(chain, Ab.scan_guards, Ab.scan_stages)
+    chain = (KF.bfly_xor_net(chain, Ab.compact_B, Ab.compact_stages)
+             * Ab.out_valid)
+    full = equal("bfly_full vs the B9 chain",
+                 lambda: KF.bfly_full(v0, *planes), lambda: chain)
+    xcol = xd.unsqueeze(1)
+    k_b10 = entry("bfly_full", BFLY_SRC,
+                  [case("bfly_full", (v0, *planes))],
+                  # the whole program's planes read once, out written once;
+                  # its function, y = A·x, two operations per nnz
+                  (nbytes(v0, *planes[:7]) + nbytes(full), 2 * host.nnz),
+                  library=lambda: lib @ xcol)
+    log(f"# B10 (one cooperative launch) equals B9's chain and the plain "
+        f"version; cuSPARSE fp32 SpMV {k_b10['library_ms']:.4f} ms")
+    del u, fill, scan, valid, v0, v1, v2, v3, v4, nets, chain, full, planes
+
+    for label, A in (("CLOS", Ac), ("BFLY", Ab)):
+        y, launches = counted_spmv(A, xd, K, KF)
+        log(f"# launches during one scircuit {label}/cuda SpMV: "
+            f"{ {k: v for k, v in launches.items() if v} } (total "
+            f"{sum(launches.values())})")
+        check_gold(f"scircuit {label}/cuda", host, x, y)
+    time_candidates(timer, "scircuit", {
+        "CLOS/cuda": lambda v: spmv(Ac, v, impl="cuda"),
+        "BFLY/cuda": lambda v: spmv(Ab, v, impl="cuda"),
+        "BFLY/cuda fused (B10)": lambda v: spmv_bfly_cuda_fused(Ab, v),
+        "cuSPARSE (library)": lambda v: (lib @ v.unsqueeze(1)).squeeze(1)},
+        ("CLOS/cuda", "BFLY/cuda", "BFLY/cuda fused (B10)"), xd)
+    del Ac
+
+    # the sweep path: csr, clos, bfly
+    with tempfile.TemporaryDirectory() as out_dir:
+        K.reset_launch_counts()
+        KF.reset_launch_counts()
+        results = run_sweep([bench.SCIRCUIT_LINE],
+                            formats=("csr", "clos", "bfly"),
+                            out_dir=out_dir, config=cfg, device=dev)
+        torch.cuda.synchronize()
+        launches = {**K.LAUNCHES, **KF.LAUNCHES}
+        log(f"# launches during the csr/clos/bfly sweep: {launches}")
+        check_csvs(out_dir, csv_labels(synthetic=True),
+                   {f"{f}_spmv": 1 for f in ("csr", "clos", "bfly")})
+    for k in (*k_b8, *k_b9):
+        k["launches"] = launches[k["name"]]
+        if k["launches"] <= 0:
+            fail(f"the csr/clos/bfly sweep never launched {k['name']}")
+    check_rows(results, ["CSR/torch", "CLOS/cuda", "BFLY/cuda"],
+               {"scircuit_twin": host}, x)
+    del results
+    # B10's path: the unregistered fused SpMV, called as a user would
+    KF.reset_launch_counts()
+    y = spmv_bfly_cuda_fused(Ab, xd)
+    torch.cuda.synchronize()
+    k_b10["launches"] = KF.LAUNCHES["bfly_full"]
+    if k_b10["launches"] != 1 or sum(KF.LAUNCHES.values()) != 1:
+        fail(f"one fused BFLY SpMV launched {dict(KF.LAUNCHES)}")
+    check_gold("scircuit BFLY/cuda fused (B10)", host, x, y)
+    del Ab, y, lib, host
+    log(f"# phase 16 scircuit part done in "
+        f"{time.perf_counter() - t_phase:.0f}s")
+
+    # mac_econ_fwd500: past CLOS, inside BFLY
+    mac = load_matrix(MAC_ECON_LINE, cfg)[0]
+    try:
+        build_clos(mac)
+        fail("build_clos accepted mac_econ_fwd500 (N = 2^21)")
+    except ClosRoutingError as e:
+        log(f"# mac_econ_fwd500 (m={mac.m} nnz={mac.nnz}): build_clos "
+            f"refused it: {e}")
+    t0 = time.perf_counter()
+    Am = build_bfly(mac)
+    log(f"# mac_econ_fwd500 BFLY (cold build "
+        f"{time.perf_counter() - t0:.2f}s): N={Am.N} L={Am.L} stages "
+        f"{len(Am.widen_stages)}/{len(Am.fill_stages)}/"
+        f"{len(Am.perm_stages)}/{len(Am.scan_stages)}/"
+        f"{len(Am.compact_stages)}")
+    if Am.N != 1 << 21:
+        fail(f"mac_econ_fwd500: BFLY N={Am.N}, want 2^21")
+    Am = Am.to(dev)
+    xm = np.random.Generator(np.random.PCG64(7)).uniform(0.0, 1.0, mac.n)
+    v = BF._spread_x(torch.as_tensor(xm, dtype=torch.float32, device=dev),
+                     Am.n, Am.N, Am.sigma_x)
+    for name, args, after in (
+            ("bfly_xor_net", (Am.widen_B, Am.widen_stages), None),
+            ("bfly_fill", (Am.fill_words, Am.fill_stages), None),
+            ("bfly_xor_net", (Am.perm_B, Am.perm_stages), Am.vals),
+            ("bfly_scan", (Am.scan_guards, Am.scan_stages), None),
+            ("bfly_xor_net", (Am.compact_B, Am.compact_stages), None)):
+        v = equal(f"mac_econ_fwd500 {name}",
+                  lambda f=getattr(KF, name), a=(v, *args): f(*a),
+                  lambda f=getattr(KF, name + "_torch"), a=(v, *args): f(*a))
+        v = v if after is None else v * after
+    log("# mac_econ_fwd500: B9 equals its plain versions on every stage")
+    del Am, v
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as out_dir:
+        with contextlib.redirect_stdout(out):
+            results = run_sweep([MAC_ECON_LINE], formats=("clos", "bfly"),
+                                out_dir=out_dir, config=cfg, device=dev)
+        log(out.getvalue().rstrip())
+        if "# clos build refused mac_econ_fwd500: ClosRoutingError" not in (
+                out.getvalue()):
+            fail("the mac_econ_fwd500 sweep did not skip clos as unsuitable")
+        check_csvs(out_dir, csv_labels(synthetic=True), {"bfly_spmv": 1})
+    check_rows(results, ["BFLY/cuda"], {"mac_econ_fwd500": mac}, xm)
+    log(f"# phase 16 done in {time.perf_counter() - t_phase:.0f}s")
+    return [*k_b8, *k_b9, k_b10]
 
 
 def check_y(label, host, X, Y) -> None:

@@ -1,6 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels of the CLOSG SpMV engine: the front
 // ends (plain, value-LUT, fused windows), the in-vreg layer, the segmented
-// scan, and the three y extractions (windowed, candidate-plane, CLOSGX).
+// scan, and the three y extractions (windowed, candidate-plane, CLOSGX);
+// and the r3 steps of the exact-CLOS engine (B8: the r3 layer × values or
+// with the out-valid mask, and the forward fill).
 //
 // Built by spmv_research_tpu_torch/ops/clos_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
@@ -46,12 +48,26 @@ __device__ __forceinline__ float invreg_pick(const uint32_t* w, const float* v,
   return v[s2 * L + l];
 }
 
+// What follows the in-vreg layer in the same launch (kPost).
+constexpr int kPostNone = 0;   // K2, and the r3 layer of K3, B5, B15, B8 fill
+constexpr int kPostVals = 1;   // B8 scan: × vals at the output slot
+constexpr int kPostValid = 2;  // B8 valid: 0 unless bit 17 of the r3 word
+
 // K2 `clos_invreg` — replaces spmv_research_tpu/ops/clos_pallas.py
 // `_invreg_kernel` (the r2 layer; also the r3 layer of K3).
 // Bound: device memory, 12 bytes per slot (read word and value, write out);
 // the three picks hit shared memory. One block per 1024 slots.
+//
+// B8's r3 layers — replace clos_pallas.py `_r3_scan_kernel` (the layer, then
+// × vals; kPostVals) and `_r3_valid_kernel` (the layer, then the out-valid
+// mask of the compact network; kPostValid). The product is __fmul_rn so
+// that nvcc cannot contract it into an FMA with the scan's add: the plain
+// version rounds it on its own. Bound: device memory, 16 (vals) or 12
+// bytes per slot.
+template <int kPost>
 __global__ void invreg_kernel(const float* __restrict__ v,
                               const uint32_t* __restrict__ word,
+                              const float* __restrict__ vals,
                               float* __restrict__ out, int lshift) {
   __shared__ uint32_t w_sh[kBlockSlots];
   __shared__ float v_sh[kBlockSlots];
@@ -60,7 +76,13 @@ __global__ void invreg_kernel(const float* __restrict__ v,
   w_sh[t] = word[off + t];
   v_sh[t] = v[off + t];
   __syncthreads();
-  out[off + t] = invreg_pick(w_sh, v_sh, t, lshift);
+  const float r = invreg_pick(w_sh, v_sh, t, lshift);
+  if (kPost == kPostVals)
+    out[off + t] = __fmul_rn(r, vals[off + t]);
+  else if (kPost == kPostValid)
+    out[off + t] = ((w_sh[t] >> 17) & 1u) ? r : 0.0f;
+  else
+    out[off + t] = r;
 }
 
 // K1 `closg_front` — replaces spmv_research_tpu/ops/clos_gather.py
@@ -146,6 +168,14 @@ __global__ void front_win_kernel(const int32_t* __restrict__ gbase,
 // chunk. Each stage reads the previous stage's whole array, so stages
 // ping-pong two buffers, one launch each. Bound: device memory, 12 bytes
 // per slot per stage.
+//
+// kSelect: one stage of B8's forward fill — replaces the fill stages of
+// clos_pallas.py `_r3_fill_kernel` (the widen network's r3 word carries the
+// take bits):
+//   dst[p] = take_k[p] ? src[p - 2^k] : src[p]
+// over one CLOS program (chunk = N), wrapping like the JAX package's roll.
+// The select is exact. Bound: device memory, 12 bytes per slot per stage.
+template <bool kSelect>
 __global__ void scan_step_kernel(const float* __restrict__ src,
                                  float* __restrict__ dst,
                                  const uint32_t* __restrict__ w3,
@@ -156,9 +186,13 @@ __global__ void scan_step_kernel(const float* __restrict__ src,
   const uint32_t g = k < 15 ? (w3[p] >> (17 + k)) & 1u
                             : (hi[p] >> (k - 15)) & 1u;
   const int64_t base = p & ~(chunk - 1);
-  const float shifted =
-      g ? src[base + ((p - base - (int64_t(1) << k)) & (chunk - 1))] : 0.0f;
-  dst[p] = src[p] + shifted;
+  const int64_t q = base + ((p - base - (int64_t(1) << k)) & (chunk - 1));
+  if (kSelect) {
+    dst[p] = g ? src[q] : src[p];
+  } else {
+    const float shifted = g ? src[q] : 0.0f;
+    dst[p] = src[p] + shifted;
+  }
 }
 
 __device__ __forceinline__ float y_pick(const float* __restrict__ scr,
@@ -234,9 +268,27 @@ int closg_invreg(const void* v, const void* word, void* out, int64_t n_slots,
                  int lanes, void* stream) {
   int lshift = 0;
   while ((1 << lshift) < lanes) ++lshift;
-  invreg_kernel<<<(unsigned)(n_slots / kBlockSlots), kBlockSlots, 0,
-                  (cudaStream_t)stream>>>(
-      (const float*)v, (const uint32_t*)word, (float*)out, lshift);
+  invreg_kernel<kPostNone><<<(unsigned)(n_slots / kBlockSlots), kBlockSlots,
+                             0, (cudaStream_t)stream>>>(
+      (const float*)v, (const uint32_t*)word, nullptr, (float*)out, lshift);
+  return (int)cudaGetLastError();
+}
+
+// B8's r3 layer on 128-lane rows: post 1 multiplies by vals, post 2 applies
+// the out-valid bit (vals unused, may be null).
+int clos_r3(const void* v, const void* word, const void* vals, void* out,
+            int64_t n_slots, int post, void* stream) {
+  const unsigned blocks = (unsigned)(n_slots / kBlockSlots);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (post == kPostVals)
+    invreg_kernel<kPostVals><<<blocks, kBlockSlots, 0, st>>>(
+        (const float*)v, (const uint32_t*)word, (const float*)vals,
+        (float*)out, 7);
+  else if (post == kPostValid)
+    invreg_kernel<kPostValid><<<blocks, kBlockSlots, 0, st>>>(
+        (const float*)v, (const uint32_t*)word, nullptr, (float*)out, 7);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
@@ -274,10 +326,23 @@ int closg_scan_step(const void* src, void* dst, const void* perm_r3,
                     const void* scan_hi, int k, int64_t n_slots,
                     int64_t chunk, void* stream) {
   const int threads = 256;
-  scan_step_kernel<<<(unsigned)((n_slots + threads - 1) / threads), threads,
-                     0, (cudaStream_t)stream>>>(
+  scan_step_kernel<false><<<(unsigned)((n_slots + threads - 1) / threads),
+                            threads, 0, (cudaStream_t)stream>>>(
       (const float*)src, (float*)dst, (const uint32_t*)perm_r3,
       (const uint32_t*)scan_hi, k, n_slots, chunk);
+  return (int)cudaGetLastError();
+}
+
+// B8's fill stage: as closg_scan_step, selecting instead of adding (take
+// bits in widen_r3's spare bits; fill_hi may be null when k < 15).
+int clos_fill_step(const void* src, void* dst, const void* widen_r3,
+                   const void* fill_hi, int k, int64_t n_slots,
+                   int64_t chunk, void* stream) {
+  const int threads = 256;
+  scan_step_kernel<true><<<(unsigned)((n_slots + threads - 1) / threads),
+                           threads, 0, (cudaStream_t)stream>>>(
+      (const float*)src, (float*)dst, (const uint32_t*)widen_r3,
+      (const uint32_t*)fill_hi, k, n_slots, chunk);
   return (int)cudaGetLastError();
 }
 

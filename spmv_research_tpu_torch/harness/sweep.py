@@ -15,11 +15,11 @@ Differences from the JAX sweep, each deliberate:
 
 * matrices are synthetic 11-arg parameter lines; a ``.mtx`` spec raises
   ``NotImplementedError`` (the Matrix Market reader is ROADMAP queue A
-  item 1);
+  item 6);
 * ``FORMAT_BUILDERS`` holds ``csr``, ``sellr``, ``sellw``, ``closg`` (whose
   builder may return a CLOSG, RSPLIT or CLOSGX program, as in the JAX
-  sweep), ``dense``, ``btile`` and the double-single ``csrds`` and
-  ``sellwds``, and the workloads are ``spmv``, ``spmm``, ``sddmm``, ``cg``
+  sweep), the fallback engines ``clos`` and ``bfly``, ``dense``, ``btile``
+  and the double-single ``csrds`` and ``sellwds``, and the workloads are ``spmv``, ``spmm``, ``sddmm``, ``cg``
   and ``bicgstab``: any other name, and a solver preconditioner other than
   Jacobi (``ic0`` and ``ilu0`` need ``solvers/ilu.py``), raises before the
   sweep starts;
@@ -30,8 +30,9 @@ Differences from the JAX sweep, each deliberate:
   SDDMM) is skipped, as ``available_impls`` skips it in the JAX sweep; the
   solvers run on the format's SpMV;
 * a builder's suitability error (``SellRBuildError``, ``SellWBuildError``,
-  ``ClosRoutingError``, ``DenseBuildError``, ``BTileBuildError``, and
-  ``DSRangeError``, a value too large for the double-single split) is
+  ``ClosRoutingError``, ``RoutingError`` (BFLY past 2^22 slots),
+  ``DenseBuildError``, ``BTileBuildError``, and ``DSRangeError``, a value
+  too large for the double-single split) is
   printed and the format skipped, as in the JAX sweep; a gated row
   (non-finite metrics, a solve without progress) is printed and logged as
   ``FAIL``; any other exception propagates (no retries: a GPU fault is not
@@ -54,11 +55,14 @@ from ..convert import (build_csr, extract_features, fix_diagonal_zeros,
 from ..convert.reorder import rcm_if_beneficial
 from ..gen import ArtificialParams, artificial_matrix_generation
 from ..ops import available_impls, default_impl
+from ..ops.bfly import build_bfly
 from ..ops.btile import BTileBuildError, build_btile
+from ..ops.clos import build_clos
 from ..ops.compensated import DSRangeError, build_csrds
 from ..ops.clos_gather import build_clos_gather_auto
 from ..ops.clos_route import ClosRoutingError
 from ..ops.densemv import DenseBuildError, build_dense
+from ..ops.routing import RoutingError
 from ..ops.sellr import SellRBuildError, build_sellr
 from ..ops.sellw import SellWBuildError, build_sellw
 from ..ops.sellw_ds import build_sellwds
@@ -72,6 +76,8 @@ FORMAT_BUILDERS = {
     "sellr": build_sellr,
     "sellw": build_sellw,
     "closg": build_clos_gather_auto,   # CLOSG, RSPLIT or CLOSGX
+    "clos": build_clos,
+    "bfly": build_bfly,
     "dense": build_dense,
     "btile": build_btile,
     "csrds": build_csrds,
@@ -81,7 +87,8 @@ WORKLOADS = ("spmv", "spmm", "sddmm", "cg", "bicgstab")
 SOLVERS = ("cg", "bicgstab")        # workloads that run on the SpMV
 # a builder raising one of these refuses the matrix: the format is skipped
 SUITABILITY_ERRORS = (SellRBuildError, SellWBuildError, ClosRoutingError,
-                      DenseBuildError, BTileBuildError, DSRangeError)
+                      RoutingError, DenseBuildError, BTileBuildError,
+                      DSRangeError)
 WORKLOAD_LABELS = ("matrix_name,format_name,impl,K,time_iter_median,gflops,"
                    "num_loops,mape,max_ae")
 
@@ -95,13 +102,13 @@ def check_sweep_args(formats: Sequence[str], workloads: Sequence[str],
         raise NotImplementedError(
             f"formats {bad_f} are not ported: the sweep has "
             f"{sorted(FORMAT_BUILDERS)} (the others follow their engines, "
-            "ROADMAP queue A items 2, 5, 8 and 11)")
+            "ROADMAP queue A items 4 and 5)")
     bad_w = [w for w in workloads if w not in WORKLOADS]
     if bad_w:
         raise NotImplementedError(
             f"workloads {bad_w} are not ported: the sweep runs "
-            f"{', '.join(WORKLOADS)} (SpGEMM and trisolve are ROADMAP queue "
-            "A item 8)")
+            f"{', '.join(WORKLOADS)} (trisolve and SpGEMM are ROADMAP queue "
+            "A items 2 and 3)")
     if any(w in SOLVERS for w in workloads):
         check_precond(precond)
 
@@ -114,7 +121,7 @@ def load_matrix(spec: str, cfg: BenchConfig):
     if spec.endswith(".mtx") or os.path.exists(spec):
         raise NotImplementedError(
             f"{spec}: Matrix Market input is not ported (ROADMAP queue A "
-            "item 1, io/matrix_market.py)")
+            "item 6, io/matrix_market.py)")
     params = ArtificialParams.from_args(spec.split())
     host, _ = artificial_matrix_generation(params)
     name = params.name or "synthetic"

@@ -14,6 +14,10 @@ Protocol parity with the reference:
   [0, 1) from ``PCG64(13)``, rtol 1e-6 (fp32), the preconditioner built
   once and timed apart; solve time, iterations and the final relative
   residual ‖A·x − b‖ / ‖b‖, taken on the host in fp64 (``:410-415``).
+  The row's ``num_loops`` is the counted iterations, as in the JAX
+  schema; its per-iteration time and GFLOPS divide the solve by the
+  iterations the host loop ran (``extra["loop_iterations"]``, which may
+  pass the counted ones by up to ``solvers.cg.POLL_EVERY`` − 1).
 
 The gold is the float64 product on the host (scipy's ``A @ X``; the per-nnz
 dots of A's and B's rows), held against the result through the 8 error
@@ -210,6 +214,9 @@ def bench_cg(host: HostCSR, A, *, config: Optional[BenchConfig] = None,
     xh = x.double().cpu().numpy()
     t_compile = time.perf_counter() - t0
     iters = int(info["iterations"])
+    # the host loop polls its condition every few iterations and may run
+    # past convergence: the solve's time divides by the iterations it ran
+    loops = int(info["loop_iterations"])
     converged = bool(info["converged"])
     res = float(np.linalg.norm(host.to_scipy() @ xh - b)
                 / max(np.linalg.norm(b), 1e-300))
@@ -227,10 +234,11 @@ def bench_cg(host: HostCSR, A, *, config: Optional[BenchConfig] = None,
         workload=name, matrix_name=matrix_name, format_name=A.format_name,
         impl=(impl or "auto") + ("" if precond == "jacobi"
                                  else f"+{precond}"), k=0,
-        time_iter_median=t_solve / max(iters, 1),
-        gflops=flops_iter * iters / t_solve * 1e-9,
+        time_iter_median=t_solve / max(loops, 1),
+        gflops=flops_iter * loops / t_solve * 1e-9,
         num_loops=iters, mape=res, max_ae=res,
         extra={"converged": converged, "relative_residual": res,
                "solve_time": t_solve, "precond_setup_time": t_setup,
-               "compile_time": t_compile},
+               "compile_time": t_compile, "loop_iterations": loops,
+               "time_divisor": "loop_iterations"},
         out=xh)

@@ -5,7 +5,8 @@ Counterpart of ``spmv_research_tpu/io/native.py``. It loads the same
 same behaviour: when the library is missing but its sources exist, try
 ``make -C native`` once. Only the entry points the port's modules call are
 bound (COO→CSR, RCM, feature extraction, the Clos Euler edge coloring, the
-SELLW packer); the MTX parser and the Waksman router follow their modules.
+SELLW packer, the Waksman router of BFLY); the MTX parser follows its
+module.
 
 This is a host library: its numpy fallbacks give the same results (the
 Euler coloring a different but equally valid one) more slowly, and are not a
@@ -27,6 +28,8 @@ _LOCK = threading.Lock()
 
 _c_i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _c_i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_c_u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+_c_u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
 _c_f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 _c_f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
 
@@ -94,6 +97,11 @@ def _load() -> None:
     lib.cross_row_similarity_avg.argtypes = [
         _c_i32p, _c_i32p, ctypes.c_int64, ctypes.c_int64]
 
+    lib.waksman_route.restype = ctypes.c_int32
+    lib.waksman_route.argtypes = [
+        _c_i64p, _c_i64p, _c_u8p, ctypes.c_int64, ctypes.c_int32,
+        _c_u32p, _c_u32p, _c_i32p]
+
     if hasattr(lib, "euler_edge_color"):  # stale .so: degrade politely
         lib.euler_edge_color.restype = ctypes.c_int32
         lib.euler_edge_color.argtypes = [
@@ -147,6 +155,27 @@ def cross_row_similarity_avg_native(ia, ja, m, window=1):
     return float(lib.cross_row_similarity_avg(
         np.ascontiguousarray(ia, np.int32),
         np.ascontiguousarray(ja, np.int32), m, window))
+
+
+def waksman_route_native(s_full, t_full, real, N, L):
+    """Returns (A_words (0,N) uint32, B_words (W,N) uint32, stage_ks list)."""
+    lib = get_lib()
+    max_stages = 2 * L
+    n_words = (max_stages + 31) // 32
+    A = np.zeros(n_words * N, np.uint32)
+    B = np.zeros(n_words * N, np.uint32)
+    ks = np.zeros(max_stages, np.int32)
+    n = lib.waksman_route(
+        np.ascontiguousarray(s_full, np.int64),
+        np.ascontiguousarray(t_full, np.int64),
+        np.ascontiguousarray(real, np.uint8), N, L, A, B, ks)
+    used_words = max((n + 31) // 32, 1)
+    # default-keep semantics: only the take-partner planes are used (the C++
+    # router still records keep bits; they are dropped here, as in
+    # ops/waksman.py's emit)
+    return (np.zeros((0, N), np.uint32),
+            B.reshape(n_words, N)[:used_words],
+            [int(k) for k in ks[:n]])
 
 
 def have_euler_edge_color() -> bool:

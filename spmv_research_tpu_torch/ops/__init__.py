@@ -9,16 +9,21 @@ from . import sellr        # registers SELLR/torch and SELLR/cuda
 from . import btile        # registers BTILE/torch and BTILE/cuda (no SpMV)
 from . import compensated  # registers CSRDS/torch
 from . import sellw_ds     # registers SELLWDS/torch and SELLWDS/cuda
+from . import clos         # registers CLOS/torch and CLOS/cuda
+from . import bfly         # registers BFLY/torch and BFLY/cuda
+from .bfly import Bfly, bfly_from_jax, build_bfly, spmv_bfly_cuda_fused
 from .btile import (BTile, BTileBuildError, btile_from_jax, build_btile,
                     execute_btile_numpy, sddmm_slab_to_csr_values)
 from .compensated import (CsrDS, DSRangeError, build_csrds, csrds_from_jax,
                           spmv_csrds_f64, spmv_csrds_pair)
+from .clos import Clos, build_clos, clos_from_jax, execute_clos_numpy
 from .clos_gather import (ClosG, ClosGChunked, build_clos_gather,
                           build_clos_gather_auto, execute_closg_numpy,
                           from_jax_program)
 from .clos_xl import (ClosGX, build_clos_gather_xl, closgx_from_jax,
                       execute_closgx_numpy)
 from .densemv import DenseBuildError, DenseMV, build_dense
+from .routing import RoutingError
 from .rowsplit import (RowSplit, execute_rowsplit_numpy, rowsplit_from_jax,
                        split_long_rows)
 from .sellw import SellW, SellWBuildError, build_sellw, execute_sellw_numpy

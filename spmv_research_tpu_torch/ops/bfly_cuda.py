@@ -1,0 +1,260 @@
+"""The BFLY engine's CUDA kernels: build, wrappers, plain versions.
+
+Counterpart of ``spmv_research_tpu/ops/bfly_pallas.py``. One wrapper per
+Pallas kernel (sources and design notes in ``csrc/bfly.cu``):
+
+=================  ==========================================================
+wrapper            replaces
+=================  ==========================================================
+``bfly_xor_net``   ``bfly_pallas.py:_xor_net_kernel`` (one exchange network:
+                   out = take bit ? v[p XOR 2^k] : v) — one launch per stage
+``bfly_fill``      ``bfly_pallas.py:_fill_kernel`` (forward fill: out = take
+                   bit k ? v[p − 2^k] : v) — one launch per stage
+``bfly_scan``      ``bfly_pallas.py:_scan_kernel`` (segmented scan: out = v +
+                   (guard bit k ? v[p − 2^k] : 0)) — one launch per stage
+``bfly_full``      ``bfly_pallas.py:_full_kernel`` (the whole program, × vals
+                   and × valid included) — one cooperative launch
+=================  ==========================================================
+
+The shifts wrap over the N slots as ``jnp.roll`` and ``torch.roll`` do (a
+set bit never wraps). Each wrapper takes the kernel's plain PyTorch version
+(``*_torch``) only when its tensors lie on the CPU; for CUDA tensors it
+launches the kernel or raises, nothing falls back. ``LAUNCHES`` counts, per
+wrapper, its kernel launches. A network, fill or scan with no stages
+returns its input and launches nothing, as the JAX package skips the call.
+
+The kernels are compiled by ``nvcc`` from ``csrc/bfly.cu`` at first CUDA use
+(``cuda_lib.CudaLib``); importing this module builds and loads nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+from typing import Sequence, Tuple
+
+import torch
+
+from .cuda_lib import CudaLib, check as _check, on_cuda as _on_cuda
+from .cuda_lib import stream as _stream
+
+LAUNCHES = {"bfly_xor_net": 0, "bfly_fill": 0, "bfly_scan": 0,
+            "bfly_full": 0}
+Stages = Sequence[Tuple[int, int, int]]
+MAX_CODES = 256                  # csrc/bfly.cu kMaxCodes
+KIND_XOR, KIND_FILL, KIND_SCAN = 0, 1, 2
+NET_WIDEN, NET_PERM, NET_COMPACT = 0, 1, 2
+PREMUL = 1 << 20                 # the stage reads its values × vals
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.bfly_xor_stage.argtypes = [p, p, p, i32, i32, i64, p]
+    lib.bfly_shift_stage.argtypes = [p, p, p, i32, i64, i32, p]
+    lib.bfly_full.argtypes = ([p] * 11
+                              + [i64, ctypes.POINTER(ctypes.c_uint32), i32,
+                                 i32, p])
+    for fn in (lib.bfly_xor_stage, lib.bfly_shift_stage, lib.bfly_full):
+        fn.restype = i32
+
+
+_CUDA = CudaLib("bfly", _bind)
+SOURCE = _CUDA.source
+build = _CUDA.build
+build_log = _CUDA.build_log
+_launch = _CUDA.launch
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ------------------------------------------------------------ plain versions
+
+def bfly_xor_net_torch(v: torch.Tensor, B: torch.Tensor,
+                       stages: Stages) -> torch.Tensor:
+    """Default-keep exchange network over the flat plane v (N,): per stage
+    (w, b, k), out = bit b of B[w] ? v[p XOR 2^k] : v (``_xor_net_flat``:
+    the partner from two rolls and a select)."""
+    pos = torch.arange(v.numel(), dtype=torch.int32, device=v.device)
+    for w, b, k in stages:
+        d = 1 << k
+        partner = torch.where((pos & d) != 0, torch.roll(v, d),
+                              torch.roll(v, -d))
+        v = torch.where(((B[w] >> b) & 1) != 0, partner, v)
+    return v
+
+
+def bfly_fill_torch(v: torch.Tensor, words: torch.Tensor,
+                    stages: Sequence[int]) -> torch.Tensor:
+    """Forward fill: per stage k, out = bit k of words ? v[p − 2^k] : v."""
+    for k in stages:
+        v = torch.where(((words >> k) & 1) != 0, torch.roll(v, 1 << k), v)
+    return v
+
+
+def bfly_scan_torch(v: torch.Tensor, guards: torch.Tensor,
+                    stages: Sequence[int]) -> torch.Tensor:
+    """Segmented scan: per stage k, out = v + (bit k of guards ?
+    v[p − 2^k] : 0)."""
+    for k in stages:
+        v = v + torch.where(((guards >> k) & 1) != 0, torch.roll(v, 1 << k),
+                            0.0)
+    return v
+
+
+def bfly_full_torch(v, widen_B, fill_words, perm_B, vals, scan_guards,
+                    compact_B, out_valid, widen_stages: Stages,
+                    fill_stages: Sequence[int], perm_stages: Stages,
+                    scan_stages: Sequence[int],
+                    compact_stages: Stages) -> torch.Tensor:
+    """The whole program on the spread x (N,): widen, fill, perm, × vals,
+    scan, compact, × out_valid (``_full_kernel``; B9's plain chain)."""
+    v = bfly_xor_net_torch(v, widen_B, widen_stages)
+    v = bfly_fill_torch(v, fill_words, fill_stages)
+    v = bfly_xor_net_torch(v, perm_B, perm_stages) * vals
+    v = bfly_scan_torch(v, scan_guards, scan_stages)
+    return bfly_xor_net_torch(v, compact_B, compact_stages) * out_valid
+
+
+# ------------------------------------------------------------------ wrappers
+
+def _check_plane(v: torch.Tensor) -> int:
+    n = v.numel()
+    _check(v, "v", torch.float32, (n,))
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"BFLY planes hold a power of two of slots, not {n}")
+    return n
+
+
+def _check_words(t: torch.Tensor, name: str, n: int) -> None:
+    _check(t, name, torch.int32, (n,))
+
+
+def _check_stages(B: torch.Tensor, stages: Stages, n: int) -> None:
+    _check(B, "B", torch.int32, (B.shape[0], n))
+    for w, b, k in stages:
+        if not (0 <= w < B.shape[0] and 0 <= b < 32 and 0 <= k < 31
+                and (1 << k) < n):
+            raise ValueError(f"stage {(w, b, k)} does not fit {B.shape[0]} "
+                             f"word planes of {n} slots")
+
+
+def _check_shifts(stages: Sequence[int], n: int) -> None:
+    if any(not 0 <= k < 31 or (1 << k) >= n for k in stages):
+        raise ValueError(f"shift stages {tuple(stages)} do not fit {n} slots")
+
+
+def _stages(key: str, v: torch.Tensor, launches) -> torch.Tensor:
+    """One launch per stage, each entry point given (src, dst, *args,
+    stream): every stage reads the previous stage's whole plane, so the
+    stages ping-pong two buffers. No stage: v itself."""
+    if not launches:
+        return v
+    bufs = [torch.empty_like(v), torch.empty_like(v)]
+    src = v
+    with torch.cuda.device(v.device):
+        stream = _stream(v)
+        for i, (fn, args) in enumerate(launches):
+            dst = bufs[i % 2]
+            _launch(fn, src.data_ptr(), dst.data_ptr(), *args, stream)
+            LAUNCHES[key] += 1
+            src = dst
+    return src
+
+
+def bfly_xor_net(v: torch.Tensor, B: torch.Tensor,
+                 stages: Stages) -> torch.Tensor:
+    """One exchange network over the flat plane v (N,) (kernel B9)."""
+    if not _on_cuda(v, B):
+        return bfly_xor_net_torch(v, B, stages)
+    n = _check_plane(v)
+    _check_stages(B, stages, n)
+    return _stages("bfly_xor_net", v, [
+        ("bfly_xor_stage", (B[w].data_ptr(), b, k, n)) for w, b, k in stages])
+
+
+def _shift(key: str, select: int, v: torch.Tensor, words: torch.Tensor,
+           stages: Sequence[int]) -> torch.Tensor:
+    n = _check_plane(v)
+    _check_words(words, "words", n)
+    _check_shifts(stages, n)
+    return _stages(key, v, [("bfly_shift_stage",
+                             (words.data_ptr(), k, n, select))
+                            for k in stages])
+
+
+def bfly_fill(v: torch.Tensor, words: torch.Tensor,
+              stages: Sequence[int]) -> torch.Tensor:
+    """Forward fill over the flat plane v (N,) (kernel B9)."""
+    if not _on_cuda(v, words):
+        return bfly_fill_torch(v, words, stages)
+    return _shift("bfly_fill", 1, v, words, stages)
+
+
+def bfly_scan(v: torch.Tensor, guards: torch.Tensor,
+              stages: Sequence[int]) -> torch.Tensor:
+    """Segmented scan over the flat plane v (N,) (kernel B9)."""
+    if not _on_cuda(v, guards):
+        return bfly_scan_torch(v, guards, stages)
+    return _shift("bfly_scan", 0, v, guards, stages)
+
+
+@lru_cache(maxsize=64)
+def _codes(widen_stages, fill_stages, perm_stages, scan_stages,
+           compact_stages):
+    """B10's program: the stage codes (``csrc/bfly.cu``: k, b, w, kind,
+    network, and the × vals flag on the first stage after the perm
+    network), their count, and whether the final pass reads × vals itself
+    (no stage follows the perm network)."""
+    def xor(net, stages):
+        return [k | b << 5 | w << 10 | KIND_XOR << 16 | net << 18
+                for w, b, k in stages]
+
+    def shift(kind, stages):
+        return [k | kind << 16 for k in stages]
+
+    head = (xor(NET_WIDEN, widen_stages) + shift(KIND_FILL, fill_stages)
+            + xor(NET_PERM, perm_stages))
+    tail = shift(KIND_SCAN, scan_stages) + xor(NET_COMPACT, compact_stages)
+    if tail:
+        tail[0] |= PREMUL
+    codes = head + tail
+    if len(codes) > MAX_CODES:
+        raise ValueError(f"{len(codes)} stages: B10 takes at most "
+                         f"{MAX_CODES}")
+    return ((ctypes.c_uint32 * max(len(codes), 1))(*codes), len(codes),
+            int(not tail))
+
+
+def bfly_full(v, widen_B, fill_words, perm_B, vals, scan_guards, compact_B,
+              out_valid, widen_stages: Stages, fill_stages: Sequence[int],
+              perm_stages: Stages, scan_stages: Sequence[int],
+              compact_stages: Stages) -> torch.Tensor:
+    """The whole program on the spread x (N,) in one cooperative launch
+    (kernel B10): v · valid after widen, fill, perm, × vals, scan and
+    compact."""
+    planes = (v, widen_B, fill_words, perm_B, vals, scan_guards, compact_B,
+              out_valid)
+    stages = (tuple(widen_stages), tuple(fill_stages), tuple(perm_stages),
+              tuple(scan_stages), tuple(compact_stages))
+    if not _on_cuda(*planes):
+        return bfly_full_torch(*planes, *stages)
+    n = _check_plane(v)
+    for B, st in ((widen_B, stages[0]), (perm_B, stages[2]),
+                  (compact_B, stages[4])):
+        _check_stages(B, st, n)
+    _check_words(fill_words, "fill_words", n)
+    _check_words(scan_guards, "scan_guards", n)
+    _check(vals, "vals", torch.float32, (n,))
+    _check(out_valid, "out_valid", torch.float32, (n,))
+    _check_shifts(stages[1] + stages[3], n)
+    codes, n_codes, premul_final = _codes(*stages)
+    buf0, buf1, out = (torch.empty_like(v) for _ in range(3))
+    with torch.cuda.device(v.device):
+        _launch("bfly_full", *(t.data_ptr() for t in (v, buf0, buf1)),
+                *(t.data_ptr() for t in planes[1:7]), out_valid.data_ptr(),
+                out.data_ptr(), n, codes, n_codes, premul_final, _stream(v))
+    LAUNCHES["bfly_full"] += 1
+    return out

@@ -1,8 +1,10 @@
-"""The CLOSG engine's CUDA kernels: build, wrappers, plain versions.
+"""The Clos engines' CUDA kernels: build, wrappers, plain versions.
 
-Counterpart of the CLOSG parts of ``spmv_research_tpu/ops/clos_pallas.py``,
-``spmv_research_tpu/ops/clos_gather.py`` and ``spmv_research_tpu/ops/clos_xl.py``.
-One wrapper per Pallas kernel (sources and design notes in ``csrc/closg.cu``):
+Counterpart of ``spmv_research_tpu/ops/clos_pallas.py`` and of the kernels
+of ``spmv_research_tpu/ops/clos_gather.py`` and
+``spmv_research_tpu/ops/clos_xl.py``: CLOSG's, and the r3 steps of the
+exact-CLOS engine (``clos.py``). One wrapper per Pallas kernel (sources and
+design notes in ``csrc/closg.cu``):
 
 =========================  ===================================================
 wrapper                    replaces
@@ -31,6 +33,15 @@ wrapper                    replaces
                            back end over all stacked chunks at once) —
                            launches: the r3 layer, one per stage, the
                            extraction
+``clos_r3_fill``           ``clos_pallas.py:_r3_fill_kernel`` (CLOS widen
+                           network: r3 layer, then the forward fill) —
+                           launches: the r3 layer, one per fill stage
+``clos_r3_scan``           ``clos_pallas.py:_r3_scan_kernel`` (CLOS perm
+                           network: r3 layer × vals, then the full scan) —
+                           launches: the r3 layer, one per scan stage
+``clos_r3_valid``          ``clos_pallas.py:_r3_valid_kernel`` (CLOS compact
+                           network: r3 layer, then the out-valid mask) —
+                           one launch
 =========================  ===================================================
 
 Each wrapper takes the kernel's plain PyTorch version (``*_torch``) only when
@@ -58,8 +69,10 @@ from .cuda_lib import stream as _stream
 
 LAUNCHES = {"closg_front": 0, "closg_front_lut": 0, "closg_front_win": 0,
             "clos_invreg": 0, "closg_r3_scan_yext": 0, "closg_r3_scan": 0,
-            "closg_cand_yext": 0, "closgx_r3_scan_yext": 0}
+            "closg_cand_yext": 0, "closgx_r3_scan_yext": 0,
+            "clos_r3_fill": 0, "clos_r3_scan": 0, "clos_r3_valid": 0}
 VLUT_SHIFT = SPARE_SHIFT + 7    # r1 bits [24,31): value index / rotation
+R3_VALS, R3_VALID = 1, 2        # clos_r3's post step: × vals, out-valid mask
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -70,8 +83,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.closg_scan_step.argtypes = [p, p, p, p, i32, i64, i64, p]
     lib.closg_yext.argtypes = [p, p, p, p, p, p, i32, p]
     lib.closg_cand_yext.argtypes = [p, p, p, i64, p, p]
+    lib.clos_r3.argtypes = [p, p, p, p, i64, i32, p]
+    lib.clos_fill_step.argtypes = [p, p, p, p, i32, i64, i64, p]
     for fn in (lib.closg_invreg, lib.closg_front, lib.closg_front_win,
-               lib.closg_scan_step, lib.closg_yext, lib.closg_cand_yext):
+               lib.closg_scan_step, lib.closg_yext, lib.closg_cand_yext,
+               lib.clos_r3, lib.clos_fill_step):
         fn.restype = i32
 
 
@@ -219,9 +235,42 @@ def closgx_r3_scan_yext_torch(v, r3, ysel_w, wstart_abs, stages: int,
     return _y_pick(u.view(-1, LANES), ysel_w, wstart_abs, rows)
 
 
-def _check_hi(stages: Sequence[int], scan_hi: torch.Tensor, n: int) -> None:
-    if any(k >= SPARE_BITS for k in stages) and scan_hi.numel() != n:
-        raise ValueError("scan stages >= 15 need the full scan_hi plane")
+def clos_r3_fill_torch(v, widen_r3, fill_hi,
+                       stages: Sequence[int]) -> torch.Tensor:
+    """CLOS widen network's last step (``_r3_fill_kernel``): the r3 layer,
+    then the forward-fill stages ``stages``: a slot whose take bit k (bit
+    17+k of the r3 word, or bit k-15 of ``fill_hi``) is set takes the value
+    2^k slots before it, the shift rolling over the whole program as
+    ``jnp.roll`` does. (8V, 128)."""
+    _check_hi(stages, fill_hi, v.numel(), "fill")
+    u, w3, hi = (invreg_torch(v, widen_r3).reshape(-1), widen_r3.reshape(-1),
+                 fill_hi.reshape(-1))
+    for k in stages:
+        u = torch.where(_stage_bit(k, w3, hi), torch.roll(u, 1 << k), u)
+    return u.view(-1, LANES)
+
+
+def clos_r3_scan_torch(v, perm_r3, vals, scan_hi,
+                       stages: Sequence[int]) -> torch.Tensor:
+    """CLOS perm network's last step (``_r3_scan_kernel``): the r3 layer ×
+    vals, then the full segmented scan. (8V, 128)."""
+    _check_hi(stages, scan_hi, v.numel())
+    return _scan_torch((invreg_torch(v, perm_r3) * vals).reshape(-1),
+                       perm_r3.reshape(-1), scan_hi, stages,
+                       v.numel()).view(-1, LANES)
+
+
+def clos_r3_valid_torch(v, compact_r3) -> torch.Tensor:
+    """CLOS compact network's last step (``_r3_valid_kernel``): the r3
+    layer, then 0 wherever bit 17 of the r3 word (out-valid) is clear."""
+    valid = ((compact_r3 >> SPARE_SHIFT) & 1) != 0
+    return torch.where(valid, invreg_torch(v, compact_r3), 0.0)
+
+
+def _check_hi(stages: Sequence[int], hi: torch.Tensor, n: int,
+              what: str = "scan") -> None:
+    if any(k >= SPARE_BITS for k in stages) and hi.numel() != n:
+        raise ValueError(f"{what} stages >= 15 need the full {what}_hi plane")
 
 
 # ------------------------------------------------------------------ wrappers
@@ -310,18 +359,25 @@ def _check_back(v, word, chunk: int) -> None:
 
 
 def _r3_scan_launch(key, v, perm_r3, hi_ptr, stages: Sequence[int],
-                    chunk: int) -> torch.Tensor:
-    """The r3 layer, then one launch per scan stage (ping-pong buffers)."""
+                    chunk: int, step: str = "closg_scan_step",
+                    vals=None) -> torch.Tensor:
+    """The r3 layer (× ``vals`` if given: CLOS's perm network), then one
+    launch of ``step`` (the scan, or CLOS's fill) per stage (ping-pong
+    buffers)."""
     n = v.numel()
     a = torch.empty_like(v)
     b = torch.empty_like(v)
     stream = _stream(v)
-    _launch("closg_invreg", v.data_ptr(), perm_r3.data_ptr(), a.data_ptr(),
-            n, LANES, stream)
+    if vals is None:
+        _launch("closg_invreg", v.data_ptr(), perm_r3.data_ptr(),
+                a.data_ptr(), n, LANES, stream)
+    else:
+        _launch("clos_r3", v.data_ptr(), perm_r3.data_ptr(), vals.data_ptr(),
+                a.data_ptr(), n, R3_VALS, stream)
     LAUNCHES[key] += 1
     for k in stages:
-        _launch("closg_scan_step", a.data_ptr(), b.data_ptr(),
-                perm_r3.data_ptr(), hi_ptr, k, n, chunk, stream)
+        _launch(step, a.data_ptr(), b.data_ptr(), perm_r3.data_ptr(), hi_ptr,
+                k, n, chunk, stream)
         LAUNCHES[key] += 1
         a, b = b, a
     return a
@@ -418,3 +474,52 @@ def closgx_r3_scan_yext(v, r3, ysel_w, wstart_abs, stages: int,
                     rows // SUB, _stream(v))
             LAUNCHES["closgx_r3_scan_yext"] += 1
     return y
+
+
+def clos_r3_fill(v, widen_r3, fill_hi, stages: Sequence[int]) -> torch.Tensor:
+    """CLOS widen network's r3 layer + forward fill (kernel B8): (8V, 128).
+    Stages ≥ 15 read their take bits from ``fill_hi``."""
+    if not _on_cuda(v, widen_r3, fill_hi):
+        return clos_r3_fill_torch(v, widen_r3, fill_hi, stages)
+    n = v.numel()
+    _check_back(v, widen_r3, n)
+    _check(fill_hi, "fill_hi", torch.int32)
+    _check_hi(stages, fill_hi, n, "fill")
+    with torch.cuda.device(v.device):
+        return _r3_scan_launch(
+            "clos_r3_fill", v, widen_r3,
+            fill_hi.data_ptr() if fill_hi.numel() == n else None, stages, n,
+            step="clos_fill_step")
+
+
+def clos_r3_scan(v, perm_r3, vals, scan_hi,
+                 stages: Sequence[int]) -> torch.Tensor:
+    """CLOS perm network's r3 layer × vals + full segmented scan (kernel
+    B8): (8V, 128). Stages ≥ 15 read their guards from ``scan_hi``."""
+    if not _on_cuda(v, perm_r3, vals, scan_hi):
+        return clos_r3_scan_torch(v, perm_r3, vals, scan_hi, stages)
+    n = v.numel()
+    _check_back(v, perm_r3, n)
+    _check(vals, "vals", torch.float32, v.shape)
+    _check(scan_hi, "scan_hi", torch.int32)
+    _check_hi(stages, scan_hi, n)
+    with torch.cuda.device(v.device):
+        return _r3_scan_launch(
+            "clos_r3_scan", v, perm_r3,
+            scan_hi.data_ptr() if scan_hi.numel() == n else None, stages, n,
+            vals=vals)
+
+
+def clos_r3_valid(v, compact_r3) -> torch.Tensor:
+    """CLOS compact network's r3 layer + out-valid mask (kernel B8):
+    (8V, 128)."""
+    if not _on_cuda(v, compact_r3):
+        return clos_r3_valid_torch(v, compact_r3)
+    n = v.numel()
+    _check_back(v, compact_r3, n)
+    out = torch.empty_like(v)
+    with torch.cuda.device(v.device):
+        _launch("clos_r3", v.data_ptr(), compact_r3.data_ptr(), None,
+                out.data_ptr(), n, R3_VALID, _stream(v))
+    LAUNCHES["clos_r3_valid"] += 1
+    return out

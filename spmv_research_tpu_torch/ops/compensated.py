@@ -30,7 +30,7 @@ TwoSum folds, vectorised across rows.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -233,10 +233,14 @@ def spmv_csrds_torch(A: CsrDS, x: torch.Tensor) -> torch.Tensor:
     return s + e
 
 
-def spmv_csrds_f64(A: CsrDS, x: np.ndarray) -> np.ndarray:
+def spmv_csrds_f64(A: CsrDS, x: np.ndarray,
+                   impl: Optional[str] = None) -> np.ndarray:
     """Host fp64 x → DS pair on ``A.device`` → host fp64 y (~2^-48
     relative): passes the reference's fp64 gate (1e-10 relative against
-    the longdouble Kahan gold)."""
+    the longdouble Kahan gold). CSRDS has one pair, the plain PyTorch one:
+    ``impl`` may be ``"torch"`` or None, and anything else raises."""
+    if impl not in (None, "torch"):
+        raise ValueError(f"CSRDS has only the 'torch' pair, not {impl!r}")
     xhi, xlo = _split_f64(x)
     s, e = spmv_csrds_pair(A, torch.from_numpy(xhi).to(A.device),
                            torch.from_numpy(xlo).to(A.device))

@@ -229,7 +229,7 @@ def check_precond(precond: str) -> None:
         raise NotImplementedError(
             f"preconditioner {precond!r} needs solvers/ilu.py (IC(0)/ILU(0) "
             "and the level-scheduled trisolve), which is not ported yet "
-            "(ROADMAP queue A item 8)")
+            "(ROADMAP queue A item 2)")
     if precond != "jacobi":
         raise ValueError(f"unknown preconditioner {precond!r}")
 

@@ -1,9 +1,9 @@
 """The port's sweep command line — the counterpart of ``tools/sweep.py``.
 
     python -m spmv_research_tpu_torch.sweep --matrix "<11-arg line>" \
-        [--matrices FILE] --formats csr sellr sellw closg dense btile \
-        csrds sellwds [--workloads spmv spmm sddmm cg bicgstab] --out DIR \
-        [--device cuda]
+        [--matrices FILE] --formats csr sellr sellw closg clos bfly dense \
+        btile csrds sellwds [--workloads spmv spmm sddmm cg bicgstab] \
+        --out DIR [--device cuda]
     python -m spmv_research_tpu_torch.sweep --matrix "<11-arg line>" \
         --job "formats=csr,sellw,sellwds;workloads=cg;transform=spd" \
         [--job ...]

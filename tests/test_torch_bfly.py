@@ -1,0 +1,225 @@
+"""The BFLY engine of the port (kernels B9 and B10) against the JAX package.
+
+Both packages build the program from the same seeded matrix — the cases of
+``tests/test_bfly.py``, its pathological one (an empty row and a dense row)
+included — with the native Waksman router and with the numpy one, and must
+give identical arrays; so must ``route_waksman`` and ``greedy_route`` alone.
+The Pallas kernels run in interpret mode on the CPU; the port runs each
+kernel's plain PyTorch version, which its wrapper takes for CPU tensors.
+The exchange and fill stages are selects, the scan adds in the same order,
+and × vals and × valid are one product per slot, so the plain B9 functions
+must equal the Pallas kernels exactly, ``bfly_full_torch`` (B10's plain
+version) must equal the plain B9 chain and ``spmv_bfly_pallas_fused``
+exactly, and BFLY/torch's y must equal the JAX ``xla`` and ``pallas``
+impls' exactly (it is held to 1e-6 of |A|·|x| against ``execute_numpy``;
+the JAX tests allow 3e-5 relative and 2e-5 absolute).
+"""
+
+from functools import partial
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from spmv_research_tpu.core.host import HostCSR as JaxHostCSR
+from spmv_research_tpu.io import native as jax_native
+from spmv_research_tpu.ops import spmv as jax_spmv
+from spmv_research_tpu.ops import routing as jax_routing
+from spmv_research_tpu.ops.bfly import build_bfly as jax_build
+from spmv_research_tpu.ops.bfly_pallas import (_call, _fill_kernel,
+                                               _scan_kernel, _xor_net,
+                                               spmv_bfly_pallas_fused)
+from spmv_research_tpu.ops.waksman import route_waksman as jax_route
+
+from spmv_research_tpu_torch.core.host import HostCSR
+from spmv_research_tpu_torch.io import native
+from spmv_research_tpu_torch.ops import (bfly_from_jax, build_bfly, spmv,
+                                         spmv_bfly_cuda_fused)
+from spmv_research_tpu_torch.ops import bfly as BF
+from spmv_research_tpu_torch.ops import bfly_cuda as K
+from spmv_research_tpu_torch.ops import routing
+from spmv_research_tpu_torch.ops.waksman import route_waksman
+
+from torch_cases import bfly_pathological, random_matrix, rel_err
+
+
+MATRICES = {
+    "small": lambda: random_matrix(100, 80, 0.05, 1),
+    "dense": lambda: random_matrix(64, 64, 0.25, 2),
+    "wide": lambda: random_matrix(500, 700, 0.01, 3),
+    "pathological": bfly_pathological,
+}
+
+
+@pytest.fixture(params=["native", "numpy"])
+def router(request, monkeypatch):
+    """Both packages route with the C++ router, or both with numpy."""
+    if request.param == "numpy":
+        monkeypatch.setattr(native, "have_native", lambda: False)
+        monkeypatch.setattr(jax_native, "have_native", lambda: False)
+    else:
+        assert native.have_native() and jax_native.have_native()
+    return request.param
+
+
+@pytest.fixture(scope="module", params=sorted(MATRICES))
+def case(request):
+    """(name, matrix, JAX Bfly, the port's own Bfly, x), native router."""
+    mat = MATRICES[request.param]()
+    Aj = jax_build(JaxHostCSR.from_scipy(mat))
+    A = build_bfly(HostCSR.from_scipy(mat))
+    x = np.random.Generator(np.random.PCG64(7)).uniform(-1.0, 1.0,
+                                                        mat.shape[1])
+    return request.param, mat, Aj, A, x.astype(np.float32)
+
+
+def _same_program(A, Aj):
+    for f in BF.DATA_FIELDS:
+        got, want = getattr(A, f).numpy(), np.asarray(getattr(Aj, f))
+        assert got.dtype == want.dtype and np.array_equal(got, want), f
+    assert ({f: getattr(A, f) for f in BF.META_FIELDS}
+            == {f: getattr(Aj, f) for f in BF.META_FIELDS})
+
+
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_program_identical(name, router):
+    mat = MATRICES[name]()
+    _same_program(build_bfly(HostCSR.from_scipy(mat)),
+                  jax_build(JaxHostCSR.from_scipy(mat)))
+
+
+def test_routers_identical(router):
+    """route_waksman on permutations and partial maps (test_bfly.py's
+    fuzz), and the greedy merge router, against the JAX package's."""
+    for trial in range(8):
+        rs = np.random.default_rng(trial)
+        L = int(rs.integers(2, 9))
+        N = 1 << L
+        src = np.arange(N) if trial % 2 else rs.choice(N, N // 4, False)
+        tgt = rs.permutation(N)[: src.size]
+        got, want = route_waksman(src, tgt, L, N), jax_route(src, tgt, L, N)
+        assert got.stages == want.stages
+        assert np.array_equal(got.A, want.A) and np.array_equal(got.B, want.B)
+        v = rs.uniform(1, 2, N)
+        out = routing.apply_pass_numpy(np.where(np.isin(np.arange(N), src),
+                                                v, 0.0), got)
+        assert np.array_equal(out[tgt], v[src])
+    rs = np.random.default_rng(5)
+    src = np.sort(rs.choice(256, 120, replace=False))
+    tgt = np.sort(rs.integers(0, 30, 120)) * 8
+    got = routing.greedy_route(src, tgt, 8, 256, allow_merge=True)
+    want = jax_routing.greedy_route(src, tgt, 8, 256, allow_merge=True)
+    assert len(got) == len(want)
+    for p, q in zip(got, want):
+        assert p.stages == q.stages and np.array_equal(p.A, q.A)
+        assert np.array_equal(p.B, q.B)
+
+
+def test_b9_plain_versions_match_pallas_kernels(case):
+    """Each B9 function on its real input (the plain chain up to it)
+    against the Pallas kernel in interpret mode, exactly; the wrappers take
+    the plain versions for CPU tensors."""
+    _, _, Aj, A, x = case
+    N = A.N
+    S = N // 128
+    v = BF._spread_x(torch.from_numpy(x), A.n, N, A.sigma_x)
+
+    def jax_net(u, B, stages):
+        return np.asarray(_xor_net(jnp.asarray(u.numpy()).reshape(S, 128),
+                                   B, stages)).reshape(-1)
+
+    def jax_shift(kernel, u, words, stages):
+        if not stages:
+            return u.numpy()
+        return np.asarray(_call(partial(kernel, stages, S),
+                                jnp.asarray(u.numpy()).reshape(S, 128),
+                                words.reshape(S, 128))).reshape(-1)
+
+    steps = (
+        ("bfly_xor_net", (A.widen_B, A.widen_stages),
+         lambda u: jax_net(u, Aj.widen_B, Aj.widen_stages)),
+        ("bfly_fill", (A.fill_words, A.fill_stages),
+         lambda u: jax_shift(_fill_kernel, u, Aj.fill_words,
+                             Aj.fill_stages)),
+        ("bfly_xor_net", (A.perm_B, A.perm_stages),
+         lambda u: jax_net(u, Aj.perm_B, Aj.perm_stages)),
+        ("bfly_scan", (A.scan_guards, A.scan_stages),
+         lambda u: jax_shift(_scan_kernel, u, Aj.scan_guards,
+                             Aj.scan_stages)),
+        ("bfly_xor_net", (A.compact_B, A.compact_stages),
+         lambda u: jax_net(u, Aj.compact_B, Aj.compact_stages)),
+    )
+    for i, (name, args, jax_fn) in enumerate(steps):
+        got = getattr(K, name + "_torch")(v, *args)
+        assert np.array_equal(got.numpy(), jax_fn(v)), (i, name)
+        assert torch.equal(getattr(K, name)(v, *args), got)
+        v = got * A.vals if i == 2 else got
+
+
+def test_b10_plain_version_matches_chain_and_fused_pallas(case):
+    _, _, Aj, A, x = case
+    xt = torch.from_numpy(x)
+    v = BF._spread_x(xt, A.n, A.N, A.sigma_x)
+    full = K.bfly_full_torch(v, *A.planes())
+    assert torch.equal(K.bfly_full(v, *A.planes()), full)
+    y = spmv(A, xt)                                    # the B9 chain
+    assert torch.equal(BF._y(A, full), y)
+    want = np.asarray(spmv_bfly_pallas_fused(Aj, jnp.asarray(x)))
+    assert np.array_equal(y.numpy(), want)
+    with pytest.raises(ValueError, match="CUDA"):
+        spmv_bfly_cuda_fused(A, xt)
+
+
+def test_y_matches_jax_impls_and_numpy_executor(case):
+    """BFLY/torch y equals the JAX xla and pallas (interpret) impls' exactly
+    and lies within 1e-6 of |A|·|x| of the float64 executor. (The pallas
+    impl runs the B9 kernels, each held against its plain version on every
+    case above: its whole y is checked on two cases, as its interpret run
+    takes seconds.)"""
+    name, mat, Aj, A, x = case
+    got = spmv(A, torch.from_numpy(x)).numpy()         # CPU tensor: "torch"
+    assert got.shape == (mat.shape[0],) and got.dtype == np.float32
+    x64 = x.astype(np.float64)
+    prog = routing.build_bfly_program(HostCSR.from_scipy(mat),
+                                      dtype=np.float32)
+    ref = routing.execute_numpy(prog, x64)
+    assert np.array_equal(ref, jax_routing.execute_numpy(
+        jax_routing.build_bfly_program(JaxHostCSR.from_scipy(mat),
+                                       dtype=np.float32), x64))
+    assert rel_err(mat, x, ref) <= 1e-7       # float32 values, float64 sums
+    scale = np.abs(mat) @ np.abs(x64) + 1e-30
+    assert np.max(np.abs(got - ref) / scale) <= 1e-6
+    xj = jnp.asarray(x)
+    for impl in ("xla", "pallas")[: 2 if name in ("dense", "pathological")
+                                  else 1]:
+        assert np.array_equal(got, np.asarray(jax_spmv(Aj, xj, impl=impl)))
+
+
+def test_bfly_from_jax_runs_the_same_program(case):
+    _, _, Aj, A, x = case
+    B = bfly_from_jax({f: np.asarray(getattr(Aj, f)) for f in BF.DATA_FIELDS},
+                      {f: getattr(Aj, f) for f in BF.META_FIELDS})
+    xt = torch.from_numpy(x)
+    assert torch.equal(spmv(B, xt), spmv(A, xt))
+    assert B.mem_footprint_bytes() == Aj.mem_footprint_bytes()
+
+
+def test_build_bfly_refuses_past_max_N():
+    host = HostCSR.from_scipy(random_matrix(300, 500, 0.01, 3))
+    with pytest.raises(routing.RoutingError, match="too large"):
+        build_bfly(host, max_N=256)
+
+
+def test_b10_codes_fold_the_products():
+    """B10's stage codes: × vals rides on the first stage after the perm
+    network, or on the final pass when no stage follows it."""
+    codes, n, premul_final = K._codes(((0, 1, 3),), (2,), ((1, 0, 5),), (0,),
+                                      ((0, 2, 1),))
+    assert n == 5 and premul_final == 0
+    assert [c & ~K.PREMUL for c in codes] == [
+        3 | 1 << 5, 2 | K.KIND_FILL << 16, 5 | 1 << 10 | K.NET_PERM << 18,
+        0 | K.KIND_SCAN << 16, 1 | 2 << 5 | K.NET_COMPACT << 18]
+    assert [bool(c & K.PREMUL) for c in codes] == [0, 0, 0, 1, 0]
+    assert K._codes(((0, 0, 1),), (), (), (), ())[1:] == (1, 1)

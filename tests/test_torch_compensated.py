@@ -150,6 +150,17 @@ def test_csrds_fp32_entry_and_dispatch():
         assert default_impl("CSRDS", torch.device(dev)) == "torch"
 
 
+def test_csrds_f64_takes_only_its_torch_pair():
+    """CSRDS has one pair: the fp64 hook takes impl "torch" (or none) and
+    refuses "cuda" rather than gating a pair the row does not time."""
+    A = ds.build_csrds(HostCSR.from_scipy(ds_banded(300, 6, seed=1)))
+    x = np.random.default_rng(2).uniform(-1, 1, 300)
+    assert np.array_equal(ds.spmv_csrds_f64(A, x, impl="torch"),
+                          ds.spmv_csrds_f64(A, x))
+    with pytest.raises(ValueError, match="only the 'torch' pair"):
+        ds.spmv_csrds_f64(A, x, impl="cuda")
+
+
 def test_csrds_empty_rows_are_zero():
     h, _ = _hosts(_empty_rows())
     y = ds.spmv_csrds_f64(ds.build_csrds(h), np.array([1.0, 2.0, 3.0, 4.0]))

@@ -10,7 +10,9 @@ kernels add in their plain versions' order and must match exactly, as must
 B4-B7 and B15 (gathers, one product per slot, and scan stages that add in
 the plain versions' order), and B12, the SELLW SpMM kernel (the SpMV
 kernel's pipeline per column), and B13, the double-single SELLW kernel
-(every product and sum rounded on its own, in the plain version's order). B16a and B16b, BTILE's SpMM and SDDMM, sum
+(every product and sum rounded on its own, in the plain version's order),
+and B8, B9 and B10, the CLOS and BFLY kernels (selects, one product per
+slot and adds in the plain versions' order). B16a and B16b, BTILE's SpMM and SDDMM, sum
 their products in another order than ``torch.bmm``: they are held to 1e-5
 of |A|·|X| per element and of Σ|a||b| per slot.
 """
@@ -27,16 +29,17 @@ from spmv_research_tpu_torch.ops import (build_btile, build_clos_gather,
                                          build_clos_gather_auto,
                                          build_clos_gather_xl, build_dense,
                                          sddmm, spmm, spmv)
+from spmv_research_tpu_torch.ops import bfly_cuda as KF
 from spmv_research_tpu_torch.ops import btile_cuda as KB
 from spmv_research_tpu_torch.ops import clos_gather as cg
 from spmv_research_tpu_torch.ops import clos_cuda as K
 from spmv_research_tpu_torch.ops.clos import _t_bwd, _t_fwd
 from spmv_research_tpu_torch.ops import sell_cuda as KS
-from spmv_research_tpu_torch.ops import sellr, sellw, sellw_ds
+from spmv_research_tpu_torch.ops import bfly, clos, sellr, sellw, sellw_ds
 from spmv_research_tpu_torch.ops.compensated import _split_f64
 
-from torch_cases import (TWIN_LINE, banded_matrix, btile_banded,
-                         capped_scan_matrix,
+from torch_cases import (TWIN_LINE, banded_matrix, bfly_pathological,
+                         btile_banded, capped_scan_matrix, clos_hi_matrix,
                          dirty_sellr_matrix, ds_banded, random_matrix,
                          skewed_matrix,
                          skewed_xl_matrix, w0_matrix)
@@ -425,3 +428,96 @@ def test_sellwds_wrapper_refuses_bad_input(cuda):
                           plan, B.G)
     with pytest.raises(ValueError, match="CUDA"):
         spmv(A.to("cpu"), torch.ones(300), impl="cuda")
+
+
+@pytest.mark.parametrize("case", ["random", "hi_planes"])
+def test_clos_r3_kernels_match_plain_versions(cuda, case):
+    """B8: the fill, the r3 layer × vals with the scan, and the out-valid
+    mask equal their plain versions bit for bit (stages past 14 on the hi
+    planes); CLOS/cuda's y lies within 1e-5 of |A|·|x|."""
+    mat = (clos_hi_matrix() if case == "hi_planes"
+           else random_matrix(3000, 2500, 0.002, 8))
+    A = clos.build_clos(HostCSR.from_scipy(mat)).to(cuda)
+    assert (A.fill_hi.numel() == A.N) == (case == "hi_planes")
+    x, xd = _x(mat.shape[1], cuda)
+    u = torch.nn.functional.pad(xd, (0, A.N - A.n)).view(-1, 128)
+    K.reset_launch_counts()
+    for name, args in (
+            ("clos_r3_fill", (u, A.widen_r3, A.fill_hi, A.fill_stages)),
+            ("clos_r3_scan", (u, A.perm_r3, A.vals, A.scan_hi,
+                              A.scan_stages)),
+            ("clos_r3_valid", (u, A.compact_r3))):
+        got = getattr(K, name)(*args)
+        want = getattr(K, name + "_torch")(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0),
+                          "clos_r3_fill": 1 + len(A.fill_stages),
+                          "clos_r3_scan": 1 + len(A.scan_stages),
+                          "clos_r3_valid": 1}
+    K.reset_launch_counts()
+    y = spmv(A, xd)                                    # CUDA tensor: "cuda"
+    assert K.LAUNCHES["clos_invreg"] == 6 and K.LAUNCHES["clos_r3_valid"] == 1
+    assert torch.equal(y, spmv(A, xd, impl="torch"))
+    _close_to_scipy(mat, x, y)
+    if case == "hi_planes":       # stages past 14 refuse a dummy hi plane
+        with pytest.raises(ValueError, match="fill_hi"):
+            K.clos_r3_fill(u, A.widen_r3, A.fill_hi[:8].contiguous(),
+                           A.fill_stages)
+
+
+@pytest.mark.parametrize("case", ["random", "pathological"])
+def test_bfly_kernels_match_plain_versions(cuda, case):
+    """B9 (exchange, fill and scan stages) and B10 (the whole program in
+    one cooperative launch) equal their plain versions bit for bit; the
+    BFLY/cuda y lies within 1e-5 of |A|·|x|."""
+    mat = (bfly_pathological() if case == "pathological"
+           else random_matrix(3000, 2500, 0.002, 8))
+    A = bfly.build_bfly(HostCSR.from_scipy(mat)).to(cuda)
+    x, xd = _x(mat.shape[1], cuda)
+    v = bfly._spread_x(xd, A.n, A.N, A.sigma_x)
+    KF.reset_launch_counts()
+    for name, args in (("bfly_xor_net", (A.widen_B, A.widen_stages)),
+                       ("bfly_fill", (A.fill_words, A.fill_stages)),
+                       ("bfly_xor_net", (A.perm_B, A.perm_stages)),
+                       ("bfly_scan", (A.scan_guards, A.scan_stages)),
+                       ("bfly_xor_net", (A.compact_B, A.compact_stages))):
+        got = getattr(KF, name)(v, *args)
+        want = getattr(KF, name + "_torch")(v, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
+        v = want
+    n_xor = len(A.widen_stages) + len(A.perm_stages) + len(A.compact_stages)
+    assert KF.LAUNCHES == {"bfly_xor_net": n_xor,
+                           "bfly_fill": len(A.fill_stages),
+                           "bfly_scan": len(A.scan_stages), "bfly_full": 0}
+    v = bfly._spread_x(xd, A.n, A.N, A.sigma_x)
+    full = KF.bfly_full(v, *A.planes())
+    assert torch.equal(full, KF.bfly_full_torch(v, *A.planes()))
+    assert KF.LAUNCHES["bfly_full"] == 1
+    y = spmv(A, xd)                                    # CUDA tensor: "cuda"
+    assert torch.equal(y, bfly.spmv_bfly_cuda_fused(A, xd))
+    assert torch.equal(y, spmv(A, xd, impl="torch"))
+    _close_to_scipy(mat, x, y)
+    with pytest.raises(ValueError, match="CUDA"):
+        spmv(A.to("cpu"), torch.ones(mat.shape[1]), impl="cuda")
+
+
+def test_bench_spmv_torch_row_gates_the_torch_pair(cuda, monkeypatch):
+    """A torch row of bench_spmv on a CUDA SELLWDS program is gated by the
+    torch pair, not by B13's."""
+    from spmv_research_tpu_torch.harness import BenchConfig, bench_spmv
+    host = HostCSR.from_scipy(ds_banded(1200, 30, seed=7))
+    A = sellw_ds.build_sellwds(host).to(cuda)
+    ran = []
+    for impl, pair in tuple(sellw_ds._PAIRS.items()):
+        monkeypatch.setitem(sellw_ds._PAIRS, impl,
+                            lambda *a, i=impl, f=pair: ran.append(i) or f(*a))
+    cfg = BenchConfig(min_num_loops=2, min_time_s=0.0, warmup_iters=1,
+                      inner_iters=2)
+    KS.reset_launch_counts()
+    r = bench_spmv(host, A, config=cfg, impl="torch", matrix_name="t")
+    assert ran == ["torch"] and KS.LAUNCHES["sellwds"] == 0
+    assert r.metrics.passed and r.metrics.max_rel_err < 1e-10
+    bench_spmv(host, A, config=cfg, impl="cuda", matrix_name="t")
+    assert ran == ["torch", "cuda"] and KS.LAUNCHES["sellwds"] > 0

@@ -210,6 +210,26 @@ def test_bench_spmv_judges_ds_formats_at_fp64_gate(build):
     assert r.format_name == A.format_name
 
 
+@pytest.mark.parametrize("impl", [None, "torch"])
+def test_bench_spmv_gates_the_pair_it_times(impl, monkeypatch):
+    """bench_spmv hands its impl to the fp64 hook, so the gate judges the
+    pair whose fp32 entry the timed chain drives; a CUDA pair on a CPU
+    program raises instead of gating another pair."""
+    h, _ = _hosts(ds_banded(600, 20, seed=3))
+    A = sellw_ds.build_sellwds(h)
+    ran = []
+    monkeypatch.setitem(sellw_ds._PAIRS, "torch", lambda *a: ran.append(
+        "torch") or sellw_ds.spmv_sellwds_torch_pair(*a))
+    cfg = BenchConfig(min_num_loops=2, min_time_s=0.0, warmup_iters=1,
+                      inner_iters=2)
+    r = bench_spmv(h, A, config=cfg, impl=impl, matrix_name="t")
+    assert ran == ["torch"] and r.metrics.passed and r.impl == (impl
+                                                                or "auto")
+    with pytest.raises(ValueError, match="CUDA"):
+        bench_spmv(h, A, config=cfg, impl="cuda", matrix_name="t")
+    assert ran == ["torch"]
+
+
 def test_sellwds_moves_and_scales_whole():
     h, _, A, _ = _ds_pair(ds_banded(600, 20, seed=2))
     assert A.to("cpu").device == torch.device("cpu")

@@ -153,10 +153,33 @@ def test_bench_cg_converges(workload):
     r = bench_cg(h, build_csr(h), config=TINY, matrix_name="t",
                  bicgstab=workload == "bicgstab")
     assert r.workload == workload and r.k == 0 and r.impl == "auto"
-    assert set(r.extra) == JAX_EXTRA_KEYS and r.extra["converged"]
+    assert set(r.extra) == JAX_EXTRA_KEYS | {"loop_iterations",
+                                             "time_divisor"}
+    assert r.extra["converged"]
     assert r.mape == r.max_ae == r.extra["relative_residual"] < 1e-5
     assert r.num_loops > 0 and r.time_iter_median > 0 and r.gflops > 0
     assert r.out.shape == (h.m,)
+
+
+@pytest.mark.parametrize("workload", ["cg", "bicgstab"])
+def test_bench_cg_divides_by_the_loop_iterations(workload, monkeypatch):
+    """The host loop polls every POLL_EVERY iterations and may run past
+    convergence: the row divides the solve by the iterations it ran and
+    records them; num_loops stays the counted iterations (the JAX
+    schema's)."""
+    cg_mod = importlib.import_module("spmv_research_tpu_torch.solvers.cg")
+    monkeypatch.setattr(cg_mod, "POLL_EVERY", 9)
+    h, _, _ = _systems("spd" if workload == "cg" else "dd")
+    r = bench_cg(h, build_csr(h), config=TINY, matrix_name="t",
+                 bicgstab=workload == "bicgstab")
+    loops = r.extra["loop_iterations"]
+    assert r.extra["time_divisor"] == "loop_iterations"
+    assert loops % 9 == 0 and loops > r.num_loops > 0
+    assert r.time_iter_median == r.extra["solve_time"] / loops
+    flops_iter = (2.0 * h.nnz_expanded * (2 if workload == "bicgstab" else 1)
+                  + 10.0 * h.m)
+    assert r.gflops == pytest.approx(
+        flops_iter * loops / r.extra["solve_time"] * 1e-9, rel=1e-12)
 
 
 def test_bench_cg_gates_a_nonsymmetric_twin():

@@ -121,8 +121,8 @@ def test_sweep_resumes_from_done_log(sweep_out):
 
 
 def test_sweep_refuses_unported_names(tmp_path):
-    with pytest.raises(NotImplementedError, match="bfly"):
-        check_sweep_args(["csr", "bfly"], ["spmv"])
+    with pytest.raises(NotImplementedError, match="coo"):
+        check_sweep_args(["csr", "bfly", "coo"], ["spmv"])
     with pytest.raises(NotImplementedError, match="spgemm"):
         run_sweep([BANDED_LINE], formats=("csr",), workloads=("spgemm",),
                   out_dir=str(tmp_path), device="cpu")

@@ -190,3 +190,30 @@ def ds_banded(m=2500, max_k=50, seed=0, lognormal=True):
     mat = sp.csr_matrix((vals, (rows, cols)), shape=(m, m))
     mat.sum_duplicates()
     return mat
+
+
+def clos_hi_matrix():
+    """Column 5 in 33,000 rows and row 7 with 33,000 columns: a column run
+    and a row reach past 2^15, so a CLOS program's fill and scan stages 15
+    and up read its fill_hi and scan_hi planes (N = 2^17)."""
+    rng = np.random.Generator(np.random.PCG64(5))
+    m = n = 34000
+    rows = np.concatenate([np.arange(33000), np.full(33000, 7)])
+    cols = np.concatenate([np.full(33000, 5), rng.choice(n, 33000, False)])
+    mat = sp.coo_matrix((rng.uniform(-1, 1, rows.size), (rows, cols)),
+                        shape=(m, n)).tocsr()
+    mat.sum_duplicates()
+    mat.sort_indices()
+    return mat
+
+
+def bfly_pathological():
+    """tests/test_bfly.py's pathological matrix: an 80 × 80 3% random
+    matrix with row 7 dense and row 20 empty."""
+    mat = sp.random(80, 80, 0.03, random_state=0).tolil()
+    mat[7, :] = 1.5
+    mat[20, :] = 0
+    mat = mat.tocsr()
+    mat.eliminate_zeros()
+    mat.sort_indices()
+    return mat
