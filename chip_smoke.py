@@ -67,8 +67,9 @@ failure (non-zero exit, no result line):
     and B16b against their plain versions on both (within 1e-5 of |A|·|X|
     per element and of Σ|a||b| per slot) and timed on gupta3's beside
     cuSPARSE's SpMM and SDDMM; shipsec1's SELLW
-    SpMM kernel B12 against its plain version (exact), timed beside
-    cuSPARSE's SpMM; one CLOSG SpMM on gupta3 at K = 8 through ``ops.spmm``
+    SpMM kernel B12 (the scan in registers) against its plain
+    version (exact), timed beside cuSPARSE's SpMM and its first kernel's
+    time; one CLOSG SpMM on gupta3 at K = 8 through ``ops.spmm``
     (B5 and B6 launch 8× their per-SpMV count; Y within 1e-5 of |A|·|X|);
     the sweep with workloads spmm and sddmm, formats csr, btile, dense and
     sellw, on the gupta3 and shipsec1 lines: its ten rows and six CSVs
@@ -96,16 +97,19 @@ failure (non-zero exit, no result line):
     and program shapes logged; B8's three parts (fill, scan, valid) and
     B9's three (exchange network, fill, scan) against their plain versions
     on the program's own pipeline inputs (``torch.equal``) and timed; B10
-    (one cooperative launch) against its plain version and B9's chain
-    (``torch.equal``), timed beside cuSPARSE's fp32 SpMV; one counted
+    (the program in phases, one launch a phase) against its plain version
+    and B9's chain (``torch.equal``), timed beside cuSPARSE's fp32 SpMV,
+    its phases and launches per SpMV logged; one counted
     SpMV per engine (launches per SpMV), one SpMV's device time and a
     traced chain of 50 per engine (and B10 and cuSPARSE timed alone); the
     sweep with formats csr, clos and bfly (the B8 and B9 kernels must
-    launch, every row within 1e-5 of |A|·|x|); one counted B10 SpMV,
-    checked against the gold; then mac_econ_fwd500 (validation_twins.txt:6,
-    N = 2^21): ``build_clos`` refuses it, BFLY builds it and B9 equals its
-    plain versions there, and the sweep with clos and bfly skips clos as
-    unsuitable and gives a BFLY/cuda row within 1e-5.
+    launch, every row within 1e-5 of |A|·|x|); one counted B10 SpMV (one
+    launch per phase, at most 20), checked against the gold; then
+    mac_econ_fwd500 (validation_twins.txt:6, N = 2^21): ``build_clos``
+    refuses it, BFLY builds it, B9 equals its plain versions there and B10
+    (the strided tiling at L = 21) its plain version and B9's chain, timed,
+    y against the gold, and the sweep with clos and bfly skips
+    clos as unsuitable and gives a BFLY/cuda row within 1e-5.
 
 Every kernel entry carries its bound: the larger of the bytes the function
 must move (each input read once, each output written once, a gather
@@ -116,7 +120,8 @@ PyTorch call computes one of their functions (phases 10 and 11 time
 cuSPARSE's whole SpMV); the SpMM and SDDMM kernels have cuSPARSE's
 (``torch.sparse.mm``, ``torch.sparse.sampled_addmm``), and B13, whose
 function is an fp64-accurate SpMV, cuSPARSE's fp64 CSR SpMV (a float64
-``torch.sparse_csr`` product), none of which the port ever calls. B16a's entry also carries ``combine_launches``, the sweep's launches
+``torch.sparse_csr`` product), none of which the port ever calls.
+B16a's entry also carries ``combine_launches``, the sweep's launches
 of its second kernel (the sum of a band's chunk partials); its ``ms`` is
 the wrapper's, both launches.
 
@@ -1030,6 +1035,8 @@ def k_dim_phase(timer, dev, gup, ship, Ag, Aw, gup_launches, cfg) -> list:
           lambda: KS.sellw_spmm_planes_torch(*w_args))], exact,
         (nbytes(*w_args) + nbytes(planes), 2 * Aw.vals.numel() * k),
         library=lambda: torch.sparse.mm(lib, Xsd))
+    log(f"# B12 (scan in registers): {k_b12['ms']:.4f} ms, bound "
+        f"{k_b12['bound_ms']:.4f} ms, cuSPARSE {k_b12['library_ms']:.4f} ms")
     log(f"# shipsec1 SELLW one SpMM through ops.spmm, device time "
         f"{timer.ms(lambda: spmm(Aw, Xsd), iters=10):.4f} ms")
     del w_args, planes, lib, Xsd
@@ -1454,7 +1461,11 @@ def fallback_phase(timer, dev, cfg) -> list:
                   # its function, y = A·x, two operations per nnz
                   (nbytes(v0, *planes[:7]) + nbytes(full), 2 * host.nnz),
                   library=lambda: lib @ xcol)
-    log(f"# B10 (one cooperative launch) equals B9's chain and the plain "
+    phases = KF.phase_table(Ab.planes()[7:], Ab.L)
+    n_stages = sum(len(st) for st in Ab.planes()[7:])
+    log(f"# B10 in {len(phases)} phases for {n_stages} stages (T = "
+        f"{KF.tile_log(Ab.L)}): {len(phases)} launches per SpMV; phases "
+        f"{phases}; {k_b10['ms']:.4f} ms; equals B9's chain and the plain "
         f"version; cuSPARSE fp32 SpMV {k_b10['library_ms']:.4f} ms")
     del u, fill, scan, valid, v0, v1, v2, v3, v4, nets, chain, full, planes
 
@@ -1496,8 +1507,10 @@ def fallback_phase(timer, dev, cfg) -> list:
     y = spmv_bfly_cuda_fused(Ab, xd)
     torch.cuda.synchronize()
     k_b10["launches"] = KF.LAUNCHES["bfly_full"]
-    if k_b10["launches"] != 1 or sum(KF.LAUNCHES.values()) != 1:
-        fail(f"one fused BFLY SpMV launched {dict(KF.LAUNCHES)}")
+    if not (k_b10["launches"] == len(phases) <= 20
+            and sum(KF.LAUNCHES.values()) == len(phases)):
+        fail(f"one fused BFLY SpMV launched {dict(KF.LAUNCHES)}, not one "
+             f"per phase of {len(phases)}")
     check_gold("scircuit BFLY/cuda fused (B10)", host, x, y)
     del Ab, y, lib, host
     log(f"# phase 16 scircuit part done in "
@@ -1535,7 +1548,24 @@ def fallback_phase(timer, dev, cfg) -> list:
                   lambda f=getattr(KF, name + "_torch"), a=(v, *args): f(*a))
         v = v if after is None else v * after
     log("# mac_econ_fwd500: B9 equals its plain versions on every stage")
-    del Am, v
+    # B10 at N = 2^21 (T = 14: the strided tiling serves k >= 12)
+    v0 = BF._spread_x(torch.as_tensor(xm, dtype=torch.float32, device=dev),
+                      Am.n, Am.N, Am.sigma_x)
+    chain = v * Am.out_valid
+    equal("mac_econ_fwd500 bfly_full vs the B9 chain",
+          lambda: KF.bfly_full(v0, *Am.planes()), lambda: chain)
+    equal("mac_econ_fwd500 bfly_full vs the plain version",
+          lambda: KF.bfly_full(v0, *Am.planes()),
+          lambda: KF.bfly_full_torch(v0, *Am.planes()))
+    phases = KF.phase_table(Am.planes()[7:], Am.L)
+    ms = timer.ms(lambda: KF.bfly_full(v0, *Am.planes()))
+    log(f"# mac_econ_fwd500 B10 in {len(phases)} phases (T = "
+        f"{KF.tile_log(Am.L)}, {len(phases)} launches per SpMV): {ms:.4f} "
+        f"ms; equals B9's chain and the plain version")
+    y = spmv_bfly_cuda_fused(Am, torch.as_tensor(xm, dtype=torch.float32,
+                                                 device=dev))
+    check_gold("mac_econ_fwd500 BFLY/cuda fused (B10)", mac, xm, y)
+    del Am, v, v0, chain, y
     out = io.StringIO()
     with tempfile.TemporaryDirectory() as out_dir:
         with contextlib.redirect_stdout(out):

@@ -66,31 +66,23 @@ __device__ __forceinline__ float scan_pick(uint32_t w, float val, int32_t wr,
   return buf[cur][row + ((w >> 14) & 0x7F)];
 }
 
-// SELLW — replaces spmv_research_tpu/ops/sellw.py `_sellw_kernel` and
-// `_sellw_stream_kernel` (SpMV: entry sellw_spmv, one column, NC = 1) and
-// `_sellw_spmm_kernel` (SpMM: entry sellw_spmm, n_cols columns, NC = 4).
-// One block per chunk of one stage class. The TPU kernels first copied each
-// sublane's 128-wide x row into VMEM (or, for n > 2^20, streamed windows
-// that XLA pre-gathered); here each thread reads its x element straight
-// from device memory, so one kernel serves both program kinds and a
-// stream_wins program moves 12 B/slot less. For SpMM the block keeps its
-// slot's word, value and x row index in registers and runs the SpMV
-// pipeline for NC columns of X at a time (column k's x at x + k * n_x: X
-// transposed, so a sublane's 128 lanes read one 512-byte row), one shared
-// buffer pair per column, so that the NC columns share each scan stage's
-// barrier and their x loads are in flight together (two blocks of 1024
-// threads fit an SM at 32 registers a thread); the TPU kernel re-ran
-// the pipeline per column of a k-tile of 8 with word and vals resident in
-// VMEM. Word and vals are read once for all columns, and stream_wins
-// programs take the same kernel. Each column's arithmetic is the SpMV's,
-// step for step (scan_pick's).
+// SELLW SpMV (entry sellw_spmv, kernel B11; NC = 1, n_cols = 1) —
+// replaces spmv_research_tpu/ops/sellw.py `_sellw_kernel` and
+// `_sellw_stream_kernel`. One block per chunk of one stage class. The TPU
+// kernels first copied each sublane's 128-wide x row into VMEM (or, for
+// n > 2^20, streamed windows that XLA pre-gathered); here each thread reads
+// its x element straight from device memory, so one kernel serves both
+// program kinds and a stream_wins program moves 12 B/slot less. The block
+// keeps its slot's word, value and x row index in registers and runs the
+// pipeline for NC columns of X at a time (column k's x at x + k * n_x), one
+// shared buffer pair per column. (The SpMM ran it with NC = 4 until it got
+// its own kernel, sellw_spmm_kernel below; the SpMV keeps this code and
+// its timing as they were.)
 // Output: per column k, G planes at out + k * plane_stride, plane g at rows
 // [g*npad, (g+1)*npad); row c of plane g is the sum over sublanes 0..7, in
 // order, of the part ends whose bid is g.
-// Bound: device memory. SpMV: 8 bytes per slot (word, value), x from L2
-// (its rows are shared by neighbouring chunks), 512*G bytes written per
-// chunk. SpMM: the same 8 bytes per slot once, then per column x and the
-// 512*G bytes of planes per chunk, which dominate at K = 128.
+// Bound: device memory, 8 bytes per slot (word, value), x from L2 (its
+// rows are shared by neighbouring chunks), 512*G bytes written per chunk.
 template <int NC>
 __global__ void __launch_bounds__(kChunk, 2)
     sellw_kernel(const uint32_t* __restrict__ word,
@@ -149,6 +141,154 @@ __global__ void __launch_bounds__(kChunk, 2)
         for (int s = 0; s < kSub; ++s)
           acc = acc + (tag[s * kLanes + l] == g ? E[s * kLanes + l] : 0.0f);
         out[(k0 + q) * plane_stride + (g * npad + c) * kLanes + l] = acc;
+      }
+    }
+  }
+}
+
+// SELLW SpMM (entry sellw_spmm, kernel B12) — replaces spmv_research_tpu/
+// ops/sellw.py `_sellw_spmm_kernel`. The SpMV pipeline (product, guarded
+// Hillis-Steele lane scan, pick at eidx, ordered sum over sublanes per
+// bid) for each of the n_cols columns of X, with the chunk's slot structure
+// decoded once and the scan held in registers:
+//   * one block of 256 threads per chunk: warp s is sublane s, and lane t
+//     of it holds the row's lanes 4t..4t+3 (their words, values and x
+//     column indices read once, as one 16-byte load each);
+//   * per column, the four products __fmul_rn(x, val) and the class's
+//     scan stages in registers (one kernel instance per depth, so the
+//     stages unroll): stage k adds the value 2^k lanes
+//     back where guard bit 7+k is set, from the stage's old values. For
+//     2^k = 1 and 2 the source is in the same thread or one lane back
+//     (one or two shuffles); for 2^k >= 4 it is the same element 2^k / 4
+//     threads back (four shuffles). Lane indices wrap modulo 128 as
+//     sellw_kernel's (a guarded read never leaves its part);
+//   * the scanned row goes to shared memory once (one 16-byte store a
+//     thread), and thread (h, l) (l = lane, h = t / 128) sums, for each
+//     bid g ≡ h mod 2, the picks of sublanes 0..7 at lane l in order,
+//     acc = acc + (bid == g ? pick : 0), each pick one shared read from an
+//     address it decoded once (s·128 + eidx where the entry is live and of
+//     bid g, else a zero kept at the row's end: the add of +0 the plain
+//     version makes);
+//   * kCols columns per pass, double-buffered: one __syncthreads() a pass;
+//     the next pass's x is loaded while this pass scans and sums.
+// Shared-memory traffic per slot and column: one write and at most one
+// read, against ~80-100 B in the first SpMM kernel's shared scan
+// (sellw_kernel with four columns a pass). The products, stages, picks and
+// sums are the SpMV's, in its order, so the planes equal
+// sellw_spmm_planes_torch exactly.
+// Output: per column k, sellw_kernel's G planes at out + k * plane_stride.
+// Bound: device memory; at K = 128 the planes (512 * G bytes per chunk and
+// column) are most of it, x read once per column from L2.
+constexpr int kSpmmThreads = kSub * 32;
+constexpr int kCols = 4;
+// a scanned row and, at kChunk, a zero the sums of dead entries read
+constexpr int kRow = kChunk + 4;
+
+// 3 blocks an SM: <= 80 registers, no spills (the x of two passes in
+// flight); one instance per scan depth, so the stages unroll.
+template <int kStages>
+__global__ void __launch_bounds__(kSpmmThreads, 3)
+    sellw_spmm_kernel(const uint32_t* __restrict__ word,
+                      const float* __restrict__ vals,
+                      const int32_t* __restrict__ wrow,
+                      const float* __restrict__ xt, int64_t n_x, int n_cols,
+                      float* __restrict__ out, int64_t plane_stride,
+                      int64_t npad, int64_t chunk0, int G) {
+  __shared__ __align__(16) float buf[2][kCols][kRow];
+  const int t = threadIdx.x;
+  if (t < 2 * kCols) buf[t / kCols][t % kCols][kChunk] = 0.0f;
+  const int s = t >> 5;
+  const int lane = t & 31;
+  const int64_t c = chunk0 + blockIdx.x;
+  const int64_t off = c * kChunk + s * kLanes + 4 * lane;
+  const uint4 w4 = *reinterpret_cast<const uint4*>(word + off);
+  const float4 v4 = *reinterpret_cast<const float4*>(vals + off);
+  const uint32_t w[4] = {w4.x, w4.y, w4.z, w4.w};
+  const float val[4] = {v4.x, v4.y, v4.z, v4.w};
+  const int xrow = wrow[c * kSub + s] * kLanes;  // n_x < 2^31
+  int col[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) col[e] = xrow + (w[e] & 0x7F);
+  // the sum thread's picks: sublane si's entry at lane l is
+  // (bid << 10 | si*128 + eidx) where live, else -1 (it reads the zero)
+  const int l = t & (kLanes - 1);
+  const int h = t >> 7;
+  int ent[kSub];
+#pragma unroll
+  for (int si = 0; si < kSub; ++si) {
+    const uint32_t we = word[c * kChunk + si * kLanes + l];
+    ent[si] = (we >> 21) & 1u
+                  ? (int)(((we >> 22) & (uint32_t)(G - 1)) << 10 |
+                          (si * kLanes + ((we >> 14) & 0x7F)))
+                  : -1;
+  }
+  const unsigned full = 0xffffffffu;
+  // x of the next pass is loaded while this pass scans and sums
+  float xn[kCols][4];
+  auto load_x = [&](int k0) {
+#pragma unroll
+    for (int q = 0; q < kCols; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        // the x plane's zero padding past n_x, as sellw_kernel
+        xn[q][e] = k0 + q < n_cols && col[e] < n_x
+                       ? xt[(int64_t)(k0 + q) * n_x + col[e]]
+                       : 0.0f;
+  };
+  load_x(0);
+  for (int k0 = 0, pass = 0; k0 < n_cols; k0 += kCols, pass ^= 1) {
+    const int nc = min(kCols, n_cols - k0);
+    float v[kCols][4];
+#pragma unroll
+    for (int q = 0; q < kCols; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[q][e] = __fmul_rn(xn[q][e], val[e]);
+    if (k0 + kCols < n_cols) load_x(k0 + kCols);
+#pragma unroll
+    for (int k = 0; k < kStages; ++k) {
+      bool g[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) g[e] = (w[e] >> (7 + k)) & 1u;
+#pragma unroll
+      for (int q = 0; q < kCols; ++q) {
+        float o[4];  // each element's value 2^k lanes back
+        if (k == 0) {
+          o[0] = __shfl_sync(full, v[q][3], (lane - 1) & 31);
+          o[1] = v[q][0];
+          o[2] = v[q][1];
+          o[3] = v[q][2];
+        } else if (k == 1) {
+          o[0] = __shfl_sync(full, v[q][2], (lane - 1) & 31);
+          o[1] = __shfl_sync(full, v[q][3], (lane - 1) & 31);
+          o[2] = v[q][0];
+          o[3] = v[q][1];
+        } else {
+          const int src = (lane - (1 << (k - 2))) & 31;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            o[e] = __shfl_sync(full, v[q][e], src);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (g[e]) v[q][e] = v[q][e] + o[e];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kCols; ++q)
+      *reinterpret_cast<float4*>(&buf[pass][q][s * kLanes + 4 * lane]) =
+          make_float4(v[q][0], v[q][1], v[q][2], v[q][3]);
+    __syncthreads();  // one pass: the other buffer's reads ended before
+    for (int gg = h; gg < G; gg += 2) {
+#pragma unroll
+      for (int q = 0; q < kCols; ++q) {
+        if (q >= nc) break;
+        const float* E = buf[pass][q];
+        float acc = 0.0f;
+#pragma unroll
+        for (int si = 0; si < kSub; ++si)
+          acc = acc + E[(ent[si] >> 10) == gg ? (ent[si] & 1023) : kChunk];
+        out[(int64_t)(k0 + q) * plane_stride + (gg * npad + c) * kLanes +
+            l] = acc;
       }
     }
   }
@@ -364,16 +504,25 @@ int sellw_spmv(const void* word, const void* vals, const void* wrow,
   return (int)cudaGetLastError();
 }
 
-// As sellw_spmv for the n_cols columns of xt (n_cols, n_x); column k's G
-// planes start at out + k * plane_stride.
+// As sellw_spmv for the n_cols columns of xt (n_cols, n_x), through
+// sellw_spmm_kernel; column k's G planes start at out + k * plane_stride.
 int sellw_spmm(const void* word, const void* vals, const void* wrow,
                const void* xt, int64_t n_x, int n_cols, void* out,
                int64_t plane_stride, int64_t npad, int64_t chunk0,
                int64_t n_chunks, int stages, int G, void* stream) {
-  sellw_kernel<4><<<(unsigned)n_chunks, kChunk, 0, (cudaStream_t)stream>>>(
+  using Kernel = void (*)(const uint32_t*, const float*, const int32_t*,
+                         const float*, int64_t, int, float*, int64_t, int64_t,
+                         int64_t, int);
+  static const Kernel kernels[] = {
+      sellw_spmm_kernel<0>, sellw_spmm_kernel<1>, sellw_spmm_kernel<2>,
+      sellw_spmm_kernel<3>, sellw_spmm_kernel<4>, sellw_spmm_kernel<5>,
+      sellw_spmm_kernel<6>, sellw_spmm_kernel<7>};
+  if (stages < 0 || stages > 7) return (int)cudaErrorInvalidValue;
+  kernels[stages]<<<(unsigned)n_chunks, kSpmmThreads, 0,
+                    (cudaStream_t)stream>>>(
       (const uint32_t*)word, (const float*)vals, (const int32_t*)wrow,
       (const float*)xt, n_x, n_cols, (float*)out, plane_stride, npad, chunk0,
-      stages, G);
+      G);
   return (int)cudaGetLastError();
 }
 

@@ -14,7 +14,9 @@ SpMV impls:
   of the JAX package's ``xla`` impl (``torch.roll`` where it has
   ``jnp.roll``).
 
-``spmv_bfly_cuda_fused`` runs the whole program in one launch (kernel B10).
+``spmv_bfly_cuda_fused`` runs the whole program through kernel B10 (one
+launch per phase of ``bfly_cuda.plan_phases``, 9 for scircuit's 132
+stages).
 The JAX package leaves its counterpart (``spmv_bfly_pallas_fused``)
 unregistered, and so does the port: it adds no format impl that the JAX
 package lacks, and is called directly.
@@ -192,8 +194,8 @@ def spmv_bfly_cuda(A: Bfly, x: torch.Tensor) -> torch.Tensor:
 
 
 def spmv_bfly_cuda_fused(A: Bfly, x: torch.Tensor) -> torch.Tensor:
-    """BFLY in one launch of kernel B10 (CUDA tensors only; not
-    registered, as ``spmv_bfly_pallas_fused`` is not)."""
+    """BFLY through kernel B10, the whole program in phases (CUDA tensors
+    only; not registered, as ``spmv_bfly_pallas_fused`` is not)."""
     _need_cuda(A, x)
     v = _spread_x(x.to(A.vals.dtype), A.n, A.N, A.sigma_x)
     return _y(A, K.bfly_full(v, *A.planes()))

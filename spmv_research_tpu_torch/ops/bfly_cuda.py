@@ -13,7 +13,8 @@ wrapper            replaces
 ``bfly_scan``      ``bfly_pallas.py:_scan_kernel`` (segmented scan: out = v +
                    (guard bit k ? v[p − 2^k] : 0)) — one launch per stage
 ``bfly_full``      ``bfly_pallas.py:_full_kernel`` (the whole program, × vals
-                   and × valid included) — one cooperative launch
+                   and × valid included) — the stages cut into phases by
+                   ``plan_phases``, one launch per phase, not per stage
 =================  ==========================================================
 
 The shifts wrap over the N slots as ``jnp.roll`` and ``torch.roll`` do (a
@@ -45,6 +46,12 @@ MAX_CODES = 256                  # csrc/bfly.cu kMaxCodes
 KIND_XOR, KIND_FILL, KIND_SCAN = 0, 1, 2
 NET_WIDEN, NET_PERM, NET_COMPACT = 0, 1, 2
 PREMUL = 1 << 20                 # the stage reads its values × vals
+# B10's phases (csrc/bfly.cu): tilings, the largest tile (2^14 fp32 = 64 KB,
+# 512 threads of 32 slots), the halo budget and the phase table's size
+CONTIG, STRIDED, GLOBAL = 0, 1, 2
+MAX_TILE_LOG = 14
+HALO_MAX = 1024
+MAX_PHASES = 128
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -53,6 +60,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.bfly_shift_stage.argtypes = [p, p, p, i32, i64, i32, p]
     lib.bfly_full.argtypes = ([p] * 11
                               + [i64, ctypes.POINTER(ctypes.c_uint32), i32,
+                                 i32, ctypes.POINTER(ctypes.c_int32), i32,
                                  i32, p])
     for fn in (lib.bfly_xor_stage, lib.bfly_shift_stage, lib.bfly_full):
         fn.restype = i32
@@ -228,13 +236,110 @@ def _codes(widen_stages, fill_stages, perm_stages, scan_stages,
             int(not tail))
 
 
+def tile_log(L: int) -> int:
+    """B10's tile: 2^T slots with T the larger of ceil((L + 5) / 2) (the
+    two tilings then serve every exchange stage, L <= 2T − 5) and L − 7
+    (at least 128 tiles, one a streaming multiprocessor of the H100's 132),
+    at most 14 (a tile of 64 KB in the registers of 512 threads; three
+    shared buffers of a tile and its halo in one SM's 227 KB); T = L, the
+    whole plane one tile, where that is smaller."""
+    return min(MAX_TILE_LOG, max(-(-(L + 5) // 2), L - 7), L)
+
+
+def plan_phases(codes: Sequence[int], L: int, T: int) -> tuple:
+    """B10's phases: ((first code, code count, tiling, halo), ...), maximal
+    runs of consecutive stage codes that one tiling of the 2^L slots into
+    tiles of 2^T serves, the longer run of the two tilings at each step
+    (``csrc/bfly.cu`` describes them):
+
+    * ``CONTIG``: exchange stages with k < T, after a leading run of fill
+      or scan stages whose shifts 2^k sum to at most ``HALO_MAX``, the
+      halo each tile reads from the tile before it; T >= L: every stage,
+      the whole plane one tile;
+    * ``STRIDED``: exchange stages with k < 5 or k >= L − T + 5;
+    * ``GLOBAL``: one stage that neither serves (every stage when T < 5:
+      a tile is at least a warp's 32 slots).
+
+    Every code lands in exactly one phase, in order; no code: one empty
+    phase (x · valid)."""
+    n = len(codes)
+    if T < 5:
+        return tuple((i, 1, GLOBAL, 0) for i in range(n)) or (
+            (0, 0, GLOBAL, 0),)
+    if T >= L:
+        return ((0, n, CONTIG, 0),)
+
+    def kind_k(c):
+        return (c >> 16) & 3, c & 31
+
+    def contig(s):
+        halo, i = 0, s
+        while i < n:
+            kind, k = kind_k(codes[i])
+            if kind == KIND_XOR:
+                if k >= T:
+                    break
+            elif i > s and kind_k(codes[i - 1])[0] == KIND_XOR:
+                break                      # a shift after an exchange
+            elif halo + (1 << k) > HALO_MAX:
+                break
+            else:
+                halo += 1 << k
+            i += 1
+        return i - s, halo
+
+    def strided(s):
+        i = s
+        while i < n:
+            kind, k = kind_k(codes[i])
+            if kind != KIND_XOR or 5 <= k < L - T + 5:
+                break
+            i += 1
+        return i - s
+
+    phases, s = [], 0
+    while s < n:
+        (nc, halo), ns = contig(s), strided(s)
+        if nc == ns == 0:
+            phases.append((s, 1, GLOBAL, 0))
+        elif nc >= ns:
+            phases.append((s, nc, CONTIG, halo))
+        else:
+            phases.append((s, ns, STRIDED, 0))
+        s += phases[-1][1]
+    return tuple(phases) or ((0, 0, CONTIG, 0),)
+
+
+def phase_table(stages: Sequence, L: int) -> tuple:
+    """B10's phases for the stage lists ``stages`` (widen, fill, perm,
+    scan, compact) on 2^L slots: ``plan_phases`` at ``tile_log(L)``."""
+    codes, n_codes, _ = _codes(*map(tuple, stages))
+    return plan_phases(list(codes)[:n_codes], L, tile_log(L))
+
+
+@lru_cache(maxsize=64)
+def _plan(stages: tuple, L: int):
+    """B10's launch plan for the stage lists ``stages``: (codes, their
+    count, premul_final, the phase table as 4 ints a phase, the phase
+    count, T)."""
+    codes, n_codes, premul_final = _codes(*stages)
+    T = tile_log(L)
+    phases = phase_table(stages, L)
+    if len(phases) > MAX_PHASES:
+        raise ValueError(f"{len(phases)} phases: B10 takes at most "
+                         f"{MAX_PHASES}")
+    flat = [x for ph in phases for x in ph]
+    return (codes, n_codes, premul_final,
+            (ctypes.c_int32 * len(flat))(*flat), len(phases), T)
+
+
 def bfly_full(v, widen_B, fill_words, perm_B, vals, scan_guards, compact_B,
               out_valid, widen_stages: Stages, fill_stages: Sequence[int],
               perm_stages: Stages, scan_stages: Sequence[int],
               compact_stages: Stages) -> torch.Tensor:
-    """The whole program on the spread x (N,) in one cooperative launch
-    (kernel B10): v · valid after widen, fill, perm, × vals, scan and
-    compact."""
+    """The whole program on the spread x (N,) (kernel B10): v · valid after
+    widen, fill, perm, × vals, scan and compact, in the phases of
+    ``plan_phases``, one launch per phase (each counted)."""
     planes = (v, widen_B, fill_words, perm_B, vals, scan_guards, compact_B,
               out_valid)
     stages = (tuple(widen_stages), tuple(fill_stages), tuple(perm_stages),
@@ -250,11 +355,13 @@ def bfly_full(v, widen_B, fill_words, perm_B, vals, scan_guards, compact_B,
     _check(vals, "vals", torch.float32, (n,))
     _check(out_valid, "out_valid", torch.float32, (n,))
     _check_shifts(stages[1] + stages[3], n)
-    codes, n_codes, premul_final = _codes(*stages)
+    codes, n_codes, premul_final, phases, n_phases, T = _plan(
+        stages, n.bit_length() - 1)
     buf0, buf1, out = (torch.empty_like(v) for _ in range(3))
     with torch.cuda.device(v.device):
         _launch("bfly_full", *(t.data_ptr() for t in (v, buf0, buf1)),
                 *(t.data_ptr() for t in planes[1:7]), out_valid.data_ptr(),
-                out.data_ptr(), n, codes, n_codes, premul_final, _stream(v))
-    LAUNCHES["bfly_full"] += 1
+                out.data_ptr(), n, codes, n_codes, premul_final, phases,
+                n_phases, T, _stream(v))
+    LAUNCHES["bfly_full"] += n_phases
     return out

@@ -11,9 +11,10 @@ wrapper                 replaces
                         ``:_sellw_stream_kernel`` (one launch per stage
                         class; one kernel for both program kinds, counted
                         apart: ``sellw`` and ``sellw_stream``)
-``sellw_spmm_planes``   ``sellw.py:_sellw_spmm_kernel``: the same kernel
-                        over the columns of X, word and vals read once for
-                        all of them (one launch per stage class, counted as
+``sellw_spmm_planes``   ``sellw.py:_sellw_spmm_kernel``: the SpMV's
+                        pipeline over the columns of X in its own kernel,
+                        the chunk decoded once and the scan in registers
+                        (one launch per stage class, counted as
                         ``sellw_spmm``)
 ``sellr_place``         ``sellr.py:_sellr_kernel``, with ``sellr_flush``:
                         the placed chunk planes R
@@ -308,7 +309,13 @@ def sellw_spmm_planes(word, vals, wrow, xt, classes: Sequence[Tuple[int, int,
     npad = _check_chunks(word, vals, wrow, xt.view(-1))
     check(wrow, "wrow", torch.int32, (npad * SUB,))
     covered = _check_classes(classes, npad, G)
+    if word.data_ptr() % 16 or vals.data_ptr() % 16:
+        raise ValueError("word and vals: the SpMM kernel reads them 16 "
+                         "bytes at a time, so they must be 16-byte aligned")
     cols, n_x = xt.shape
+    if n_x >= 1 << 31:
+        raise ValueError(f"x of {n_x} rows: the SpMM kernel indexes x with "
+                         "32-bit ints")
     out = _planes_out(vals, cols, G, npad, covered)
     if cols:
         st = stream(xt)

@@ -6,10 +6,10 @@ identical program arrays: the native ``sellw_pack2`` for G = 2 and fp32, the
 Python packer otherwise), the float64 host executor ``execute_sellw_numpy``,
 and two impls each of SpMV and SpMM:
 
-* ``"cuda"`` — the hand-written kernel of ``sell_cuda.py`` (the pallas
-  impls' counterpart; one kernel serves both the x-resident and the
-  ``stream_wins`` program, since the card has no VMEM limit on x, and with
-  a loop over X's columns it is the SpMM kernel too);
+* ``"cuda"`` — the hand-written kernels of ``sell_cuda.py`` (the pallas
+  impls' counterparts; one kernel each for SpMV (B11) and SpMM (B12), each
+  serving both the x-resident and the ``stream_wins`` program, since the
+  card has no VMEM limit on x);
 * ``"torch"`` — the same functions in plain PyTorch (SpMM: the SpMV's plain
   version column by column, like the JAX ``spmm_sellw_xla``).
 

@@ -57,9 +57,10 @@ class SolveResult:
     converged: bool
 
 
-def _jacobi_inv_diag(host_csr, dtype=torch.float32, device="cpu"):
-    """K⁻¹ = 1/diag(A) (reference ``bench_cg.cpp:116-135``); zero diagonals
-    fall back to 1 (the harness normally runs fix_diagonal_zeros first)."""
+def _jacobi_inv_diag(host_csr, dtype=torch.float32, device="cuda"):
+    """K⁻¹ = 1/diag(A) (reference ``bench_cg.cpp:116-135``) on ``device``
+    (the card unless the caller asks for the CPU); zero diagonals fall back
+    to 1 (the harness normally runs fix_diagonal_zeros first)."""
     diag = np.zeros(host_csr.m)
     rows = np.repeat(np.arange(host_csr.m), host_csr.row_lengths())
     on_diag = rows == host_csr.ja
@@ -235,15 +236,17 @@ def check_precond(precond: str) -> None:
 
 
 def make_precond_state(host_csr, precond: str, dtype=torch.float32,
-                       device="cpu"):
+                       device="cuda"):
     """``(apply_fn, state)`` with ``apply_fn(state, r) = M⁻¹ r``: the
-    preconditioner's arrays in ``state``, built once outside any timed
-    region."""
+    preconditioner's arrays in ``state`` on ``device`` (the card unless the
+    caller asks for the CPU), built once outside any timed region."""
     check_precond(precond)
     return (lambda st, r: st * r), _jacobi_inv_diag(host_csr, dtype, device)
 
 
-def make_precond(host_csr, precond: str, dtype=torch.float32, device="cpu"):
-    """The preconditioner's apply function ``r ↦ M⁻¹ r``, built once."""
+def make_precond(host_csr, precond: str, dtype=torch.float32,
+                 device="cuda"):
+    """The preconditioner's apply function ``r ↦ M⁻¹ r``, built once on
+    ``device`` (the card unless the caller asks for the CPU)."""
     apply_fn, state = make_precond_state(host_csr, precond, dtype, device)
     return lambda r: apply_fn(state, r)

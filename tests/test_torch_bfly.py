@@ -223,3 +223,179 @@ def test_b10_codes_fold_the_products():
         0 | K.KIND_SCAN << 16, 1 | 2 << 5 | K.NET_COMPACT << 18]
     assert [bool(c & K.PREMUL) for c in codes] == [0, 0, 0, 1, 0]
     assert K._codes(((0, 0, 1),), (), (), (), ())[1:] == (1, 1)
+
+
+# ------------------------------------------------ B10's phased schedule
+
+def _phased_emulation(v, widen_B, fill_words, perm_B, vals, scan_guards,
+                      compact_B, out_valid, *stages, T):
+    """B10's schedule (``csrc/bfly.cu`` ``full_kernel``) in plain PyTorch:
+    the phases of ``plan_phases`` at tiles of 2^T slots, each tiled phase
+    run tile by tile on its window (halo included; all tiles at once, one
+    row each), each global phase one stage over the whole plane, × vals
+    where a code asks for it and × valid as the last phase writes out."""
+    codes, n_codes, premul_final = K._codes(*map(tuple, stages))
+    codes = list(codes)[:n_codes]
+    N = v.numel()
+    L = N.bit_length() - 1
+    T = min(T, L)
+    nets = {K.NET_WIDEN: widen_B, K.NET_PERM: perm_B,
+            K.NET_COMPACT: compact_B}
+    phases = K.plan_phases(codes, L, T)
+
+    def stage(c):
+        kind, k = (c >> 16) & 3, c & 31
+        if kind == K.KIND_XOR:
+            return kind, k, (c >> 5) & 31, nets[(c >> 18) & 3][(c >> 10) & 63]
+        return kind, k, k, fill_words if kind == K.KIND_FILL else scan_guards
+
+    src = v
+    for pi, (first, count, tiling, halo) in enumerate(phases):
+        if tiling == K.GLOBAL:
+            c = codes[first]
+            kind, k, bit, plane = stage(c)
+            u = src * vals if c & K.PREMUL else src
+            g = ((plane >> bit) & 1) != 0
+            if kind == K.KIND_XOR:
+                dst = torch.where(g, u[torch.arange(N) ^ (1 << k)], u)
+            elif kind == K.KIND_FILL:
+                dst = torch.where(g, torch.roll(u, 1 << k), u)
+            else:
+                dst = u + torch.where(g, torch.roll(u, 1 << k), 0.0)
+        else:
+            W = (1 << T) + halo
+            i = torch.arange(W)
+            tiles = torch.arange(N >> T)[:, None]
+            if tiling == K.CONTIG:
+                gi = ((tiles << T) + i - halo) & (N - 1)
+            else:
+                gi = (i >> 5) << (L - T + 5) | tiles << 5 | (i & 31)
+            cur = src[gi]
+            for c in codes[first:first + count]:
+                kind, k, bit, plane = stage(c)
+                if c & K.PREMUL:
+                    cur = cur * vals[gi]
+                g = ((plane[gi] >> bit) & 1) != 0
+                dl = 1 << (k - L + T if tiling == K.STRIDED and k >= 5
+                           else k)
+                if kind == K.KIND_XOR:
+                    inner = i >= halo
+                    part = torch.where(inner, halo + ((i - halo) ^ dl), i)
+                    cur = torch.where(g & inner, cur[:, part], cur)
+                    continue
+                q = i - dl
+                if T == L:
+                    q = q & (W - 1)
+                take = g & (q >= 0)
+                shifted = cur[:, q.clamp(min=0)]
+                cur = (torch.where(take, shifted, cur)
+                       if kind == K.KIND_FILL
+                       else cur + torch.where(take, shifted, 0.0))
+            dst = torch.empty_like(src)
+            dst[gi[:, halo:]] = cur[:, halo:]
+        if pi == len(phases) - 1:
+            dst = (dst * vals if premul_final else dst) * out_valid
+        src = dst
+    return src
+
+
+def _random_program(L, passes, fill, scan, seed):
+    """Random word planes and stage lists of a program of 2^L slots: each
+    network ``passes`` Waksman-ordered passes (k = 0..L−1..0), fill and
+    scan stages 0..fill−1 and 0..scan−1."""
+    rng = np.random.default_rng(seed)
+    N = 1 << L
+    order = list(range(L)) + list(range(L - 2, -1, -1))
+    net = [(j // 32, j % 32, k) for j, k in enumerate(order * passes)]
+    words = (len(net) + 31) // 32
+
+    def bits(*shape):
+        return torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, shape,
+                                             dtype=np.int64).astype(np.int32))
+
+    v = torch.from_numpy(rng.uniform(-1, 1, N).astype(np.float32))
+    vals = torch.from_numpy(rng.uniform(-1, 1, N).astype(np.float32))
+    valid = torch.from_numpy((rng.random(N) < 0.7).astype(np.float32))
+    planes = (bits(words, N), bits(N), bits(words, N), vals, bits(N),
+              bits(words, N), valid)
+    return v, planes, (net, tuple(range(fill)), net, tuple(range(scan)), net)
+
+
+def _check_plan(codes, phases, L, T):
+    """Every code in exactly one phase, in order; each phase's stages
+    served by its tiling, its halo the sum of its leading shifts."""
+    assert [p[0] for p in phases] == list(
+        np.cumsum([0] + [p[1] for p in phases[:-1]]))
+    assert sum(p[1] for p in phases) == len(codes)
+    for first, count, tiling, halo in phases:
+        ks = [(c >> 16 & 3, c & 31) for c in codes[first:first + count]]
+        shifts = [k for kind, k in ks if kind != K.KIND_XOR]
+        if tiling == K.GLOBAL:
+            assert count == 1 and halo == 0
+        elif tiling == K.STRIDED:
+            assert not shifts and halo == 0
+            assert all(k < 5 or k >= L - T + 5 for _, k in ks)
+        elif T < L:
+            assert ks[:len(shifts)] == [(kind, k) for kind, k in ks
+                                        if kind != K.KIND_XOR]
+            assert halo == sum(1 << k for k in shifts) <= K.HALO_MAX
+            assert all(k < T for kind, k in ks if kind == K.KIND_XOR)
+
+
+@pytest.mark.parametrize("T", [4, 5, 6, 7, 9, 14])
+def test_b10_phased_schedule_matches_plain_version(case, T):
+    """The phased schedule equals bfly_full_torch bit for bit on each
+    case's program at tiles of 2^T (L = 9 or 12 here: T = 7 is L = 2T − 5
+    for L = 9; T = 5 and 6 leave stages to global phases; T >= L is one
+    tile)."""
+    _, _, _, A, x = case
+    v = BF._spread_x(torch.from_numpy(x), A.n, A.N, A.sigma_x)
+    want = K.bfly_full_torch(v, *A.planes())
+    got = _phased_emulation(v, *A.planes()[:7], *A.planes()[7:], T=T)
+    assert torch.equal(got, want)
+    codes, n_codes, _ = K._codes(*A.planes()[7:])
+    _check_plan(list(codes)[:n_codes], K.plan_phases(
+        list(codes)[:n_codes], A.L, min(T, A.L)), A.L, min(T, A.L))
+
+
+@pytest.mark.parametrize("L, T, passes, fill, scan, halo_max", [
+    (9, 7, 2, 4, 6, K.HALO_MAX),     # L = 2T − 5, two passes a network
+    (11, 8, 1, 6, 9, K.HALO_MAX),    # L = 2T − 5, scircuit's fill and scan
+    (10, 6, 2, 3, 9, 40),            # global exchanges, halo split
+    (8, 10, 2, 5, 7, K.HALO_MAX),    # L <= T: one tile, shifts wrap
+])
+def test_b10_phased_schedule_on_random_programs(L, T, passes, fill, scan,
+                                               halo_max, monkeypatch):
+    """Random word planes and multi-pass networks: the phased schedule
+    equals bfly_full_torch bit for bit, and the plan covers every code once,
+    in order (a small halo budget splits the scan's run; past L = 2T − 5
+    global phases take the exchanges no tiling serves)."""
+    monkeypatch.setattr(K, "HALO_MAX", halo_max)
+    v, planes, stages = _random_program(L, passes, fill, scan, seed=L + T)
+    want = K.bfly_full_torch(v, *planes, *stages)
+    assert torch.equal(_phased_emulation(v, *planes, *stages, T=T), want)
+    codes, n_codes, _ = K._codes(*map(tuple, stages))
+    codes = list(codes)[:n_codes]
+    phases = K.plan_phases(codes, L, min(T, L))
+    _check_plan(codes, phases, L, min(T, L))
+    kinds = {p[2] for p in phases}
+    assert (K.GLOBAL in kinds) == (L > 2 * T - 5)
+    assert (len(phases) == 1) == (T >= L)
+
+
+def test_b10_plan_of_the_scircuit_shape():
+    """The scircuit program's shape (L = 20: three 39-stage Waksman
+    networks, fill 0..5, scan 0..8) takes 9 phases at T = 13, 8 grid
+    launches for 132 stages; mac_econ_fwd500's (L = 21) 9 at T = 14."""
+    for L, T, n_codes in ((20, 13, 132), (21, 14, 138)):
+        assert K.tile_log(L) == T
+        net = tuple((0, j % 32, k) for j, k in enumerate(
+            list(range(L)) + list(range(L - 2, -1, -1))))
+        stages = (net, tuple(range(6)), net, tuple(range(9)), net)
+        n = K._codes(*stages)[1]
+        phases = K.phase_table(stages, L)
+        assert n == n_codes and len(phases) == 9
+        assert [p[2] for p in phases] == [K.CONTIG, K.STRIDED, K.CONTIG] * 3
+        assert [p[3] for p in phases] == [0, 0, 0, 63, 0, 0, 511, 0, 0]
+    assert [K.tile_log(L) for L in (4, 9, 12, 16, 19, 22)] == [4, 7, 9, 11,
+                                                                12, 14]

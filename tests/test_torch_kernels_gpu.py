@@ -41,8 +41,8 @@ from spmv_research_tpu_torch.ops.compensated import _split_f64
 from torch_cases import (TWIN_LINE, banded_matrix, bfly_pathological,
                          btile_banded, capped_scan_matrix, clos_hi_matrix,
                          dirty_sellr_matrix, ds_banded, random_matrix,
-                         skewed_matrix,
-                         skewed_xl_matrix, w0_matrix)
+                         skewed_matrix, skewed_xl_matrix,
+                         staged_sellw_matrix, w0_matrix)
 
 pytestmark = pytest.mark.gpu
 
@@ -295,26 +295,37 @@ def test_rowsplit_and_dense_on_the_card(cuda, monkeypatch):
                                      .to(cuda), xd))
 
 
-@pytest.mark.parametrize("kind", ["g2", "g4", "stream"])
-def test_sellw_spmm_kernel_matches_plain_version(cuda, kind, monkeypatch):
-    """B12 over K = 10 columns: the planes equal the plain version's."""
+@pytest.mark.parametrize("k", [1, 5, 7, 10, 128])
+@pytest.mark.parametrize("kind", ["g1", "g2", "g4", "g8", "stream",
+                                  "classes"])
+def test_sellw_spmm_kernel_matches_plain_version(cuda, kind, k,
+                                                 monkeypatch):
+    """B12 over K = 1, 5, 7, 10 and 128 columns (last 4-column passes of 1,
+    1, 3, 2 and 4 columns), G = 1, 2, 4, 8, a stream_wins program and a program of
+    two stage classes (6 and 7 stages): the planes equal the plain
+    version's bit for bit."""
     if kind == "stream":
         monkeypatch.setattr(sellw, "_X_VMEM_LIMIT", 512)
-        mat, G = banded_matrix(400, 1030, 60, 8, 3), 2
+        mat, G, cap = banded_matrix(400, 1030, 60, 8, 3), 2, 8
+    elif kind == "classes":
+        mat, G, cap = staged_sellw_matrix(), 2, 128
     else:
-        mat, G = banded_matrix(1200, 1200, 160, 14, 2), int(kind[1])
-    A = sellw.build_sellw(HostCSR.from_scipy(mat), group=G).to(cuda)
+        mat, G, cap = banded_matrix(1200, 1200, 160, 14, 2), int(kind[1]), 8
+    A = sellw.build_sellw(HostCSR.from_scipy(mat), group=G,
+                          part_cap=cap).to(cuda)
+    plan = sellw.class_plan(A)
+    assert A.stream_wins == (kind == "stream") and A.G == G
+    assert (len(plan) > 1) == (kind == "classes")
     X = np.random.Generator(np.random.PCG64(8)).uniform(
-        -1.0, 1.0, (mat.shape[1], 10))
+        -1.0, 1.0, (mat.shape[1], k))
     Xd = torch.as_tensor(X, dtype=torch.float32, device=cuda)
-    args = (A.word, A.vals, A.wrow, Xd.t().contiguous(), sellw.class_plan(A),
-            G)
+    args = (A.word, A.vals, A.wrow, Xd.t().contiguous(), plan, G)
     KS.reset_launch_counts()
     got = KS.sellw_spmm_planes(*args)
     want = KS.sellw_spmm_planes_torch(*args)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    n_launched = sum(1 for _, cnt, _ in sellw.class_plan(A) if cnt)
+    n_launched = sum(1 for _, cnt, _ in plan if cnt)
     assert KS.LAUNCHES["sellw_spmm"] == n_launched >= 1
     Y = spmm(A, Xd).double().cpu().numpy()            # CUDA tensor: "cuda"
     scale = np.abs(mat) @ np.abs(X) + 1e-30
@@ -469,8 +480,7 @@ def test_clos_r3_kernels_match_plain_versions(cuda, case):
 @pytest.mark.parametrize("case", ["random", "pathological"])
 def test_bfly_kernels_match_plain_versions(cuda, case):
     """B9 (exchange, fill and scan stages) and B10 (the whole program in
-    one cooperative launch) equal their plain versions bit for bit; the
-    BFLY/cuda y lies within 1e-5 of |A|·|x|."""
+    phases, one launch a phase) equal their plain versions bit for bit; the BFLY/cuda y lies within 1e-5 of |A|·|x|."""
     mat = (bfly_pathological() if case == "pathological"
            else random_matrix(3000, 2500, 0.002, 8))
     A = bfly.build_bfly(HostCSR.from_scipy(mat)).to(cuda)
@@ -494,13 +504,48 @@ def test_bfly_kernels_match_plain_versions(cuda, case):
     v = bfly._spread_x(xd, A.n, A.N, A.sigma_x)
     full = KF.bfly_full(v, *A.planes())
     assert torch.equal(full, KF.bfly_full_torch(v, *A.planes()))
-    assert KF.LAUNCHES["bfly_full"] == 1
+    assert KF.LAUNCHES["bfly_full"] == len(KF.phase_table(A.planes()[7:],
+                                                          A.L))
     y = spmv(A, xd)                                    # CUDA tensor: "cuda"
     assert torch.equal(y, bfly.spmv_bfly_cuda_fused(A, xd))
     assert torch.equal(y, spmv(A, xd, impl="torch"))
     _close_to_scipy(mat, x, y)
     with pytest.raises(ValueError, match="CUDA"):
         spmv(A.to("cpu"), torch.ones(mat.shape[1]), impl="cuda")
+
+
+@pytest.mark.parametrize("L, passes, fill, scan", [
+    (6, 2, 4, 5), (15, 2, 6, 9), (19, 2, 5, 13), (21, 1, 6, 9)])
+def test_bfly_full_on_random_programs(cuda, L, passes, fill, scan):
+    """B10 on random word planes (multi-pass Waksman-ordered networks): one
+    tile (L = 6), contiguous and strided phases at T = 10, 12 and 14 (L =
+    15, 19, 21), and at L = 19 a scan whose shifts pass the halo budget
+    (a global phase); bit for bit the plain version's."""
+    rng = np.random.default_rng(L)
+    N = 1 << L
+    order = list(range(L)) + list(range(L - 2, -1, -1))
+    net = tuple((j // 32, j % 32, k) for j, k in enumerate(order * passes))
+    words = (len(net) + 31) // 32
+
+    def bits(*shape):
+        return torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, shape,
+                                            dtype=np.int64).astype(np.int32),
+                               device=cuda)
+
+    def floats(lo=-1.0):
+        return torch.as_tensor(rng.uniform(lo, 1, N), dtype=torch.float32,
+                               device=cuda)
+
+    v, vals, valid = floats(), floats(), (floats(0.0) < 0.7).float()
+    planes = (bits(words, N), bits(N), bits(words, N), vals, bits(N),
+              bits(words, N), valid)
+    stages = (net, tuple(range(fill)), net, tuple(range(scan)), net)
+    phases = KF.plan_phases(list(KF._codes(*stages)[0]), L, KF.tile_log(L))
+    assert (KF.GLOBAL in {p[2] for p in phases}) == (scan > 12)
+    want = KF.bfly_full_torch(v, *planes, *stages)
+    got = KF.bfly_full(v, *planes, *stages)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_bench_spmv_torch_row_gates_the_torch_pair(cuda, monkeypatch):

@@ -96,7 +96,7 @@ def test_cg_explicit_residual_check_runs_its_spmvs():
         calls.append(1)
         return spmv(A, v)
 
-    inv = make_precond_state(h, "jacobi")[1]
+    inv = make_precond_state(h, "jacobi", device="cpu")[1]
     x, info = cg(A, torch.as_tensor(b, dtype=torch.float32), inv_diag=inv,
                  max_iters=200, rtol=1e-6, check_every=5, spmv_fn=mv)
     loops = info["loop_iterations"]
@@ -200,8 +200,8 @@ def test_ic0_and_ilu0_are_not_ported():
     with pytest.raises(ValueError, match="unknown"):
         make_precond(h, "ssor")
     r = torch.ones(h.m)
-    assert torch.equal(make_precond(h, "jacobi")(r),
-                       make_precond_state(h, "jacobi")[1])
+    assert torch.equal(make_precond(h, "jacobi", device="cpu")(r),
+                       make_precond_state(h, "jacobi", device="cpu")[1])
 
 
 def test_solvers_need_a_preconditioner():
@@ -210,3 +210,13 @@ def test_solvers_need_a_preconditioner():
     for fn in (cg, bicgstab):
         with pytest.raises(ValueError, match="inv_diag"):
             fn(build_csr(h), bt)
+
+
+def test_preconditioners_default_to_the_card():
+    """make_precond, make_precond_state and the Jacobi diagonal put their
+    arrays on the card unless the caller asks for the CPU, as the JAX
+    versions put them on the default device."""
+    import inspect
+    cg_mod = importlib.import_module("spmv_research_tpu_torch.solvers.cg")
+    for fn in (make_precond, make_precond_state, cg_mod._jacobi_inv_diag):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"

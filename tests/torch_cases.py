@@ -217,3 +217,20 @@ def bfly_pathological():
     mat.eliminate_zeros()
     mat.sort_indices()
     return mat
+
+
+def staged_sellw_matrix(m_short=33024, m_long=1400, run=100, seed=3):
+    """A matrix whose SELLW program (part_cap 128) has two stage classes:
+    m_short diagonal rows (one-slot parts) and m_long rows of ``run``
+    consecutive columns about the diagonal (parts up to 100 lanes, 7
+    scan stages)."""
+    n = m_short + m_long
+    rows, cols = list(range(m_short)), list(range(m_short))
+    for r in range(m_short, n):
+        c0 = min(max(r - run // 2, 0), n - run)
+        rows += [r] * run
+        cols += list(range(c0, c0 + run))
+    vals = np.random.default_rng(seed).standard_normal(len(rows))
+    mat = sp.csr_matrix((vals, (rows, cols)), shape=(n, n))
+    mat.sort_indices()
+    return mat
