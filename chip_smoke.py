@@ -63,34 +63,40 @@ failure (non-zero exit, no result line):
     13-chunk CLOSGX with W = 8; rail4284 (:32) and TSOPF_RS_b2383 (:36)
     refused by the XL builder's guards. Host work only;
 14. the K-dimension workloads at K = 128 (``k_dim_phase``): gupta3's and
-    shipsec1's BTILE programs (ntiles, nsteps, slots/nnz, MB printed), B16a
-    and B16b against their plain versions on both (within 1e-5 of |A|·|X|
-    per element and of Σ|a||b| per slot) and timed on gupta3's beside
-    cuSPARSE's SpMM and SDDMM; shipsec1's SELLW
+    shipsec1's BTILE programs (ntiles, nsteps, slots/nnz, MB printed) and
+    the cut of B16a's launch on each (blocks, chunks per band, K slices,
+    shared bytes), B16a and B16b against their plain versions on both
+    (within 1e-5 of |A|·|X| per element and of Σ|a||b| per slot) and timed
+    on gupta3's beside cuSPARSE's SpMM and SDDMM, B16a also on shipsec1's
+    and at other chunk targets; shipsec1's SELLW
     SpMM kernel B12 (the scan in registers) against its plain
     version (exact), timed beside cuSPARSE's SpMM and its first kernel's
     time; one CLOSG SpMM on gupta3 at K = 8 through ``ops.spmm``
     (B5 and B6 launch 8× their per-SpMV count; Y within 1e-5 of |A|·|X|);
     the sweep with workloads spmm and sddmm, formats csr, btile, dense and
     sellw, on the gupta3 and shipsec1 lines: its ten rows and six CSVs
-    under the JAX labels, B16a (its product and its chunks' combine), B16b
-    and B12 launched, every row within
+    under the JAX labels, B16a (its product, and its chunks' combine where
+    a band is cut), B16b and B12 launched, every row within
     1e-5 of the fp64 gold's |·| yardstick, the 8 error metrics printed;
     then each row's call timed alone on the card;
 15. double-single and solvers (``ds_phase``): the shipsec1 twin with RCM
     (``USE_RCM_REORDERING=1``, as ``load_matrix`` makes it), SELLWDS and
     CSRDS built (chunks, classes, MiB, seconds); B13 against its plain
     version on every stage class (exact) and timed beside cuSPARSE's fp64
-    CSR SpMV, its launches per SpMV counted; the fp64 results of
+    CSR SpMV, the combine kernel against its plain version (exact) and
+    timed; one SpMV's launches counted (B13 once per stage class, the
+    combine once, no other); the fp64 results of
     SELLWDS/cuda and CSRDS/torch through ``spmv_f64`` against the
     longdouble gold (max relative error < 1e-10) and their fp32 entries
     within 1e-6 of the fp32-x gold, CSR/torch's fp32 gate logged beside
     them; the spmv sweep with RCM on and formats csr, sellw, sellwds and
-    csrds (the DS rows judged at the fp64 gate, B13 launched); a traced
-    chain of 50 per DS candidate; the CG sweep on shipsec1_spd (csr,
-    sellw, sellwds) and the BiCGStab sweep on scircuit_dd (csr, closg),
-    every row converged with a relative residual < 1e-5, and one counted
-    solve of each (B13's and B1-B3's launches per solve);
+    csrds (the DS rows judged at the fp64 gate, B13 and the combine
+    launched, B13 once per stage class for each combine); a traced chain
+    of 50 per DS candidate; the CG sweep on shipsec1_spd (csr, sellw,
+    sellwds) and the BiCGStab sweep on scircuit_dd (csr, closg), every row
+    converged with a relative residual < 1e-5, and one counted solve of
+    each (B13's, the combine's and B1-B3's launches per solve; on SELLWDS
+    B13 once per stage class for each combine);
 16. the fallback engines CLOS and BFLY (``fallback_phase``): the scircuit
     twin as the sweep loads it (RCM where it narrows the band), CLOS
     (asserts N = 2^20) and BFLY (N = 2^20, L = 20) built, cold build times
@@ -115,15 +121,16 @@ Every kernel entry carries its bound: the larger of the bytes the function
 must move (each input read once, each output written once, a gather
 counting the elements it picks) over the card's data-sheet memory rate and
 its fp32 operations over the fp32 peak (``utils/roofline.py``), from this
-run's inputs. ``library_ms`` is null for the fp32 SpMV kernels: no single
-PyTorch call computes one of their functions (phases 10 and 11 time
-cuSPARSE's whole SpMV); the SpMM and SDDMM kernels have cuSPARSE's
-(``torch.sparse.mm``, ``torch.sparse.sampled_addmm``), and B13, whose
+run's inputs. ``library_ms`` is null for the fp32 SpMV kernels and the
+SELLWDS combine: no single PyTorch call computes one of their functions
+(phases 10 and 11 time cuSPARSE's whole SpMV); the SpMM and SDDMM kernels
+have cuSPARSE's (``torch.sparse.mm``, ``torch.sparse.sampled_addmm``), and
+B13, whose
 function is an fp64-accurate SpMV, cuSPARSE's fp64 CSR SpMV (a float64
 ``torch.sparse_csr`` product), none of which the port ever calls.
 B16a's entry also carries ``combine_launches``, the sweep's launches
-of its second kernel (the sum of a band's chunk partials); its ``ms`` is
-the wrapper's, both launches.
+of its second kernel (the sum of a cut band's chunk partials); its ``ms``
+is the wrapper's, both launches where gupta3's bands are cut.
 
 Device times hold the card busy (a flush of 1 GiB, then a spin kernel) while
 the host enqueues the timed call, so they time the device's work and not
@@ -957,6 +964,14 @@ def k_dim_phase(timer, dev, gup, ship, Ag, Aw, gup_launches, cfg) -> list:
             f"{Ab.mem_footprint_bytes() / 1e6:.1f} (slab "
             f"{Ab.tiles.numel() * 4 / 1e6:.1f}, pattern "
             f"{Ab.patt.numel() / 1e6:.1f})")
+        plan = KB.spmm_plan(Ab.ngroups, Ab.max_band_steps, k,
+                            KB.sm_count(dev))
+        log(f"# {label} B16a launch: {plan.blocks} blocks of "
+            f"{KB.SPMM_SLICE} columns, {plan.nchunk} chunks per band of "
+            f"{plan.ch} steps (bands of {Ab.max_band_steps} steps at most), "
+            f"{plan.slices} K slices (K padded to {plan.kp}), "
+            f"{plan.smem_bytes} B of shared memory a block, partials "
+            f"{plan.part_bytes / 1e6:.1f} MB")
         Ab = Ab.to(dev)
         Xd, Ad, Bd = (torch.as_tensor(a, dtype=torch.float32, device=dev)
                       for a in (spmm_inputs(host, k), *sddmm_inputs(host, k)))
@@ -968,14 +983,16 @@ def k_dim_phase(timer, dev, gup, ship, Ag, Aw, gup_launches, cfg) -> list:
         d_args = (Ab.patt, Ab.tgt, Ab.step_g, Ab.step_cb, Ab.step_nt, ap, bp)
         # |A|·|X| per element (X ≥ 0; |A| from the tiles)
         yard = KB.btile_spmm_torch(Ab.tiles.abs(), *s_args[1:])
-        return Ab, Xd, Ad, Bd, s_args, d_args, yard
+        return Ab, Xd, Ad, Bd, s_args, d_args, yard, plan
 
     def tol_c(want):
         """1e-5 of Σ|a||b| per slot (the plain result: a, b ≥ 0)"""
         return 1e-5 * want.abs()
 
-    Ab, Xd, Ad, Bd, s_args, d_args, yard_y = btile_case("gupta3", gup)
-    _, _, _, _, s_ship, d_ship, yard_ship = btile_case("shipsec1", ship)
+    Ab, Xd, Ad, Bd, s_args, d_args, yard_y, plan_g = btile_case("gupta3",
+                                                                 gup)
+    _, _, _, _, s_ship, d_ship, yard_ship, plan_s = btile_case("shipsec1",
+                                                               ship)
 
     def tol_y(_):
         """1e-5 of |A|·|X| per element"""
@@ -987,12 +1004,12 @@ def k_dim_phase(timer, dev, gup, ship, Ag, Aw, gup_launches, cfg) -> list:
 
     lib = cusparse(gup, dev)
     live = Ab.ntiles * 1024                      # live tile slots
-    # the function's operations are 2·nnz·K; the kernel multiplies every
-    # live slot, stored zeros included (2·live·K), which is logged beside
+    # the function's operations are 2·nnz·K; the kernel skips the stored
+    # zeros of the live slots (2·live·K operations to multiply them all)
     tile_ms, _ = timer.bound(0, 2 * live * k)
-    log(f"# btile_spmm: the kernel's tile products are {2 * live * k} "
-        f"operations, {live / gup.nnz:.2f} slots per nnz, {tile_ms:.4f} ms "
-        f"at the fp32 peak; the function needs {2 * gup.nnz * k}")
+    log(f"# btile_spmm: {live / gup.nnz:.2f} slots per nnz; multiplying "
+        f"every live slot would be {2 * live * k} operations, {tile_ms:.4f} "
+        f"ms at the fp32 peak; the function needs {2 * gup.nnz * k}")
     k_spmm = check_kernel(
         timer, "btile_spmm", "spmv_research_tpu_torch/csrc/btile.cu",
         "spmv_research_tpu/ops/btile.py:215",
@@ -1016,6 +1033,22 @@ def k_dim_phase(timer, dev, gup, ship, Ag, Aw, gup_launches, cfg) -> list:
          2 * gup.nnz * k),
         library=lambda: torch.sparse.sampled_addmm(lib, Ad, Bd.t(),
                                                    beta=0.0))
+    # B16a on shipsec1 alone, and at other chunk targets (blocks per SM
+    # over the launch; the planner's is KB.SPMM_WAVES)
+    ship_ms = timer.ms(lambda: KB.btile_spmm(*s_ship))
+    log(f"# btile_spmm shipsec1: {ship_ms:.4f} ms ({plan_s.nchunk} chunks "
+        f"per band, {plan_s.blocks} blocks)")
+    waves = KB.SPMM_WAVES
+    for w in (1, 2, 4, 8):
+        KB.SPMM_WAVES = w
+        pg, ps = (KB.spmm_plan(*a[7:9], k, KB.sm_count(dev))
+                  for a in (s_args, s_ship))
+        log(f"# btile_spmm at {w} blocks per SM: gupta3 "
+            f"{timer.ms(lambda: KB.btile_spmm(*s_args)):.4f} ms ({pg.nchunk} "
+            f"chunks, {pg.blocks} blocks), shipsec1 "
+            f"{timer.ms(lambda: KB.btile_spmm(*s_ship)):.4f} ms ({ps.nchunk} "
+            f"chunks, {ps.blocks} blocks)")
+    KB.SPMM_WAVES = waves
     del s_ship, d_ship, yard_ship
     log(f"# gupta3 BTILE one SpMM through ops.spmm, device time "
         f"{timer.ms(lambda: spmm(Ab, Xd), iters=10):.4f} ms; one SDDMM "
@@ -1070,10 +1103,13 @@ def k_dim_phase(timer, dev, gup, ship, Ag, Aw, gup_launches, cfg) -> list:
             kk["launches"] = launches[kk["name"]]
             if kk["launches"] <= 0:
                 fail(f"the spmm/sddmm sweep never launched {kk['name']}")
-        # B16a's second launch, its chunks' combine (bands are cut on both)
+        # B16a's second launch, its chunks' combine, where bands are cut
         k_spmm["combine_launches"] = launches["btile_combine"]
-        if launches["btile_combine"] <= 0:
-            fail("the spmm/sddmm sweep never launched btile_combine")
+        if (launches["btile_combine"] > 0) != (plan_g.nchunk > 1
+                                               or plan_s.nchunk > 1):
+            fail(f"the spmm/sddmm sweep launched btile_combine "
+                 f"{launches['btile_combine']} times for chunks per band "
+                 f"{plan_g.nchunk} (gupta3) and {plan_s.nchunk} (shipsec1)")
         rows = {"csr_spmm": 2, "csr_sddmm": 2, "btile_spmm": 2,
                 "btile_sddmm": 2, "dense_spmm": 1, "sellw_spmm": 1}
         got_files = sorted(f for f in os.listdir(out_dir) if f.endswith(".csv"))
@@ -1195,15 +1231,29 @@ def ds_phase(timer, dev, cfg) -> list:
           lambda: KS.sellwds_planes_torch(*args))], exact,
         (nbytes(*args) + nbytes(planes), ops),
         library=lambda: lib64 @ x64.unsqueeze(1))
+    # the combine: the planes' live rows (each named by one yidx entry)
+    # read once, y's s and e written; 8 operations per entry and lane
+    live_rows = int((B.yidx != B.G * (B.wrow.numel() // 8)).sum())
+    c_args = (planes, B.yidx, B.m)
+    k_comb = check_kernel(
+        timer, "sellwds_combine", SELL_SRC,
+        "spmv_research_tpu/ops/sellw_ds.py:228",
+        [(lambda: torch.stack(KS.sellwds_combine(*c_args)),
+          lambda: torch.stack(KS.sellwds_combine_torch(*c_args)))], exact,
+        (2 * 4 * 128 * live_rows + nbytes(B.yidx) + 2 * 4 * B.m,
+         8 * 128 * live_rows))
+    n_classes = sum(1 for _, cnt, _ in plan if cnt)
     y, launches = counted_spmv(Ads, xsd, KS)
     log(f"# launches during one shipsec1 SELLWDS SpMV: {launches} "
         f"({len(plan)} stage classes)")
-    if launches["sellwds"] != sum(1 for _, cnt, _ in plan if cnt):
-        fail(f"one SELLWDS SpMV launched B13 {launches['sellwds']} times")
+    if {k: v for k, v in launches.items() if v} != {
+            "sellwds": n_classes, "sellwds_combine": 1}:
+        fail(f"one SELLWDS SpMV launched {launches}, not B13 once per "
+             f"stage class ({n_classes}) and the combine once")
     y64 = (lib64 @ x64.unsqueeze(1)).squeeze(1).cpu().numpy()
     log(f"# cuSPARSE fp64 SpMV vs longdouble gold: max rel = "
         f"{check_accuracy(ship, xs, y64, np.float64).max_rel_err}")
-    del planes, y, lib64, x64, y64
+    del planes, c_args, y, lib64, x64, y64
 
     # 3. the fp64 gate (and the fp32 entries, and CSR/torch's fp32 row)
     gold32 = ship.to_scipy() @ xs.astype(np.float32).astype(np.float64)
@@ -1240,12 +1290,17 @@ def ds_phase(timer, dev, cfg) -> list:
         torch.cuda.synchronize()
         launches = dict(KS.LAUNCHES)
         log(f"# launches during the DS spmv sweep: {launches}")
-        for name in ("sellw", "sellwds"):
+        for name in ("sellw", "sellwds", "sellwds_combine"):
             if launches[name] <= 0:
                 fail(f"the DS spmv sweep never launched {name}")
+        if launches["sellwds"] != n_classes * launches["sellwds_combine"]:
+            fail(f"the DS spmv sweep launched B13 {launches['sellwds']} "
+                 f"times for {launches['sellwds_combine']} combines, not "
+                 f"{n_classes} per SpMV")
         check_csvs(out_dir, csv_labels(synthetic=True),
                    {f"{f}_spmv": 1 for f in formats})
     k_b13["launches"] = launches["sellwds"]
+    k_comb["launches"] = launches["sellwds_combine"]
     check_rows(results, ["CSR/torch", "SELLW/cuda", "SELLWDS/cuda",
                          "CSRDS/torch"], {"shipsec1": ship}, xs)
     for r in results:
@@ -1325,9 +1380,18 @@ def ds_phase(timer, dev, cfg) -> list:
             f"{bool(info['converged'])}, launches {launches}")
         if not launches:
             fail(f"the counted {workload} solve launched no kernel")
+        if prog is not None:
+            per = sum(1 for _, cnt, _ in class_plan(prog) if cnt)
+            spmvs = launches.get("sellwds_combine", 0)
+            if not (spmvs and launches == {"sellwds": per * spmvs,
+                                           "sellwds_combine": spmvs}):
+                fail(f"the counted CG solve on SELLWDS launched {launches}, "
+                     f"not B13 {per} times and the combine once per SpMV")
+            log(f"# {spmvs} SELLWDS SpMVs in the solve, {per} B13 launches "
+                f"and 1 combine each")
         del host, A, x, results
     log(f"# phase 15 done in {time.perf_counter() - t_phase:.0f}s")
-    return [k_b13]
+    return [k_b13, k_comb]
 
 
 def fallback_phase(timer, dev, cfg) -> list:

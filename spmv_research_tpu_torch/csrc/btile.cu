@@ -25,147 +25,187 @@ namespace {
 
 constexpr int kTileC = 128;   // columns of a tile (one column block)
 constexpr int kBand = 1024;   // rows of a band
-constexpr int kRows = 256;    // slab rows of a full step (tg = 32), threads
-constexpr int kKS = 64;       // columns of X (and Y) per SpMM block
+constexpr int kRows = 256;    // slab rows of a full step (tg = 32)
 
 // SpMM — replaces spmv_research_tpu/ops/btile.py `_btile_spmm_kernel`.
 // The TPU kernel kept the band's Y block in VMEM and ran the band's steps
 // one after another on one core, placing each step's product
-// P = tiles @ X[cb] with a one-hot matmul. Here a band's steps are cut into
-// `nchunk` chunks of at most `ch` consecutive steps, and one block of 256
-// threads owns one (band, chunk, 64-column slice of X) triple: it zeroes its
-// own 1024 x 64 partial band, walks its steps in order, and adds each
-// step's P into it (placement is a plain add into row tgt[s][r]). No two
-// blocks write one element: no atomics. When a band has more than one
-// chunk, btile_combine_kernel then sums its chunks' partials in chunk
-// order (a second launch, counted as btile_combine), so the result is
-// deterministic. Only the step's live tiles are read; a band with only the
-// builder's empty filler step comes out as zeros.
-// The product is a register-tiled SGEMM: thread (ty, tx) = (t / 8, t % 8)
-// holds P's rows 8ty..8ty+7 at columns 4tx..4tx+3 and 32+4tx..32+4tx+3 (64
-// FFMA chains); the step's X slice (128 x 64) sits in shared memory, and
-// the tile rows pass through shared memory 16 columns at a time,
-// transposed and swizzled (row r of column c at r ^ (c / 4 % 4) * 8), so
-// that both the staging stores and the float4 reads are free of bank
-// conflicts; the next 16 columns are loaded into registers while the
-// current ones are multiplied. Each element of P sums its 128 products in
-// column order 0..127.
-// Bound: the function needs 2 * K operations per nnz, so its floor is the
-// bytes it must move (the slab and the pattern's steps once, X once, Y
-// once). The kernel does more: it multiplies every live tile slot, stored
-// zeros included (2 * 1024 * K FFMA-operations per live tile), and so runs
-// at the card's FFMA rate over slots, not at its memory rate; it issues 4
-// shared float4 loads per 64 FFMA. The chunks give the card enough blocks
-// (a band alone is too little work for the SMs).
-constexpr int kKC = 16;  // tile columns per staged pass
+// P = tiles @ X[cb] with a one-hot matmul. Here one block of 1024 threads
+// owns one (band, chunk of steps, 32-column slice of X) triple, the slice
+// index fastest, so the slices of one chunk run together and share the
+// slab rows in L2:
+//   * its band accumulator, 1024 x 32 fp32 (128 KB), lives in dynamic
+//     shared memory: zeroed there, written once at the end, to Y when the
+//     band has one chunk, else to the chunk's partial;
+//   * each step's X[cb] slice (128 x 32, 16 KB) arrives by cp.async into a
+//     double buffer, so the next step's slice loads while this step runs;
+//   * one warp per live slab row (rows warp, warp + 32, ...), lane l
+//     holding the row's columns 4l..4l+3 (one 16-byte load): four ballots
+//     find its nonzero slots, each lane writes its nonzeros, in column
+//     order, to the warp's list in shared memory as (value, column) pairs
+//     at its rank (the nonzeros of the lanes before it), and then every
+//     lane j runs down the list, four entries at a time, adding
+//     value * X[cb][column][j] into its sum (FFMA, column order); the sum
+//     goes into band[tgt[s][r]][j]. A step's live rows are distinct band
+//     rows, so no atomics; a barrier separates steps. The warp's rows of
+//     the next step are loaded into registers while it works on this
+//     step's, so they are in flight across the barrier;
+//   * padding rows past the step's 8 * step_nt[s] live rows are not read,
+//     and the builder's filler step of an empty band (step_nt = 0) leaves
+//     the band's zeros.
+// Stored zeros are skipped, where the first kernel multiplied every slot
+// (on gupta3 92% of them are zeros). So the result differs from the plain
+// version's only in the order of its fp32 sums, and where X holds inf or
+// NaN (a skipped 0 * inf is no NaN). Sums run in column order within a
+// row, steps in order within a chunk, and btile_combine_kernel adds a cut
+// band's chunks in order: the result is deterministic.
+// Bound: the bytes the function must move (the live slab once, the
+// steps' metadata, X and Y once; 2 * K operations per nnz). The kernel
+// stays well above it: each nnz costs two shared loads (its list entry,
+// broadcast, and X) and an FFMA per slice, and each slab row a list
+// built again for every slice; on gupta3 walking the lists takes about
+// half the time and the rest goes to building them, loading the rows and
+// the step barriers (PERF.md). The list replaced a shuffle per nonzero
+// found bit by bit, which ran gupta3 at about twice the time: dense rows
+// (13,608 slab rows of 128 nonzeros) made long serial chains.
+constexpr int kSlice = 32;            // X (and Y) columns per block
+constexpr int kSpmmThreads = 1024;    // 32 warps
+constexpr int kWarps = kSpmmThreads / 32;
+constexpr int kRowsPerWarp = kRows / kWarps;  // a full step's rows a warp
+// the band accumulator, two X slices, and a warp's list of 128 entries
+constexpr int kSpmmSmem =
+    4 * (kBand * kSlice + 2 * kTileC * kSlice) + 8 * kWarps * kTileC;
 
-__device__ __forceinline__ int swz(int r, int c) {
-  return r ^ (((c >> 2) & 3) << 3);
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
 }
 
-__global__ void __launch_bounds__(kRows, 2)
+__global__ void __launch_bounds__(kSpmmThreads, 1)
     btile_spmm_kernel(const float* __restrict__ tiles,
                       const int32_t* __restrict__ tgt,
                       const int32_t* __restrict__ step_cb,
                       const int32_t* __restrict__ step_nt,
                       const int32_t* __restrict__ band_ptr,
-                      const float* __restrict__ xp, float* __restrict__ out,
-                      int nchunk, int ch, int rows_per_step, int kp) {
-  __shared__ __align__(16) float xs[kTileC][kKS];  // 32 KB
-  __shared__ __align__(16) float ts[kKC][kRows];   // 16 KB
+                      const float* __restrict__ xp, float* __restrict__ y,
+                      float* __restrict__ part, int nchunk, int ch,
+                      int rows_per_step, int kp) {
+  extern __shared__ __align__(16) float smem[];
+  float* band = smem;                     // [kBand][kSlice]
+  float* xs = smem + kBand * kSlice;      // [2][kTileC][kSlice]
   const int t = threadIdx.x;
-  const int ty = t >> 3, tx = t & 7;
-  const int g = blockIdx.x / nchunk;
-  const int j = blockIdx.x % nchunk;
-  const int s0 = band_ptr[g] + j * ch;
-  const int s1 = min(s0 + ch, band_ptr[g + 1]);
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  // the warp's list: (value, offset of its X row in a slice buffer)
+  float2* list = reinterpret_cast<float2*>(xs + 2 * kTileC * kSlice) +
+                 warp * kTileC;
+  const int slices = kp / kSlice;
+  const int k0 = (blockIdx.x % slices) * kSlice;
+  const int g = blockIdx.x / slices / nchunk;
+  const int j = blockIdx.x / slices % nchunk;
+  const int b0 = band_ptr[g], b1 = band_ptr[g + 1];
+  const int s0 = b0 + j * ch;
+  const int s1 = min(s0 + ch, b1);
   if (s0 >= s1) return;  // past the band's last chunk: not combined
-  const int k0 = blockIdx.y * kKS;
-  float* yb = out + (int64_t)blockIdx.x * kBand * kp + k0;
   const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int i = t; i < kBand * kKS / 4; i += kRows)
-    *reinterpret_cast<float4*>(yb + (int64_t)(i / (kKS / 4)) * kp +
-                               4 * (i % (kKS / 4))) = zero4;
-  // staging: thread t moves the float4 (row (t / 4) + 64q, columns
-  // 4 (t % 4) .. + 3) of each pass, q = 0..3
-  const int lr = t >> 2, lc = 4 * (t & 3);
-  for (int s = s0; s < s1; ++s) {
-    const int R = step_nt[s] * 8;
-    if (R == 0) continue;  // the filler step of an empty band
-    const int64_t cb = step_cb[s];
-    const float* src = tiles + (int64_t)s * rows_per_step * kTileC;
-    float4 pre[4];
-    auto load_pass = [&](int jc) {
+  for (int i = t; i < kBand * kSlice / 4; i += kSpmmThreads)
+    reinterpret_cast<float4*>(band)[i] = zero4;
+  // thread t copies 16 bytes of each X slice: row t / 8, columns 4 (t % 8)
+  const int xr = t >> 3, xc = 4 * (t & 7);
+  auto load_x = [&](int s, int buf) {
+    cp_async16(xs + (buf * kTileC + xr) * kSlice + xc,
+               xp + ((int64_t)step_cb[s] * kTileC + xr) * kp + k0 + xc);
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  // the warp's rows of a step (row warp + 32 i in v[i]) and, in lane i,
+  // the band row of its row i
+  float4 v[kRowsPerWarp];
+  int trow = 0;
+  auto load_rows = [&](int s, int R) {
+    const int64_t base = (int64_t)s * rows_per_step;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int r = lr + 64 * q;
-        pre[q] = r < R ? *reinterpret_cast<const float4*>(
-                             src + (int64_t)r * kTileC + jc + lc)
-                       : zero4;
-      }
-    };
-    load_pass(0);
-    __syncthreads();  // the last step's reads of xs are done
-    for (int i = t; i < kTileC * kKS / 4; i += kRows) {
-      const int r = i / (kKS / 4), c = 4 * (i % (kKS / 4));
-      *reinterpret_cast<float4*>(&xs[r][c]) = *reinterpret_cast<const float4*>(
-          xp + (cb * kTileC + r) * kp + k0 + c);
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const int r = warp + kWarps * i;
+      v[i] = r < R ? reinterpret_cast<const float4*>(
+                         tiles + (base + r) * kTileC)[lane]
+                   : zero4;
     }
-    float acc[8][8];
+    const int r = warp + kWarps * lane;
+    if (lane < kRowsPerWarp && r < R) trow = tgt[base + r];
+  };
+  load_x(s0, 0);
+  int R = step_nt[s0] * 8;
+  load_rows(s0, R);
+  const unsigned full = 0xffffffffu;
+  const unsigned before = (1u << lane) - 1u;  // the lanes before this one
+  for (int s = s0, buf = 0; s < s1; ++s, buf ^= 1) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // X[s] landed; the last step's band adds are done
+    const int Rn = s + 1 < s1 ? step_nt[s + 1] * 8 : 0;
+    if (s + 1 < s1) load_x(s + 1, buf ^ 1);
+    const float* xb = xs + buf * kTileC * kSlice + lane;
+    const int trow_s = trow;
+    const int64_t base_n = (int64_t)(s + 1) * rows_per_step;
+    if (lane < kRowsPerWarp && warp + kWarps * lane < Rn)
+      trow = tgt[base_n + warp + kWarps * lane];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const int r = warp + kWarps * i;  // warp-uniform
+      if (r < R) {
+        const float e[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+        int rank = 0, n = 0;
 #pragma unroll
-      for (int k = 0; k < 8; ++k) acc[i][k] = 0.0f;
-    for (int jc = 0; jc < kTileC; jc += kKC) {
-      __syncthreads();  // the last pass's reads of ts are done
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int r = lr + 64 * q;
-        ts[lc + 0][swz(r, lc + 0)] = pre[q].x;
-        ts[lc + 1][swz(r, lc + 1)] = pre[q].y;
-        ts[lc + 2][swz(r, lc + 2)] = pre[q].z;
-        ts[lc + 3][swz(r, lc + 3)] = pre[q].w;
-      }
-      __syncthreads();
-      if (jc + kKC < kTileC) load_pass(jc + kKC);
-      if (8 * ty < R) {
-#pragma unroll
-        for (int c = 0; c < kKC; ++c) {
-          const float* tc = &ts[c][swz(8 * ty, c)];
-          const float4 a0 = *reinterpret_cast<const float4*>(tc);
-          const float4 a1 = *reinterpret_cast<const float4*>(tc + 4);
-          const float4 x0 =
-              *reinterpret_cast<const float4*>(&xs[jc + c][4 * tx]);
-          const float4 x1 =
-              *reinterpret_cast<const float4*>(&xs[jc + c][32 + 4 * tx]);
-          const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-          const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int k = 0; k < 8; ++k) acc[i][k] = fmaf(a[i], x[k], acc[i][k]);
+        for (int q = 0; q < 4; ++q) {
+          const unsigned nz = __ballot_sync(full, e[q] != 0.0f);
+          rank += __popc(nz & before);
+          n += __popc(nz);
         }
-      }
-    }
-    if (8 * ty < R) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float* yr =
-            yb + (int64_t)tgt[(int64_t)s * rows_per_step + 8 * ty + i] * kp;
-        float4* y0 = reinterpret_cast<float4*>(yr + 4 * tx);
-        float4* y1 = reinterpret_cast<float4*>(yr + 32 + 4 * tx);
-        float4 v0 = *y0, v1 = *y1;
-        v0.x += acc[i][0]; v0.y += acc[i][1]; v0.z += acc[i][2]; v0.w += acc[i][3];
-        v1.x += acc[i][4]; v1.y += acc[i][5]; v1.z += acc[i][6]; v1.w += acc[i][7];
-        *y0 = v0;
-        *y1 = v1;
+        for (int q = 0; q < 4; ++q)
+          if (e[q] != 0.0f)
+            list[rank++] = make_float2(
+                e[q], __int_as_float((4 * lane + q) * kSlice));
+        __syncwarp();
+        float acc = 0.0f;
+        int k = 0;
+        for (; k + 4 <= n; k += 4) {
+          float2 p[4];
+          float x[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) p[u] = list[k + u];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) x[u] = xb[__float_as_int(p[u].y)];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) acc = fmaf(p[u].x, x[u], acc);
+        }
+        for (; k < n; ++k) {
+          const float2 p = list[k];
+          acc = fmaf(p.x, xb[__float_as_int(p.y)], acc);
+        }
+        __syncwarp();  // the list is read before the next row writes it
+        band[__shfl_sync(full, trow_s, i) * kSlice + lane] += acc;
       }
+      // the next step's row i, in flight while this step goes on
+      v[i] = r < Rn ? reinterpret_cast<const float4*>(
+                          tiles + (base_n + r) * kTileC)[lane]
+                    : zero4;
     }
+    R = Rn;
   }
+  __syncthreads();
+  float* dst = (b1 - b0 <= ch)
+                   ? y + (int64_t)g * kBand * kp + k0
+                   : part + (int64_t)(g * nchunk + j) * kBand * kp + k0;
+  for (int i = t; i < kBand * kSlice / 4; i += kSpmmThreads)
+    *reinterpret_cast<float4*>(dst + (int64_t)(i / (kSlice / 4)) * kp +
+                               4 * (i % (kSlice / 4))) =
+        reinterpret_cast<const float4*>(band)[i];
 }
 
-// Y[g] = the sum of band g's chunk partials, in chunk order (only the
-// chunks that hold steps: ceil(steps of g / ch)).
+// Y[g] = the sum of band g's chunk partials, in chunk order, for the bands
+// cut into chunks (ceil(steps of g / ch) > 1); a band of one chunk was
+// written to Y by btile_spmm_kernel.
 __global__ void btile_combine_kernel(const float* __restrict__ part,
                                      const int32_t* __restrict__ band_ptr,
                                      float* __restrict__ y, int ngroups,
@@ -176,6 +216,7 @@ __global__ void btile_combine_kernel(const float* __restrict__ part,
   const int g = (int)(i / band_elems);
   const int64_t e = i % band_elems;
   const int n = (band_ptr[g + 1] - band_ptr[g] + ch - 1) / ch;
+  if (n == 1) return;
   const float* p = part + (int64_t)g * nchunk * band_elems + e;
   float acc = 0.0f;
   for (int j = 0; j < n; ++j) acc = acc + p[j * band_elems];
@@ -264,20 +305,34 @@ const char* btile_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// With nchunk = 1, out is y (ngroups * 1024, kp), kp a multiple of 64; with
-// nchunk > 1 chunks of ch steps per band, out holds the chunk partials
-// (ngroups * nchunk * 1024, kp) for btile_combine. xp: (ncb * 128, kp).
+// y (ngroups * 1024, kp), kp a multiple of 32; with nchunk > 1 chunks of
+// ch steps per band, the bands of more than one chunk go through part
+// (ngroups * nchunk * 1024, kp) for btile_combine. xp: (ncb * 128, kp),
+// 16-byte aligned. The kernel's 192 KB of dynamic shared memory is allowed
+// once per device before its first launch.
 int btile_spmm(const void* tiles, const void* tgt, const void* step_cb,
                const void* step_nt, const void* band_ptr, const void* xp,
-               void* out, int ngroups, int nchunk, int ch, int rows_per_step,
-               int kp, void* stream) {
-  if (rows_per_step > kRows || kp % kKS || nchunk < 1 || ch < 1)
+               void* y, void* part, int ngroups, int nchunk, int ch,
+               int rows_per_step, int kp, void* stream) {
+  if (rows_per_step > kRows || rows_per_step % 8 || kp <= 0 ||
+      kp % kSlice || nchunk < 1 || ch < 1 || ngroups < 1)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)(ngroups * nchunk), (unsigned)(kp / kKS));
-  btile_spmm_kernel<<<grid, kRows, 0, (cudaStream_t)stream>>>(
+  static bool allowed[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64 || !allowed[dev]) {
+    err = cudaFuncSetAttribute(btile_spmm_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSpmmSmem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) allowed[dev] = true;
+  }
+  btile_spmm_kernel<<<(unsigned)(ngroups * nchunk * (kp / kSlice)),
+                      kSpmmThreads, kSpmmSmem, (cudaStream_t)stream>>>(
       (const float*)tiles, (const int32_t*)tgt, (const int32_t*)step_cb,
       (const int32_t*)step_nt, (const int32_t*)band_ptr, (const float*)xp,
-      (float*)out, nchunk, ch, rows_per_step, kp);
+      (float*)y, (float*)part, nchunk, ch, rows_per_step, kp);
   return (int)cudaGetLastError();
 }
 

@@ -21,12 +21,14 @@
 //   SELLR [22,25) roll r, [25] wrap: the part's target sublane is
 //           (s + r) mod 8 within the same chunk
 //
-// Both kernels run one block of 1024 threads per chunk, thread (s, l). The
-// product is rounded before any add (__fmul_rn: nvcc would otherwise
-// contract it with the first scan add into an fma, which the TPU kernels do
-// not), the scan stages ping-pong two shared buffers (each stage reads the
-// previous stage's whole row), and every sum runs in a fixed order, so the
-// plain PyTorch versions in sell_cuda.py reproduce the results exactly.
+// The SpMV kernels of SELLW and SELLR run one block of 1024 threads per
+// chunk, thread (s, l), and their scan stages ping-pong two shared buffers
+// (each stage reads the previous stage's whole row); the SELLW SpMM and the
+// SELLWDS kernels hold the scan in registers (below). The product is
+// rounded before any add (__fmul_rn: nvcc would otherwise contract it with
+// the first scan add into an fma, which the TPU kernels do not), and every
+// sum runs in a fixed order, so the plain PyTorch versions in sell_cuda.py
+// reproduce the results exactly.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -381,32 +383,42 @@ __device__ __forceinline__ void split32(float a, float& hi, float& lo) {
 }
 
 // SELLWDS (entry sellwds_spmv, kernel B13) — replaces
-// spmv_research_tpu/ops/sellw_ds.py `_sellwds_kernel`. SELLW's layout and
-// routing (one block of 1024 threads per chunk of one stage class, thread
-// (s, l), x read from device memory), with every value an (hi, lo) fp32
-// pair:
-//   1. the picks x hi[col] and x lo[col] of the slot;
-//   2. p + e = TwoProd(vhi, x hi) (Dekker: p = vhi * x hi, e = ((ahi * bhi
-//      - p) + ahi * blo + alo * bhi) + alo * blo), then e += vhi * x lo,
-//      then e += vlo * x hi;
-//   3. `stages` guarded stages of the segmented lane scan on the (s, e)
-//      pair: t = s + rs; bb = t - s; err = (s - (t - bb)) + (rs - bb);
-//      e = (e + re) + err; s = t, with (rs, re) the pair 2^k lanes back
-//      where the slot's guard bit 7 + k is set, else 0. Each stage reads
-//      the previous stage's whole row, so two shared buffers per plane
-//      ping-pong (16 KiB a block);
-//   4. the pick of the (s, e) pair at eidx;
-//   5. for each of the G y blocks of the chunk's group, a sequential TwoSum
-//      fold over sublanes 0..7 of the picks whose live bit (21) is set and
-//      whose bid (bits 22 and up) is that block's.
-// Output: plane g of out_s and out_e at rows [g*npad, (g+1)*npad), as
-// sellw_kernel's. Each chunk is computed on its own: the TPU kernel's grid
-// steps shared nothing but the resident x planes. The arithmetic is the
-// JAX kernel's step for step, in its order, so the plain PyTorch version
-// (every operation rounded on its own) gives the same bits.
+// spmv_research_tpu/ops/sellw_ds.py `_sellwds_kernel`. SELLW's pipeline
+// with every value an (hi, lo) fp32 pair, on sellw_spmm_kernel's register
+// layout:
+//   * one block of 256 threads per chunk of one stage class: warp s is
+//     sublane s, and lane t of it holds the row's lanes 4t..4t+3 (word,
+//     vhi and vlo read as one 16-byte load each; the x hi and lo picks
+//     x hi[col], x lo[col] straight into registers, zero past n_x);
+//   * p + e = TwoProd(vhi, x hi) (Dekker: p = vhi * x hi, e = ((ahi * bhi
+//     - p) + ahi * blo + alo * bhi) + alo * blo), then e += vhi * x lo,
+//     then e += vlo * x hi;
+//   * the class's guarded stages of the segmented lane scan on the (s, e)
+//     pair, in registers (one kernel instance per depth, so the stages
+//     unroll): t = s + rs; bb = t - s; err = (s - (t - bb)) + (rs - bb);
+//     e = (e + re) + err; s = t, with (rs, re) the pair 2^k lanes back
+//     where the slot's guard bit 7 + k is set, else (0, 0). Both come from
+//     the stage's old values: for 2^k = 1 and 2 from the same thread or
+//     one lane back, for 2^k >= 4 from the same element 2^k / 4 threads
+//     back (shuffles), lane indices modulo 128;
+//   * the scanned s and e rows go to shared memory once (one 16-byte
+//     store each a thread), and thread (h, l) (l = lane, h = t / 128)
+//     folds, for each y block g ≡ h mod 2 of the chunk's group, the picks
+//     of sublanes 0..7 at lane l in order with TwoSum: S, e1 = TwoSum(S,
+//     pick s); E = (E + e1) + pick e. A pick is one shared read from an
+//     address decoded once (s·128 + eidx where the entry is live and of
+//     block g, else a zero kept at the row's end: the +0 the plain version
+//     adds).
+// Every multiply, add and subtract is an __f*_rn intrinsic, in the plain
+// version's order (sellwds_planes_torch), so the planes equal it bit for
+// bit. Output: plane g of out_s and out_e at rows [g*npad, (g+1)*npad),
+// as sellw_kernel's.
 // Bound: device memory, 12 bytes per slot read (word, vhi, vlo), x hi and
-// lo from L2, 2 * 512 * G bytes written per chunk.
-__global__ void __launch_bounds__(kChunk)
+// lo from L2, 2 * 512 * G bytes written per chunk. The first kernel (one
+// 1024-thread block a chunk, the product and the scan through four
+// shared buffers with a barrier a stage) ran 3.0x this bound.
+template <int kStages>
+__global__ void __launch_bounds__(kSpmmThreads, 4)
     sellwds_kernel(const uint32_t* __restrict__ word,
                    const float* __restrict__ vhi,
                    const float* __restrict__ vlo,
@@ -414,73 +426,157 @@ __global__ void __launch_bounds__(kChunk)
                    const float* __restrict__ xh,
                    const float* __restrict__ xl, int64_t n_x,
                    float* __restrict__ out_s, float* __restrict__ out_e,
-                   int64_t npad, int64_t chunk0, int stages, int G) {
-  __shared__ float bs[2][kChunk];
-  __shared__ float be[2][kChunk];
-  __shared__ int8_t tag[kChunk];
+                   int64_t npad, int64_t chunk0, int G) {
+  __shared__ __align__(16) float bs[kRow];
+  __shared__ __align__(16) float be[kRow];
   const int t = threadIdx.x;
-  const int row = t & ~(kLanes - 1);
-  const int l = t & (kLanes - 1);
-  const int64_t c = chunk0 + blockIdx.x;
-  const int64_t off = c * kChunk + t;
-  const uint32_t w = word[off];
-  const float a = vhi[off];
-  const float b = vlo[off];
-  const int64_t col =
-      (int64_t)wrow[c * kSub + t / kLanes] * kLanes + (w & 0x7F);
-  // the x planes' zero padding past n_x
-  const float gh = col < n_x ? xh[col] : 0.0f;
-  const float gl = col < n_x ? xl[col] : 0.0f;
-  const float p = __fmul_rn(a, gh);
-  float ahi, alo, bhi, blo;
-  split32(a, ahi, alo);
-  split32(gh, bhi, blo);
-  float e = __fadd_rn(
-      __fadd_rn(__fadd_rn(__fsub_rn(__fmul_rn(ahi, bhi), p),
-                          __fmul_rn(ahi, blo)),
-                __fmul_rn(alo, bhi)),
-      __fmul_rn(alo, blo));
-  e = __fadd_rn(__fadd_rn(e, __fmul_rn(a, gl)), __fmul_rn(b, gh));
-  bs[0][t] = p;
-  be[0][t] = e;
-  tag[t] = (w >> 21) & 1u ? (int8_t)((w >> 22) & (uint32_t)(G - 1))
-                          : (int8_t)-1;
-  __syncthreads();
-  int cur = 0;
-  for (int k = 0; k < stages; ++k) {
-    const bool guard = (w >> (7 + k)) & 1u;
-    const int src = row + ((l - (1 << k)) & 127);
-    const float s0 = bs[cur][t];
-    const float rs = guard ? bs[cur][src] : 0.0f;
-    const float re = guard ? be[cur][src] : 0.0f;
-    const float s1 = __fadd_rn(s0, rs);
-    const float bb = __fsub_rn(s1, s0);
-    const float err =
-        __fadd_rn(__fsub_rn(s0, __fsub_rn(s1, bb)), __fsub_rn(rs, bb));
-    be[cur ^ 1][t] = __fadd_rn(__fadd_rn(be[cur][t], re), err);
-    bs[cur ^ 1][t] = s1;
-    __syncthreads();
-    cur ^= 1;
+  if (t == 0) {
+    bs[kChunk] = 0.0f;
+    be[kChunk] = 0.0f;
   }
-  // the picks go to the buffers the last stage did not write
-  const int pick = row + ((w >> 14) & 0x7F);
-  bs[cur ^ 1][t] = bs[cur][pick];
-  be[cur ^ 1][t] = be[cur][pick];
+  const int s = t >> 5;
+  const int lane = t & 31;
+  const int64_t c = chunk0 + blockIdx.x;
+  const int64_t off = c * kChunk + s * kLanes + 4 * lane;
+  const uint4 w4 = *reinterpret_cast<const uint4*>(word + off);
+  const float4 a4 = *reinterpret_cast<const float4*>(vhi + off);
+  const float4 b4 = *reinterpret_cast<const float4*>(vlo + off);
+  const uint32_t w[4] = {w4.x, w4.y, w4.z, w4.w};
+  const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+  const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+  const int64_t xrow = (int64_t)wrow[c * kSub + s] * kLanes;
+  float sv[4], ev[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int64_t col = xrow + (w[q] & 0x7F);
+    // the x planes' zero padding past n_x
+    const float gh = col < n_x ? xh[col] : 0.0f;
+    const float gl = col < n_x ? xl[col] : 0.0f;
+    const float p = __fmul_rn(a[q], gh);
+    float ahi, alo, bhi, blo;
+    split32(a[q], ahi, alo);
+    split32(gh, bhi, blo);
+    const float e = __fadd_rn(
+        __fadd_rn(__fadd_rn(__fsub_rn(__fmul_rn(ahi, bhi), p),
+                            __fmul_rn(ahi, blo)),
+                  __fmul_rn(alo, bhi)),
+        __fmul_rn(alo, blo));
+    sv[q] = p;
+    ev[q] = __fadd_rn(__fadd_rn(e, __fmul_rn(a[q], gl)),
+                      __fmul_rn(b[q], gh));
+  }
+  const unsigned full = 0xffffffffu;
+#pragma unroll
+  for (int k = 0; k < kStages; ++k) {
+    float os[4], oe[4];  // each element's pair 2^k lanes back
+    if (k == 0) {
+      os[0] = __shfl_sync(full, sv[3], (lane - 1) & 31);
+      oe[0] = __shfl_sync(full, ev[3], (lane - 1) & 31);
+#pragma unroll
+      for (int q = 1; q < 4; ++q) {
+        os[q] = sv[q - 1];
+        oe[q] = ev[q - 1];
+      }
+    } else if (k == 1) {
+      os[0] = __shfl_sync(full, sv[2], (lane - 1) & 31);
+      os[1] = __shfl_sync(full, sv[3], (lane - 1) & 31);
+      oe[0] = __shfl_sync(full, ev[2], (lane - 1) & 31);
+      oe[1] = __shfl_sync(full, ev[3], (lane - 1) & 31);
+#pragma unroll
+      for (int q = 2; q < 4; ++q) {
+        os[q] = sv[q - 2];
+        oe[q] = ev[q - 2];
+      }
+    } else {
+      const int src = (lane - (1 << (k - 2))) & 31;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        os[q] = __shfl_sync(full, sv[q], src);
+        oe[q] = __shfl_sync(full, ev[q], src);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const bool guard = (w[q] >> (7 + k)) & 1u;
+      const float rs = guard ? os[q] : 0.0f;
+      const float re = guard ? oe[q] : 0.0f;
+      const float s1 = __fadd_rn(sv[q], rs);
+      const float bb = __fsub_rn(s1, sv[q]);
+      const float err = __fadd_rn(__fsub_rn(sv[q], __fsub_rn(s1, bb)),
+                                  __fsub_rn(rs, bb));
+      ev[q] = __fadd_rn(__fadd_rn(ev[q], re), err);
+      sv[q] = s1;
+    }
+  }
+  *reinterpret_cast<float4*>(&bs[s * kLanes + 4 * lane]) =
+      make_float4(sv[0], sv[1], sv[2], sv[3]);
+  *reinterpret_cast<float4*>(&be[s * kLanes + 4 * lane]) =
+      make_float4(ev[0], ev[1], ev[2], ev[3]);
+  // the fold thread's picks: sublane si's entry at lane l is
+  // (block << 10 | si*128 + eidx) where live, else -1 (it reads the zero)
+  const int l = t & (kLanes - 1);
+  const int h = t >> 7;
+  int ent[kSub];
+#pragma unroll
+  for (int si = 0; si < kSub; ++si) {
+    const uint32_t we = word[c * kChunk + si * kLanes + l];
+    ent[si] = (we >> 21) & 1u
+                  ? (int)(((we >> 22) & (uint32_t)(G - 1)) << 10 |
+                          (si * kLanes + ((we >> 14) & 0x7F)))
+                  : -1;
+  }
   __syncthreads();
-  if (t < G * kLanes) {
-    const int g = t / kLanes;
-    const float* Es = bs[cur ^ 1];
-    const float* Ee = be[cur ^ 1];
+  for (int g = h; g < G; g += 2) {
     float S = 0.0f, E = 0.0f;
+#pragma unroll
     for (int si = 0; si < kSub; ++si) {
-      const bool m = tag[si * kLanes + l] == g;
+      const int at = (ent[si] >> 10) == g ? (ent[si] & 1023) : kChunk;
       float s1, e1;
-      two_sum(S, m ? Es[si * kLanes + l] : 0.0f, s1, e1);
+      two_sum(S, bs[at], s1, e1);
       S = s1;
-      E = __fadd_rn(__fadd_rn(E, e1), m ? Ee[si * kLanes + l] : 0.0f);
+      E = __fadd_rn(__fadd_rn(E, e1), be[at]);
     }
     out_s[(g * npad + c) * kLanes + l] = S;
     out_e[(g * npad + c) * kLanes + l] = E;
+  }
+}
+
+// SELLWDS's combine (entry sellwds_combine) — replaces the XLA combine of
+// spmv_research_tpu/ops/sellw_ds.py (`_combine_y_ds`, the per-y-block
+// TwoSum over the yidx rows that followed the Pallas kernel; PyTorch ran
+// it as eight elementwise launches a row). One thread per (y block b,
+// lane l), one block of 128 threads per y block: for k = 0..K-1 in order,
+// the pair (s, e) = (planes_s, planes_e)[yidx[k][b]][l] (padding entries
+// name the zero row G·npad), S, e1 = TwoSum(S, s); E = (E + e1) + e, every
+// step an __f*_rn intrinsic as in sellwds_combine_torch, so the result
+// equals it bit for bit. Writes s = S and e = E of y element 128b + l < m,
+// or, given y, the fp32 y = S + E.
+// Bound: device memory, the planes' live rows read once (each plane row
+// is named by at most one yidx entry), y written once.
+__global__ void __launch_bounds__(kLanes)
+    sellwds_combine_kernel(const float* __restrict__ planes_s,
+                           const float* __restrict__ planes_e,
+                           const int32_t* __restrict__ yidx, int K,
+                           int64_t nb, int64_t m, float* __restrict__ out_s,
+                           float* __restrict__ out_e, float* __restrict__ y) {
+  const int64_t b = blockIdx.x;
+  const int l = threadIdx.x;
+  float S = 0.0f, E = 0.0f;
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const int64_t row = yidx[k * nb + b];
+    float s1, e1;
+    two_sum(S, planes_s[row * kLanes + l], s1, e1);
+    S = s1;
+    E = __fadd_rn(__fadd_rn(E, e1), planes_e[row * kLanes + l]);
+  }
+  const int64_t i = b * kLanes + l;
+  if (i >= m) return;
+  if (y) {
+    y[i] = __fadd_rn(S, E);
+  } else {
+    out_s[i] = S;
+    out_e[i] = E;
   }
 }
 
@@ -552,10 +648,30 @@ int sellwds_spmv(const void* word, const void* vhi, const void* vlo,
                  int64_t n_x, void* out_s, void* out_e, int64_t npad,
                  int64_t chunk0, int64_t n_chunks, int stages, int G,
                  void* stream) {
-  sellwds_kernel<<<(unsigned)n_chunks, kChunk, 0, (cudaStream_t)stream>>>(
+  using Kernel = void (*)(const uint32_t*, const float*, const float*,
+                         const int32_t*, const float*, const float*, int64_t,
+                         float*, float*, int64_t, int64_t, int);
+  static const Kernel kernels[] = {
+      sellwds_kernel<0>, sellwds_kernel<1>, sellwds_kernel<2>,
+      sellwds_kernel<3>, sellwds_kernel<4>, sellwds_kernel<5>,
+      sellwds_kernel<6>, sellwds_kernel<7>};
+  if (stages < 0 || stages > 7) return (int)cudaErrorInvalidValue;
+  kernels[stages]<<<(unsigned)n_chunks, kSpmmThreads, 0,
+                    (cudaStream_t)stream>>>(
       (const uint32_t*)word, (const float*)vhi, (const float*)vlo,
       (const int32_t*)wrow, (const float*)xh, (const float*)xl, n_x,
-      (float*)out_s, (float*)out_e, npad, chunk0, stages, G);
+      (float*)out_s, (float*)out_e, npad, chunk0, G);
+  return (int)cudaGetLastError();
+}
+
+// y of length m from the s and e planes and yidx (K, nb), nb > 0: s and e
+// into out_s and out_e, or, when y is not null, y = s + e.
+int sellwds_combine(const void* planes_s, const void* planes_e,
+                    const void* yidx, int K, int64_t nb, int64_t m,
+                    void* out_s, void* out_e, void* y, void* stream) {
+  sellwds_combine_kernel<<<(unsigned)nb, kLanes, 0, (cudaStream_t)stream>>>(
+      (const float*)planes_s, (const float*)planes_e, (const int32_t*)yidx,
+      K, nb, m, (float*)out_s, (float*)out_e, (float*)y);
   return (int)cudaGetLastError();
 }
 

@@ -8,8 +8,10 @@ wrapper          replaces
 ===============  ==========================================================
 ``btile_spmm``   ``btile.py:_btile_spmm_kernel``: Y (ngroups·1024, K) from
                  the tile slabs and X padded to (ncb·128, K); a product
-                 launch (``btile_spmm``), and a second (``btile_combine``)
-                 when bands are cut into chunks
+                 launch (``btile_spmm``: stored zeros skipped, the band
+                 accumulator in shared memory; ``spmm_plan`` cuts it),
+                 and a second (``btile_combine``) when bands are cut into
+                 chunks
 ``btile_sddmm``  ``btile.py:_btile_sddmm_kernel``: the C slab
                  (nsteps·tg·8, 128) = (A[band rows] · B[cb]ᵀ) ∘ pattern
 ===============  ==========================================================
@@ -20,7 +22,8 @@ tensors lie on the CPU. For CUDA tensors it launches the kernel or raises;
 nothing falls back. ``LAUNCHES`` counts the kernel launches, beside each
 launch. The plain versions multiply with ``torch.bmm`` and place with
 ``index_add_``, so kernel and plain version agree to fp32 add-order slack,
-not bit for bit.
+not bit for bit; the SpMM kernel skips stored zeros, so it also differs
+where X holds inf or NaN (0·inf is NaN in the plain version only).
 
 The kernels are compiled by ``nvcc`` from ``csrc/btile.cu`` at first CUDA
 use (``cuda_lib.CudaLib``); importing this module builds and loads nothing.
@@ -29,18 +32,23 @@ use (``cuda_lib.CudaLib``); importing this module builds and loads nothing.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
-import torch.nn.functional as F
 
 from .cuda_lib import CudaLib, check, on_cuda, stream
 
 TILE_R = 8
 TILE_C = 128
 BAND = 1024            # rows per band
-SPMM_KS = 64           # X columns per SpMM block (csrc/btile.cu kKS)
-SPMM_BLOCKS_PER_SM = 8  # SpMM blocks to aim for, per SM of the card
+SPMM_SLICE = 32        # X columns per SpMM block (csrc/btile.cu kSlice)
+# the SpMM block's dynamic shared memory (csrc/btile.cu kSpmmSmem): the
+# band accumulator, two X slices and 32 warps' lists of 128 (value,
+# column) pairs, so one block an SM
+SPMM_SMEM_BYTES = (4 * (BAND * SPMM_SLICE + 2 * TILE_C * SPMM_SLICE)
+                   + 8 * 32 * TILE_C)
+SPMM_WAVES = 4         # SpMM blocks to aim for, per SM of the card
 SPMM_PART_BYTES = 1 << 30   # the most the SpMM's chunk partials may take
 MAX_STEP_ROWS = 256    # slab rows per step the kernels take (tg ≤ 32)
 SDDMM_MAX_K = 256      # 8 registers of 32 lanes per A row
@@ -50,8 +58,8 @@ LAUNCHES = {"btile_spmm": 0, "btile_combine": 0, "btile_sddmm": 0}
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.btile_spmm.argtypes = [p, p, p, p, p, p, p, i32, i32, i32, i32, i32,
-                               p]
+    lib.btile_spmm.argtypes = [p, p, p, p, p, p, p, p, i32, i32, i32, i32,
+                               i32, p]
     lib.btile_combine.argtypes = [p, p, p, i32, i32, i32, i32, p]
     lib.btile_sddmm.argtypes = [p, p, p, p, p, p, p, p, i64, i32, i32, p]
     for fn in (lib.btile_spmm, lib.btile_combine, lib.btile_sddmm):
@@ -118,23 +126,49 @@ def _check_steps(slab, tgt, step_g, step_cb, step_nt, slab_dtype):
 
 
 @functools.lru_cache(maxsize=None)
-def spmm_blocks(device: torch.device) -> int:
-    """SpMM blocks to aim for on ``device``: ``SPMM_BLOCKS_PER_SM`` per SM."""
-    return (SPMM_BLOCKS_PER_SM
-            * torch.cuda.get_device_properties(device).multi_processor_count)
+def sm_count(device: torch.device) -> int:
+    """The SMs of ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _chunks(ngroups: int, slices: int, nsteps: int, max_band_steps: int,
-            kp: int, blocks: int):
-    """(chunks per band, steps per chunk): about ``blocks`` blocks of equal
-    work (nsteps · slices step-blocks shared out), so that a large band is
-    cut and small ones are not; the partials stay within
+@dataclasses.dataclass(frozen=True)
+class SpmmPlan:
+    """How the SpMM kernel cuts one product: X padded to ``kp`` columns,
+    ``slices`` blocks of 32 columns per (band, chunk), bands cut into
+    ``nchunk`` chunks of ``ch`` steps, ``blocks`` blocks in all, each with
+    ``smem_bytes`` of shared memory; ``part_bytes`` of chunk partials
+    (0 when no band is cut)."""
+    kp: int
+    slices: int
+    nchunk: int
+    ch: int
+    blocks: int
+    smem_bytes: int
+    part_bytes: int
+
+
+def spmm_plan(ngroups: int, max_band_steps: int, k: int,
+              sms: int) -> SpmmPlan:
+    """The SpMM kernel's cut for ``ngroups`` bands of at most
+    ``max_band_steps`` steps and K = ``k`` on a card of ``sms`` SMs: bands
+    are cut into chunks only as far as ``SPMM_WAVES`` blocks per SM need,
+    one block an SM resident; the partials stay within
     ``SPMM_PART_BYTES``."""
+    kp = -(-k // SPMM_SLICE) * SPMM_SLICE
+    slices = kp // SPMM_SLICE
     steps = max(max_band_steps, 1)
-    ch = max(nsteps * slices // blocks, 1)
-    cap = max(SPMM_PART_BYTES // (4 * BAND * kp * max(ngroups, 1)), 1)
-    ch = max(ch, -(-steps // cap))
-    return -(-steps // ch), ch
+    units = max(ngroups * slices, 1)
+    nchunk = min(steps, -(-SPMM_WAVES * sms // units))
+    band_bytes = 4 * BAND * max(kp, 1)
+    nchunk = max(min(nchunk, SPMM_PART_BYTES // (band_bytes
+                                                 * max(ngroups, 1))), 1)
+    ch = -(-steps // nchunk)
+    nchunk = -(-steps // ch)
+    return SpmmPlan(kp=kp, slices=slices, nchunk=nchunk, ch=ch,
+                    blocks=ngroups * nchunk * slices,
+                    smem_bytes=SPMM_SMEM_BYTES,
+                    part_bytes=(band_bytes * ngroups * nchunk
+                                if nchunk > 1 else 0))
 
 
 def btile_spmm(tiles, tgt, step_g, step_cb, step_nt, band_ptr, xp,
@@ -150,28 +184,34 @@ def btile_spmm(tiles, tgt, step_g, step_cb, step_nt, band_ptr, xp,
     check(xp, "xp", torch.float32)
     if xp.dim() != 2 or xp.shape[0] % TILE_C:
         raise ValueError(f"xp: expected (ncb·128, K), got {tuple(xp.shape)}")
+    if tiles.data_ptr() % 16:
+        raise ValueError("tiles: the SpMM kernel reads them 16 bytes at a "
+                         "time, so they must be 16-byte aligned")
     k = xp.shape[1]
-    kp = -(-k // SPMM_KS) * SPMM_KS
-    xk = F.pad(xp, (0, kp - k)) if kp != k else xp
-    y = torch.empty((ngroups * BAND, kp), dtype=torch.float32,
+    plan = spmm_plan(ngroups, max_band_steps, k, sm_count(xp.device))
+    xk = xp
+    if plan.kp != k or xp.data_ptr() % 16:   # cp.async reads 16 B at a time
+        xk = xp.new_zeros((xp.shape[0], plan.kp))
+        xk[:, :k] = xp
+    y = torch.empty((ngroups * BAND, plan.kp), dtype=torch.float32,
                     device=xp.device)
-    nchunk, ch = _chunks(ngroups, kp // SPMM_KS, tgt.shape[0],
-                         max_band_steps, kp, spmm_blocks(xp.device))
-    part = (torch.empty((ngroups * nchunk * BAND, kp), dtype=torch.float32,
-                        device=xp.device) if nchunk > 1 else y)
-    if ngroups and kp:
+    part = (torch.empty((ngroups * plan.nchunk * BAND, plan.kp),
+                        dtype=torch.float32, device=xp.device)
+            if plan.nchunk > 1 else y)
+    if ngroups and k:
         with torch.cuda.device(xp.device):
             _CUDA.launch("btile_spmm", tiles.data_ptr(), tgt.data_ptr(),
                          step_cb.data_ptr(), step_nt.data_ptr(),
-                         band_ptr.data_ptr(), xk.data_ptr(), part.data_ptr(),
-                         ngroups, nchunk, ch, R, kp, stream(xp))
+                         band_ptr.data_ptr(), xk.data_ptr(), y.data_ptr(),
+                         part.data_ptr(), ngroups, plan.nchunk, plan.ch, R,
+                         plan.kp, stream(xp))
             LAUNCHES["btile_spmm"] += 1
-            if nchunk > 1:
+            if plan.nchunk > 1:
                 _CUDA.launch("btile_combine", part.data_ptr(),
                              band_ptr.data_ptr(), y.data_ptr(), ngroups,
-                             nchunk, ch, kp, stream(xp))
+                             plan.nchunk, plan.ch, plan.kp, stream(xp))
                 LAUNCHES["btile_combine"] += 1
-    return y[:, :k] if kp != k else y
+    return y[:, :k] if plan.kp != k else y
 
 
 def btile_sddmm(patt, tgt, step_g, step_cb, step_nt, ap, bp) -> torch.Tensor:

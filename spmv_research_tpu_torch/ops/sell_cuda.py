@@ -24,6 +24,11 @@ wrapper                 replaces
                         in double-single arithmetic, the s and e planes
                         (one launch per stage class, counted as
                         ``sellwds``)
+``sellwds_combine``     the XLA combine after it (``sellw_ds.py``
+                        ``_combine_y_ds``): the TwoSum fold of the planes'
+                        rows over the yidx rows into y's s and e, or
+                        y = s + e (one launch, counted as
+                        ``sellwds_combine``)
 ======================  ===================================================
 
 ``sellr_y`` chains the two SELLR wrappers. Each wrapper takes the kernels'
@@ -32,11 +37,11 @@ For CUDA tensors it launches the kernel or raises; nothing falls back.
 ``LAUNCHES`` counts the kernel launches, beside each launch. The plain
 versions add in the kernels' order
 (sublanes 0..7 in turn, the roll sources by r, the run-flush chunk by
-chunk), so on the card kernel and plain version agree exactly. B13's plain
-version rounds every product and sum on its own, as the kernel does with
-the ``__f*_rn`` intrinsics, so the two agree exactly too. SELLW's
-``_combine_y`` and SELLWDS's ``_combine_y_ds`` (XLA gathers and sums in the
-JAX package) stay PyTorch.
+chunk), so on the card kernel and plain version agree exactly. B13's and
+its combine's plain versions round every product and sum on its own, as
+the kernels do with the ``__f*_rn`` intrinsics, so the two agree exactly
+too. SELLW's ``_combine_y`` (an XLA gather and sum in the JAX package)
+stays PyTorch.
 
 The kernels are compiled by ``nvcc`` from ``csrc/sell.cu`` at first CUDA use
 (``cuda_lib.CudaLib``); importing this module builds and loads nothing.
@@ -58,7 +63,8 @@ SELLR_NB = 64            # SELLR chunks per smeta step
 SELLR_SMEM_BLK = 1024    # smeta ints per step
 
 LAUNCHES = {"sellw": 0, "sellw_stream": 0, "sellw_spmm": 0,
-            "sellr_place": 0, "sellr_flush": 0, "sellwds": 0}
+            "sellr_place": 0, "sellr_flush": 0, "sellwds": 0,
+            "sellwds_combine": 0}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -71,8 +77,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.sellr_flush.argtypes = [p, p, p, p, i32, p]
     lib.sellwds_spmv.argtypes = [p, p, p, p, p, p, i64, p, p, i64, i64, i64,
                                  i32, i32, p]
+    lib.sellwds_combine.argtypes = [p, p, p, i32, i64, i64, p, p, p, p]
     for fn in (lib.sellw_spmv, lib.sellw_spmm, lib.sellr_place,
-               lib.sellr_flush, lib.sellwds_spmv):
+               lib.sellr_flush, lib.sellwds_spmv, lib.sellwds_combine):
         fn.restype = i32
 
 
@@ -185,6 +192,21 @@ def sellwds_planes_torch(word, vhi, vlo, wrow, xh, xl,
             out[0, g * npad + start: g * npad + start + cnt] = S
             out[1, g * npad + start: g * npad + start + cnt] = E
     return out
+
+
+def sellwds_combine_torch(planes, yidx, m: int):
+    """y's (s, e) pair, each of length m, from the s and e planes (2,
+    G·npad + 1, 128) and ``yidx`` (K, nb): per y block a sequential TwoSum
+    over its K plane rows, in the JAX order (padding entries name the zero
+    row)."""
+    idx = yidx.long()
+    seg_s, seg_e = planes[0][idx], planes[1][idx]      # (K, nb, 128)
+    S = torch.zeros_like(seg_s[0])
+    E = torch.zeros_like(seg_e[0])
+    for k in range(yidx.shape[0]):
+        S, e1 = _two_sum(S, seg_s[k])
+        E = E + e1 + seg_e[k]
+    return S.reshape(-1)[:m], E.reshape(-1)[:m]
 
 
 def sellr_place_torch(word, vals, smeta, x, nchunks: int, stages: int,
@@ -355,6 +377,35 @@ def sellwds_planes(word, vhi, vlo, wrow, xh, xl,
                              st)
                 LAUNCHES["sellwds"] += 1
     return out
+
+
+def sellwds_combine(planes, yidx, m: int, sum_pair: bool = False):
+    """y's (s, e) pair of length m from SELLWDS's planes (the kernel; see
+    ``sellwds_combine_torch``), or, with ``sum_pair``, the fp32 y = s + e."""
+    if not on_cuda(planes, yidx):
+        s, e = sellwds_combine_torch(planes, yidx, m)
+        return s + e if sum_pair else (s, e)
+    check(planes, "planes", torch.float32)
+    check(yidx, "yidx", torch.int32)
+    if planes.dim() != 3 or planes.shape[0] != 2 or planes.shape[2] != LANES:
+        raise ValueError(f"planes: expected (2, G·npad + 1, 128), got "
+                         f"{tuple(planes.shape)}")
+    K, nb = yidx.shape if yidx.dim() == 2 else (0, 0)
+    if not 0 <= m <= nb * LANES or (m and not K):
+        raise ValueError(f"yidx {tuple(yidx.shape)}: expected (K, nb) with "
+                         f"K > 0 and nb·128 ≥ m = {m}")
+    outs = [torch.empty(m, dtype=torch.float32, device=planes.device)
+            for _ in range(1 if sum_pair else 2)]
+    if m:
+        y = outs[0].data_ptr() if sum_pair else None
+        s, e = (None, None) if sum_pair else (outs[0].data_ptr(),
+                                              outs[1].data_ptr())
+        with torch.cuda.device(planes.device):
+            _CUDA.launch("sellwds_combine", planes[0].data_ptr(),
+                         planes[1].data_ptr(), yidx.data_ptr(), K, nb, m, s,
+                         e, y, stream(planes))
+        LAUNCHES["sellwds_combine"] += 1
+    return outs[0] if sum_pair else tuple(outs)
 
 
 def sellr_place(word, vals, smeta, x, nchunks: int, stages: int,

@@ -17,14 +17,16 @@ The error after an n-term row is O(n·2^-48) relative, inside the
 reference's fp64 gate (1e-10 against the longdouble Kahan gold).
 
 Impls, as for SELLW: ``"cuda"`` runs kernel B13 (``sell_cuda.sellwds_planes``,
-``csrc/sell.cu``) and ``"torch"`` its plain version; both then combine in
-PyTorch (``_combine_y_ds``, as ``_combine_y`` does for SELLW). The
-registered entries take an fp32 x with a zero lo plane (the harness's timed
-chain); ``spmv_sellwds_f64`` takes an fp64 x and returns an fp64 y. The
-builder refuses what the JAX builder refuses: a non-fp32 dtype, values past
-``DS_MAX_ABS``, and n past ``_X_VMEM_LIMIT``. The last is a TPU limit (x
-resident in VMEM) that B13, which reads x from device memory, does not
-have; it is kept so that both packages take the same matrices.
+``csrc/sell.cu``, one launch per stage class) and then the combine kernel
+(``sell_cuda.sellwds_combine``, one launch); ``"torch"`` runs their plain
+versions (``_combine_y_ds`` is the combine's). The registered entries take
+an fp32 x with a zero lo plane (the harness's timed chain; on the card the
+combine kernel also adds y = s + e); ``spmv_sellwds_f64`` takes an fp64 x
+and returns an fp64 y. The builder refuses what the JAX builder refuses: a
+non-fp32 dtype, values past ``DS_MAX_ABS``, and n past ``_X_VMEM_LIMIT``.
+The last is a TPU limit (x resident in VMEM) that B13, which reads x from
+device memory, does not have; it is kept so that both packages take the
+same matrices.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import torch
 
 from ..core.formats import _move
 from ..core.host import HostCSR
-from .compensated import DSRangeError, _split_f64, _two_sum, check_ds_range
+from .compensated import DSRangeError, _split_f64, check_ds_range
 from .dispatch import default_impl, register_spmv
 from .sellw import (SellW, SellWBuildError, _X_VMEM_LIMIT, build_sellw,
                     class_plan, sellw_from_jax)
@@ -122,16 +124,10 @@ def sellwds_from_jax(leaves: dict, meta: dict) -> SellWDS:
 
 def _combine_y_ds(B: SellW, planes: torch.Tensor):
     """Per-y-block combine of the chunk partials: a sequential TwoSum over
-    the K yidx rows, in the JAX order. ``planes`` (2, G·npad + 1, 128):
+    the K yidx rows, in the JAX order (``sell_cuda.sellwds_combine_torch``,
+    the combine kernel's plain version). ``planes`` (2, G·npad + 1, 128):
     the s and e planes, each ending in the zero row."""
-    idx = B.yidx.long()
-    seg_s, seg_e = planes[0][idx], planes[1][idx]      # (K, nb, 128)
-    S = torch.zeros_like(seg_s[0])
-    E = torch.zeros_like(seg_e[0])
-    for k in range(B.K):
-        S, e1 = _two_sum(S, seg_s[k])
-        E = E + e1 + seg_e[k]
-    return S.reshape(-1)[: B.m], E.reshape(-1)[: B.m]
+    return K.sellwds_combine_torch(planes, B.yidx, B.m)
 
 
 def _planes_args(A: SellWDS, xhi, xlo):
@@ -148,14 +144,20 @@ def spmv_sellwds_torch_pair(A: SellWDS, xhi: torch.Tensor,
         *_planes_args(A, xhi, xlo)))
 
 
-def spmv_sellwds_cuda_pair(A: SellWDS, xhi: torch.Tensor,
-                           xlo: torch.Tensor):
-    """Pair-in, pair-out SpMV through kernel B13 (CUDA tensors only)."""
+def _cuda_planes(A: SellWDS, xhi: torch.Tensor, xlo: torch.Tensor):
+    """B13's planes (CUDA tensors only)."""
     if xhi.device.type != "cuda" or A.device != xhi.device:
         raise ValueError(f"SELLWDS/cuda needs the program and x on one CUDA "
                          f"device, got {A.device} and {xhi.device}")
-    return _combine_y_ds(A.base, K.sellwds_planes(*_planes_args(A, xhi,
-                                                                 xlo)))
+    return K.sellwds_planes(*_planes_args(A, xhi, xlo))
+
+
+def spmv_sellwds_cuda_pair(A: SellWDS, xhi: torch.Tensor,
+                           xlo: torch.Tensor):
+    """Pair-in, pair-out SpMV through kernel B13 and the combine kernel
+    (CUDA tensors only)."""
+    return K.sellwds_combine(_cuda_planes(A, xhi, xlo), A.base.yidx,
+                             A.base.m)
 
 
 _PAIRS = {"cuda": spmv_sellwds_cuda_pair, "torch": spmv_sellwds_torch_pair}
@@ -173,21 +175,23 @@ def spmv_sellwds_f64(A: SellWDS, x: np.ndarray,
             + e.cpu().numpy().astype(np.float64))
 
 
-def _fp32_entry(pair):
-    def spmv(A: SellWDS, x: torch.Tensor) -> torch.Tensor:
-        """fp32-x entry (x with a zero lo plane), so the harness drives the
-        format like any other; the value planes keep their fp64
-        precision."""
-        xhi = x.to(torch.float32)
-        s, e = pair(A, xhi, torch.zeros_like(xhi))
-        return s + e
-    return spmv
+# fp32-x entries (x with a zero lo plane), so the harness drives the format
+# like any other; the value planes keep their fp64 precision
+
+@register_spmv("SELLWDS", "cuda")
+def spmv_sellwds_cuda(A: SellWDS, x: torch.Tensor) -> torch.Tensor:
+    """y = s + e, added by the combine kernel."""
+    xhi = x.to(torch.float32)
+    return K.sellwds_combine(_cuda_planes(A, xhi, torch.zeros_like(xhi)),
+                             A.base.yidx, A.base.m, sum_pair=True)
 
 
-spmv_sellwds_cuda = register_spmv("SELLWDS", "cuda")(
-    _fp32_entry(spmv_sellwds_cuda_pair))
-spmv_sellwds_torch = register_spmv("SELLWDS", "torch")(
-    _fp32_entry(spmv_sellwds_torch_pair))
+@register_spmv("SELLWDS", "torch")
+def spmv_sellwds_torch(A: SellWDS, x: torch.Tensor) -> torch.Tensor:
+    """y = s + e of the plain pair."""
+    xhi = x.to(torch.float32)
+    s, e = spmv_sellwds_torch_pair(A, xhi, torch.zeros_like(xhi))
+    return s + e
 
 SellWDS.spmv_f64 = spmv_sellwds_f64   # the harness's fp64-gate hook
 

@@ -157,20 +157,65 @@ def test_empty_band_comes_out_as_zeros():
     np.testing.assert_allclose(Y, mat @ X.astype(np.float64), **TOL)
 
 
-@pytest.mark.parametrize("ngroups, slices, nsteps, most", [
-    (17, 4, 4484, 300), (138, 4, 17035, 130), (1, 1, 1, 1), (3, 2, 7, 4),
-    (2, 1, 1000, 999), (4000, 8, 40000, 2000)])
-def test_spmm_band_chunks(ngroups, slices, nsteps, most):
-    """The SpMM kernel's (chunks per band, steps per chunk): every step of
-    the largest band in a chunk, no chunk without steps, chunks of about
-    nsteps · slices / blocks steps, partials within their budget (blocks:
-    8 per SM of a 132-SM card)."""
-    blocks = K.SPMM_BLOCKS_PER_SM * 132
-    nchunk, ch = K._chunks(ngroups, slices, nsteps, most, 32 * slices, blocks)
-    assert nchunk * ch >= most > (nchunk - 1) * ch
-    assert ch >= nsteps * slices // blocks
-    assert (nchunk == 1 or ngroups * nchunk * 1024 * 32 * slices * 4
-            <= K.SPMM_PART_BYTES)
+@pytest.mark.parametrize("ngroups, k, most", [
+    (17, 128, 300), (138, 128, 130), (1, 1, 1), (3, 37, 4), (2, 33, 999),
+    (4000, 256, 2000), (17, 200, 300), (5, 31, 7)])
+def test_spmm_band_chunks(ngroups, k, most):
+    """The SpMM kernel's plan on a 132-SM card: K padded to a multiple of
+    32, one block per (band, chunk, 32-column slice); every step of the
+    largest band in a chunk, no chunk without steps; bands cut only while
+    the blocks are fewer than SPMM_WAVES an SM; partials within their
+    budget; the band accumulator, two X slices and the warps' lists of
+    nonzeros in 192 KB."""
+    plan = K.spmm_plan(ngroups, most, k, 132)
+    assert plan.kp % 32 == 0 and plan.kp - 32 < k <= plan.kp
+    assert plan.slices == plan.kp // 32
+    assert plan.nchunk * plan.ch >= most > (plan.nchunk - 1) * plan.ch
+    assert plan.blocks == ngroups * plan.nchunk * plan.slices
+    want = K.SPMM_WAVES * 132
+    if plan.nchunk > 1:
+        assert ngroups * (plan.nchunk - 1) * plan.slices < want
+        assert 0 < plan.part_bytes == (ngroups * plan.nchunk * 1024
+                                       * plan.kp * 4) <= K.SPMM_PART_BYTES
+    else:
+        assert plan.part_bytes == 0
+        assert (ngroups * plan.slices >= want or most == 1
+                or 2 * ngroups * 1024 * plan.kp * 4 > K.SPMM_PART_BYTES)
+    assert plan.smem_bytes == (1024 + 2 * 128) * 32 * 4 + 32 * 128 * 8
+    assert plan.smem_bytes == 192 * 1024
+
+
+def test_spmm_plan_cuts_gupta3_and_not_shipsec1(monkeypatch):
+    """The two K = 128 programs of the smoke run: gupta3's 17 bands are cut
+    (68 (band, slice) pairs for 132 SMs), shipsec1's 138 are not at one
+    block an SM."""
+    gup = K.spmm_plan(17, 300, 128, 132)
+    assert gup.nchunk > 1 and gup.blocks <= K.SPMM_WAVES * 132 + 68
+    monkeypatch.setattr(K, "SPMM_WAVES", 1)
+    assert K.spmm_plan(138, 130, 128, 132).nchunk == 1
+    assert K.spmm_plan(17, 300, 128, 132).nchunk == 2
+
+
+def _assert_step_rows_distinct(A):
+    """The SpMM kernel adds a step's live slab rows into the band without
+    atomics: their target rows must be distinct band rows (< 1024)."""
+    tgt = A.tgt.numpy()
+    nt = A.step_nt.numpy()
+    assert tgt.shape == (A.nsteps, A.tg * 8)
+    for s in range(A.nsteps):
+        live = tgt[s, : 8 * nt[s]]
+        assert live.size == np.unique(live).size
+        assert live.size == 0 or (0 <= live.min() and live.max() < 1024)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_step_rows_distinct_built(case):
+    _assert_step_rows_distinct(btile.build_btile(
+        HostCSR.from_scipy(btile_banded(*case))))
+
+
+def test_step_rows_distinct_from_jax(case):
+    _assert_step_rows_distinct(case[2])
 
 
 def test_scattered_matrix_refused():

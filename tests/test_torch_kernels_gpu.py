@@ -9,12 +9,14 @@ and is held to 1e-6 of max |y| (fp32 add-order slack). The SELLW and SELLR
 kernels add in their plain versions' order and must match exactly, as must
 B4-B7 and B15 (gathers, one product per slot, and scan stages that add in
 the plain versions' order), and B12, the SELLW SpMM kernel (the SpMV
-kernel's pipeline per column), and B13, the double-single SELLW kernel
-(every product and sum rounded on its own, in the plain version's order),
+kernel's pipeline per column), and B13, the double-single SELLW kernel,
+and its combine (every product and sum rounded on its own, in the plain
+version's order),
 and B8, B9 and B10, the CLOS and BFLY kernels (selects, one product per
 slot and adds in the plain versions' order). B16a and B16b, BTILE's SpMM and SDDMM, sum
-their products in another order than ``torch.bmm``: they are held to 1e-5
-of |A|·|X| per element and of Σ|a||b| per slot.
+their products in another order than ``torch.bmm`` (B16a skips stored
+zeros): they are held to 1e-5 of |A|·|X| per element and of Σ|a||b| per
+slot.
 """
 
 import numpy as np
@@ -39,8 +41,10 @@ from spmv_research_tpu_torch.ops import bfly, clos, sellr, sellw, sellw_ds
 from spmv_research_tpu_torch.ops.compensated import _split_f64
 
 from torch_cases import (TWIN_LINE, banded_matrix, bfly_pathological,
-                         btile_banded, capped_scan_matrix, clos_hi_matrix,
-                         dirty_sellr_matrix, ds_banded, random_matrix,
+                         btile_banded, btile_special_matrix,
+                         capped_scan_matrix, clos_hi_matrix,
+                         dirty_sellr_matrix, ds_banded, ds_staged_matrix,
+                         random_matrix,
                          skewed_matrix, skewed_xl_matrix,
                          staged_sellw_matrix, w0_matrix)
 
@@ -170,7 +174,8 @@ def test_sellr_kernels_match_plain_version(cuda, kind):
     torch.cuda.synchronize()
     assert torch.equal(R, R_plain) and torch.equal(got, want)
     assert KS.LAUNCHES == {"sellw": 0, "sellw_stream": 0, "sellw_spmm": 0,
-                           "sellr_place": 1, "sellr_flush": 1, "sellwds": 0}
+                           "sellr_place": 1, "sellr_flush": 1, "sellwds": 0,
+                           "sellwds_combine": 0}
     assert torch.equal(KS.sellr_y(*args), KS.sellr_y_torch(*args))
     _close_to_scipy(mat, x, spmv(A, xd))
 
@@ -332,13 +337,9 @@ def test_sellw_spmm_kernel_matches_plain_version(cuda, kind, k,
     assert np.max(np.abs(Y - mat @ X) / scale) <= 1e-5
 
 
-def _btile_case(cuda, k, empty_band=False):
-    mat = btile_banded(2500, 2500, 12, 200, 1)
-    if empty_band:             # rows [1024, 2048) empty: a filler step
-        mat = mat.tolil()
-        mat[1024:2048] = 0
-        mat = mat.tocsr()
-        mat.eliminate_zeros()
+def _btile_case(cuda, k, special=False):
+    mat = btile_special_matrix() if special else btile_banded(
+        2500, 2500, 12, 200, 1)
     A = build_btile(HostCSR.from_scipy(mat)).to(cuda)
     rng = np.random.Generator(np.random.PCG64(k))
     m, n = mat.shape
@@ -347,35 +348,45 @@ def _btile_case(cuda, k, empty_band=False):
                      for s in ((n, k), (m, k), (n, k)))
 
 
-@pytest.mark.parametrize("k, empty_band", [(16, False), (37, False),
-                                           (8, True)])
-def test_btile_kernels_match_plain_versions(cuda, k, empty_band,
-                                            monkeypatch):
-    """B16a (SpMM; K = 37 pads X to 64 columns; bands cut into chunks, and
-    whole bands in the empty-band case) and B16b (SDDMM; K = 37 takes two
-    registers per lane), on three bands."""
-    if empty_band:
-        monkeypatch.setattr(KB, "spmm_blocks", lambda _: 1)
-    mat, A, X, Am, Bm = _btile_case(cuda, k, empty_band)
-    kp = -(-k // KB.SPMM_KS) * KB.SPMM_KS
-    nchunk, _ = KB._chunks(A.ngroups, kp // KB.SPMM_KS, A.nsteps,
-                           A.max_band_steps, kp, KB.spmm_blocks(X.device))
-    assert (nchunk > 1) != empty_band
+@pytest.mark.parametrize("cut", ["whole", "halves", "steps"])
+@pytest.mark.parametrize("k", [1, 16, 31, 32, 33, 37, 128, 200])
+def test_btile_kernels_match_plain_versions(cuda, k, cut, monkeypatch):
+    """B16a (SpMM; X padded to a multiple of 32 columns) and B16b (SDDMM;
+    K = 33 and up take more than one register per lane) on three bands: a
+    full tile, a live tile of stored zeros and an empty band (the builder's
+    filler step); the bands whole (one chunk each), band 0 cut in two
+    beside two whole bands (the combine skips those), or cut at every
+    step."""
+    slices = -(-k // KB.SPMM_SLICE)
+    if cut == "whole":
+        monkeypatch.setattr(KB, "SPMM_WAVES", 0)
+    elif cut == "halves":
+        monkeypatch.setattr(KB, "sm_count", lambda _: 1)
+        monkeypatch.setattr(KB, "SPMM_WAVES", 6 * slices)
+    mat, A, X, Am, Bm = _btile_case(cuda, k, special=True)
+    plan = KB.spmm_plan(A.ngroups, A.max_band_steps, k,
+                        KB.sm_count(X.device))
+    steps = (A.band_ptr[1:] - A.band_ptr[:-1]).tolist()
+    assert steps[1] == 1 and A.step_nt[int(A.band_ptr[1])] == 0
+    assert plan.slices == slices and plan.kp == 32 * slices
+    assert plan.nchunk == {"whole": 1, "halves": 2,
+                           "steps": A.max_band_steps}[cut]
     KB.reset_launch_counts()
     Y = spmm(A, X)                                     # CUDA tensor: "cuda"
     Y_plain = spmm(A, X, impl="torch")
-    yard = spmm(A.to("cpu"), X.abs().cpu()).to(cuda)   # |A|·|X|, A ≥ 0
+    yard = spmm(A.to("cpu"), X.abs().cpu()).abs().to(cuda)   # |A|·|X|
     C = sddmm(A, Am, Bm)
     C_plain = sddmm(A, Am, Bm, impl="torch")
     dots = sddmm(A, Am.abs(), Bm.abs(), impl="torch")  # Σ|a||b| per slot
     torch.cuda.synchronize()
-    assert KB.LAUNCHES == {"btile_spmm": 1, "btile_combine": int(nchunk > 1),
+    assert KB.LAUNCHES == {"btile_spmm": 1,
+                           "btile_combine": int(plan.nchunk > 1),
                            "btile_sddmm": 1}
+    assert Y.shape == (mat.shape[0], k)
     assert ((Y - Y_plain).abs() <= 1e-5 * yard).all()
     assert ((C - C_plain).abs() <= 1e-5 * dots).all()
     assert not C[A.patt == 0].any()
-    if empty_band:
-        assert not Y[1024:2048].any()
+    assert not Y[1024:2048].any()
     Xh = X.double().cpu().numpy()
     scale = np.abs(mat) @ np.abs(Xh) + 1e-30
     got = Y.double().cpu().numpy()
@@ -392,13 +403,34 @@ def test_btile_wrappers_refuse_bad_input(cuda):
     with pytest.raises(ValueError, match="several devices"):
         KB.btile_spmm(A.tiles, A.tgt.cpu(), A.step_g, A.step_cb, A.step_nt,
                       A.band_ptr, X, A.ngroups, A.max_band_steps)
+    args = (A.tiles, A.tgt, A.step_g, A.step_cb, A.step_nt, A.band_ptr)
+    with pytest.raises(ValueError, match="ncb·128"):
+        KB.btile_spmm(*args, X[:100], A.ngroups, A.max_band_steps)
+    with pytest.raises(ValueError, match="band_ptr"):
+        KB.btile_spmm(*args[:5], A.band_ptr[:-1], X, A.ngroups,
+                      A.max_band_steps)
+    # an X that is not 16-byte aligned is copied, not refused
+    xp = torch.nn.functional.pad(X, (0, 0, 0, A.ncb * 128 - X.shape[0]))
+    wide = torch.zeros((xp.shape[0], 5), device=cuda)
+    wide[:, 1:] = xp
+    odd = wide[:, 1:]
+    assert odd.data_ptr() % 16 and not odd.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        KB.btile_spmm(*args, odd, A.ngroups, A.max_band_steps)
+    flat = torch.zeros(xp.numel() + 1, device=cuda)[1:].view_as(xp)
+    flat.copy_(xp)
+    assert flat.data_ptr() % 16
+    assert torch.equal(KB.btile_spmm(*args, flat, A.ngroups,
+                                     A.max_band_steps),
+                       KB.btile_spmm(*args, xp, A.ngroups,
+                                     A.max_band_steps))
 
 
-@pytest.mark.parametrize("G, seed", [(2, 0), (4, 6)])
+@pytest.mark.parametrize("G, seed", [(1, 3), (2, 0), (4, 6)])
 def test_sellwds_kernel_matches_plain_version(cuda, G, seed):
-    """B13: the s and e planes equal the plain version's bit for bit; the
-    fp64 result passes the fp64 gate, the fp32 entry lies within 1e-5 of
-    |A|·|x|."""
+    """B13 at G = 1, 2, 4 on n = 2500 (not a multiple of 128): the s and e
+    planes equal the plain version's bit for bit; the fp64 result passes
+    the fp64 gate, the fp32 entry lies within 1e-5 of |A|·|x|."""
     mat = ds_banded(2500, 50, seed=seed)
     host = HostCSR.from_scipy(mat)
     A = sellw_ds.build_sellwds(host, group=G).to(cuda)
@@ -422,6 +454,40 @@ def test_sellwds_kernel_matches_plain_version(cuda, G, seed):
                     spmv(A, xh))
 
 
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_sellwds_kernels_at_every_scan_depth(cuda, G):
+    """B13 on a program with a stage class at every scan depth 0..7: the
+    planes equal the plain version's bit for bit, one launch per class;
+    the combine's s and e equal ``_combine_y_ds``'s and its y their sum,
+    bit for bit; one SpMV launches B13 once per class and the combine
+    once, and its y equals the plain entry's."""
+    A = sellw_ds.build_sellwds(HostCSR.from_scipy(ds_staged_matrix()),
+                               group=G, part_cap=128).to(cuda)
+    B = A.base
+    plan = sellw.class_plan(B)
+    assert [st for _, _, st in plan] == list(range(8))
+    x = np.random.default_rng(G).uniform(-1, 1, B.n)
+    xh, xl = (torch.as_tensor(v, device=cuda) for v in _split_f64(x))
+    args = (B.word, B.vals, A.vlo, B.wrow, xh, xl, plan, G)
+    KS.reset_launch_counts()
+    got = KS.sellwds_planes(*args)
+    want = KS.sellwds_planes_torch(*args)
+    s, e = KS.sellwds_combine(got, B.yidx, B.m)
+    y = KS.sellwds_combine(got, B.yidx, B.m, sum_pair=True)
+    want_s, want_e = sellw_ds._combine_y_ds(B, want)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(s, want_s) and torch.equal(e, want_e)
+    assert torch.equal(y, want_s + want_e)
+    assert KS.LAUNCHES["sellwds"] == 8 and KS.LAUNCHES["sellwds_combine"] == 2
+    KS.reset_launch_counts()
+    y = spmv(A, xh)                                    # CUDA tensor: "cuda"
+    torch.cuda.synchronize()
+    assert {k: v for k, v in KS.LAUNCHES.items() if v} == {
+        "sellwds": len(plan), "sellwds_combine": 1}
+    assert torch.equal(y, sellw_ds.spmv_sellwds_torch(A, xh))
+
+
 def test_sellwds_wrapper_refuses_bad_input(cuda):
     A = sellw_ds.build_sellwds(HostCSR.from_scipy(
         ds_banded(300, 6, seed=1))).to(cuda)
@@ -437,6 +503,16 @@ def test_sellwds_wrapper_refuses_bad_input(cuda):
     with pytest.raises(TypeError):
         KS.sellwds_planes(B.word, B.vals, A.vlo.double(), B.wrow, xd, xd,
                           plan, B.G)
+    planes = KS.sellwds_planes(B.word, B.vals, A.vlo, B.wrow, xd, xd, plan,
+                               B.G)
+    with pytest.raises(ValueError, match="several devices"):
+        KS.sellwds_combine(planes, B.yidx.cpu(), B.m)
+    with pytest.raises(TypeError):
+        KS.sellwds_combine(planes, B.yidx.long(), B.m)
+    with pytest.raises(ValueError, match="G·npad"):
+        KS.sellwds_combine(planes[0], B.yidx, B.m)
+    with pytest.raises(ValueError, match="nb·128"):
+        KS.sellwds_combine(planes, B.yidx[:, :1].contiguous(), B.m)
     with pytest.raises(ValueError, match="CUDA"):
         spmv(A.to("cpu"), torch.ones(300), impl="cuda")
 

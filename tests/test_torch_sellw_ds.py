@@ -197,6 +197,28 @@ def test_kernel_wrapper_takes_plain_version_on_the_cpu():
         sellw_ds.spmv_sellwds_cuda_pair(A, xh, xl)
 
 
+def test_combine_wrapper_takes_plain_version_on_the_cpu():
+    """The combine's wrapper on CPU tensors: ``_combine_y_ds``'s pair, or
+    its fp32 sum with ``sum_pair``; no launch counted."""
+    _, _, A, _ = _ds_pair(ds_banded(1200, 30, seed=7), group=4)
+    B = A.base
+    x = np.random.default_rng(3).uniform(-1, 1, B.n)
+    xh, xl = (torch.from_numpy(v) for v in _split_f64(x))
+    planes = K.sellwds_planes(B.word, B.vals, A.vlo, B.wrow, xh, xl,
+                              class_plan(B), B.G)
+    K.reset_launch_counts()
+    s, e = K.sellwds_combine(planes, B.yidx, B.m)
+    want_s, want_e = sellw_ds._combine_y_ds(B, planes)
+    assert s.shape == e.shape == (B.m,)
+    assert torch.equal(s, want_s) and torch.equal(e, want_e)
+    assert torch.equal(K.sellwds_combine(planes, B.yidx, B.m, sum_pair=True),
+                       s + e)
+    assert torch.equal(sellw_ds.spmv_sellwds_torch(A, xh),
+                       sum(sellw_ds.spmv_sellwds_torch_pair(
+                           A, xh, torch.zeros_like(xh))))
+    assert not any(K.LAUNCHES.values())
+
+
 @pytest.mark.parametrize("build", ["sellwds", "csrds"])
 def test_bench_spmv_judges_ds_formats_at_fp64_gate(build):
     from spmv_research_tpu_torch.ops import build_csrds

@@ -234,3 +234,42 @@ def staged_sellw_matrix(m_short=33024, m_long=1400, run=100, seed=3):
     mat = sp.csr_matrix((vals, (rows, cols)), shape=(n, n))
     mat.sort_indices()
     return mat
+
+
+def ds_staged_matrix(chunks=160, seed=11):
+    """A matrix whose SELLW program (part_cap 128) has a stage class at
+    every scan depth 0..7: for each d, rows of 2^d consecutive columns, 128
+    / 2^d of them per 128-column x window (one full sublane), about
+    ``chunks`` chunks of them; values spread over many magnitudes, as
+    ``ds_banded``'s."""
+    rng = np.random.default_rng(seed)
+    rows, cols = [], []
+    r0 = 0
+    for d in range(8):
+        L = 1 << d
+        n_rows = chunks * 1024 // L
+        r = np.arange(n_rows)
+        rows.append(np.repeat(r + r0, L))
+        cols.append((r[:, None] * L + np.arange(L)).reshape(-1))
+        r0 += n_rows
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    vals = rng.uniform(-1, 1, rows.size) * rng.lognormal(0, 3, rows.size)
+    return sp.csr_matrix((vals, (rows, cols)), shape=(r0, chunks * 1024))
+
+
+def btile_special_matrix():
+    """``btile_banded(2500, 2500, 12, 200, 1)`` with the special tiles of
+    the BTILE SpMM: band 1 (rows [1024, 2048)) empty, so the builder gives
+    it a filler step; the tile of rows 8..15 and columns 0..127 full (no
+    stored zero); and a live tile of stored zeros only, rows 2048..2055 at
+    columns 0..7, far from the band."""
+    mat = btile_banded(2500, 2500, 12, 200, 1).tocoo()
+    keep = (mat.row < 1024) | (mat.row >= 2048)
+    dense_r, dense_c = np.divmod(np.arange(8 * 128), 128)
+    rows = np.concatenate([mat.row[keep], dense_r + 8, 2048 + np.arange(8)])
+    cols = np.concatenate([mat.col[keep], dense_c, np.arange(8)])
+    vals = np.concatenate([mat.data[keep],
+                           np.linspace(0.25, 1.0, 1024), np.zeros(8)])
+    out = sp.coo_matrix((vals, (rows, cols)), shape=mat.shape).tocsr()
+    out.sort_indices()
+    return out
