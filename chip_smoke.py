@@ -11,7 +11,8 @@ failure (non-zero exit, no result line):
    host library loaded;
 2. build the CUDA kernels from ``spmv_research_tpu_torch/csrc/closg.cu``,
    ``csrc/sell.cu``, ``csrc/btile.cu`` and ``csrc/bfly.cu`` (one nvcc
-   each, started together) and print their ptxas lines;
+   each, started together) and print their ptxas lines (B5's and B15's
+   scan kernels by name);
 3. generate the full-size scircuit twin (bench.py's line), RCM, build the
    CLOSG program (asserts N = 2^20, one program) and print its fields;
 4. each CLOSG kernel against its plain PyTorch version on the card, at the
@@ -45,14 +46,20 @@ failure (non-zero exit, no result line):
    1e-5 of |A|·|x| of the gold;
 10. the gupta3 twin (validation_twins.txt:30): ``build_best`` (asserts a
     chunked CLOSG with W = 0 in every chunk), B5 and B6 against their plain
-    versions on every chunk (exact; the widest timed), one SpMV through
-    ``ops.spmv`` between a reset and a read of the counters, y within 1e-5
-    of |A|·|x|; device times of CLOSG/cuda, DENSE/torch, CSR/torch and the
-    cuSPARSE product (a library yardstick), and the traced chain of 50;
+    versions on every chunk (exact; the widest timed), B5's phases on the
+    widest chunk logged, the host time of one B5 call and of one SpMV
+    (enqueue only), one SpMV of each chunk (at most 3 phases in its B5
+    plan, and B5 launched once per phase, asserted) and one
+    of the program through ``ops.spmv`` between a reset and a read of the
+    counters, y within 1e-5 of |A|·|x|; device times of CLOSG/cuda,
+    DENSE/torch, CSR/torch and the cuSPARSE product (a library yardstick),
+    and the traced chain of 50;
 11. the mip1 twin (validation_twins.txt:31): ``build_best`` (asserts an
     RSPLIT over a CLOSGX), K1, K2 and B15 on the stacked planes against
-    their plain versions (exact) and timed, one SpMV as in phase 10, y
-    within 1e-5 of |A|·|x|, device times and the traced chain;
+    their plain versions (exact) and timed, B15's phases logged, one SpMV
+    as in phase 10 (B15 launched once per phase and once for the
+    extraction, at most 3 in all, asserted), y within 1e-5 of
+    |A|·|x|, device times and the traced chain;
 12. the sweep on the gupta3 and mip1 lines with formats csr, closg and
     dense: rows CLOSG/cuda, DENSE/torch and CSR/torch on gupta3, RSPLIT/cuda
     and CSR/torch on mip1 (its 17.7 GB dense plane is refused); B5, B6 and
@@ -349,6 +356,57 @@ def closgx_stages(K, A, xd):
                                         C * N)
 
 
+def describe_plan(K, stages, n, chunk) -> str:
+    """B5's or B15's phases (``plan_scan_phases``) in words: each phase's
+    tiling, stages, halo and window."""
+    stages = tuple(stages)
+    L = chunk.bit_length() - 1
+    T = min(K.SCAN_TILE_LOG, L)
+    words = []
+    for first, count, tiling, halo in K.plan_scan_phases(stages, n, chunk):
+        ks = stages[first:first + count]
+        span = f"stages {ks[0]}-{ks[-1]}" if ks else "no stage"
+        if tiling == K.CONTIG:
+            words.append(f"contiguous (r3 + {span}, tiles of 2^{T}, halo "
+                         f"{halo} slots: window 2^{T} + "
+                         f"{1024 if halo and T < L else 0})")
+        elif tiling == K.STRIDED:
+            words.append(f"strided ({span}, 32 residues × 2^"
+                         f"{min(T - 5, L - ks[0])} rows, halo {halo} rows)")
+        else:
+            words.append(f"global ({span})")
+    return f"{len(words)} phases: " + "; ".join(words)
+
+
+def ptxas_of(build_log: str, names) -> str:
+    """Registers and spill stores of the entry functions whose mangled
+    names hold one of ``names``, from nvcc's ``-Xptxas -v`` output."""
+    found, cur = {}, None
+    for ln in build_log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = next((nm for nm in names if nm in ln), None)
+        elif cur and "spill stores" in ln:
+            found[cur] = [ln.split(",")[1].strip()]
+        elif cur and "registers" in ln:
+            found.setdefault(cur, []).insert(
+                0, ln.split("Used", 1)[1].split(",")[0].strip())
+    return "; ".join(f"{nm} {', '.join(v)}" for nm, v in found.items())
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host microseconds per call of fn: n calls enqueued back to back
+    (after a warm call and a synchronize), no synchronize between them."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    return t * 1e6
+
+
 def closg_checks(timer, K, programs, xd, suffix="", stages=closg_stages,
                  names=None):
     """The kernels of each program's SpMV (``names``: only these) against
@@ -528,6 +586,8 @@ def main() -> None:
         log(f"# nvcc {os.path.basename(lib.SOURCE)}: " + " | ".join(
             ln.strip() for ln in lib.build_log().splitlines()
             if "registers" in ln or "spill" in ln))
+    log("# ptxas B5/B15: " + ptxas_of(K.build_log(), ("scan_contig_kernel",
+                                                      "scan_strided_kernel")))
 
     # --- 3. the scircuit program ---
     t0 = time.perf_counter()
@@ -781,15 +841,41 @@ def main() -> None:
     Ag = Ag.to(dev)
     xg = np.random.Generator(np.random.PCG64(7)).uniform(0.0, 1.0, gup.n)
     xgd = torch.as_tensor(xg, dtype=torch.float32, device=dev)
+    widest = max(Ag.chunks, key=lambda c: c.N)
     k_w0 = closg_checks(timer, K, sorted(Ag.chunks, key=lambda c: -c.N),
                         xgd, names=("closg_r3_scan", "closg_cand_yext"))
+    plans = [K.plan_scan_phases(c.scan_stages, c.N, c.N) for c in Ag.chunks]
+    log(f"# gupta3 B5 plan of the widest chunk (N = {widest.N}, "
+        f"{len(widest.scan_stages)} stages, T = {K.SCAN_TILE_LOG}, halo "
+        f"budget {K.SCAN_HALO_MAX} slots): "
+        + describe_plan(K, widest.scan_stages, widest.N, widest.N))
+    b5_args = next(a for nm, a, _ in closg_stages(K, widest, xgd)
+                   if nm == "closg_r3_scan")
+    log(f"# gupta3 host time per call (enqueue, no sync): closg_r3_scan "
+        f"{host_us(lambda: K.closg_r3_scan(*b5_args)):.2f} us, one CLOSG "
+        f"SpMV {host_us(lambda: spmv(Ag, xgd), n=20):.2f} us")
+    for c, plan in zip(Ag.chunks, plans):
+        if len(plan) > 3:
+            fail(f"a gupta3 chunk's B5 plan (N = {c.N}) has {len(plan)} "
+                 f"phases, more than 3")
+        n_b5 = counted_spmv(c, xgd, K)[1]["closg_r3_scan"]
+        if n_b5 != len(plan):
+            fail(f"a gupta3 chunk's SpMV (N = {c.N}) launched "
+                 f"closg_r3_scan {n_b5} times, its plan has {len(plan)} "
+                 f"phases")
     y, launches = counted_spmv(Ag, xgd, K)
     gup_launches = launches
-    log(f"# launches during one gupta3 SpMV: {launches}")
+    log(f"# launches during one gupta3 SpMV: {launches} (B5 "
+        f"{[len(p) for p in plans]} per chunk; "
+        f"{sum(launches.values())} in all)")
     for k in k_w0:
         k["launches"] = launches[k["name"]]
         if k["launches"] <= 0:
             fail(f"the gupta3 SpMV never launched {k['name']}")
+    if launches["closg_r3_scan"] != sum(map(len, plans)):
+        fail(f"the gupta3 SpMV launched closg_r3_scan "
+             f"{launches['closg_r3_scan']} times, not once per phase "
+             f"({sum(map(len, plans))})")
     gold_g = gup.spmv_gold_fast(xg).astype(np.float64)
     check_gold("gupta3 CLOSG/cuda", gup, xg, y, gold_g)
     t0 = time.perf_counter()
@@ -832,14 +918,27 @@ def main() -> None:
     xm = np.random.Generator(np.random.PCG64(7)).uniform(0.0, 1.0, mip.n)
     xmd = torch.as_tensor(xm, dtype=torch.float32, device=dev)
     k_xl = closg_checks(timer, K, [Ax.inner], xmd, stages=closgx_stages)
+    plan_x = K.plan_scan_phases(range(X.stages), X.n_chunks * X.N, X.N)
+    log(f"# mip1 B15 plan ({X.n_chunks} chunks of {X.N} slots, {X.stages} "
+        f"stages, T = {K.SCAN_TILE_LOG}): "
+        + describe_plan(K, range(X.stages), X.n_chunks * X.N, X.N)
+        + ", then the extraction")
     y, launches = counted_spmv(Ax, xmd, K)
-    log(f"# launches during one mip1 SpMV: {launches}")
+    log(f"# launches during one mip1 SpMV: {launches} "
+        f"({sum(launches.values())} in all)")
     for k in k_xl:
         k["launches"] = launches[k["name"]]
         if k["launches"] <= 0:
             fail(f"the mip1 SpMV never launched {k['name']}")
         if k["name"] != "closgx_r3_scan_yext":
             k["name"] += "_xl"
+    if len(plan_x) + 1 > 3:
+        fail(f"mip1's B15 plan has {len(plan_x)} phases: with the "
+             f"extraction more than 3 launches")
+    if launches["closgx_r3_scan_yext"] != len(plan_x) + 1:
+        fail(f"the mip1 SpMV launched closgx_r3_scan_yext "
+             f"{launches['closgx_r3_scan_yext']} times, not its "
+             f"{len(plan_x)} phases + the extraction")
     gold_m = mip.spmv_gold_fast(xm).astype(np.float64)
     check_gold("mip1 RSPLIT/cuda", mip, xm, y, gold_m)
     csr, lib = build_csr(mip).to(dev), cusparse(mip, dev)

@@ -1,6 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels of the CLOSG SpMV engine: the front
 // ends (plain, value-LUT, fused windows), the in-vreg layer, the segmented
-// scan, and the three y extractions (windowed, candidate-plane, CLOSGX);
+// scan (a launch per stage, or in phases of tiles with a halo: B5, B15),
+// and the three y extractions (windowed, candidate-plane, CLOSGX);
 // and the r3 steps of the exact-CLOS engine (B8: the r3 layer × values or
 // with the out-valid mask, and the forward fill).
 //
@@ -49,7 +50,7 @@ __device__ __forceinline__ float invreg_pick(const uint32_t* w, const float* v,
 }
 
 // What follows the in-vreg layer in the same launch (kPost).
-constexpr int kPostNone = 0;   // K2, and the r3 layer of K3, B5, B15, B8 fill
+constexpr int kPostNone = 0;   // K2, and the r3 layer of K3 and B8 fill
 constexpr int kPostVals = 1;   // B8 scan: × vals at the output slot
 constexpr int kPostValid = 2;  // B8 valid: 0 unless bit 17 of the r3 word
 
@@ -157,9 +158,8 @@ __global__ void front_win_kernel(const int32_t* __restrict__ gbase,
 }
 
 // One Hillis–Steele stage of the segmented scan — part of K3 (replacing
-// spmv_research_tpu/ops/clos_pallas.py `_r3_scan_yext_kernel`), of B5
-// (`_r3_scan_kernel_noval`) and of B15 (clos_xl.py
-// `_r3_scan_yext_dyn_kernel`):
+// spmv_research_tpu/ops/clos_pallas.py `_r3_scan_yext_kernel`) and of B8's
+// scan (`_r3_scan_kernel`), and the global phase of B5 and B15 (below):
 //   dst[p] = src[p] + (guard_k[p] ? src[p - 2^k] : 0)
 // with guard_k bit 17+k of the r3 word (k < 15) or bit k-15 of scan_hi.
 // The slots are runs of `chunk` (a power of two: one program, or one of
@@ -192,6 +192,283 @@ __global__ void scan_step_kernel(const float* __restrict__ src,
   } else {
     const float shifted = g ? src[q] : 0.0f;
     dst[p] = src[p] + shifted;
+  }
+}
+
+// ---------------------------------------------------------------- B5, B15
+//
+// B5 `closg_r3_scan` — replaces clos_pallas.py `_r3_scan_kernel_noval` (the
+// W = 0 back end's r3 layer + full segmented scan) — and the scan of B15
+// `closgx_r3_scan_yext` — clos_xl.py `_r3_scan_yext_dyn_kernel`, whose
+// extraction is yext_kernel. The plane is C runs of `chunk` slots (B5:
+// C = 1), each scanned on its own with the shift wrapping inside it. One
+// launch a stage moved 12 bytes a slot a stage; here the host planner
+// (ops/clos_cuda.py `plan_scan_phases`) cuts the stages into phases, one
+// launch each, that one tiling of the plane serves:
+//   contiguous (phase 0 only): tile t holds 2^T consecutive slots of a
+//     chunk, T = min(kScanTileLog, log2 chunk), plus the 1024-slot r3 block
+//     before it (read modulo the chunk, as torch.roll wraps) when its
+//     stages' shifts 2^k sum to a halo in (0, 1024]. The window starts on
+//     a block boundary and the r3 picks stay inside their 8-row, 1024-slot
+//     block (invreg_pick), so the r3 layer of the whole window, halo
+//     included, is exact; each slot's word is read once, for its pick and
+//     its guards. When the chunk is one tile the shifts wrap inside it and
+//     every stage runs here.
+//   strided: the stages k0..k1 that follow, 2^k0 >= 32. A chunk is viewed
+//     as p = j·2^k0 + r; stage k is then a shift of 2^(k−k0) along j for
+//     each residue r, wrapping modulo J = chunk / 2^k0. A tile holds 32
+//     residues (a j row is one 128-byte read) times 2^(T−5) rows, plus a
+//     halo of Σ 2^(k−k0) rows before them (at most 32), or all J rows
+//     (no halo, the shift wrapping inside the tile) where J <= 2^(T−5).
+//   global: a stage neither serves (2^k >= chunk, or k0 < 5), one
+//     scan_step_kernel launch over the plane.
+// In a tiled phase the window (W <= 2^13 + 1024 slots) is indexed so that
+// each stage is a shift by D window slots (2^k, or 32·2^(k−k0)); a block
+// of 1024 threads holds it in registers, kScanE slots a thread at most,
+// with their guard bits. A shift of whole rows of 32 goes through shared
+// memory: the values are stored to one of two buffers, one
+// __syncthreads(), and each slot adds the value D slots back (the buffers
+// alternate, so one barrier a stage); the contiguous phase runs its
+// stages under a row (k < 5) in registers instead (scan_contig_kernel).
+// A window slot whose read would leave the window reads garbage (the
+// padding before a shared buffer, or a lane the halo row never got) and
+// is garbage itself, which no tile slot reads, since the halo holds the
+// sum of the shifts. The add is a select of the read value or 0, then
+// __fadd_rn, in the per-stage order of the plain version, so the result
+// equals it (and the chain of scan_step_kernel launches) bit for bit. Only
+// the tile's own slots are written; phases ping-pong two buffers and never
+// read the one they write.
+// Bound: device memory, v and the word read once, the plane written once
+// (12 bytes a slot, 16 where scan_hi is read), against a phase per 10 or
+// so stages here: on a 2^20-slot chunk of 14 stages, 2 launches instead
+// of 15.
+
+constexpr int kScanContig = 0;
+constexpr int kScanStrided = 1;
+constexpr int kScanGlobal = 2;
+constexpr int kScanTileLog = 13;        // 2^13-slot tiles, whole r3 blocks
+constexpr int kScanHaloMax = 1024;      // window slots of halo, both tilings
+constexpr int kScanE = 9;               // window slots a thread holds
+constexpr int kScanMaxStages = 31;      // stages k in [0, 30]
+constexpr int kScanMaxPhases = 32;
+constexpr int kScanThreads = 1024;
+
+struct ScanStages {
+  int k[kScanMaxStages];
+};
+
+struct ScanPhase {
+  int first, count, tiling, halo;
+};
+
+// The window of a tiled phase: W slots, the first H of them the halo;
+// `whole`: the tile spans its whole wrap (a chunk, or all J rows); R: log2
+// of the tile's slots (contiguous) or rows (strided); tiles a chunk.
+struct ScanGeom {
+  int W, H, R;
+  bool whole;
+  int64_t tiles;
+};
+
+__host__ __device__ inline ScanGeom scan_geom(const ScanPhase& f, int k0,
+                                              int log_chunk) {
+  ScanGeom g;
+  if (f.tiling == kScanContig) {
+    g.R = kScanTileLog < log_chunk ? kScanTileLog : log_chunk;
+    g.whole = g.R == log_chunk;
+    g.H = g.whole || f.halo == 0 ? 0 : kBlockSlots;
+    g.W = (1 << g.R) + g.H;
+    g.tiles = int64_t(1) << (log_chunk - g.R);
+  } else {
+    const int jl = log_chunk - k0;
+    g.R = kScanTileLog - 5 < jl ? kScanTileLog - 5 : jl;
+    g.whole = g.R == jl;
+    g.H = g.whole ? 0 : 32 * f.halo;
+    g.W = (32 << g.R) + g.H;
+    g.tiles = int64_t(1) << (k0 - 5 + jl - g.R);
+  }
+  return g;
+}
+
+// One stage through shared memory on the n window slots base + e·kStride
+// (e < n) a thread holds: store them to b, one barrier, and add to each
+// slot whose guard bit m is set the value d slots back, modulo W where the
+// tile spans its whole wrap. Before window slot 0, b has kScanHaloMax
+// slots of garbage: a read there feeds only garbage slots.
+template <int kE, int kStride>
+__device__ __forceinline__ void shared_stage(float (&v)[kE],
+                                             const uint32_t (&gd)[kE],
+                                             uint32_t m, int d, float* b,
+                                             int base, int n, int W,
+                                             bool whole) {
+#pragma unroll
+  for (int e = 0; e < kE; ++e)
+    if (e < n) b[base + e * kStride] = v[e];
+  __syncthreads();
+  if (whole) {
+#pragma unroll
+    for (int e = 0; e < kE; ++e)
+      if (e < n) {
+        const float sh = b[(base + e * kStride - d) & (W - 1)];
+        v[e] = __fadd_rn(v[e], (gd[e] & m) ? sh : 0.0f);
+      }
+  } else {
+    const float* const bd = b + base - d;
+#pragma unroll
+    for (int e = 0; e < kE; ++e)
+      if (e < n) v[e] = __fadd_rn(v[e], (gd[e] & m) ? bd[e * kStride] : 0.0f);
+  }
+}
+
+// Stage k's guard is bit k of (hi << 15 | w3 >> 17); a phase keeps it
+// shifted down by its first stage k0.
+__device__ __forceinline__ uint32_t scan_guards(uint32_t w, uint32_t h,
+                                                int k0) {
+  return (uint32_t)(((uint64_t)h << 15 | (w >> 17)) >> k0);
+}
+
+// The contiguous phase (phase 0). Warp w owns window rows [w·rpw,
+// (w+1)·rpw) of 32 slots (rpw = W / 1024), one slot a lane and row, and
+// also holds the row before them (the warp's own one-row halo). The words
+// and values of the window are staged in the two shared buffers for the
+// r3 picks, which then serve the stages. Stages with k < 5 (shifts under
+// a row) run in registers: slot i − 2^k is lane − 2^k of the same row or
+// lane + 32 − 2^k of the row before, one __shfl_sync a row and stage, no
+// barrier; the one-row halo holds their shifts (at most 1 + 2 + 4 + 8 + 16
+// = 31 slots), so each owned slot is exact and the halo row's own garbage
+// reaches none. Stages with k >= 5 go through shared memory.
+template <int kR>
+__global__ void __launch_bounds__(kScanThreads)
+    scan_contig_kernel(const float* __restrict__ src, float* __restrict__ dst,
+                       const uint32_t* __restrict__ w3,
+                       const uint32_t* __restrict__ hi,
+                       const __grid_constant__ ScanStages S, ScanPhase f,
+                       int log_chunk) {
+  extern __shared__ float sm[];
+  const int lane = threadIdx.x & 31;
+  const int k0 = f.count ? S.k[0] : 0;
+  const ScanGeom g = scan_geom(f, k0, log_chunk);
+  const int W = g.W, H = g.H;
+  const int rpw = W >> 10;  // rows a warp owns, at most kR
+  const int base = (threadIdx.x >> 5) * rpw * 32 + lane;
+  const int64_t t = blockIdx.x;
+  const int64_t cbase = (t / g.tiles) << log_chunk;
+  const int local = (int)(t % g.tiles);
+  // window slot i → plane slot (a 32-bit offset inside the chunk)
+  auto glob = [&](int i) -> int64_t {
+    return cbase + (((local << g.R) + i - H) & ((1 << log_chunk) - 1));
+  };
+  const bool use_hi = f.count && S.k[f.count - 1] >= 15;
+  float* const b0 = sm + kScanHaloMax;
+  float* const b1 = b0 + W + kScanHaloMax;
+  uint32_t* const ws = reinterpret_cast<uint32_t*>(b0);
+  float v[kR], vh = 0.0f;
+  uint32_t gd[kR], gh = 0u;
+#pragma unroll
+  for (int e = 0; e < kR; ++e) {
+    const int i = base + e * 32;
+    if (e < rpw) {
+      const int64_t p = glob(i);
+      const uint32_t w = w3[p];
+      gd[e] = scan_guards(w, use_hi ? hi[p] : 0u, k0);
+      ws[i] = w;
+      b1[i] = src[p];
+    }
+  }
+  __syncthreads();
+  // the r3 layer, block by block, of the owned rows and the row before
+  // (for warp 0 the window's last row where the tile wraps, else unused)
+#pragma unroll
+  for (int e = 0; e < kR; ++e) {
+    const int i = base + e * 32;
+    if (e < rpw) {
+      const int bl = i & ~(kBlockSlots - 1);
+      v[e] = invreg_pick(ws + bl, b1 + bl, i - bl, 7);
+    }
+  }
+  const int hr = base >= 32 ? base - 32 : (g.whole ? W - 32 + lane : -1);
+  if (hr >= 0) {
+    const int bl = hr & ~(kBlockSlots - 1);
+    vh = invreg_pick(ws + bl, b1 + bl, hr - bl, 7);
+    gh = scan_guards(ws[hr], use_hi ? hi[glob(hr)] : 0u, k0);
+  }
+  __syncthreads();  // the picks are done: both buffers are free
+  int s = 0;
+  for (; s < f.count && S.k[s] < 5; ++s) {
+    const int d = 1 << S.k[s];
+    const uint32_t m = 1u << (S.k[s] - k0);
+    const int from = (lane - d) & 31;
+    const bool prev = lane >= 32 - d;  // my value feeds the next row
+#pragma unroll
+    for (int e = kR - 1; e >= 0; --e) {  // the row before still old
+      if (e < rpw) {
+        const float x = __shfl_sync(0xffffffffu,
+                                    prev ? (e ? v[e - 1] : vh) : v[e], from);
+        v[e] = __fadd_rn(v[e], (gd[e] & m) ? x : 0.0f);
+      }
+    }
+    const float x = __shfl_sync(0xffffffffu, vh, from);
+    vh = __fadd_rn(vh, (gh & m) ? x : 0.0f);
+  }
+  for (int st = 0; s < f.count; ++s, ++st)
+    shared_stage<kR, 32>(v, gd, 1u << (S.k[s] - k0), 1 << S.k[s],
+                         (st & 1) ? b1 : b0, base, rpw, W, g.whole);
+#pragma unroll
+  for (int e = 0; e < kR; ++e) {
+    const int i = base + e * 32;
+    if (e < rpw && i >= H) dst[glob(i)] = v[e];
+  }
+}
+
+// A strided phase: thread tid holds window slots tid + e·1024, one row of
+// 32 a warp and e; every shift is whole rows, through shared memory.
+template <int kE>
+__global__ void __launch_bounds__(kScanThreads)
+    scan_strided_kernel(const float* __restrict__ src,
+                        float* __restrict__ dst,
+                        const uint32_t* __restrict__ w3,
+                        const uint32_t* __restrict__ hi,
+                        const __grid_constant__ ScanStages S, ScanPhase f,
+                        int log_chunk) {
+  extern __shared__ float sm[];
+  const int tid = threadIdx.x;
+  const int k0 = S.k[f.first];
+  const ScanGeom g = scan_geom(f, k0, log_chunk);
+  const int W = g.W, H = g.H;
+  const int n = W > tid ? (W - tid + kScanThreads - 1) / kScanThreads : 0;
+  const int64_t t = blockIdx.x;
+  const int64_t cbase = (t / g.tiles) << log_chunk;
+  const int local = (int)(t % g.tiles);
+  const int jl = log_chunk - k0;
+  // window slot i → plane slot (32-bit offsets inside the chunk)
+  auto glob = [&](int i) -> int64_t {
+    const int jt = local & ((1 << (jl - g.R)) - 1);
+    const int rg = local >> (jl - g.R);
+    const int j = ((jt << g.R) + (i >> 5) - (H >> 5)) & ((1 << jl) - 1);
+    return cbase + ((j << k0) | (rg << 5) | (i & 31));
+  };
+  float* const b0 = sm + kScanHaloMax;
+  float* const b1 = b0 + W + kScanHaloMax;
+  const bool use_lo = k0 < 15;
+  const bool use_hi = S.k[f.first + f.count - 1] >= 15;
+  float v[kE];
+  uint32_t gd[kE];
+#pragma unroll
+  for (int e = 0; e < kE; ++e) {
+    if (e < n) {
+      const int64_t p = glob(tid + e * kScanThreads);
+      gd[e] = scan_guards(use_lo ? w3[p] : 0u, use_hi ? hi[p] : 0u, k0);
+      v[e] = src[p];
+    }
+  }
+  for (int s = 0; s < f.count; ++s)
+    shared_stage<kE, kScanThreads>(v, gd, 1u << (S.k[f.first + s] - k0),
+                                   32 << (S.k[f.first + s] - k0),
+                                   (s & 1) ? b1 : b0, tid, n, W, g.whole);
+#pragma unroll
+  for (int e = 0; e < kE; ++e) {
+    const int i = tid + e * kScanThreads;
+    if (e < n && i >= H) dst[glob(i)] = v[e];
   }
 }
 
@@ -331,6 +608,110 @@ int closg_scan_step(const void* src, void* dst, const void* perm_r3,
       (const float*)src, (float*)dst, (const uint32_t*)perm_r3,
       (const uint32_t*)scan_hi, k, n_slots, chunk);
   return (int)cudaGetLastError();
+}
+
+// B5 and B15's scan: the r3 layer and the stages `stages` (strictly
+// increasing, each in [0, 30]) over n_slots slots in runs of `chunk` (a
+// power of two >= 1024 dividing n_slots, at most 2^30), in the phases of
+// `phases` (4 ints a phase: first stage, stage count, tiling, halo; phase
+// 0 and no other contiguous, a global phase one stage), tiles of
+// 2^kScanTileLog slots. The last phase writes out, the others
+// alternate with tmp (null when there is one phase). scan_hi may be null
+// when no stage is >= 15. One launch a phase.
+int closg_scan_phases(const void* v, const void* perm_r3, const void* scan_hi,
+                      void* out, void* tmp, int64_t n_slots, int64_t chunk,
+                      const int32_t* stages, int n_stages,
+                      const int32_t* phases, int n_phases, void* stream) {
+  int log_chunk = 0;
+  while ((int64_t(1) << log_chunk) < chunk) ++log_chunk;
+  if ((int64_t(1) << log_chunk) != chunk || chunk < kBlockSlots ||
+      log_chunk > 30 || n_slots <= 0 || n_slots % chunk || n_stages < 0 || n_stages > kScanMaxStages || n_phases < 1 ||
+      n_phases > kScanMaxPhases || (n_phases > 1 && tmp == nullptr))
+    return (int)cudaErrorInvalidValue;
+  ScanStages S;
+  for (int i = 0; i < n_stages; ++i) {
+    S.k[i] = stages[i];
+    if (S.k[i] < 0 || S.k[i] > 30 || (i && S.k[i] <= S.k[i - 1]) ||
+        (S.k[i] >= 15 && scan_hi == nullptr))
+      return (int)cudaErrorInvalidValue;
+  }
+  ScanPhase P[kScanMaxPhases];
+  int covered = 0;
+  for (int i = 0; i < n_phases; ++i) {
+    const ScanPhase f = {phases[4 * i], phases[4 * i + 1], phases[4 * i + 2],
+                         phases[4 * i + 3]};
+    if (f.first != covered || f.count < 0 || f.halo < 0 ||
+        (f.tiling == kScanContig) != (i == 0) ||
+        (f.tiling == kScanGlobal && f.count != 1) ||
+        (f.tiling == kScanStrided && f.count < 1) || f.tiling < kScanContig ||
+        f.tiling > kScanGlobal || covered + f.count > n_stages)
+      return (int)cudaErrorInvalidValue;
+    if (f.tiling != kScanGlobal) {
+      // the halo must hold the sum of the phase's shifts, within the budget
+      const int k0 = f.count ? S.k[f.first] : 0;
+      const ScanGeom g = scan_geom(f, k0, log_chunk);
+      int64_t need = 0;
+      for (int s = f.first; s < f.first + f.count; ++s) {
+        if (f.tiling == kScanStrided &&
+            (S.k[s] >= log_chunk || k0 < 5))
+          return (int)cudaErrorInvalidValue;
+        need += int64_t(1) << (S.k[s] - (f.tiling == kScanStrided ? k0 : 0));
+      }
+      if (!g.whole && (need > f.halo ||
+                       (f.tiling == kScanContig ? f.halo
+                                                : 32 * f.halo) > kScanHaloMax))
+        return (int)cudaErrorInvalidValue;
+      if (g.whole && f.halo)
+        return (int)cudaErrorInvalidValue;
+    }
+    covered += f.count;
+    P[i] = f;
+  }
+  if (covered != n_stages) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const void* contig = (const void*)scan_contig_kernel<kScanE>;
+  const void* strided = (const void*)scan_strided_kernel<kScanE>;
+  // past 48 KB of shared memory, once per device before the first launch
+  static bool allowed[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64 || !allowed[dev]) {
+    const int smem_max = 2 * sizeof(float) * ((1 << kScanTileLog) +
+                                              2 * kScanHaloMax);
+    err = cudaFuncSetAttribute(
+        contig, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          strided, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) allowed[dev] = true;
+  }
+  const uint32_t* w3 = (const uint32_t*)perm_r3;
+  const uint32_t* hi = (const uint32_t*)scan_hi;
+  const float* src = (const float*)v;
+  for (int i = 0; i < n_phases; ++i) {
+    float* dst = (float*)(((n_phases - 1 - i) & 1) ? tmp : out);
+    const ScanPhase f = P[i];
+    if (f.tiling == kScanGlobal) {
+      const int threads = 256;
+      scan_step_kernel<false><<<(unsigned)((n_slots + threads - 1) / threads),
+                                threads, 0, st>>>(
+          src, dst, w3, hi, S.k[f.first], n_slots, chunk);
+      err = cudaGetLastError();
+    } else {
+      const ScanGeom g = scan_geom(f, f.count ? S.k[f.first] : 0, log_chunk);
+      // two buffers of the window, each after kScanHaloMax slots
+      const size_t smem = 2 * sizeof(float) * (g.W + kScanHaloMax);
+      const unsigned grid = (unsigned)(n_slots / chunk * g.tiles);
+      void* args[] = {&src, &dst, &w3, &hi, &S, (void*)&f, &log_chunk};
+      err = cudaLaunchKernel(f.tiling == kScanContig ? contig : strided,
+                             dim3(grid), dim3(kScanThreads), args, smem, st);
+    }
+    if (err != cudaSuccess) return (int)err;
+    src = dst;
+  }
+  return (int)cudaSuccess;
 }
 
 // B8's fill stage: as closg_scan_step, selecting instead of adding (take

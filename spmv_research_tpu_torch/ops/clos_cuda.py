@@ -26,13 +26,14 @@ wrapper                    replaces
                            extraction
 ``closg_r3_scan``          ``clos_pallas.py:_r3_scan_kernel_noval`` (r3 layer
                            + full scan, the W = 0 back end's first half) —
-                           launches: the r3 layer, one per scan stage
+                           launches: one per phase of ``plan_scan_phases``
+                           (a 2^20-slot chunk of 14 stages: 2)
 ``closg_cand_yext``        ``clos_gather.py:_extract_y_kernel`` (W = 0: per y
                            slot, a pick from one of C candidate rows)
 ``closgx_r3_scan_yext``    ``clos_xl.py:_r3_scan_yext_dyn_kernel`` (the CLOSGX
                            back end over all stacked chunks at once) —
-                           launches: the r3 layer, one per stage, the
-                           extraction
+                           launches: one per phase of ``plan_scan_phases``
+                           over all chunks (9 stages: 1), the extraction
 ``clos_r3_fill``           ``clos_pallas.py:_r3_fill_kernel`` (CLOS widen
                            network: r3 layer, then the forward fill) —
                            launches: the r3 layer, one per fill stage
@@ -57,6 +58,7 @@ The kernels are compiled by ``nvcc`` from ``csrc/closg.cu`` at first CUDA use
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 from typing import Sequence
 
 import torch
@@ -73,6 +75,15 @@ LAUNCHES = {"closg_front": 0, "closg_front_lut": 0, "closg_front_win": 0,
             "clos_r3_fill": 0, "clos_r3_scan": 0, "clos_r3_valid": 0}
 VLUT_SHIFT = SPARE_SHIFT + 7    # r1 bits [24,31): value index / rotation
 R3_VALS, R3_VALID = 1, 2        # clos_r3's post step: × vals, out-valid mask
+# B5's and B15's phases (csrc/closg.cu scan_contig_kernel and
+# scan_strided_kernel): tilings, the kernels' tile (kScanTileLog: 2^13
+# slots), the halo budget in window slots (one r3 block), and the kernels'
+# limits on stages and phases
+CONTIG, STRIDED, GLOBAL = 0, 1, 2
+SCAN_TILE_LOG = 13
+SCAN_HALO_MAX = 1024
+MAX_SCAN_STAGE = 30
+MAX_SCAN_PHASES = 32
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -85,9 +96,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.closg_cand_yext.argtypes = [p, p, p, i64, p, p]
     lib.clos_r3.argtypes = [p, p, p, p, i64, i32, p]
     lib.clos_fill_step.argtypes = [p, p, p, p, i32, i64, i64, p]
+    ints = ctypes.POINTER(ctypes.c_int32)
+    lib.closg_scan_phases.argtypes = [p, p, p, p, p, i64, i64, ints, i32,
+                                      ints, i32, p]
     for fn in (lib.closg_invreg, lib.closg_front, lib.closg_front_win,
                lib.closg_scan_step, lib.closg_yext, lib.closg_cand_yext,
-               lib.clos_r3, lib.clos_fill_step):
+               lib.clos_r3, lib.clos_fill_step, lib.closg_scan_phases):
         fn.restype = i32
 
 
@@ -273,6 +287,96 @@ def _check_hi(stages: Sequence[int], hi: torch.Tensor, n: int,
         raise ValueError(f"{what} stages >= 15 need the full {what}_hi plane")
 
 
+# ------------------------------------------------------- B5/B15's phases
+
+def plan_scan_phases(stages: Sequence[int], n: int, chunk: int,
+                     T: int = SCAN_TILE_LOG,
+                     halo_max: int | None = None) -> tuple:
+    """B5's and B15's phases: ((first stage, stage count, tiling, halo),
+    ...) for the r3 layer and the scan stages ``stages`` (strictly
+    increasing) over n slots in runs of ``chunk``, on tiles of 2^T slots
+    (``csrc/closg.cu`` describes the tilings; the kernels' T is
+    ``SCAN_TILE_LOG``, another T only plans the CPU emulation of the
+    schedule; the halo budget defaults to ``SCAN_HALO_MAX`` window slots):
+
+    * ``CONTIG``, phase 0: the r3 layer and the leading stages whose shifts
+      2^k sum to at most the budget (the halo); the chunk one tile
+      (chunk <= 2^T): every stage, no halo;
+    * ``STRIDED``: the stages from k0 on (2^k0 >= 32, 2^k < chunk) whose
+      shifts 2^(k−k0) along j sum to at most budget / 32 rows (the halo,
+      in rows); no halo where the tile holds all chunk / 2^k0 rows;
+    * ``GLOBAL``: one stage neither serves.
+
+    Every stage lands in exactly one phase, in order. Raises ValueError on
+    a stage list out of order or past ``MAX_SCAN_STAGE`` and on a chunk
+    that is not a power of two >= 1024 dividing n."""
+    halo_max = SCAN_HALO_MAX if halo_max is None else halo_max
+    stages = tuple(stages)
+    if (any(b <= a for a, b in zip(stages, stages[1:]))
+            or any(not 0 <= k <= MAX_SCAN_STAGE for k in stages)):
+        raise ValueError(f"scan stages {stages}: the phased scan takes "
+                         f"strictly increasing stages in [0, "
+                         f"{MAX_SCAN_STAGE}]")
+    if chunk < 1024 or chunk & (chunk - 1) or n % chunk:
+        raise ValueError(f"{n} slots in chunks of {chunk}: the phased scan "
+                         f"needs power-of-two chunks of >= 1024 slots")
+    L = chunk.bit_length() - 1
+    T = min(T, L)
+    ns = len(stages)
+    if T == L:
+        return ((0, ns, CONTIG, 0),)
+    halo, i = 0, 0
+    while i < ns and halo + (1 << stages[i]) <= halo_max:
+        halo += 1 << stages[i]
+        i += 1
+    phases = [(0, i, CONTIG, halo)]
+    while i < ns:
+        k0 = stages[i]
+        whole = L - k0 <= T - 5
+        s, rows = i, 0
+        while (k0 >= 5 and s < ns and stages[s] < L
+               and (whole or 32 * (rows + (1 << (stages[s] - k0)))
+                    <= halo_max)):
+            rows += 1 << (stages[s] - k0)
+            s += 1
+        if s == i:
+            phases.append((i, 1, GLOBAL, 0))
+            i += 1
+        else:
+            phases.append((i, s - i, STRIDED, 0 if whole else rows))
+            i = s
+    return tuple(phases)
+
+
+@lru_cache(maxsize=64)
+def _scan_plan(stages: tuple, n: int, chunk: int, halo_max: int):
+    """The C arguments of a phased scan: (stages, their count, the phase
+    table as 4 ints a phase, the phase count)."""
+    phases = plan_scan_phases(stages, n, chunk, halo_max=halo_max)
+    if len(phases) > MAX_SCAN_PHASES:
+        raise ValueError(f"{len(phases)} phases: the phased scan takes at "
+                         f"most {MAX_SCAN_PHASES}")
+    flat = [x for ph in phases for x in ph]
+    return ((ctypes.c_int32 * max(len(stages), 1))(*stages), len(stages),
+            (ctypes.c_int32 * len(flat))(*flat), len(phases))
+
+
+def _scan_phases(key, v, w3, hi_ptr, stages: Sequence[int],
+                 chunk: int) -> torch.Tensor:
+    """The r3 layer and the scan ``stages`` in the phases of
+    ``plan_scan_phases`` (B5, B15's scan), one launch a phase."""
+    n = v.numel()
+    ks, n_stages, phases, n_phases = _scan_plan(tuple(stages), n, chunk,
+                                                SCAN_HALO_MAX)
+    out = torch.empty_like(v)
+    tmp = torch.empty_like(v) if n_phases > 1 else None
+    _launch("closg_scan_phases", v.data_ptr(), w3.data_ptr(), hi_ptr,
+            out.data_ptr(), None if tmp is None else tmp.data_ptr(), n,
+            chunk, ks, n_stages, phases, n_phases, _stream(v))
+    LAUNCHES[key] += n_phases
+    return out
+
+
 # ------------------------------------------------------------------ wrappers
 
 def clos_invreg(v: torch.Tensor, word: torch.Tensor) -> torch.Tensor:
@@ -363,7 +467,7 @@ def _r3_scan_launch(key, v, perm_r3, hi_ptr, stages: Sequence[int],
                     vals=None) -> torch.Tensor:
     """The r3 layer (× ``vals`` if given: CLOS's perm network), then one
     launch of ``step`` (the scan, or CLOS's fill) per stage (ping-pong
-    buffers)."""
+    buffers): K3 and B8."""
     n = v.numel()
     a = torch.empty_like(v)
     b = torch.empty_like(v)
@@ -385,7 +489,8 @@ def _r3_scan_launch(key, v, perm_r3, hi_ptr, stages: Sequence[int],
 
 def closg_r3_scan(v, perm_r3, scan_hi, stages: Sequence[int]) -> torch.Tensor:
     """r3 layer + full segmented scan (kernel B5): the scanned (8V, 128)
-    plane. Stages ≥ 15 read their guards from ``scan_hi``."""
+    plane, in the phases of ``plan_scan_phases``. Stages ≥ 15 read their
+    guards from ``scan_hi``."""
     if not _on_cuda(v, perm_r3, scan_hi):
         return closg_r3_scan_torch(v, perm_r3, scan_hi, stages)
     n = v.numel()
@@ -393,7 +498,7 @@ def closg_r3_scan(v, perm_r3, scan_hi, stages: Sequence[int]) -> torch.Tensor:
     _check(scan_hi, "scan_hi", torch.int32)
     _check_hi(stages, scan_hi, n)
     with torch.cuda.device(v.device):
-        return _r3_scan_launch(
+        return _scan_phases(
             "closg_r3_scan", v, perm_r3,
             scan_hi.data_ptr() if scan_hi.numel() == n else None, stages, n)
 
@@ -450,8 +555,9 @@ def closg_r3_scan_yext(v, perm_r3, scan_hi, ysel_w, wstart, acc_ptr, acc_src,
 def closgx_r3_scan_yext(v, r3, ysel_w, wstart_abs, stages: int,
                         chunk_slots: int) -> torch.Tensor:
     """CLOSGX back end over all stacked chunks at once (kernel B15): the r3
-    layer, ``stages`` scan steps whose shift stays inside its chunk, and
-    one extraction launch over every chunk's y batches. (C·mrp, 128)."""
+    layer and ``stages`` scan steps whose shift stays inside its chunk, in
+    the phases of ``plan_scan_phases``, then one extraction launch over
+    every chunk's y batches. (C·mrp, 128)."""
     if not _on_cuda(v, r3, ysel_w, wstart_abs):
         return closgx_r3_scan_yext_torch(v, r3, ysel_w, wstart_abs, stages,
                                          chunk_slots)
@@ -466,8 +572,8 @@ def closgx_r3_scan_yext(v, r3, ysel_w, wstart_abs, stages: int,
         raise ValueError("ysel_w holds no whole number of y batches")
     y = torch.empty((rows, LANES), dtype=v.dtype, device=v.device)
     with torch.cuda.device(v.device):
-        a = _r3_scan_launch("closgx_r3_scan_yext", v, r3, None,
-                            range(stages), chunk_slots)
+        a = _scan_phases("closgx_r3_scan_yext", v, r3, None, range(stages),
+                         chunk_slots)
         if rows:
             _launch("closg_yext", a.data_ptr(), ysel_w.data_ptr(),
                     wstart_abs.data_ptr(), None, None, y.data_ptr(),

@@ -222,7 +222,8 @@ def test_w0_back_end_kernels_match_plain_versions(cuda, case):
     assert torch.equal(scr, K.closg_r3_scan_torch(v, A.perm_r3, A.scan_hi,
                                                   A.scan_stages))
     assert torch.equal(y, K.closg_cand_yext_torch(scr, A.ycand, A.ysel))
-    assert K.LAUNCHES["closg_r3_scan"] == 1 + len(A.scan_stages)
+    assert K.LAUNCHES["closg_r3_scan"] == len(
+        K.plan_scan_phases(A.scan_stages, A.N, A.N))
     assert K.LAUNCHES["closg_cand_yext"] == 1
     _close_to_scipy(mat, x, spmv(A, xd))
 
@@ -280,8 +281,97 @@ def test_closgx_kernels_match_plain_versions(cuda):
     y = K.closgx_r3_scan_yext(*back)
     torch.cuda.synchronize()
     assert torch.equal(y, K.closgx_r3_scan_yext_torch(*back))
-    assert K.LAUNCHES["closgx_r3_scan_yext"] == A.stages + 2
+    assert K.LAUNCHES["closgx_r3_scan_yext"] == len(K.plan_scan_phases(
+        range(A.stages), A.n_chunks * A.N, A.N)) + 1
     _close_to_scipy(mat, x, spmv(A, xd))
+    # B15 with no scan stage: the r3 layer, then the extraction
+    back0 = back[:4] + (0, A.N)
+    K.reset_launch_counts()
+    y0 = K.closgx_r3_scan_yext(*back0)
+    torch.cuda.synchronize()
+    assert torch.equal(y0, K.closgx_r3_scan_yext_torch(*back0))
+    assert K.LAUNCHES["closgx_r3_scan_yext"] == 2
+
+
+def _random_scan_planes(n, seed, cuda):
+    """Random values, r3 words (any guard bit set, wrapping or not) and
+    scan_hi words of n slots on the card."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    w3 = rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32)
+    hi = rng.integers(0, 2 ** 16, n).astype(np.int32)
+    v = rng.uniform(-1, 1, n).astype(np.float32)
+    return (torch.as_tensor(v, device=cuda).view(-1, 128),
+            torch.as_tensor(w3, device=cuda).view(-1, 128),
+            torch.as_tensor(hi, device=cuda))
+
+
+@pytest.mark.parametrize("L,n_stages,halo_max", [
+    (13, 13, 1024),      # the plane one tile: one phase, no halo
+    (12, 12, 1024),      # a plane smaller than a tile
+    (17, 17, 1024),      # contiguous, then strided over all rows
+    (20, 20, 1024),      # strided with a 31-row halo, then scan_hi stages
+    (17, 17, 64),        # a small budget: strided phases of 1-row halos
+    (16, 17, 16),        # a budget below one row: global phases
+    (15, 0, 1024),       # the r3 layer alone
+])
+def test_b5_phases_on_random_planes(cuda, monkeypatch, L, n_stages,
+                                    halo_max):
+    """B5 in the phases of ``plan_scan_phases`` at the halo budget given
+    (monkeypatched) equals its plain version bit for bit, one launch a
+    phase; stages >= 15 read scan_hi."""
+    monkeypatch.setattr(K, "SCAN_HALO_MAX", halo_max)
+    v, w3, hi = _random_scan_planes(1 << L, L + n_stages, cuda)
+    stages = tuple(range(n_stages))
+    K.reset_launch_counts()
+    got = K.closg_r3_scan(v, w3, hi, stages)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.closg_r3_scan_torch(v, w3, hi, stages))
+    assert K.LAUNCHES["closg_r3_scan"] == len(K.plan_scan_phases(
+        stages, 1 << L, 1 << L, halo_max=halo_max))
+
+
+@pytest.mark.parametrize("chunk,n_chunks,stages,halo_max", [
+    (1 << 10, 6, 12, 1024),   # chunks smaller than a tile, shifts >= chunk
+    (1 << 12, 5, 12, 1024),
+    (1 << 15, 3, 14, 1024),   # tiles whose halo wraps inside each chunk
+    (1 << 17, 2, 14, 128),    # strided with a 3-row halo in each chunk
+    (1 << 14, 2, 0, 1024),    # no stage
+])
+def test_b15_phases_on_random_stacks(cuda, monkeypatch, chunk, n_chunks,
+                                     stages, halo_max):
+    """B15 over random stacks, its extraction reading every slot in place
+    (y = the scanned plane), equals its plain version bit for bit."""
+    monkeypatch.setattr(K, "SCAN_HALO_MAX", halo_max)
+    n = chunk * n_chunks
+    v, r3, _ = _random_scan_planes(n, chunk + stages, cuda)
+    rows = n // 128
+    ysel_w = torch.arange(128, dtype=torch.int32,
+                          device=cuda).repeat(rows, 1)
+    wstart = torch.arange(rows, dtype=torch.int32, device=cuda)
+    args = (v, r3, ysel_w, wstart, stages, chunk)
+    K.reset_launch_counts()
+    y = K.closgx_r3_scan_yext(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(y, K.closgx_r3_scan_yext_torch(*args))
+    assert K.LAUNCHES["closgx_r3_scan_yext"] == len(K.plan_scan_phases(
+        range(stages), n, chunk, halo_max=halo_max)) + 1
+
+
+def test_phased_scan_refuses_bad_stages(cuda):
+    """A stage list out of order, and stages >= 15 without the scan_hi
+    plane, raise before any launch."""
+    v, w3, hi = _random_scan_planes(1 << 16, 1, cuda)
+    K.reset_launch_counts()
+    with pytest.raises(ValueError, match="increasing"):
+        K.closg_r3_scan(v, w3, hi, (0, 2, 1))
+    with pytest.raises(ValueError, match="scan_hi"):
+        K.closg_r3_scan(v, w3, hi[:8].contiguous(), tuple(range(16)))
+    with pytest.raises(ValueError, match="spare bits"):
+        K.closgx_r3_scan_yext(v, w3, torch.zeros((0, 128), dtype=torch.int32,
+                                                 device=cuda),
+                              torch.zeros(0, dtype=torch.int32, device=cuda),
+                              16, 1 << 16)
+    assert not any(K.LAUNCHES.values())
 
 
 def test_rowsplit_and_dense_on_the_card(cuda, monkeypatch):
