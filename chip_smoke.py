@@ -74,8 +74,9 @@ failure (non-zero exit, no result line):
     the cut of B16a's launch on each (blocks, chunks per band, K slices,
     shared bytes), B16a and B16b against their plain versions on both
     (within 1e-5 of |A|·|X| per element and of Σ|a||b| per slot) and timed
-    on gupta3's beside cuSPARSE's SpMM and SDDMM, B16a also on shipsec1's
-    and at other chunk targets; shipsec1's SELLW
+    on gupta3's beside cuSPARSE's SpMM and SDDMM, B16b's launch logged
+    (shared bytes a block, blocks an SM) and B16b timed on shipsec1's, B16a
+    also on shipsec1's and at other chunk targets; shipsec1's SELLW
     SpMM kernel B12 (the scan in registers) against its plain
     version (exact), timed beside cuSPARSE's SpMM and its first kernel's
     time; one CLOSG SpMM on gupta3 at K = 8 through ``ops.spmm``
@@ -109,11 +110,15 @@ failure (non-zero exit, no result line):
     (asserts N = 2^20) and BFLY (N = 2^20, L = 20) built, cold build times
     and program shapes logged; B8's three parts (fill, scan, valid) and
     B9's three (exchange network, fill, scan) against their plain versions
-    on the program's own pipeline inputs (``torch.equal``) and timed; B10
+    on the program's own pipeline inputs (``torch.equal``) and timed, each
+    call's phase plan logged, the widen network's three phases timed one
+    by one and the fill and scan at tiles of 2^9 up to 2^T (each held to
+    its plain version); B10
     (the program in phases, one launch a phase) against its plain version
     and B9's chain (``torch.equal``), timed beside cuSPARSE's fp32 SpMV,
     its phases and launches per SpMV logged; one counted
-    SpMV per engine (launches per SpMV), one SpMV's device time and a
+    SpMV per engine (launches per SpMV; BFLY's B9 launches asserted to be
+    one a phase of its calls' plans, 11), one SpMV's device time and a
     traced chain of 50 per engine (and B10 and cuSPARSE timed alone); the
     sweep with formats csr, clos and bfly (the B8 and B9 kernels must
     launch, every row within 1e-5 of |A|·|x|); one counted B10 SpMV (one
@@ -121,7 +126,9 @@ failure (non-zero exit, no result line):
     mac_econ_fwd500 (validation_twins.txt:6, N = 2^21): ``build_clos``
     refuses it, BFLY builds it, B9 equals its plain versions there and B10
     (the strided tiling at L = 21) its plain version and B9's chain, timed,
-    y against the gold, and the sweep with clos and bfly skips
+    y against the gold, one counted BFLY/cuda SpMV (B9 one launch a phase
+    of its plans, asserted) against the gold, and the sweep with clos and
+    bfly skips
     clos as unsuitable and gives a BFLY/cuda row within 1e-5.
 
 Every kernel entry carries its bound: the larger of the bytes the function
@@ -1132,6 +1139,19 @@ def k_dim_phase(timer, dev, gup, ship, Ag, Aw, gup_launches, cfg) -> list:
          2 * gup.nnz * k),
         library=lambda: torch.sparse.sampled_addmm(lib, Ad, Bd.t(),
                                                    beta=0.0))
+    # the blocks an SM by shared memory (1 KB of it reserved a block) and
+    # threads; registers (64 a thread at K <= 128) allow 2
+    props = torch.cuda.get_device_properties(dev)
+    smem = KB.sddmm_smem(k)
+    blocks = min(props.shared_memory_per_multiprocessor // (smem + 1024),
+                 props.max_threads_per_multi_processor // KB.SDDMM_THREADS)
+    log(f"# btile_sddmm at K = {k}: one block of {KB.SDDMM_THREADS} "
+        f"threads a step "
+        f"(gupta3 {Ab.nsteps} steps), {smem} B of dynamic shared memory a "
+        f"block, {blocks} blocks an SM by shared memory and threads; "
+        f"shipsec1 "
+        f"{timer.ms(lambda: KB.btile_sddmm(*d_ship)):.4f} ms, its plain "
+        f"version {timer.ms(lambda: KB.btile_sddmm_torch(*d_ship)):.4f} ms")
     # B16a on shipsec1 alone, and at other chunk targets (blocks per SM
     # over the launch; the planner's is KB.SPMM_WAVES)
     ship_ms = timer.ms(lambda: KB.btile_spmm(*s_ship))
@@ -1608,6 +1628,15 @@ def fallback_phase(timer, dev, cfg) -> list:
         entry("bfly_scan", BFLY_SRC,
               [case("bfly_scan", (v3, Ab.scan_guards, Ab.scan_stages))],
               (nbytes(v3, Ab.scan_guards) + 4 * N, N))]
+    # B9's phases: each call's plan, and the widen network's time a phase
+    b9_want = b9_launches(KF, Ab)
+    log(f"# B9 plans at T = {KF.tile_log(Ab.L)}: " + "; ".join(
+        f"{key} {KF.b9_phase_table(key, st, Ab.L)}"
+        for key, st in b9_calls(Ab) if st)
+        + f"; {sum(b9_want.values())} launches per SpMV {b9_want}")
+    n_widen = len(KF.b9_phase_table("bfly_xor_net", Ab.widen_stages, Ab.L))
+    log(f"# B9 widen network: {k_b9[0]['ms']:.5f} ms in {n_widen} phases, "
+        f"{k_b9[0]['ms'] / n_widen:.5f} ms a phase")
     planes = Ab.planes()
     chain = KF.bfly_xor_net(v0, Ab.widen_B, Ab.widen_stages)
     chain = KF.bfly_fill(chain, Ab.fill_words, Ab.fill_stages)
@@ -1638,6 +1667,13 @@ def fallback_phase(timer, dev, cfg) -> list:
             f"{ {k: v for k, v in launches.items() if v} } (total "
             f"{sum(launches.values())})")
         check_gold(f"scircuit {label}/cuda", host, x, y)
+    if {k: launches[k] for k in KF.LAUNCHES} != {**b9_want, "bfly_full": 0}:
+        fail(f"one scircuit BFLY/cuda SpMV launched "
+             f"{ {k: launches[k] for k in KF.LAUNCHES} }, not one launch a "
+             f"phase of its B9 plans {b9_want}")
+    if sum(b9_want.values()) != 11:
+        fail(f"scircuit's B9 plans take {sum(b9_want.values())} phases, "
+             f"not 11 (3 a network, 1 the fill, 1 the scan)")
     time_candidates(timer, "scircuit", {
         "CLOS/cuda": lambda v: spmv(Ac, v, impl="cuda"),
         "BFLY/cuda": lambda v: spmv(Ab, v, impl="cuda"),
@@ -1728,6 +1764,17 @@ def fallback_phase(timer, dev, cfg) -> list:
     y = spmv_bfly_cuda_fused(Am, torch.as_tensor(xm, dtype=torch.float32,
                                                  device=dev))
     check_gold("mac_econ_fwd500 BFLY/cuda fused (B10)", mac, xm, y)
+    y, launches = counted_spmv(Am, torch.as_tensor(
+        xm, dtype=torch.float32, device=dev), KF)
+    b9_want = b9_launches(KF, Am)
+    log(f"# launches during one mac_econ_fwd500 BFLY/cuda SpMV: "
+        f"{launches}; B9 plans at T = {KF.tile_log(Am.L)}: " + "; ".join(
+            f"{key} {KF.b9_phase_table(key, st, Am.L)}"
+            for key, st in b9_calls(Am) if st))
+    if launches != {**b9_want, "bfly_full": 0}:
+        fail(f"one mac_econ_fwd500 BFLY/cuda SpMV launched {launches}, not "
+             f"one launch a phase of its B9 plans {b9_want}")
+    check_gold("mac_econ_fwd500 BFLY/cuda", mac, xm, y)
     del Am, v, v0, chain, y
     out = io.StringIO()
     with tempfile.TemporaryDirectory() as out_dir:
@@ -1742,6 +1789,23 @@ def fallback_phase(timer, dev, cfg) -> list:
     check_rows(results, ["BFLY/cuda"], {"mac_econ_fwd500": mac}, xm)
     log(f"# phase 16 done in {time.perf_counter() - t_phase:.0f}s")
     return [*k_b8, *k_b9, k_b10]
+
+
+def b9_calls(A):
+    """The five B9 calls of one BFLY SpMV: (wrapper, stages)."""
+    return (("bfly_xor_net", A.widen_stages), ("bfly_fill", A.fill_stages),
+            ("bfly_xor_net", A.perm_stages), ("bfly_scan", A.scan_stages),
+            ("bfly_xor_net", A.compact_stages))
+
+
+def b9_launches(KF, A) -> dict:
+    """B9's launches per BFLY SpMV of program A: one a phase of each
+    call's plan (a call without stages launches nothing)."""
+    want = {"bfly_xor_net": 0, "bfly_fill": 0, "bfly_scan": 0}
+    for key, st in b9_calls(A):
+        if st:
+            want[key] += len(KF.b9_phase_table(key, st, A.L))
+    return want
 
 
 def check_y(label, host, X, Y) -> None:

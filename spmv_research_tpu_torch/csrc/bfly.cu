@@ -1,7 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels of the BFLY routed-butterfly SpMV
-// engine: one exchange stage, one fill stage and one scan stage per launch
-// (B9), and the whole routing program tiled into phases, one launch (or
-// one grid-wide barrier) per phase (B10).
+// engine: one phase of stages per launch over tiles of the plane, for one
+// exchange network, one fill or one scan (B9) and for the whole routing
+// program (B10). Both run the same phase kernel, `full_kernel`.
 //
 // Built by spmv_research_tpu_torch/ops/bfly_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
@@ -21,16 +21,24 @@
 //   fill: out[p] = take ? v[p - 2^k] : v[p]
 //   scan: out[p] = v[p] + (guard ? v[p - 2^k] : 0)
 // with p - 2^k wrapping over the N slots like jnp.roll (a set bit never
-// wraps). Every B9 stage reads the previous stage's whole plane, so the
-// stages ping-pong two buffers. At N = 2^20 a plane is 4 MB and both stay
-// in the 50 MB L2.
-
+// wraps).
+//
+// B9 `bfly_xor_net`, `bfly_fill`, `bfly_scan` — replace spmv_research_tpu/
+// ops/bfly_pallas.py `_xor_net_kernel`, `_fill_kernel` and `_scan_kernel`,
+// each of which ran all of its stages in VMEM in one call. Here each
+// wrapper's stages become B10's stage codes (one network, or one run of
+// shifts, without × vals and × valid: the wrapper passes no vals and no
+// valid plane, which `finish` honours) and run in B10's phases below, one
+// launch a phase: a Waksman network of L = 20 in three (contiguous,
+// strided, contiguous), the fill and the scan in one contiguous phase each
+// (halo 63 and 511 slots), 11 launches per SpMV where one a stage took
+// 132. Bound: device memory, the value plane and the network's or run's
+// word planes read once and the plane written once.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxCodes = 256;
 
 // B10's stage codes: bits [0,5) k, [5,10) b, [10,16) w, [16,18) kind,
@@ -39,43 +47,6 @@ constexpr int kMaxCodes = 256;
 // its own XLA pass in JAX).
 enum Kind { kExchange = 0, kFill = 1, kScan = 2 };
 enum Net { kWiden = 0, kPerm = 1, kCompact = 2 };
-
-// B9 `bfly_xor_net`, one stage — replaces spmv_research_tpu/ops/
-// bfly_pallas.py `_xor_net_kernel` (which ran all of a network's stages in
-// VMEM; here each stage is one launch over the flat plane). Bound: device
-// memory, 12 bytes per slot (value, word, out); the partner read hits the
-// same or a neighbouring line for 2^k < 32 and L2 otherwise.
-__global__ void xor_stage_kernel(const float* __restrict__ src,
-                                 float* __restrict__ dst,
-                                 const uint32_t* __restrict__ plane, int b,
-                                 int k, int64_t n) {
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  const uint32_t bit = (plane[p] >> b) & 1u;
-  dst[p] = bit ? src[p ^ (int64_t(1) << k)] : src[p];
-}
-
-// B9 `bfly_fill` / `bfly_scan`, one stage — replace bfly_pallas.py
-// `_fill_kernel` (kSelect) and `_scan_kernel`, whose `_flat_shift` built
-// v[p - 2^k] from rolls. The select is exact; the add is one fp32 add per
-// slot, in the plain version's order. Bound: device memory, 12 bytes per
-// slot.
-template <bool kSelect>
-__global__ void shift_stage_kernel(const float* __restrict__ src,
-                                   float* __restrict__ dst,
-                                   const uint32_t* __restrict__ words, int k,
-                                   int64_t n) {
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  const uint32_t g = (words[p] >> k) & 1u;
-  const int64_t q = (p - (int64_t(1) << k)) & (n - 1);
-  if (kSelect) {
-    dst[p] = g ? src[q] : src[p];
-  } else {
-    const float shifted = g ? src[q] : 0.0f;
-    dst[p] = src[p] + shifted;
-  }
-}
 
 // ---------------------------------------------------------------- B10
 //
@@ -197,11 +168,11 @@ __device__ __forceinline__ Stage decode(const Planes& a, uint32_t c) {
 }
 
 // The last phase's write: × vals when no stage followed the perm network,
-// then × valid.
+// then × valid (none for a B9 program, whose valid is null).
 __device__ __forceinline__ float finish(const Planes& a, const Program& P,
                                         float v, int64_t g) {
   if (P.premul_final) v = __fmul_rn(v, a.vals[g]);
-  return __fmul_rn(v, a.valid[g]);
+  return a.valid ? __fmul_rn(v, a.valid[g]) : v;
 }
 
 // A phase reads the buffer the launch before it wrote (plain loads).
@@ -451,7 +422,7 @@ __global__ void __launch_bounds__(kPhaseThreads)
     tile_phase<kJ>(a, P, f, blockIdx.x, src, dst, last, sm);
 }
 
-unsigned blocks_for(int64_t n, int threads = kThreads) {
+unsigned blocks_for(int64_t n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
@@ -463,33 +434,14 @@ const char* bfly_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// plane: the word plane of the stage (B + w*n), n a power of two.
-int bfly_xor_stage(const void* src, void* dst, const void* plane, int b,
-                   int k, int64_t n, void* stream) {
-  xor_stage_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)src, (float*)dst, (const uint32_t*)plane, b, k, n);
-  return (int)cudaGetLastError();
-}
-
-// select != 0: a fill stage; else a scan stage. n a power of two.
-int bfly_shift_stage(const void* src, void* dst, const void* words, int k,
-                     int64_t n, int select, void* stream) {
-  if (select)
-    shift_stage_kernel<true><<<blocks_for(n), kThreads, 0,
-                               (cudaStream_t)stream>>>(
-        (const float*)src, (float*)dst, (const uint32_t*)words, k, n);
-  else
-    shift_stage_kernel<false><<<blocks_for(n), kThreads, 0,
-                                (cudaStream_t)stream>>>(
-        (const float*)src, (float*)dst, (const uint32_t*)words, k, n);
-  return (int)cudaGetLastError();
-}
-
-// The whole program: codes[0, n_codes) in the phases of `phases` (4 ints
-// a phase: first code, code count, tiling, halo), on tiles of 2^tile_log
-// slots (tile_log <= 14, and >= 5 where a phase is tiled; 2^(tile_log − 5)
-// threads a block, at least 32), one launch per phase. n is a power of
-// two, <= 2^30.
+// A program: codes[0, n_codes) in the phases of `phases` (4 ints a phase:
+// first code, code count, tiling, halo), on tiles of 2^tile_log slots
+// (tile_log <= 14, and >= 5 where a phase is tiled; 2^tile_log / 8
+// threads a block, / 16 at 14, at least 32), one launch per phase. n is a
+// power of two, <= 2^30. B10 passes every plane; a B9 wrapper only x, the
+// buffers its phases need, out and the word plane its codes name, with
+// vals and valid null and premul_final 0 (its codes carry no × vals). A
+// code whose plane is null is refused.
 int bfly_full(const void* x, void* buf0, void* buf1, const void* widen_b,
               const void* fill_words, const void* perm_b, const void* vals,
               const void* scan_guards, const void* compact_b,
@@ -509,7 +461,19 @@ int bfly_full(const void* x, void* buf0, void* buf1, const void* widen_b,
   P.log_n = log_n;
   P.tile_log = tile_log;
   P.halo_max = 0;
-  for (int i = 0; i < n_codes; ++i) P.code[i] = codes[i];
+  const void* nets[] = {widen_b, perm_b, compact_b};
+  for (int i = 0; i < n_codes; ++i) {
+    const uint32_t c = codes[i];
+    const int kind = (c >> 16) & 3, net = (c >> 18) & 3;
+    const void* plane = kind == kExchange ? (net < 3 ? nets[net] : nullptr)
+                        : kind == kFill   ? fill_words
+                        : kind == kScan   ? scan_guards
+                                          : nullptr;
+    if (!plane || (((c >> 20) & 1) && !vals))
+      return (int)cudaErrorInvalidValue;
+    P.code[i] = c;
+  }
+  if (premul_final && !vals) return (int)cudaErrorInvalidValue;
   bool shifts = false;
   int covered = 0;
   for (int i = 0; i < n_phases; ++i) {

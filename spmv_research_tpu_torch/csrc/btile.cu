@@ -224,19 +224,85 @@ __global__ void btile_combine_kernel(const float* __restrict__ part,
 }
 
 // SDDMM — replaces spmv_research_tpu/ops/btile.py `_btile_sddmm_kernel`.
-// One block per step (steps are independent), one warp per slab row r:
-// the warp holds A's row g * 1024 + tgt[s][r] in registers (lane l holds
-// elements l, l + 32, ...; read directly, where the TPU kernel gathered the
-// band's rows with a one-hot matmul), finds the row's pattern bits 32
-// columns at a time with a ballot, and for each set column c takes the dot
-// product with B's row cb * 128 + c: per-lane FFMA over the lane's
-// elements, then a butterfly of shuffles, so every slot's sum runs in one
-// fixed order. Masked slots and rows past the step's live tiles are written
-// as 0 without a product. KW = ceil(K / 32) registers per lane.
+// The TPU kernel multiplied each step's gathered A rows by B[cb]ᵀ on the
+// matrix unit and masked the product. Multiplying every slot of the live
+// tiles would cost about 15 products a nonzero on gupta3, more than the
+// byte bound, so here each nonzero is one dot product of a few lanes. One
+// block of 512 threads a step (steps are independent):
+//   * B's column block, 128 × K fp32 (64 KB at K = 128), is copied into
+//     shared memory once a step with cp.async (16 bytes a copy where K is a
+//     multiple of 4, else 4), row c at stride SK = K rounded up to 8, plus
+//     4: an odd number of 16-byte words, so that 8 lanes reading 8
+//     consecutive float4s of one B row hit 8 different bank groups. It is
+//     the block's only barrier;
+//   * then each warp owns the live slab rows warp, warp + 16, ... and
+//     works on its own: its rows' band rows (tgt) in one load, and each
+//     row's A row (g * 1024 + tgt[s][r]; read directly, where the TPU
+//     kernel gathered the band's rows with a one-hot matmul) and pattern
+//     word loaded into registers one row ahead;
+//   * a row's set columns: lane l holds pattern bytes 4l..4l+3, four
+//     ballots and a popc give its rank, and the columns go, in order, to
+//     the warp's list in shared memory;
+//   * each set column is one slot's K-long dot product, taken by a group
+//     of G lanes (G = 8 from K = 29; fewer where K has fewer float4s), 32
+//     / G columns a pass: lane p of the group holds the float4s q = p,
+//     p + G, ... of the A row in registers, reads the same float4s of the
+//     column's B row from shared memory (one group's 8 lanes, 8 bank
+//     groups), FFMA into four partial sums (k mod 4) added as (x + y) +
+//     (z + w), then a fixed butterfly of shuffles over the group, so every
+//     slot's sum runs in one fixed order. Its lane 0 writes the sum into
+//     the warp's C row in shared memory (zeroed beforehand: masked slots
+//     stay 0);
+//   * the warp writes the C row to the slab, one float4 a lane, and zeroes
+//     it again; the rows past the step's 8 * step_nt[s] live rows are
+//     written as zeros first, with no product.
+// No TF32: FFMA in full fp32, as the TPU kernel ran at Precision.HIGHEST.
+// The sums run in another order than the plain version's (torch.bmm), so
+// the two agree to fp32 add-order slack.
 // Bound: the bytes it must move (the slab written once, the pattern read
-// once, A and B once); the pattern's dots are 2 * K operations per nnz.
-template <int KW>
-__global__ void __launch_bounds__(256)
+// once, A and B once); the dots are 2 * K operations per nnz. Each
+// multiply-add reads 4 bytes of B from shared memory: on gupta3 at K = 128
+// that is 4.7 GB, about 0.16 ms at 128 bytes a clock an SM, the dots'
+// floor beside the slab's writes. A block-wide design (chunks of 32 rows,
+// A staged in shared memory, barriers between listing, dots and writes)
+// ran those three one after another and was slower (PERF.md).
+constexpr int kSdThreads = 512;
+constexpr int kSdWarps = kSdThreads / 32;
+
+// shared row stride of the B block (floats)
+__host__ __device__ inline int sddmm_stride(int K) {
+  return (K + 7) / 8 * 8 + 4;
+}
+
+// a block's dynamic shared memory: the B block, and each warp's C row and
+// list of up to 128 columns (ops/btile_cuda.py sddmm_smem mirrors it):
+// 77,824 B at K = 128, so 2 blocks an SM of 228 KB; 143,360 B at K = 256,
+// so 1
+__host__ __device__ inline int sddmm_smem(int K) {
+  return (int)(sizeof(float) * (kTileC * sddmm_stride(K) +
+                                kSdWarps * kTileC) +
+               kSdWarps * kTileC);
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(gmem));
+}
+
+// float4 q of a row of K floats (zeros past K); vec: K a multiple of 4 and
+// the row 16-byte aligned
+__device__ __forceinline__ float4 load4(const float* row, int q, int K,
+                                        bool vec) {
+  if (vec) return reinterpret_cast<const float4*>(row)[q];
+  float e[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) e[u] = 4 * q + u < K ? row[4 * q + u] : 0.0f;
+  return make_float4(e[0], e[1], e[2], e[3]);
+}
+
+template <int G, int QL>  // QL float4s of the A row a lane (q < ceil(K/4))
+__global__ void __launch_bounds__(kSdThreads, QL <= 4 ? 2 : 1)
     btile_sddmm_kernel(const int8_t* __restrict__ patt,
                        const int32_t* __restrict__ tgt,
                        const int32_t* __restrict__ step_g,
@@ -244,57 +310,150 @@ __global__ void __launch_bounds__(256)
                        const int32_t* __restrict__ step_nt,
                        const float* __restrict__ ap,
                        const float* __restrict__ bp, float* __restrict__ out,
-                       int rows_per_step, int K) {
+                       int rows_per_step, int K, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int sk = sddmm_stride(K);
+  const int t = threadIdx.x;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  float* const bs = smem;                                  // [128][sk]
+  float* const crow = bs + kTileC * sk + warp * kTileC;    // the C row
+  uint8_t* const list = reinterpret_cast<uint8_t*>(
+                            bs + kTileC * sk + kSdWarps * kTileC) +
+                        warp * kTileC;                     // its columns
   const int64_t s = blockIdx.x;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
   const int R = step_nt[s] * 8;
   const int64_t base = s * rows_per_step;
-  const float* bb = bp + (int64_t)step_cb[s] * kTileC * K;
-  for (int r = warp; r < rows_per_step; r += 8) {
-    float* orow = out + (base + r) * kTileC;
-    if (r >= R) {
-#pragma unroll
-      for (int j = 0; j < kTileC / 32; ++j) orow[32 * j + lane] = 0.0f;
-      continue;
+  float4* const out4 = reinterpret_cast<float4*>(out + base * kTileC);
+  const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int i = R * (kTileC / 4) + t; i < rows_per_step * (kTileC / 4);
+       i += kSdThreads)
+    out4[i] = zero4;
+  if (R == 0) return;
+  const float* const bb = bp + (int64_t)step_cb[s] * kTileC * K;
+  const int kq = (K + 3) / 4;
+  if (vec) {
+    for (int i = t; i < kTileC * kq; i += kSdThreads) {
+      const int r = i / kq, c = 4 * (i - r * kq);
+      cp_async16(bs + r * sk + c, bb + (int64_t)r * K + c);
     }
-    const float* arow =
-        ap + ((int64_t)step_g[s] * kBand + tgt[base + r]) * K;
-    float a[KW];
+  } else {
+    for (int i = t; i < kTileC * 4 * kq; i += kSdThreads) {
+      const int r = i / (4 * kq), c = i - r * 4 * kq;
+      if (c < K)
+        cp_async4(bs + r * sk + c, bb + (int64_t)r * K + c);
+      else
+        bs[r * sk + c] = 0.0f;  // the last float4's tail
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  reinterpret_cast<float4*>(crow)[lane] = zero4;
+  // the warp's rows warp + 16 i, i < nrows: band row i in lane i
+  const int nrows = R > warp ? (R - warp + kSdWarps - 1) / kSdWarps : 0;
+  const int tg = lane < nrows ? tgt[base + warp + kSdWarps * lane] : 0;
+  const float* const a0 = ap + (int64_t)step_g[s] * kBand * K;
+  const int p = lane % G;
+  const unsigned full = 0xffffffffu;
+  const unsigned before = (1u << lane) - 1u;
+  float4 an[QL];  // the next row's A float4s and pattern word
+  uint32_t pwn = 0;
+  auto fetch = [&](int i) {
+    const float* arow = a0 + (int64_t)__shfl_sync(full, tg, i) * K;
 #pragma unroll
-    for (int i = 0; i < KW; ++i)
-      a[i] = 32 * i + lane < K ? arow[32 * i + lane] : 0.0f;
-    const int8_t* prow = patt + (base + r) * kTileC;
+    for (int j = 0; j < QL; ++j)
+      an[j] = p + G * j < kq ? load4(arow, p + G * j, K, vec) : zero4;
+    pwn = reinterpret_cast<const uint32_t*>(
+        patt + (base + warp + kSdWarps * i) * kTileC)[lane];
+  };
+  if (nrows) fetch(0);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();  // B landed
+  for (int i = 0; i < nrows; ++i) {
+    float4 a[QL];
 #pragma unroll
-    for (int j = 0; j < kTileC / 32; ++j) {
-      unsigned m = __ballot_sync(0xffffffffu, prow[32 * j + lane] != 0);
-      float mine = 0.0f;
-      while (m) {
-        const int b = __ffs(m) - 1;
-        m &= m - 1;
-        const float* brow = bb + (int64_t)(32 * j + b) * K;
-        float p = 0.0f;
+    for (int j = 0; j < QL; ++j) a[j] = an[j];
+    const uint32_t pw = pwn;
+    if (i + 1 < nrows) fetch(i + 1);
+    int rank = 0, n = 0;
 #pragma unroll
-        for (int i = 0; i < KW; ++i)
-          if (32 * i + lane < K) p = fmaf(a[i], brow[32 * i + lane], p);
+    for (int q = 0; q < 4; ++q) {
+      const unsigned nz = __ballot_sync(full, (pw >> 8 * q) & 0xffu);
+      rank += __popc(nz & before);
+      n += __popc(nz);
+    }
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          p += __shfl_xor_sync(0xffffffffu, p, off);
-        if (lane == b) mine = p;
+    for (int q = 0; q < 4; ++q)
+      if ((pw >> 8 * q) & 0xffu) list[rank++] = (uint8_t)(4 * lane + q);
+    __syncwarp();
+    for (int e0 = 0; e0 < n; e0 += 32 / G) {
+      const int e = e0 + lane / G;
+      float4 acc = zero4;
+      int c = 0;
+      if (e < n) {
+        c = list[e];
+        const float4* b4 = reinterpret_cast<const float4*>(bs + c * sk);
+#pragma unroll
+        for (int j = 0; j < QL; ++j) {
+          if (p + G * j >= kq) break;
+          const float4 y = b4[p + G * j];
+          acc.x = fmaf(a[j].x, y.x, acc.x);
+          acc.y = fmaf(a[j].y, y.y, acc.y);
+          acc.z = fmaf(a[j].z, y.z, acc.z);
+          acc.w = fmaf(a[j].w, y.w, acc.w);
+        }
       }
-      orow[32 * j + lane] = mine;
+      float sum = (acc.x + acc.y) + (acc.z + acc.w);
+#pragma unroll
+      for (int off = 1; off < G; off <<= 1)
+        sum += __shfl_xor_sync(full, sum, off);
+      if (e < n && p == 0) crow[c] = sum;
     }
+    __syncwarp();  // the row's sums are in; its list is read
+    out4[(warp + kSdWarps * i) * (kTileC / 4) + lane] =
+        reinterpret_cast<const float4*>(crow)[lane];
+    reinterpret_cast<float4*>(crow)[lane] = zero4;
+    __syncwarp();
   }
 }
 
-template <int KW>
-void launch_sddmm(int64_t nsteps, cudaStream_t st, const int8_t* patt,
-                  const int32_t* tgt, const int32_t* step_g,
-                  const int32_t* step_cb, const int32_t* step_nt,
-                  const float* ap, const float* bp, float* out,
-                  int rows_per_step, int K) {
-  btile_sddmm_kernel<KW><<<(unsigned)nsteps, 256, 0, st>>>(
-      patt, tgt, step_g, step_cb, step_nt, ap, bp, out, rows_per_step, K);
+constexpr int kSddmmMaxK = 256;
+// one instantiation per (G, QL): G lanes an entry, as many as K has float4s
+// up to 8; QL, the float4s a lane holds, rounded up to a power of two
+const void* const sddmm_kernels[] = {
+    (const void*)btile_sddmm_kernel<1, 1>,
+    (const void*)btile_sddmm_kernel<2, 1>,
+    (const void*)btile_sddmm_kernel<2, 2>,
+    (const void*)btile_sddmm_kernel<4, 1>,
+    (const void*)btile_sddmm_kernel<4, 2>,
+    (const void*)btile_sddmm_kernel<8, 1>,
+    (const void*)btile_sddmm_kernel<8, 2>,
+    (const void*)btile_sddmm_kernel<8, 4>,
+    (const void*)btile_sddmm_kernel<8, 8>};
+
+const void* sddmm_kernel(int K) {
+  const int kq = (K + 3) / 4;
+  if (kq >= 8) {
+    const int ql = (kq + 7) / 8;
+    return sddmm_kernels[ql <= 1 ? 5 : ql <= 2 ? 6 : ql <= 4 ? 7 : 8];
+  }
+  if (kq >= 4) return sddmm_kernels[kq <= 4 ? 3 : 4];
+  if (kq >= 2) return sddmm_kernels[kq <= 2 ? 1 : 2];
+  return sddmm_kernels[0];
+}
+
+// Allow the SDDMM kernels their dynamic shared memory, once per device.
+cudaError_t allow_sddmm_smem() {
+  static bool allowed[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && allowed[dev])) return err;
+  for (const void* k : sddmm_kernels) {
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               sddmm_smem(kSddmmMaxK));
+    if (err != cudaSuccess) return err;
+  }
+  if (dev < 64) allowed[dev] = true;
+  return err;
 }
 
 }  // namespace
@@ -348,29 +507,26 @@ int btile_combine(const void* part, const void* band_ptr, void* y,
 }
 
 // out: (nsteps * rows_per_step, 128); ap: (ngroups * 1024, K), bp:
-// (ncb * 128, K), 1 <= K <= 256.
+// (ncb * 128, K), 1 <= K <= 256; patt 4-byte aligned. The kernel's dynamic
+// shared memory (sddmm_smem(K): 77,824 B at K = 128, 143,360 at K = 256) is allowed once per
+// device before its first launch.
 int btile_sddmm(const void* patt, const void* tgt, const void* step_g,
                 const void* step_cb, const void* step_nt, const void* ap,
                 const void* bp, void* out, int64_t nsteps, int rows_per_step,
                 int K, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  auto args = [&](auto launch) {
-    launch(nsteps, st, (const int8_t*)patt, (const int32_t*)tgt,
-           (const int32_t*)step_g, (const int32_t*)step_cb,
-           (const int32_t*)step_nt, (const float*)ap, (const float*)bp,
-           (float*)out, rows_per_step, K);
-  };
-  switch ((K + 31) / 32) {
-    case 1: args(launch_sddmm<1>); break;
-    case 2: args(launch_sddmm<2>); break;
-    case 3: args(launch_sddmm<3>); break;
-    case 4: args(launch_sddmm<4>); break;
-    case 5: args(launch_sddmm<5>); break;
-    case 6: args(launch_sddmm<6>); break;
-    case 7: args(launch_sddmm<7>); break;
-    case 8: args(launch_sddmm<8>); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (K < 1 || K > kSddmmMaxK || rows_per_step > kRows ||
+      rows_per_step % 8 || (uintptr_t)patt % 4)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_sddmm_smem();
+  if (err != cudaSuccess) return (int)err;
+  const bool vec = K % 4 == 0 && (uintptr_t)ap % 16 == 0 &&
+                   (uintptr_t)bp % 16 == 0;
+  void* args[] = {&patt, &tgt, &step_g, &step_cb, &step_nt, &ap, &bp,
+                  &out, &rows_per_step, &K, (void*)&vec};
+  err = cudaLaunchKernel(sddmm_kernel(K), dim3((unsigned)nsteps),
+                         dim3(kSdThreads), args, sddmm_smem(K),
+                         (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -7,15 +7,20 @@ Pallas kernel (sources and design notes in ``csrc/bfly.cu``):
 wrapper            replaces
 =================  ==========================================================
 ``bfly_xor_net``   ``bfly_pallas.py:_xor_net_kernel`` (one exchange network:
-                   out = take bit ? v[p XOR 2^k] : v) — one launch per stage
+                   out = take bit ? v[p XOR 2^k] : v)
 ``bfly_fill``      ``bfly_pallas.py:_fill_kernel`` (forward fill: out = take
-                   bit k ? v[p − 2^k] : v) — one launch per stage
+                   bit k ? v[p − 2^k] : v)
 ``bfly_scan``      ``bfly_pallas.py:_scan_kernel`` (segmented scan: out = v +
-                   (guard bit k ? v[p − 2^k] : 0)) — one launch per stage
+                   (guard bit k ? v[p − 2^k] : 0))
 ``bfly_full``      ``bfly_pallas.py:_full_kernel`` (the whole program, × vals
-                   and × valid included) — the stages cut into phases by
-                   ``plan_phases``, one launch per phase, not per stage
+                   and × valid included)
 =================  ==========================================================
+
+All four run the same phase kernel: the wrapper's stages become stage codes
+(``_codes`` for B10's program, ``b9_codes`` for one network, fill or scan),
+``plan_phases`` cuts them into phases of tiles, and each phase is one
+launch. A Waksman network of L = 20 takes three launches, a fill or a scan
+one, where one a stage took 39, 6 and 9.
 
 The shifts wrap over the N slots as ``jnp.roll`` and ``torch.roll`` do (a
 set bit never wraps). Each wrapper takes the kernel's plain PyTorch version
@@ -56,14 +61,11 @@ MAX_PHASES = 128
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.bfly_xor_stage.argtypes = [p, p, p, i32, i32, i64, p]
-    lib.bfly_shift_stage.argtypes = [p, p, p, i32, i64, i32, p]
     lib.bfly_full.argtypes = ([p] * 11
                               + [i64, ctypes.POINTER(ctypes.c_uint32), i32,
                                  i32, ctypes.POINTER(ctypes.c_int32), i32,
                                  i32, p])
-    for fn in (lib.bfly_xor_stage, lib.bfly_shift_stage, lib.bfly_full):
-        fn.restype = i32
+    lib.bfly_full.restype = i32
 
 
 _CUDA = CudaLib("bfly", _bind)
@@ -154,59 +156,13 @@ def _check_shifts(stages: Sequence[int], n: int) -> None:
         raise ValueError(f"shift stages {tuple(stages)} do not fit {n} slots")
 
 
-def _stages(key: str, v: torch.Tensor, launches) -> torch.Tensor:
-    """One launch per stage, each entry point given (src, dst, *args,
-    stream): every stage reads the previous stage's whole plane, so the
-    stages ping-pong two buffers. No stage: v itself."""
-    if not launches:
-        return v
-    bufs = [torch.empty_like(v), torch.empty_like(v)]
-    src = v
-    with torch.cuda.device(v.device):
-        stream = _stream(v)
-        for i, (fn, args) in enumerate(launches):
-            dst = bufs[i % 2]
-            _launch(fn, src.data_ptr(), dst.data_ptr(), *args, stream)
-            LAUNCHES[key] += 1
-            src = dst
-    return src
+def _xor_codes(net: int, stages: Stages) -> list:
+    return [k | b << 5 | w << 10 | KIND_XOR << 16 | net << 18
+            for w, b, k in stages]
 
 
-def bfly_xor_net(v: torch.Tensor, B: torch.Tensor,
-                 stages: Stages) -> torch.Tensor:
-    """One exchange network over the flat plane v (N,) (kernel B9)."""
-    if not _on_cuda(v, B):
-        return bfly_xor_net_torch(v, B, stages)
-    n = _check_plane(v)
-    _check_stages(B, stages, n)
-    return _stages("bfly_xor_net", v, [
-        ("bfly_xor_stage", (B[w].data_ptr(), b, k, n)) for w, b, k in stages])
-
-
-def _shift(key: str, select: int, v: torch.Tensor, words: torch.Tensor,
-           stages: Sequence[int]) -> torch.Tensor:
-    n = _check_plane(v)
-    _check_words(words, "words", n)
-    _check_shifts(stages, n)
-    return _stages(key, v, [("bfly_shift_stage",
-                             (words.data_ptr(), k, n, select))
-                            for k in stages])
-
-
-def bfly_fill(v: torch.Tensor, words: torch.Tensor,
-              stages: Sequence[int]) -> torch.Tensor:
-    """Forward fill over the flat plane v (N,) (kernel B9)."""
-    if not _on_cuda(v, words):
-        return bfly_fill_torch(v, words, stages)
-    return _shift("bfly_fill", 1, v, words, stages)
-
-
-def bfly_scan(v: torch.Tensor, guards: torch.Tensor,
-              stages: Sequence[int]) -> torch.Tensor:
-    """Segmented scan over the flat plane v (N,) (kernel B9)."""
-    if not _on_cuda(v, guards):
-        return bfly_scan_torch(v, guards, stages)
-    return _shift("bfly_scan", 0, v, guards, stages)
+def _shift_codes(kind: int, stages: Sequence[int]) -> list:
+    return [k | kind << 16 for k in stages]
 
 
 @lru_cache(maxsize=64)
@@ -216,24 +172,29 @@ def _codes(widen_stages, fill_stages, perm_stages, scan_stages,
     network, and the × vals flag on the first stage after the perm
     network), their count, and whether the final pass reads × vals itself
     (no stage follows the perm network)."""
-    def xor(net, stages):
-        return [k | b << 5 | w << 10 | KIND_XOR << 16 | net << 18
-                for w, b, k in stages]
-
-    def shift(kind, stages):
-        return [k | kind << 16 for k in stages]
-
-    head = (xor(NET_WIDEN, widen_stages) + shift(KIND_FILL, fill_stages)
-            + xor(NET_PERM, perm_stages))
-    tail = shift(KIND_SCAN, scan_stages) + xor(NET_COMPACT, compact_stages)
+    head = (_xor_codes(NET_WIDEN, widen_stages)
+            + _shift_codes(KIND_FILL, fill_stages)
+            + _xor_codes(NET_PERM, perm_stages))
+    tail = (_shift_codes(KIND_SCAN, scan_stages)
+            + _xor_codes(NET_COMPACT, compact_stages))
     if tail:
         tail[0] |= PREMUL
-    codes = head + tail
-    if len(codes) > MAX_CODES:
-        raise ValueError(f"{len(codes)} stages: B10 takes at most "
-                         f"{MAX_CODES}")
-    return ((ctypes.c_uint32 * max(len(codes), 1))(*codes), len(codes),
-            int(not tail))
+    codes = tuple(head + tail)
+    return codes, len(codes), int(not tail)
+
+
+# each B9 wrapper's stage codes and the slot of ``bfly_full``'s word-plane
+# arguments (widen_b, fill_words, perm_b, vals, scan_guards, compact_b)
+# its one plane goes in: a network is coded as the widen network
+_B9 = {"bfly_xor_net": (lambda st: _xor_codes(NET_WIDEN, st), 0),
+       "bfly_fill": (lambda st: _shift_codes(KIND_FILL, st), 1),
+       "bfly_scan": (lambda st: _shift_codes(KIND_SCAN, st), 4)}
+
+
+def b9_codes(key: str, stages) -> tuple:
+    """The stage codes of one B9 call (``key`` the wrapper): one network,
+    or one run of fill or scan stages, without × vals."""
+    return tuple(_B9[key][0](stages))
 
 
 def tile_log(L: int) -> int:
@@ -313,24 +274,88 @@ def plan_phases(codes: Sequence[int], L: int, T: int) -> tuple:
 def phase_table(stages: Sequence, L: int) -> tuple:
     """B10's phases for the stage lists ``stages`` (widen, fill, perm,
     scan, compact) on 2^L slots: ``plan_phases`` at ``tile_log(L)``."""
-    codes, n_codes, _ = _codes(*map(tuple, stages))
-    return plan_phases(list(codes)[:n_codes], L, tile_log(L))
+    return plan_phases(_codes(*map(tuple, stages))[0], L, tile_log(L))
 
 
-@lru_cache(maxsize=64)
-def _plan(stages: tuple, L: int):
-    """B10's launch plan for the stage lists ``stages``: (codes, their
-    count, premul_final, the phase table as 4 ints a phase, the phase
-    count, T)."""
-    codes, n_codes, premul_final = _codes(*stages)
-    T = tile_log(L)
-    phases = phase_table(stages, L)
+def b9_phase_table(key: str, stages, L: int) -> tuple:
+    """The phases of one B9 call (``key`` the wrapper) on 2^L slots:
+    ``plan_phases`` of ``b9_codes`` at ``tile_log(L)``."""
+    return plan_phases(b9_codes(key, stages), L, tile_log(L))
+
+
+@lru_cache(maxsize=128)
+def _plan(codes: tuple, L: int, T: int):
+    """The launch plan of ``codes`` at tiles of 2^T slots: (the codes and
+    their count, the phase table as 4 ints a phase, the phase count)."""
+    if len(codes) > MAX_CODES:
+        raise ValueError(f"{len(codes)} stages: a program takes at most "
+                         f"{MAX_CODES}")
+    phases = plan_phases(codes, L, T)
     if len(phases) > MAX_PHASES:
-        raise ValueError(f"{len(phases)} phases: B10 takes at most "
+        raise ValueError(f"{len(phases)} phases: a program takes at most "
                          f"{MAX_PHASES}")
     flat = [x for ph in phases for x in ph]
-    return (codes, n_codes, premul_final,
-            (ctypes.c_int32 * len(flat))(*flat), len(phases), T)
+    return ((ctypes.c_uint32 * max(len(codes), 1))(*codes), len(codes),
+            (ctypes.c_int32 * len(flat))(*flat), len(phases))
+
+
+def _b9(key: str, v: torch.Tensor, plane: torch.Tensor,
+        stages) -> torch.Tensor:
+    """One B9 call: ``b9_codes`` in the phases of ``plan_phases`` at
+    ``tile_log(L)``, one launch a phase, counted; the phases ping-pong two
+    buffers (only those they need), x read by the first and out written by
+    the last. No stage: v itself."""
+    codes = b9_codes(key, stages)
+    if not codes:
+        return v
+    n = v.numel()
+    L = n.bit_length() - 1
+    T = tile_log(L)
+    c_codes, n_codes, phases, n_phases = _plan(codes, L, T)
+    out = torch.empty_like(v)
+    bufs = [torch.empty_like(v) if n_phases > i else out for i in (1, 2)]
+    words = [None] * 6
+    words[_B9[key][1]] = plane.data_ptr()
+    with torch.cuda.device(v.device):
+        _launch("bfly_full", v.data_ptr(), *(t.data_ptr() for t in bufs),
+                *words, None, out.data_ptr(), n, c_codes, n_codes, 0, phases,
+                n_phases, T, _stream(v))
+    LAUNCHES[key] += n_phases
+    return out
+
+
+def bfly_xor_net(v: torch.Tensor, B: torch.Tensor,
+                 stages: Stages) -> torch.Tensor:
+    """One exchange network over the flat plane v (N,) (kernel B9)."""
+    if not _on_cuda(v, B):
+        return bfly_xor_net_torch(v, B, stages)
+    n = _check_plane(v)
+    _check_stages(B, stages, n)
+    return _b9("bfly_xor_net", v, B, stages)
+
+
+def _shift(key: str, v: torch.Tensor, words: torch.Tensor,
+           stages: Sequence[int]) -> torch.Tensor:
+    n = _check_plane(v)
+    _check_words(words, "words", n)
+    _check_shifts(stages, n)
+    return _b9(key, v, words, stages)
+
+
+def bfly_fill(v: torch.Tensor, words: torch.Tensor,
+              stages: Sequence[int]) -> torch.Tensor:
+    """Forward fill over the flat plane v (N,) (kernel B9)."""
+    if not _on_cuda(v, words):
+        return bfly_fill_torch(v, words, stages)
+    return _shift("bfly_fill", v, words, stages)
+
+
+def bfly_scan(v: torch.Tensor, guards: torch.Tensor,
+              stages: Sequence[int]) -> torch.Tensor:
+    """Segmented scan over the flat plane v (N,) (kernel B9)."""
+    if not _on_cuda(v, guards):
+        return bfly_scan_torch(v, guards, stages)
+    return _shift("bfly_scan", v, guards, stages)
 
 
 def bfly_full(v, widen_B, fill_words, perm_B, vals, scan_guards, compact_B,
@@ -355,8 +380,10 @@ def bfly_full(v, widen_B, fill_words, perm_B, vals, scan_guards, compact_B,
     _check(vals, "vals", torch.float32, (n,))
     _check(out_valid, "out_valid", torch.float32, (n,))
     _check_shifts(stages[1] + stages[3], n)
-    codes, n_codes, premul_final, phases, n_phases, T = _plan(
-        stages, n.bit_length() - 1)
+    codes, _, premul_final = _codes(*stages)
+    L = n.bit_length() - 1
+    T = tile_log(L)
+    codes, n_codes, phases, n_phases = _plan(codes, L, T)
     buf0, buf1, out = (torch.empty_like(v) for _ in range(3))
     with torch.cuda.device(v.device):
         _launch("bfly_full", *(t.data_ptr() for t in (v, buf0, buf1)),

@@ -13,7 +13,11 @@ wrapper          replaces
                  and a second (``btile_combine``) when bands are cut into
                  chunks
 ``btile_sddmm``  ``btile.py:_btile_sddmm_kernel``: the C slab
-                 (nsteps·tg·8, 128) = (A[band rows] · B[cb]ᵀ) ∘ pattern
+                 (nsteps·tg·8, 128) = (A[band rows] · B[cb]ᵀ) ∘ pattern;
+                 one block of ``SDDMM_THREADS`` a step with B[cb] in
+                 shared memory, a warp per slab row with its A row in
+                 registers, 8 lanes a nonzero (``sddmm_smem`` gives its
+                 shared memory a block)
 ===============  ==========================================================
 
 Each wrapper takes the kernel's plain PyTorch version (``*_torch``, the
@@ -51,7 +55,8 @@ SPMM_SMEM_BYTES = (4 * (BAND * SPMM_SLICE + 2 * TILE_C * SPMM_SLICE)
 SPMM_WAVES = 4         # SpMM blocks to aim for, per SM of the card
 SPMM_PART_BYTES = 1 << 30   # the most the SpMM's chunk partials may take
 MAX_STEP_ROWS = 256    # slab rows per step the kernels take (tg ≤ 32)
-SDDMM_MAX_K = 256      # 8 registers of 32 lanes per A row
+SDDMM_MAX_K = 256      # B[cb] (128 × K fp32) in one SM's shared memory
+SDDMM_THREADS = 512    # threads of an SDDMM block (csrc/btile.cu kSdThreads)
 
 LAUNCHES = {"btile_spmm": 0, "btile_combine": 0, "btile_sddmm": 0}
 
@@ -214,6 +219,15 @@ def btile_spmm(tiles, tgt, step_g, step_cb, step_nt, band_ptr, xp,
     return y[:, :k] if plan.kp != k else y
 
 
+def sddmm_smem(k: int) -> int:
+    """The SDDMM block's dynamic shared memory at K = ``k`` (csrc/btile.cu
+    ``sddmm_smem``): B[cb] at a padded row stride, and each warp's C row
+    and list of up to 128 columns."""
+    warps = SDDMM_THREADS // 32
+    stride = (k + 7) // 8 * 8 + 4
+    return 4 * (TILE_C * stride + warps * TILE_C) + warps * TILE_C
+
+
 def btile_sddmm(patt, tgt, step_g, step_cb, step_nt, ap, bp) -> torch.Tensor:
     """The C slab (the kernel; see ``btile_sddmm_torch``)."""
     if not on_cuda(patt, tgt, step_g, step_cb, step_nt, ap, bp):
@@ -227,6 +241,9 @@ def btile_sddmm(patt, tgt, step_g, step_cb, step_nt, ap, bp) -> torch.Tensor:
         raise ValueError(f"ap {tuple(ap.shape)}, bp {tuple(bp.shape)}: the "
                          f"kernel takes (ngroups·1024, K) and (ncb·128, K) "
                          f"with 1 ≤ K ≤ {SDDMM_MAX_K}")
+    if patt.data_ptr() % 4:
+        raise ValueError("patt: the SDDMM kernel reads it 4 bytes at a "
+                         "time, so it must be 4-byte aligned")
     out = torch.empty((nsteps * R, TILE_C), dtype=torch.float32,
                       device=ap.device)
     if nsteps:

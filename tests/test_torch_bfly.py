@@ -227,20 +227,20 @@ def test_b10_codes_fold_the_products():
 
 # ------------------------------------------------ B10's phased schedule
 
-def _phased_emulation(v, widen_B, fill_words, perm_B, vals, scan_guards,
-                      compact_B, out_valid, *stages, T):
-    """B10's schedule (``csrc/bfly.cu`` ``full_kernel``) in plain PyTorch:
-    the phases of ``plan_phases`` at tiles of 2^T slots, each tiled phase
-    run tile by tile on its window (halo included; all tiles at once, one
-    row each), each global phase one stage over the whole plane, × vals
-    where a code asks for it and × valid as the last phase writes out."""
-    codes, n_codes, premul_final = K._codes(*map(tuple, stages))
-    codes = list(codes)[:n_codes]
+def _phased_emulation(v, codes, T, nets=None, fill_words=None,
+                      scan_guards=None, vals=None, out_valid=None,
+                      premul_final=0):
+    """The phase kernel's schedule (``csrc/bfly.cu`` ``full_kernel``) in
+    plain PyTorch for the stage codes ``codes``: the phases of
+    ``plan_phases`` at tiles of 2^T slots, each tiled phase run tile by
+    tile on its window (halo included; all tiles at once, one row each),
+    each global phase one stage over the whole plane, × vals where a code
+    asks for it and, when ``out_valid`` is given (B10; a B9 call has none),
+    × valid as the last phase writes out. ``nets`` maps a network code to
+    its word planes."""
     N = v.numel()
     L = N.bit_length() - 1
     T = min(T, L)
-    nets = {K.NET_WIDEN: widen_B, K.NET_PERM: perm_B,
-            K.NET_COMPACT: compact_B}
     phases = K.plan_phases(codes, L, T)
 
     def stage(c):
@@ -293,10 +293,49 @@ def _phased_emulation(v, widen_B, fill_words, perm_B, vals, scan_guards,
                        else cur + torch.where(take, shifted, 0.0))
             dst = torch.empty_like(src)
             dst[gi[:, halo:]] = cur[:, halo:]
-        if pi == len(phases) - 1:
+        if pi == len(phases) - 1 and out_valid is not None:
             dst = (dst * vals if premul_final else dst) * out_valid
         src = dst
     return src
+
+
+def _b10_emulation(v, widen_B, fill_words, perm_B, vals, scan_guards,
+                   compact_B, out_valid, *stages, T):
+    """B10's whole program through ``_phased_emulation``."""
+    codes, _, premul_final = K._codes(*map(tuple, stages))
+    return _phased_emulation(
+        v, codes, T, {K.NET_WIDEN: widen_B, K.NET_PERM: perm_B,
+                      K.NET_COMPACT: compact_B}, fill_words, scan_guards,
+        vals, out_valid, premul_final)
+
+
+def _b9_emulation(key, v, plane, stages, T):
+    """One B9 call (``key`` the wrapper) through ``_phased_emulation``:
+    its own codes and its one plane, no × vals, no × valid."""
+    codes = K.b9_codes(key, stages)
+    if not codes:
+        return v
+    words = dict(nets={K.NET_WIDEN: plane}) if key == "bfly_xor_net" else (
+        dict(fill_words=plane) if key == "bfly_fill"
+        else dict(scan_guards=plane))
+    return _phased_emulation(v, codes, T, **words)
+
+
+def _b9_calls(v, widen_B, fill_words, perm_B, vals, scan_guards, compact_B,
+              out_valid, widen, fill, perm, scan, compact):
+    """The five B9 calls of one SpMV on their real inputs (the plain chain
+    up to each): (wrapper, input, plane, stages)."""
+    calls = []
+    for key, plane, stages, after in (
+            ("bfly_xor_net", widen_B, widen, None),
+            ("bfly_fill", fill_words, fill, None),
+            ("bfly_xor_net", perm_B, perm, vals),
+            ("bfly_scan", scan_guards, scan, None),
+            ("bfly_xor_net", compact_B, compact, None)):
+        calls.append((key, v, plane, stages))
+        v = getattr(K, key + "_torch")(v, plane, stages)
+        v = v if after is None else v * after
+    return calls
 
 
 def _random_program(L, passes, fill, scan, seed):
@@ -351,7 +390,7 @@ def test_b10_phased_schedule_matches_plain_version(case, T):
     _, _, _, A, x = case
     v = BF._spread_x(torch.from_numpy(x), A.n, A.N, A.sigma_x)
     want = K.bfly_full_torch(v, *A.planes())
-    got = _phased_emulation(v, *A.planes()[:7], *A.planes()[7:], T=T)
+    got = _b10_emulation(v, *A.planes(), T=T)
     assert torch.equal(got, want)
     codes, n_codes, _ = K._codes(*A.planes()[7:])
     _check_plan(list(codes)[:n_codes], K.plan_phases(
@@ -373,7 +412,7 @@ def test_b10_phased_schedule_on_random_programs(L, T, passes, fill, scan,
     monkeypatch.setattr(K, "HALO_MAX", halo_max)
     v, planes, stages = _random_program(L, passes, fill, scan, seed=L + T)
     want = K.bfly_full_torch(v, *planes, *stages)
-    assert torch.equal(_phased_emulation(v, *planes, *stages, T=T), want)
+    assert torch.equal(_b10_emulation(v, *planes, *stages, T=T), want)
     codes, n_codes, _ = K._codes(*map(tuple, stages))
     codes = list(codes)[:n_codes]
     phases = K.plan_phases(codes, L, min(T, L))
@@ -386,7 +425,11 @@ def test_b10_phased_schedule_on_random_programs(L, T, passes, fill, scan,
 def test_b10_plan_of_the_scircuit_shape():
     """The scircuit program's shape (L = 20: three 39-stage Waksman
     networks, fill 0..5, scan 0..8) takes 9 phases at T = 13, 8 grid
-    launches for 132 stages; mac_econ_fwd500's (L = 21) 9 at T = 14."""
+    launches for 132 stages; mac_econ_fwd500's (L = 21) 9 at T = 14. B9's
+    calls on the same shape: each network alone 3 phases (contiguous,
+    strided, contiguous), the fill and the scan 1 contiguous phase each
+    (halo 63 and 511): 11 launches per SpMV, where one a stage took 132 and
+    138."""
     for L, T, n_codes in ((20, 13, 132), (21, 14, 138)):
         assert K.tile_log(L) == T
         net = tuple((0, j % 32, k) for j, k in enumerate(
@@ -397,5 +440,64 @@ def test_b10_plan_of_the_scircuit_shape():
         assert n == n_codes and len(phases) == 9
         assert [p[2] for p in phases] == [K.CONTIG, K.STRIDED, K.CONTIG] * 3
         assert [p[3] for p in phases] == [0, 0, 0, 63, 0, 0, 511, 0, 0]
+        b9 = [K.b9_phase_table(key, st, L) for key, st in zip(
+            ("bfly_xor_net", "bfly_fill", "bfly_xor_net", "bfly_scan",
+             "bfly_xor_net"), stages)]
+        assert [len(p) for p in b9] == [3, 1, 3, 1, 3]
+        assert [p[2] for p in b9[0]] == [K.CONTIG, K.STRIDED, K.CONTIG]
+        assert [p[3] for p in b9[0]] == [0, 0, 0]
+        assert b9[1] == ((0, 6, K.CONTIG, 63),)
+        assert b9[3] == ((0, 9, K.CONTIG, 511),)
+        assert sum(p[1] for ph in b9 for p in ph) == n_codes
     assert [K.tile_log(L) for L in (4, 9, 12, 16, 19, 22)] == [4, 7, 9, 11,
                                                                 12, 14]
+
+
+# ------------------------------------------- B9's calls in the same phases
+
+@pytest.mark.parametrize("T", [4, 5, 7, 14])
+def test_b9_phased_schedule_matches_plain_versions(case, T):
+    """Each B9 call of one SpMV on its real input, run in the phases of its
+    own codes at tiles of 2^T (global phases only at T = 4; T = 14 >= L is
+    one tile), equals its plain version bit for bit, and the plan covers
+    its codes once, in order."""
+    _, _, _, A, x = case
+    v = BF._spread_x(torch.from_numpy(x), A.n, A.N, A.sigma_x)
+    for key, u, plane, stages in _b9_calls(v, *A.planes()):
+        want = getattr(K, key + "_torch")(u, plane, stages)
+        assert torch.equal(_b9_emulation(key, u, plane, stages, T), want), key
+        codes = K.b9_codes(key, stages)
+        assert not any(c & K.PREMUL for c in codes)
+        if codes:
+            _check_plan(codes, K.plan_phases(codes, A.L, min(T, A.L)), A.L,
+                        min(T, A.L))
+
+
+@pytest.mark.parametrize("L, T, passes, fill, scan, halo_max", [
+    (9, 7, 2, 4, 6, K.HALO_MAX),     # L = 2T − 5, two passes a network
+    (11, 8, 1, 6, 9, K.HALO_MAX),    # L = 2T − 5, scircuit's fill and scan
+    (8, 6, 1, 4, 7, K.HALO_MAX),     # L = 2T − 5 + 1: global exchanges
+    (10, 6, 2, 3, 9, 40),            # global exchanges, halo split
+    (10, 5, 1, 5, 8, 100),           # the smallest tile, halo split
+    (8, 10, 2, 5, 7, K.HALO_MAX),    # L <= T: one tile, shifts wrap
+])
+def test_b9_phased_schedule_on_random_programs(L, T, passes, fill, scan,
+                                              halo_max, monkeypatch):
+    """Random word planes and multi-pass networks: each network, the fill
+    and the scan alone, in the phases of their own codes, equal their
+    plain versions bit for bit (a small halo budget splits the scan's run
+    into several contiguous phases; past L = 2T − 5 global phases take the
+    exchanges no tiling serves)."""
+    monkeypatch.setattr(K, "HALO_MAX", halo_max)
+    v, planes, stages = _random_program(L, passes, fill, scan, seed=L + T)
+    for key, u, plane, st in _b9_calls(v, *planes, *stages):
+        want = getattr(K, key + "_torch")(u, plane, st)
+        assert torch.equal(_b9_emulation(key, u, plane, st, T), want), key
+        codes = K.b9_codes(key, st)
+        phases = K.plan_phases(codes, L, min(T, L))
+        _check_plan(codes, phases, L, min(T, L))
+        if key == "bfly_xor_net":
+            assert ({p[2] for p in phases} >= {K.GLOBAL}) == (L > 2 * T - 5)
+        else:
+            halo = sum(1 << k for k in st)
+            assert (len(phases) > 1) == (halo > halo_max and T < L)

@@ -22,7 +22,8 @@ from spmv_research_tpu.core.host import HostCSR as JaxHostCSR
 from spmv_research_tpu_torch.core.host import HostCSR
 from spmv_research_tpu_torch.ops import btile, btile_cuda as K, sddmm, spmm
 
-from torch_cases import btile_banded, scattered_matrix
+from torch_cases import (btile_banded, btile_special_matrix,
+                         scattered_matrix)
 
 # tests/test_btile.py's CASES: (m, n, nnz per row, half-band, seed)
 CASES = [(300, 300, 8, 30, 0), (2500, 2500, 12, 200, 1),
@@ -127,6 +128,39 @@ def test_slab_to_csr_values_identical(case):
     rows = np.repeat(np.arange(mat.shape[0]), np.diff(mat.indptr))
     gold = np.sum(Am[rows].astype(np.float64) * Bm[mat.indices], axis=1)
     np.testing.assert_allclose(got, gold, **TOL)
+
+
+@pytest.fixture(scope="module")
+def special():
+    """(matrix, JAX program, the port's program) of
+    ``btile_special_matrix``: steps of 8 to 256 live slab rows, 600 of
+    them fully masked, a tile of stored zeros and an empty band."""
+    mat = btile_special_matrix()
+    A, Aj = _builds(mat)
+    return mat, Aj, A
+
+
+@pytest.mark.parametrize("k", [1, 33, 256])
+def test_sddmm_plain_version_matches_jax_xla_at_k(special, k):
+    """B16b's plain version (the wrapper on CPU tensors) against JAX's
+    ``sddmm_btile_xla`` at K = 1, 33 (one past a multiple of 32) and 256
+    (the kernel's largest): within 2e-5, masked slots 0, and the fully
+    masked live rows of a step all zeros."""
+    mat, Aj, A = special
+    rng = np.random.Generator(np.random.PCG64(k))
+    Am, Bm = (rng.uniform(-1, 1, (s, k)).astype(np.float32)
+              for s in mat.shape)
+    want = np.asarray(jax_btile.sddmm_btile_xla(Aj, jnp.asarray(Am),
+                                                jnp.asarray(Bm)))
+    got = sddmm(A, torch.from_numpy(Am), torch.from_numpy(Bm))
+    assert got.shape == want.shape == (A.nsteps * A.tg * 8, 128)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    patt = A.patt.view(A.nsteps, -1, 128)
+    live = torch.arange(patt.shape[1])[None] < A.step_nt[:, None] * 8
+    masked = (patt == 0).all(-1) & live
+    assert masked.any()
+    assert not got.view(A.nsteps, -1, 128)[masked].any()
+    assert not got[A.patt == 0].any()
 
 
 def test_execute_btile_numpy_identical(case):

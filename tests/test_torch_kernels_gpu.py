@@ -439,14 +439,15 @@ def _btile_case(cuda, k, special=False):
 
 
 @pytest.mark.parametrize("cut", ["whole", "halves", "steps"])
-@pytest.mark.parametrize("k", [1, 16, 31, 32, 33, 37, 128, 200])
+@pytest.mark.parametrize("k", [1, 16, 31, 32, 33, 37, 128, 200, 256])
 def test_btile_kernels_match_plain_versions(cuda, k, cut, monkeypatch):
     """B16a (SpMM; X padded to a multiple of 32 columns) and B16b (SDDMM;
-    K = 33 and up take more than one register per lane) on three bands: a
-    full tile, a live tile of stored zeros and an empty band (the builder's
-    filler step); the bands whole (one chunk each), band 0 cut in two
-    beside two whole bands (the combine skips those), or cut at every
-    step."""
+    K = 33 and up take more than one register per lane; K % 4 != 0 takes
+    4-byte copies and a zero-padded float4 tail; K = 256 is its limit; the
+    same bits on a second call) on three bands: a full tile, a live tile
+    of stored zeros and an empty band (the builder's filler step); the
+    bands whole (one chunk each), band 0 cut in two beside two whole bands
+    (the combine skips those), or cut at every step."""
     slices = -(-k // KB.SPMM_SLICE)
     if cut == "whole":
         monkeypatch.setattr(KB, "SPMM_WAVES", 0)
@@ -466,15 +467,17 @@ def test_btile_kernels_match_plain_versions(cuda, k, cut, monkeypatch):
     Y_plain = spmm(A, X, impl="torch")
     yard = spmm(A.to("cpu"), X.abs().cpu()).abs().to(cuda)   # |A|·|X|
     C = sddmm(A, Am, Bm)
+    C2 = sddmm(A, Am, Bm)
     C_plain = sddmm(A, Am, Bm, impl="torch")
     dots = sddmm(A, Am.abs(), Bm.abs(), impl="torch")  # Σ|a||b| per slot
     torch.cuda.synchronize()
     assert KB.LAUNCHES == {"btile_spmm": 1,
                            "btile_combine": int(plan.nchunk > 1),
-                           "btile_sddmm": 1}
+                           "btile_sddmm": 2}
     assert Y.shape == (mat.shape[0], k)
     assert ((Y - Y_plain).abs() <= 1e-5 * yard).all()
     assert ((C - C_plain).abs() <= 1e-5 * dots).all()
+    assert torch.equal(C, C2)
     assert not C[A.patt == 0].any()
     assert not Y[1024:2048].any()
     Xh = X.double().cpu().numpy()
@@ -645,14 +648,17 @@ def test_clos_r3_kernels_match_plain_versions(cuda, case):
 
 @pytest.mark.parametrize("case", ["random", "pathological"])
 def test_bfly_kernels_match_plain_versions(cuda, case):
-    """B9 (exchange, fill and scan stages) and B10 (the whole program in
-    phases, one launch a phase) equal their plain versions bit for bit; the BFLY/cuda y lies within 1e-5 of |A|·|x|."""
+    """B9 (an exchange network, the fill and the scan, each in the phases
+    of its own plan, one launch a phase) and B10 (the whole program in
+    phases, one launch a phase) equal their plain versions bit for bit;
+    the BFLY/cuda y lies within 1e-5 of |A|·|x|."""
     mat = (bfly_pathological() if case == "pathological"
            else random_matrix(3000, 2500, 0.002, 8))
     A = bfly.build_bfly(HostCSR.from_scipy(mat)).to(cuda)
     x, xd = _x(mat.shape[1], cuda)
     v = bfly._spread_x(xd, A.n, A.N, A.sigma_x)
     KF.reset_launch_counts()
+    phases = dict.fromkeys(KF.LAUNCHES, 0)
     for name, args in (("bfly_xor_net", (A.widen_B, A.widen_stages)),
                        ("bfly_fill", (A.fill_words, A.fill_stages)),
                        ("bfly_xor_net", (A.perm_B, A.perm_stages)),
@@ -662,11 +668,10 @@ def test_bfly_kernels_match_plain_versions(cuda, case):
         want = getattr(KF, name + "_torch")(v, *args)
         torch.cuda.synchronize()
         assert torch.equal(got, want), name
+        if args[1]:
+            phases[name] += len(KF.b9_phase_table(name, args[1], A.L))
         v = want
-    n_xor = len(A.widen_stages) + len(A.perm_stages) + len(A.compact_stages)
-    assert KF.LAUNCHES == {"bfly_xor_net": n_xor,
-                           "bfly_fill": len(A.fill_stages),
-                           "bfly_scan": len(A.scan_stages), "bfly_full": 0}
+    assert KF.LAUNCHES == phases
     v = bfly._spread_x(xd, A.n, A.N, A.sigma_x)
     full = KF.bfly_full(v, *A.planes())
     assert torch.equal(full, KF.bfly_full_torch(v, *A.planes()))
@@ -680,13 +685,9 @@ def test_bfly_kernels_match_plain_versions(cuda, case):
         spmv(A.to("cpu"), torch.ones(mat.shape[1]), impl="cuda")
 
 
-@pytest.mark.parametrize("L, passes, fill, scan", [
-    (6, 2, 4, 5), (15, 2, 6, 9), (19, 2, 5, 13), (21, 1, 6, 9)])
-def test_bfly_full_on_random_programs(cuda, L, passes, fill, scan):
-    """B10 on random word planes (multi-pass Waksman-ordered networks): one
-    tile (L = 6), contiguous and strided phases at T = 10, 12 and 14 (L =
-    15, 19, 21), and at L = 19 a scan whose shifts pass the halo budget
-    (a global phase); bit for bit the plain version's."""
+def _random_bfly(cuda, L, passes, fill, scan):
+    """Random word planes, values and stage lists of a program of 2^L
+    slots, each network ``passes`` Waksman-ordered passes."""
     rng = np.random.default_rng(L)
     N = 1 << L
     order = list(range(L)) + list(range(L - 2, -1, -1))
@@ -705,13 +706,52 @@ def test_bfly_full_on_random_programs(cuda, L, passes, fill, scan):
     v, vals, valid = floats(), floats(), (floats(0.0) < 0.7).float()
     planes = (bits(words, N), bits(N), bits(words, N), vals, bits(N),
               bits(words, N), valid)
-    stages = (net, tuple(range(fill)), net, tuple(range(scan)), net)
+    return v, planes, (net, tuple(range(fill)), net, tuple(range(scan)), net)
+
+
+RANDOM_PROGRAMS = [(6, 2, 4, 5), (15, 2, 6, 9), (19, 2, 5, 13),
+                   (21, 1, 6, 9)]
+
+
+@pytest.mark.parametrize("L, passes, fill, scan", RANDOM_PROGRAMS)
+def test_bfly_full_on_random_programs(cuda, L, passes, fill, scan):
+    """B10 on random word planes (multi-pass Waksman-ordered networks): one
+    tile (L = 6), contiguous and strided phases at T = 10, 12 and 14 (L =
+    15, 19, 21), and at L = 19 a scan whose shifts pass the halo budget
+    (a global phase); bit for bit the plain version's."""
+    v, planes, stages = _random_bfly(cuda, L, passes, fill, scan)
     phases = KF.plan_phases(list(KF._codes(*stages)[0]), L, KF.tile_log(L))
     assert (KF.GLOBAL in {p[2] for p in phases}) == (scan > 12)
     want = KF.bfly_full_torch(v, *planes, *stages)
     got = KF.bfly_full(v, *planes, *stages)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("L, passes, fill, scan", RANDOM_PROGRAMS)
+def test_b9_on_random_programs(cuda, L, passes, fill, scan):
+    """B9 on the same random programs: each network, the fill and the scan
+    alone, one launch a phase of its own plan (at L = 19 the scan's run
+    split by the halo budget, its stages past 2^10 global phases), bit for
+    bit the plain version's."""
+    v, planes, stages = _random_bfly(cuda, L, passes, fill, scan)
+    widen_B, fill_words, perm_B, vals, scan_guards, compact_B, _ = planes
+    for name, plane, st in (("bfly_xor_net", widen_B, stages[0]),
+                            ("bfly_fill", fill_words, stages[1]),
+                            ("bfly_xor_net", perm_B, stages[2]),
+                            ("bfly_scan", scan_guards, stages[3]),
+                            ("bfly_xor_net", compact_B, stages[4])):
+        KF.reset_launch_counts()
+        got = getattr(KF, name)(v, plane, st)
+        want = getattr(KF, name + "_torch")(v, plane, st)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
+        n_phases = len(KF.b9_phase_table(name, st, L))
+        assert KF.LAUNCHES == {**dict.fromkeys(KF.LAUNCHES, 0),
+                               name: n_phases}
+        if name == "bfly_scan":
+            assert (n_phases > 1) == (scan > 10)
+        v = want * vals if plane is perm_B else want
 
 
 def test_bench_spmv_torch_row_gates_the_torch_pair(cuda, monkeypatch):
