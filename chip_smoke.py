@@ -11,14 +11,16 @@ failure (non-zero exit, no result line):
    host library loaded;
 2. build the CUDA kernels from ``spmv_research_tpu_torch/csrc/closg.cu``,
    ``csrc/sell.cu``, ``csrc/btile.cu`` and ``csrc/bfly.cu`` (one nvcc
-   each, started together) and print their ptxas lines (B5's and B15's
-   scan kernels by name);
+   each, started together) and print their ptxas lines (the phased scan's
+   kernels by name, adding and selecting);
 3. generate the full-size scircuit twin (bench.py's line), RCM, build the
    CLOSG program (asserts N = 2^20, one program) and print its fields;
 4. each CLOSG kernel against its plain PyTorch version on the card, at the
    main path's shapes (K1, K2 exact; K3 within 1e-6 of max |y|), both timed
-   with CUDA events (L2 flushed before each call); the device time of one
-   whole CLOSG/cuda and CSR/torch SpMV;
+   with CUDA events (L2 flushed before each call); K3's phase plan logged
+   and one counted SpMV (K3 launched once a phase of its plan and once for
+   the extraction, 2 in all, asserted); the device time of one whole
+   CLOSG/cuda and CSR/torch SpMV, and CLOSG/cuda's traced chain of 50;
 5. the bench path: ``spmv_research_tpu_torch.bench.run`` end to end, with
    the kernels' launch counters reset just before and read just after (each
    must have launched); y checked against the longdouble gold within 1e-5
@@ -27,9 +29,12 @@ failure (non-zero exit, no result line):
    (asserts SELLR, SELLW and a chunked CLOSG with W > 0 in every chunk),
    each program's fields, the SELLW kernel and SELLR's two kernels against
    their plain versions (exact) and timed, K1-K3 against theirs on every
-   CLOSG chunk (tolerances as in phase 4; the widest chunk timed), and per
-   candidate the device time of one whole SpMV and a torch.profiler trace
-   of a chain of 50 (device time, wall time, busy share, top events);
+   CLOSG chunk (tolerances as in phase 4; the widest chunk timed), K3's
+   plan on the widest chunk logged and one counted SpMV of each chunk and
+   of the program (K3 once a phase of each chunk's plan + the extraction,
+   asserted), and per candidate the device time of one whole SpMV and a
+   torch.profiler trace of a chain of 50 (device time, wall time, busy
+   share, top events);
 7. a streamed SELLW program (seeded tridiagonal, n = 1.2M, so
    ``stream_wins``): the kernel against its plain version, timed, then one
    SpMV through ``ops.spmv`` between a reset and a read of the counters,
@@ -110,15 +115,16 @@ failure (non-zero exit, no result line):
     (asserts N = 2^20) and BFLY (N = 2^20, L = 20) built, cold build times
     and program shapes logged; B8's three parts (fill, scan, valid) and
     B9's three (exchange network, fill, scan) against their plain versions
-    on the program's own pipeline inputs (``torch.equal``) and timed, each
-    call's phase plan logged, the widen network's three phases timed one
-    by one and the fill and scan at tiles of 2^9 up to 2^T (each held to
-    its plain version); B10
+    on the program's own pipeline inputs (``torch.equal``; the valid step
+    at m, over the blocks that hold y, and over the whole plane) and timed,
+    each call's phase plan logged (B8's fill and scan one phase each,
+    asserted; the valid step also timed over the whole plane); B10
     (the program in phases, one launch a phase) against its plain version
     and B9's chain (``torch.equal``), timed beside cuSPARSE's fp32 SpMV,
     its phases and launches per SpMV logged; one counted
-    SpMV per engine (launches per SpMV; BFLY's B9 launches asserted to be
-    one a phase of its calls' plans, 11), one SpMV's device time and a
+    SpMV per engine (launches per SpMV; CLOS's B8 launches asserted to be
+    one a phase of the fill's and scan's plans + 1, BFLY's B9 launches one
+    a phase of its calls' plans, 11), one SpMV's device time and a
     traced chain of 50 per engine (and B10 and cuSPARSE timed alone); the
     sweep with formats csr, clos and bfly (the B8 and B9 kernels must
     launch, every row within 1e-5 of |A|·|x|); one counted B10 SpMV (one
@@ -364,8 +370,9 @@ def closgx_stages(K, A, xd):
 
 
 def describe_plan(K, stages, n, chunk) -> str:
-    """B5's or B15's phases (``plan_scan_phases``) in words: each phase's
-    tiling, stages, halo and window."""
+    """The phased scan's phases (``plan_scan_phases``: K3, B5, B8's fill
+    and scan, B15) in words: each phase's tiling, stages, halo and
+    window."""
     stages = tuple(stages)
     L = chunk.bit_length() - 1
     T = min(K.SCAN_TILE_LOG, L)
@@ -383,6 +390,30 @@ def describe_plan(K, stages, n, chunk) -> str:
         else:
             words.append(f"global ({span})")
     return f"{len(words)} phases: " + "; ".join(words)
+
+
+def k3_launches(K, label, programs, xd) -> int:
+    """K3's plan on each W > 0 CLOSG program of ``programs`` (the widest
+    one's logged) and one counted SpMV of each, which must launch
+    ``closg_r3_scan_yext`` once a phase of its plan and once for the
+    extraction; returns the launches over all programs."""
+    total = 0
+    for c in programs:
+        stages = c.scan_cap or c.scan_stages
+        want = len(K.plan_scan_phases(stages, c.N, c.N)) + 1
+        got = counted_spmv(c, xd, K)[1]["closg_r3_scan_yext"]
+        if got != want:
+            fail(f"a {label} CLOSG SpMV (N = {c.N}) launched "
+                 f"closg_r3_scan_yext {got} times, not its plan's phases + "
+                 f"the extraction ({want})")
+        total += want
+    w = max(programs, key=lambda c: c.N)
+    stages = w.scan_cap or w.scan_stages
+    log(f"# {label} K3 plan (N = {w.N}, {len(stages)} stages of "
+        f"{len(w.scan_stages)}): " + describe_plan(K, stages, w.N, w.N)
+        + f", then the extraction; {total} K3 launches over "
+        f"{len(programs)} program(s)")
+    return total
 
 
 def ptxas_of(build_log: str, names) -> str:
@@ -593,8 +624,11 @@ def main() -> None:
         log(f"# nvcc {os.path.basename(lib.SOURCE)}: " + " | ".join(
             ln.strip() for ln in lib.build_log().splitlines()
             if "registers" in ln or "spill" in ln))
-    log("# ptxas B5/B15: " + ptxas_of(K.build_log(), ("scan_contig_kernel",
-                                                      "scan_strided_kernel")))
+    log("# ptxas of the phased scan (K3, B5, B8, B15; <9, select, vals> "
+        "mangled as ILi9ELb<select>ELb<vals>): " + ptxas_of(K.build_log(), (
+            "scan_contig_kernelILi9ELb0ELb0", "scan_contig_kernelILi9ELb0ELb1",
+            "scan_contig_kernelILi9ELb1ELb0", "scan_strided_kernelILi9ELb0",
+            "scan_strided_kernelILi9ELb1")))
 
     # --- 3. the scircuit program ---
     t0 = time.perf_counter()
@@ -619,13 +653,17 @@ def main() -> None:
     x = np.random.Generator(np.random.PCG64(7)).uniform(0.0, 1.0, A.n)
     xd = torch.as_tensor(x, dtype=torch.float32, device=dev)
     kernels = closg_checks(timer, K, [A], xd)
+    k3_scircuit = k3_launches(K, "scircuit", [A], xd)
+    if k3_scircuit != 2:
+        fail(f"a scircuit CLOSG SpMV takes {k3_scircuit} K3 launches, not 2 "
+             f"(one phase and the extraction)")
     log(f"# launches during one scircuit CLOSG SpMV: "
         f"{counted_spmv(A, xd, K)[1]}")
     csr = build_csr(host).to(dev)
-    for key, fn in (("CLOSG/cuda", lambda: spmv(A, xd, impl="cuda")),
-                    ("CSR/torch", lambda: spmv(csr, xd, impl="torch"))):
-        log(f"# scircuit {key}: one SpMV, device time "
-            f"{timer.ms(fn):.4f} ms")
+    time_candidates(timer, "scircuit", {
+        "CLOSG/cuda": lambda v: spmv(A, v, impl="cuda"),
+        "CSR/torch": lambda v: spmv(csr, v, impl="torch")},
+        ("CLOSG/cuda",), xd)
     del csr
 
     # --- 5. the bench path ---
@@ -710,9 +748,18 @@ def main() -> None:
     # K1-K3 at the chunks' own shapes, the widest chunk timed
     k_chunks = closg_checks(timer, K, sorted(Ac.chunks, key=lambda c: -c.N),
                             xsd, suffix="_chunked")
+    k3_ship = k3_launches(K, "shipsec1", Ac.chunks, xsd)
+    k3_ms = {k["name"]: k["ms"] for k in (*kernels, *k_chunks)}
+    log(f"# K3 (B3) timed alone: scircuit {k3_ms['closg_r3_scan_yext']:.5f}"
+        f" ms, shipsec1's widest chunk "
+        f"{k3_ms['closg_r3_scan_yext_chunked']:.5f} ms")
     for key, F in (("SELLR", Ar), ("SELLW", Aw), ("CLOSG", Ac)):
-        log(f"# launches during one shipsec1 {key} SpMV: "
-            f"{counted_spmv(F, xsd, K, KS)[1]}")
+        launches = counted_spmv(F, xsd, K, KS)[1]
+        log(f"# launches during one shipsec1 {key} SpMV: {launches}")
+    if launches["closg_r3_scan_yext"] != k3_ship:
+        fail(f"a shipsec1 CLOSG SpMV launched closg_r3_scan_yext "
+             f"{launches['closg_r3_scan_yext']} times, its chunks' plans "
+             f"{k3_ship}")
     csr = build_csr(ship).to(dev)
     time_candidates(timer, "shipsec1", {
         "SELLR/cuda": lambda v: spmv(Ar, v, impl="cuda"),
@@ -1590,19 +1637,37 @@ def fallback_phase(timer, dev, cfg) -> list:
     u = net(K.clos_r3_fill_torch(*fill), Ac.perm_r1, Ac.perm_r2)
     scan = (u, Ac.perm_r3, Ac.vals, Ac.scan_hi, Ac.scan_stages)
     u = net(K.clos_r3_scan_torch(*scan), Ac.compact_r1, Ac.compact_r2)
-    valid = (u, Ac.compact_r3)
-    k_b8 = [entry(name, CLOSG_SRC, [(lambda f=getattr(K, name), a=args:
-                                     f(*a),
-                                     lambda f=getattr(K, name + "_torch"),
-                                     a=args: f(*a))], work)
-            for name, args, work in (
-                ("clos_r3_fill", fill,
+    # the valid step as the pipeline calls it, over the blocks that hold y
+    # (its bound those blocks' bytes), and over the whole plane
+    valid, whole = (u, Ac.compact_r3, Ac.m), (u, Ac.compact_r3)
+    rows = -(-Ac.m // 1024) * 8
+    b8_case = lambda name, a: (  # noqa: E731
+        lambda: getattr(K, name)(*a),
+        lambda: getattr(K, name + "_torch")(*a))
+    k_b8 = [entry(name, CLOSG_SRC, cases, work)
+            for name, cases, work in (
+                ("clos_r3_fill", [b8_case("clos_r3_fill", fill)],
                  (nbytes(u, Ac.widen_r3, hi(Ac.fill_hi)) + 4 * N, 0)),
                 # a product per slot and a prefix sum, one add per slot
-                ("clos_r3_scan", scan,
+                ("clos_r3_scan", [b8_case("clos_r3_scan", scan)],
                  (nbytes(u, Ac.perm_r3, Ac.vals, hi(Ac.scan_hi)) + 4 * N,
                   2 * N)),
-                ("clos_r3_valid", valid, (nbytes(*valid) + 4 * N, 0)))]
+                ("clos_r3_valid", [b8_case("clos_r3_valid", valid),
+                                   b8_case("clos_r3_valid", whole)],
+                 (3 * 4 * rows * 128, 0)))]
+    whole_ms = timer.ms(b8_case("clos_r3_valid", whole)[0])
+    b8_plans = {name: K.plan_scan_phases(st, N, N) for name, st in (
+        ("clos_r3_fill", Ac.fill_stages), ("clos_r3_scan", Ac.scan_stages))}
+    log(f"# B8 plans: fill ({len(Ac.fill_stages)} stages) "
+        + describe_plan(K, Ac.fill_stages, N, N) + f"; scan "
+        f"({len(Ac.scan_stages)} stages) "
+        + describe_plan(K, Ac.scan_stages, N, N) + f"; valid over {rows // 8}"
+        f" of {N // 1024} blocks (m = {Ac.m}): "
+        f"{k_b8[2]['ms']:.5f} ms, the whole plane {whole_ms:.5f} ms (bound "
+        f"{timer.bound(nbytes(*whole) + 4 * N, 0)[0]:.5f})")
+    if any(len(p) != 1 for p in b8_plans.values()):
+        fail(f"scircuit's B8 plans take {[len(p) for p in b8_plans.values()]}"
+             f" phases, not one each")
 
     # B9 on the program's own pipeline inputs, B10 against both
     v0 = BF._spread_x(xd, Ab.n, N, Ab.sigma_x)
@@ -1659,7 +1724,8 @@ def fallback_phase(timer, dev, cfg) -> list:
         f"{KF.tile_log(Ab.L)}): {len(phases)} launches per SpMV; phases "
         f"{phases}; {k_b10['ms']:.4f} ms; equals B9's chain and the plain "
         f"version; cuSPARSE fp32 SpMV {k_b10['library_ms']:.4f} ms")
-    del u, fill, scan, valid, v0, v1, v2, v3, v4, nets, chain, full, planes
+    del u, fill, scan, valid, whole, v0, v1, v2, v3, v4, nets, chain, full
+    del planes
 
     for label, A in (("CLOS", Ac), ("BFLY", Ab)):
         y, launches = counted_spmv(A, xd, K, KF)
@@ -1667,6 +1733,12 @@ def fallback_phase(timer, dev, cfg) -> list:
             f"{ {k: v for k, v in launches.items() if v} } (total "
             f"{sum(launches.values())})")
         check_gold(f"scircuit {label}/cuda", host, x, y)
+        if label == "CLOS":
+            b8 = {k: launches[k] for k in (*b8_plans, "clos_r3_valid")}
+            if b8 != {**{k: len(p) for k, p in b8_plans.items()},
+                      "clos_r3_valid": 1}:
+                fail(f"one scircuit CLOS/cuda SpMV launched B8 {b8}, not "
+                     f"one a phase of its fill and scan plans + 1")
     if {k: launches[k] for k in KF.LAUNCHES} != {**b9_want, "bfly_full": 0}:
         fail(f"one scircuit BFLY/cuda SpMV launched "
              f"{ {k: launches[k] for k in KF.LAUNCHES} }, not one launch a "

@@ -1,9 +1,9 @@
 // Hand-written Hopper (sm_90a) kernels of the CLOSG SpMV engine: the front
 // ends (plain, value-LUT, fused windows), the in-vreg layer, the segmented
-// scan (a launch per stage, or in phases of tiles with a halo: B5, B15),
-// and the three y extractions (windowed, candidate-plane, CLOSGX);
-// and the r3 steps of the exact-CLOS engine (B8: the r3 layer × values or
-// with the out-valid mask, and the forward fill).
+// scan in phases of tiles with a halo (K3's capped scan, B5, B15), and the
+// three y extractions (windowed, candidate-plane, CLOSGX); and the r3 steps
+// of the exact-CLOS engine (B8: the same phased scan × values, or selecting
+// for the forward fill, and the r3 layer with the out-valid mask).
 //
 // Built by spmv_research_tpu_torch/ops/clos_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
@@ -49,26 +49,19 @@ __device__ __forceinline__ float invreg_pick(const uint32_t* w, const float* v,
   return v[s2 * L + l];
 }
 
-// What follows the in-vreg layer in the same launch (kPost).
-constexpr int kPostNone = 0;   // K2, and the r3 layer of K3 and B8 fill
-constexpr int kPostVals = 1;   // B8 scan: × vals at the output slot
-constexpr int kPostValid = 2;  // B8 valid: 0 unless bit 17 of the r3 word
-
 // K2 `clos_invreg` — replaces spmv_research_tpu/ops/clos_pallas.py
-// `_invreg_kernel` (the r2 layer; also the r3 layer of K3).
+// `_invreg_kernel` (the r2 layer).
 // Bound: device memory, 12 bytes per slot (read word and value, write out);
 // the three picks hit shared memory. One block per 1024 slots.
 //
-// B8's r3 layers — replace clos_pallas.py `_r3_scan_kernel` (the layer, then
-// × vals; kPostVals) and `_r3_valid_kernel` (the layer, then the out-valid
-// mask of the compact network; kPostValid). The product is __fmul_rn so
-// that nvcc cannot contract it into an FMA with the scan's add: the plain
-// version rounds it on its own. Bound: device memory, 16 (vals) or 12
-// bytes per slot.
-template <int kPost>
+// kValid: B8's valid step — replaces clos_pallas.py `_r3_valid_kernel` (the
+// compact network's r3 layer, then 0 unless bit 17 of the r3 word, the
+// out-valid bit). A pick stays inside its 1024-slot block, so the wrapper
+// launches only the leading blocks that hold y. Bound: device memory, 12
+// bytes per slot of those blocks.
+template <bool kValid>
 __global__ void invreg_kernel(const float* __restrict__ v,
                               const uint32_t* __restrict__ word,
-                              const float* __restrict__ vals,
                               float* __restrict__ out, int lshift) {
   __shared__ uint32_t w_sh[kBlockSlots];
   __shared__ float v_sh[kBlockSlots];
@@ -78,12 +71,7 @@ __global__ void invreg_kernel(const float* __restrict__ v,
   v_sh[t] = v[off + t];
   __syncthreads();
   const float r = invreg_pick(w_sh, v_sh, t, lshift);
-  if (kPost == kPostVals)
-    out[off + t] = __fmul_rn(r, vals[off + t]);
-  else if (kPost == kPostValid)
-    out[off + t] = ((w_sh[t] >> 17) & 1u) ? r : 0.0f;
-  else
-    out[off + t] = r;
+  out[off + t] = (!kValid || ((w_sh[t] >> 17) & 1u)) ? r : 0.0f;
 }
 
 // K1 `closg_front` — replaces spmv_research_tpu/ops/clos_gather.py
@@ -157,24 +145,18 @@ __global__ void front_win_kernel(const int32_t* __restrict__ gbase,
   out[off + t] = invreg_pick(w_sh, v_sh, t, 7);
 }
 
-// One Hillis–Steele stage of the segmented scan — part of K3 (replacing
-// spmv_research_tpu/ops/clos_pallas.py `_r3_scan_yext_kernel`) and of B8's
-// scan (`_r3_scan_kernel`), and the global phase of B5 and B15 (below):
+// One Hillis–Steele stage of the segmented scan over the whole plane: the
+// global phase of the phased scan (below), for a stage no tiling serves:
 //   dst[p] = src[p] + (guard_k[p] ? src[p - 2^k] : 0)
 // with guard_k bit 17+k of the r3 word (k < 15) or bit k-15 of scan_hi.
 // The slots are runs of `chunk` (a power of two: one program, or one of
 // CLOSGX's stacked chunks), and the shift wraps within its run like the
 // JAX package's roll; a set guard never wraps, so no value crosses a
-// chunk. Each stage reads the previous stage's whole array, so stages
-// ping-pong two buffers, one launch each. Bound: device memory, 12 bytes
-// per slot per stage.
-//
-// kSelect: one stage of B8's forward fill — replaces the fill stages of
-// clos_pallas.py `_r3_fill_kernel` (the widen network's r3 word carries the
-// take bits):
+// chunk. kSelect: a stage of B8's forward fill, the take bits where the
+// guards are:
 //   dst[p] = take_k[p] ? src[p - 2^k] : src[p]
 // over one CLOS program (chunk = N), wrapping like the JAX package's roll.
-// The select is exact. Bound: device memory, 12 bytes per slot per stage.
+// Bound: device memory, 12 bytes per slot.
 template <bool kSelect>
 __global__ void scan_step_kernel(const float* __restrict__ src,
                                  float* __restrict__ dst,
@@ -195,14 +177,27 @@ __global__ void scan_step_kernel(const float* __restrict__ src,
   }
 }
 
-// ---------------------------------------------------------------- B5, B15
+// ------------------------------------------------------- K3, B5, B8, B15
 //
-// B5 `closg_r3_scan` — replaces clos_pallas.py `_r3_scan_kernel_noval` (the
-// W = 0 back end's r3 layer + full segmented scan) — and the scan of B15
-// `closgx_r3_scan_yext` — clos_xl.py `_r3_scan_yext_dyn_kernel`, whose
-// extraction is yext_kernel. The plane is C runs of `chunk` slots (B5:
-// C = 1), each scanned on its own with the shift wrapping inside it. One
-// launch a stage moved 12 bytes a slot a stage; here the host planner
+// The r3 layer and a segmented scan in phases of tiles. It replaces, in
+// spmv_research_tpu/ops/clos_pallas.py:
+//   K3 `closg_r3_scan_yext` — `_r3_scan_yext_kernel`: the capped scan,
+//     then yext_kernel (below) over the scanned plane;
+//   B5 `closg_r3_scan` — `_r3_scan_kernel_noval` (the W = 0 back end's r3
+//     layer + full segmented scan);
+//   B8 `clos_r3_scan` — `_r3_scan_kernel`: `vals` given, phase 0 multiplies
+//     each window slot's r3 pick by vals at its plane slot (__fmul_rn, so
+//     nvcc cannot contract it into an FMA with the scan's add: the plain
+//     version rounds the product on its own);
+//   B8 `clos_r3_fill` — `_r3_fill_kernel` (kSelect): each stage is
+//     v[p] = take_k[p] ? v[p − 2^k] : v[p], the take bits where the
+//     guards are (bit 17+k of widen_r3, or bit k−15 of fill_hi), over one
+//     program (chunk = N) wrapping like the JAX package's roll;
+// and the scan of B15 `closgx_r3_scan_yext` — clos_xl.py
+// `_r3_scan_yext_dyn_kernel`, whose extraction is yext_kernel. The plane is
+// C runs of `chunk` slots (one program: C = 1), each scanned on its own
+// with the shift wrapping inside it. One launch a stage moved 12 bytes a
+// slot a stage; here the host planner
 // (ops/clos_cuda.py `plan_scan_phases`) cuts the stages into phases, one
 // launch each, that one tiling of the plane serves:
 //   contiguous (phase 0 only): tile t holds 2^T consecutive slots of a
@@ -232,16 +227,19 @@ __global__ void scan_step_kernel(const float* __restrict__ src,
 // stages under a row (k < 5) in registers instead (scan_contig_kernel).
 // A window slot whose read would leave the window reads garbage (the
 // padding before a shared buffer, or a lane the halo row never got) and
-// is garbage itself, which no tile slot reads, since the halo holds the
-// sum of the shifts. The add is a select of the read value or 0, then
-// __fadd_rn, in the per-stage order of the plain version, so the result
-// equals it (and the chain of scan_step_kernel launches) bit for bit. Only
-// the tile's own slots are written; phases ping-pong two buffers and never
-// read the one they write.
-// Bound: device memory, v and the word read once, the plane written once
-// (12 bytes a slot, 16 where scan_hi is read), against a phase per 10 or
+// is garbage itself, which no tile slot reads: after a phase's stages a
+// slot depends only on the slots within the sum of the phase's shifts
+// before it, and the halo holds that sum. This holds for the select as
+// for the add, since either takes the value D slots back or keeps its own.
+// The add is a select of the read value or 0, then __fadd_rn, in the
+// per-stage order of the plain version, so the result equals it bit for
+// bit; so does the select, which rounds nothing. Only the tile's own slots
+// are written; phases ping-pong two buffers and never read the one they
+// write.
+// Bound: device memory, v and the word read once (and vals, scan_hi or
+// fill_hi where read), the plane written once, against a phase per 10 or
 // so stages here: on a 2^20-slot chunk of 14 stages, 2 launches instead
-// of 15.
+// of 15; K3's and B8's scircuit programs (7, 6 and 9 stages) one each.
 
 constexpr int kScanContig = 0;
 constexpr int kScanStrided = 1;
@@ -290,12 +288,20 @@ __host__ __device__ inline ScanGeom scan_geom(const ScanPhase& f, int k0,
   return g;
 }
 
+// A stage's step on one slot: v + the value read where the guard is set,
+// or (kSelect) the value read where the take bit is set, else v.
+template <bool kSelect>
+__device__ __forceinline__ float stage_op(float v, bool g, float read) {
+  if (kSelect) return g ? read : v;
+  return __fadd_rn(v, g ? read : 0.0f);
+}
+
 // One stage through shared memory on the n window slots base + e·kStride
-// (e < n) a thread holds: store them to b, one barrier, and add to each
-// slot whose guard bit m is set the value d slots back, modulo W where the
+// (e < n) a thread holds: store them to b, one barrier, and apply to each
+// slot, with its guard bit m, the value d slots back, modulo W where the
 // tile spans its whole wrap. Before window slot 0, b has kScanHaloMax
 // slots of garbage: a read there feeds only garbage slots.
-template <int kE, int kStride>
+template <int kE, int kStride, bool kSelect>
 __device__ __forceinline__ void shared_stage(float (&v)[kE],
                                              const uint32_t (&gd)[kE],
                                              uint32_t m, int d, float* b,
@@ -310,13 +316,13 @@ __device__ __forceinline__ void shared_stage(float (&v)[kE],
     for (int e = 0; e < kE; ++e)
       if (e < n) {
         const float sh = b[(base + e * kStride - d) & (W - 1)];
-        v[e] = __fadd_rn(v[e], (gd[e] & m) ? sh : 0.0f);
+        v[e] = stage_op<kSelect>(v[e], gd[e] & m, sh);
       }
   } else {
     const float* const bd = b + base - d;
 #pragma unroll
     for (int e = 0; e < kE; ++e)
-      if (e < n) v[e] = __fadd_rn(v[e], (gd[e] & m) ? bd[e * kStride] : 0.0f);
+      if (e < n) v[e] = stage_op<kSelect>(v[e], gd[e] & m, bd[e * kStride]);
   }
 }
 
@@ -331,17 +337,20 @@ __device__ __forceinline__ uint32_t scan_guards(uint32_t w, uint32_t h,
 // (w+1)·rpw) of 32 slots (rpw = W / 1024), one slot a lane and row, and
 // also holds the row before them (the warp's own one-row halo). The words
 // and values of the window are staged in the two shared buffers for the
-// r3 picks, which then serve the stages. Stages with k < 5 (shifts under
-// a row) run in registers: slot i − 2^k is lane − 2^k of the same row or
-// lane + 32 − 2^k of the row before, one __shfl_sync a row and stage, no
-// barrier; the one-row halo holds their shifts (at most 1 + 2 + 4 + 8 + 16
-// = 31 slots), so each owned slot is exact and the halo row's own garbage
-// reaches none. Stages with k >= 5 go through shared memory.
-template <int kR>
+// r3 picks (× vals, where given), which then serve the stages. Stages with
+// k < 5 (shifts under a row) run in registers: slot i − 2^k is lane − 2^k
+// of the same row or lane + 32 − 2^k of the row before, one __shfl_sync a
+// row and stage, no barrier; the one-row halo holds their shifts (at most
+// 1 + 2 + 4 + 8 + 16 = 31 slots), so each owned slot is exact and the halo
+// row's own garbage reaches none. Stages with k >= 5 go through shared
+// memory. kVals: the picks are multiplied by vals (B8's scan); without it
+// the kernel never reads vals, so K3's, B5's and B15's code is unchanged.
+template <int kR, bool kSelect, bool kVals>
 __global__ void __launch_bounds__(kScanThreads)
     scan_contig_kernel(const float* __restrict__ src, float* __restrict__ dst,
                        const uint32_t* __restrict__ w3,
                        const uint32_t* __restrict__ hi,
+                       const float* __restrict__ vals,
                        const __grid_constant__ ScanStages S, ScanPhase f,
                        int log_chunk) {
   extern __shared__ float sm[];
@@ -376,20 +385,23 @@ __global__ void __launch_bounds__(kScanThreads)
     }
   }
   __syncthreads();
-  // the r3 layer, block by block, of the owned rows and the row before
-  // (for warp 0 the window's last row where the tile wraps, else unused)
+  // the r3 layer (× vals), block by block, of the owned rows and the row
+  // before (for warp 0 the window's last row where the tile wraps, else
+  // unused)
 #pragma unroll
   for (int e = 0; e < kR; ++e) {
     const int i = base + e * 32;
     if (e < rpw) {
       const int bl = i & ~(kBlockSlots - 1);
       v[e] = invreg_pick(ws + bl, b1 + bl, i - bl, 7);
+      if (kVals) v[e] = __fmul_rn(v[e], vals[glob(i)]);
     }
   }
   const int hr = base >= 32 ? base - 32 : (g.whole ? W - 32 + lane : -1);
   if (hr >= 0) {
     const int bl = hr & ~(kBlockSlots - 1);
     vh = invreg_pick(ws + bl, b1 + bl, hr - bl, 7);
+    if (kVals) vh = __fmul_rn(vh, vals[glob(hr)]);
     gh = scan_guards(ws[hr], use_hi ? hi[glob(hr)] : 0u, k0);
   }
   __syncthreads();  // the picks are done: both buffers are free
@@ -404,15 +416,15 @@ __global__ void __launch_bounds__(kScanThreads)
       if (e < rpw) {
         const float x = __shfl_sync(0xffffffffu,
                                     prev ? (e ? v[e - 1] : vh) : v[e], from);
-        v[e] = __fadd_rn(v[e], (gd[e] & m) ? x : 0.0f);
+        v[e] = stage_op<kSelect>(v[e], gd[e] & m, x);
       }
     }
     const float x = __shfl_sync(0xffffffffu, vh, from);
-    vh = __fadd_rn(vh, (gh & m) ? x : 0.0f);
+    vh = stage_op<kSelect>(vh, gh & m, x);
   }
   for (int st = 0; s < f.count; ++s, ++st)
-    shared_stage<kR, 32>(v, gd, 1u << (S.k[s] - k0), 1 << S.k[s],
-                         (st & 1) ? b1 : b0, base, rpw, W, g.whole);
+    shared_stage<kR, 32, kSelect>(v, gd, 1u << (S.k[s] - k0), 1 << S.k[s],
+                                  (st & 1) ? b1 : b0, base, rpw, W, g.whole);
 #pragma unroll
   for (int e = 0; e < kR; ++e) {
     const int i = base + e * 32;
@@ -422,7 +434,7 @@ __global__ void __launch_bounds__(kScanThreads)
 
 // A strided phase: thread tid holds window slots tid + e·1024, one row of
 // 32 a warp and e; every shift is whole rows, through shared memory.
-template <int kE>
+template <int kE, bool kSelect>
 __global__ void __launch_bounds__(kScanThreads)
     scan_strided_kernel(const float* __restrict__ src,
                         float* __restrict__ dst,
@@ -462,9 +474,9 @@ __global__ void __launch_bounds__(kScanThreads)
     }
   }
   for (int s = 0; s < f.count; ++s)
-    shared_stage<kE, kScanThreads>(v, gd, 1u << (S.k[f.first + s] - k0),
-                                   32 << (S.k[f.first + s] - k0),
-                                   (s & 1) ? b1 : b0, tid, n, W, g.whole);
+    shared_stage<kE, kScanThreads, kSelect>(
+        v, gd, 1u << (S.k[f.first + s] - k0), 32 << (S.k[f.first + s] - k0),
+        (s & 1) ? b1 : b0, tid, n, W, g.whole);
 #pragma unroll
   for (int e = 0; e < kE; ++e) {
     const int i = tid + e * kScanThreads;
@@ -545,27 +557,19 @@ int closg_invreg(const void* v, const void* word, void* out, int64_t n_slots,
                  int lanes, void* stream) {
   int lshift = 0;
   while ((1 << lshift) < lanes) ++lshift;
-  invreg_kernel<kPostNone><<<(unsigned)(n_slots / kBlockSlots), kBlockSlots,
-                             0, (cudaStream_t)stream>>>(
-      (const float*)v, (const uint32_t*)word, nullptr, (float*)out, lshift);
+  invreg_kernel<false><<<(unsigned)(n_slots / kBlockSlots), kBlockSlots, 0,
+                         (cudaStream_t)stream>>>(
+      (const float*)v, (const uint32_t*)word, (float*)out, lshift);
   return (int)cudaGetLastError();
 }
 
-// B8's r3 layer on 128-lane rows: post 1 multiplies by vals, post 2 applies
-// the out-valid bit (vals unused, may be null).
-int clos_r3(const void* v, const void* word, const void* vals, void* out,
-            int64_t n_slots, int post, void* stream) {
-  const unsigned blocks = (unsigned)(n_slots / kBlockSlots);
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (post == kPostVals)
-    invreg_kernel<kPostVals><<<blocks, kBlockSlots, 0, st>>>(
-        (const float*)v, (const uint32_t*)word, (const float*)vals,
-        (float*)out, 7);
-  else if (post == kPostValid)
-    invreg_kernel<kPostValid><<<blocks, kBlockSlots, 0, st>>>(
-        (const float*)v, (const uint32_t*)word, nullptr, (float*)out, 7);
-  else
-    return (int)cudaErrorInvalidValue;
+// B8's valid step on 128-lane rows, over the leading n_slots slots (a
+// positive multiple of 1024) of the plane.
+int clos_r3_valid(const void* v, const void* word, void* out, int64_t n_slots,
+                  void* stream) {
+  invreg_kernel<true><<<(unsigned)(n_slots / kBlockSlots), kBlockSlots, 0,
+                        (cudaStream_t)stream>>>(
+      (const float*)v, (const uint32_t*)word, (float*)out, 7);
   return (int)cudaGetLastError();
 }
 
@@ -598,35 +602,28 @@ int closg_front_win(const void* gbase, const void* nbids, int64_t n_nb,
   return (int)cudaGetLastError();
 }
 
-// chunk: a power of two dividing n_slots; scan_hi may be null when k < 15.
-int closg_scan_step(const void* src, void* dst, const void* perm_r3,
-                    const void* scan_hi, int k, int64_t n_slots,
-                    int64_t chunk, void* stream) {
-  const int threads = 256;
-  scan_step_kernel<false><<<(unsigned)((n_slots + threads - 1) / threads),
-                            threads, 0, (cudaStream_t)stream>>>(
-      (const float*)src, (float*)dst, (const uint32_t*)perm_r3,
-      (const uint32_t*)scan_hi, k, n_slots, chunk);
-  return (int)cudaGetLastError();
-}
-
-// B5 and B15's scan: the r3 layer and the stages `stages` (strictly
-// increasing, each in [0, 30]) over n_slots slots in runs of `chunk` (a
-// power of two >= 1024 dividing n_slots, at most 2^30), in the phases of
-// `phases` (4 ints a phase: first stage, stage count, tiling, halo; phase
-// 0 and no other contiguous, a global phase one stage), tiles of
-// 2^kScanTileLog slots. The last phase writes out, the others
-// alternate with tmp (null when there is one phase). scan_hi may be null
-// when no stage is >= 15. One launch a phase.
+// The phased scan (K3's, B5's and B15's; B8's scan with vals, B8's fill
+// with select != 0): the r3 layer (× vals where vals is not null) and the
+// stages `stages` (strictly increasing, each in [0, 30]) over n_slots slots
+// in runs of `chunk` (a power of two >= 1024 dividing n_slots, at most
+// 2^30), in the phases of `phases` (4 ints a phase: first stage, stage
+// count, tiling, halo; phase 0 and no other contiguous, a global phase one
+// stage), tiles of 2^kScanTileLog slots. The last phase writes out, the
+// others alternate with tmp (null when there is one phase). scan_hi (the
+// fill's fill_hi) may be null when no stage is >= 15; select refuses vals.
+// One launch a phase.
 int closg_scan_phases(const void* v, const void* perm_r3, const void* scan_hi,
-                      void* out, void* tmp, int64_t n_slots, int64_t chunk,
-                      const int32_t* stages, int n_stages,
-                      const int32_t* phases, int n_phases, void* stream) {
+                      const void* vals, int select, void* out, void* tmp,
+                      int64_t n_slots, int64_t chunk, const int32_t* stages,
+                      int n_stages, const int32_t* phases, int n_phases,
+                      void* stream) {
   int log_chunk = 0;
   while ((int64_t(1) << log_chunk) < chunk) ++log_chunk;
   if ((int64_t(1) << log_chunk) != chunk || chunk < kBlockSlots ||
-      log_chunk > 30 || n_slots <= 0 || n_slots % chunk || n_stages < 0 || n_stages > kScanMaxStages || n_phases < 1 ||
-      n_phases > kScanMaxPhases || (n_phases > 1 && tmp == nullptr))
+      log_chunk > 30 || n_slots <= 0 || n_slots % chunk || n_stages < 0 ||
+      n_stages > kScanMaxStages || n_phases < 1 ||
+      n_phases > kScanMaxPhases || (n_phases > 1 && tmp == nullptr) ||
+      (select && vals != nullptr))
     return (int)cudaErrorInvalidValue;
   ScanStages S;
   for (int i = 0; i < n_stages; ++i) {
@@ -669,8 +666,14 @@ int closg_scan_phases(const void* v, const void* perm_r3, const void* scan_hi,
   }
   if (covered != n_stages) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const void* contig = (const void*)scan_contig_kernel<kScanE>;
-  const void* strided = (const void*)scan_strided_kernel<kScanE>;
+  // the phase kernels: contiguous (adding, × vals, selecting), strided
+  // (adding, selecting)
+  const void* kernels[5] = {
+      (const void*)scan_contig_kernel<kScanE, false, false>,
+      (const void*)scan_contig_kernel<kScanE, false, true>,
+      (const void*)scan_contig_kernel<kScanE, true, false>,
+      (const void*)scan_strided_kernel<kScanE, false>,
+      (const void*)scan_strided_kernel<kScanE, true>};
   // past 48 KB of shared memory, once per device before the first launch
   static bool allowed[64] = {};
   int dev = 0;
@@ -679,52 +682,49 @@ int closg_scan_phases(const void* v, const void* perm_r3, const void* scan_hi,
   if (dev >= 64 || !allowed[dev]) {
     const int smem_max = 2 * sizeof(float) * ((1 << kScanTileLog) +
                                               2 * kScanHaloMax);
-    err = cudaFuncSetAttribute(
-        contig, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          strided, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
+    for (int m = 0; m < 5 && err == cudaSuccess; ++m)
+      err = cudaFuncSetAttribute(kernels[m],
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem_max);
     if (err != cudaSuccess) return (int)err;
     if (dev < 64) allowed[dev] = true;
   }
   const uint32_t* w3 = (const uint32_t*)perm_r3;
   const uint32_t* hi = (const uint32_t*)scan_hi;
+  const float* vl = (const float*)vals;
   const float* src = (const float*)v;
   for (int i = 0; i < n_phases; ++i) {
     float* dst = (float*)(((n_phases - 1 - i) & 1) ? tmp : out);
     const ScanPhase f = P[i];
     if (f.tiling == kScanGlobal) {
       const int threads = 256;
-      scan_step_kernel<false><<<(unsigned)((n_slots + threads - 1) / threads),
-                                threads, 0, st>>>(
-          src, dst, w3, hi, S.k[f.first], n_slots, chunk);
+      const unsigned grid = (unsigned)((n_slots + threads - 1) / threads);
+      if (select)
+        scan_step_kernel<true><<<grid, threads, 0, st>>>(
+            src, dst, w3, hi, S.k[f.first], n_slots, chunk);
+      else
+        scan_step_kernel<false><<<grid, threads, 0, st>>>(
+            src, dst, w3, hi, S.k[f.first], n_slots, chunk);
       err = cudaGetLastError();
     } else {
       const ScanGeom g = scan_geom(f, f.count ? S.k[f.first] : 0, log_chunk);
       // two buffers of the window, each after kScanHaloMax slots
       const size_t smem = 2 * sizeof(float) * (g.W + kScanHaloMax);
       const unsigned grid = (unsigned)(n_slots / chunk * g.tiles);
-      void* args[] = {&src, &dst, &w3, &hi, &S, (void*)&f, &log_chunk};
-      err = cudaLaunchKernel(f.tiling == kScanContig ? contig : strided,
-                             dim3(grid), dim3(kScanThreads), args, smem, st);
+      void* contig_args[] = {&src, &dst, &w3, &hi, &vl, &S, (void*)&f,
+                             &log_chunk};
+      void* strided_args[] = {&src, &dst, &w3, &hi, &S, (void*)&f,
+                              &log_chunk};
+      const bool contig = f.tiling == kScanContig;
+      const int which = !contig ? (select ? 4 : 3)
+                                : (select ? 2 : (vl != nullptr ? 1 : 0));
+      err = cudaLaunchKernel(kernels[which], dim3(grid), dim3(kScanThreads),
+                             contig ? contig_args : strided_args, smem, st);
     }
     if (err != cudaSuccess) return (int)err;
     src = dst;
   }
   return (int)cudaSuccess;
-}
-
-// B8's fill stage: as closg_scan_step, selecting instead of adding (take
-// bits in widen_r3's spare bits; fill_hi may be null when k < 15).
-int clos_fill_step(const void* src, void* dst, const void* widen_r3,
-                   const void* fill_hi, int k, int64_t n_slots,
-                   int64_t chunk, void* stream) {
-  const int threads = 256;
-  scan_step_kernel<true><<<(unsigned)((n_slots + threads - 1) / threads),
-                           threads, 0, (cudaStream_t)stream>>>(
-      (const float*)src, (float*)dst, (const uint32_t*)widen_r3,
-      (const uint32_t*)fill_hi, k, n_slots, chunk);
-  return (int)cudaGetLastError();
 }
 
 // acc_ptr and acc_src may be null (no accumulate records).

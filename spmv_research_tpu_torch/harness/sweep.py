@@ -167,7 +167,7 @@ class SweepDoneLog:
 
 
 def run_sweep(matrices: Sequence[str],
-              formats: Sequence[str] = ("csr", "closg"),
+              formats: Sequence[str] = ("csr", "bfly"),
               workloads: Sequence[str] = ("spmv",),
               out_dir: str = "out_logs",
               config: Optional[BenchConfig] = None,

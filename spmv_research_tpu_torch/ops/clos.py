@@ -267,7 +267,8 @@ def _pipeline(A: Clos, x: torch.Tensor, plain: bool) -> torch.Tensor:
                           A.fill_hi, A.fill_stages)
     v = k("clos_r3_scan")(net(v, A.perm_r1, A.perm_r2), A.perm_r3, A.vals,
                           A.scan_hi, A.scan_stages)
-    v = k("clos_r3_valid")(net(v, A.compact_r1, A.compact_r2), A.compact_r3)
+    v = k("clos_r3_valid")(net(v, A.compact_r1, A.compact_r2), A.compact_r3,
+                           A.m)             # only the blocks that hold y
     return v.reshape(-1)[: A.m]
 
 

@@ -22,7 +22,8 @@ wrapper                    replaces
                            layer; the r2 layer)
 ``closg_r3_scan_yext``     ``clos_pallas.py:_r3_scan_yext_kernel`` (r3 layer,
                            capped segmented scan, windowed y extraction) —
-                           launches: the r3 layer, one per scan stage, the
+                           launches: one per phase of ``plan_scan_phases``
+                           (scircuit's 7 capped stages: 1), + the
                            extraction
 ``closg_r3_scan``          ``clos_pallas.py:_r3_scan_kernel_noval`` (r3 layer
                            + full scan, the W = 0 back end's first half) —
@@ -36,13 +37,16 @@ wrapper                    replaces
                            over all chunks (9 stages: 1), the extraction
 ``clos_r3_fill``           ``clos_pallas.py:_r3_fill_kernel`` (CLOS widen
                            network: r3 layer, then the forward fill) —
-                           launches: the r3 layer, one per fill stage
+                           launches: one per phase of ``plan_scan_phases``
+                           in select mode (scircuit's 6 stages: 1)
 ``clos_r3_scan``           ``clos_pallas.py:_r3_scan_kernel`` (CLOS perm
                            network: r3 layer × vals, then the full scan) —
-                           launches: the r3 layer, one per scan stage
+                           launches: one per phase of ``plan_scan_phases``
+                           (scircuit's 9 stages: 1)
 ``clos_r3_valid``          ``clos_pallas.py:_r3_valid_kernel`` (CLOS compact
                            network: r3 layer, then the out-valid mask) —
-                           one launch
+                           one launch, over the 1024-slot blocks that hold
+                           the m rows of y where ``m`` is given
 =========================  ===================================================
 
 Each wrapper takes the kernel's plain PyTorch version (``*_torch``) only when
@@ -74,8 +78,7 @@ LAUNCHES = {"closg_front": 0, "closg_front_lut": 0, "closg_front_win": 0,
             "closg_cand_yext": 0, "closgx_r3_scan_yext": 0,
             "clos_r3_fill": 0, "clos_r3_scan": 0, "clos_r3_valid": 0}
 VLUT_SHIFT = SPARE_SHIFT + 7    # r1 bits [24,31): value index / rotation
-R3_VALS, R3_VALID = 1, 2        # clos_r3's post step: × vals, out-valid mask
-# B5's and B15's phases (csrc/closg.cu scan_contig_kernel and
+# the phased scan's phases (csrc/closg.cu scan_contig_kernel and
 # scan_strided_kernel): tilings, the kernels' tile (kScanTileLog: 2^13
 # slots), the halo budget in window slots (one r3 block), and the kernels'
 # limits on stages and phases
@@ -91,17 +94,15 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.closg_invreg.argtypes = [p, p, p, i64, i32, p]
     lib.closg_front.argtypes = [p, p, p, p, i64, p, i64, i32, p]
     lib.closg_front_win.argtypes = [p, p, i64, p, p, p, i64, p, i64, p]
-    lib.closg_scan_step.argtypes = [p, p, p, p, i32, i64, i64, p]
     lib.closg_yext.argtypes = [p, p, p, p, p, p, i32, p]
     lib.closg_cand_yext.argtypes = [p, p, p, i64, p, p]
-    lib.clos_r3.argtypes = [p, p, p, p, i64, i32, p]
-    lib.clos_fill_step.argtypes = [p, p, p, p, i32, i64, i64, p]
+    lib.clos_r3_valid.argtypes = [p, p, p, i64, p]
     ints = ctypes.POINTER(ctypes.c_int32)
-    lib.closg_scan_phases.argtypes = [p, p, p, p, p, i64, i64, ints, i32,
-                                      ints, i32, p]
+    lib.closg_scan_phases.argtypes = [p, p, p, p, i32, p, p, i64, i64, ints,
+                                      i32, ints, i32, p]
     for fn in (lib.closg_invreg, lib.closg_front, lib.closg_front_win,
-               lib.closg_scan_step, lib.closg_yext, lib.closg_cand_yext,
-               lib.clos_r3, lib.clos_fill_step, lib.closg_scan_phases):
+               lib.closg_yext, lib.closg_cand_yext, lib.clos_r3_valid,
+               lib.closg_scan_phases):
         fn.restype = i32
 
 
@@ -274,9 +275,24 @@ def clos_r3_scan_torch(v, perm_r3, vals, scan_hi,
                        v.numel()).view(-1, LANES)
 
 
-def clos_r3_valid_torch(v, compact_r3) -> torch.Tensor:
+def _valid_rows(n_rows: int, m: int | None) -> int:
+    """The 128-lane rows of the 1024-slot blocks that hold slots [0, m):
+    all ``n_rows`` when m is None."""
+    if m is None:
+        return n_rows
+    if not 0 <= m <= n_rows * LANES:
+        raise ValueError(f"m = {m} rows of y past the plane's "
+                         f"{n_rows * LANES} slots")
+    return -(-m // 1024) * SUB
+
+
+def clos_r3_valid_torch(v, compact_r3, m: int | None = None) -> torch.Tensor:
     """CLOS compact network's last step (``_r3_valid_kernel``): the r3
-    layer, then 0 wherever bit 17 of the r3 word (out-valid) is clear."""
+    layer, then 0 wherever bit 17 of the r3 word (out-valid) is clear. With
+    ``m``, only the leading 1024-slot blocks that hold slots [0, m): an r3
+    pick stays inside its block, so they equal the whole plane's."""
+    rows = _valid_rows(v.shape[0], m)
+    v, compact_r3 = v[:rows], compact_r3[:rows]
     valid = ((compact_r3 >> SPARE_SHIFT) & 1) != 0
     return torch.where(valid, invreg_torch(v, compact_r3), 0.0)
 
@@ -287,12 +303,13 @@ def _check_hi(stages: Sequence[int], hi: torch.Tensor, n: int,
         raise ValueError(f"{what} stages >= 15 need the full {what}_hi plane")
 
 
-# ------------------------------------------------------- B5/B15's phases
+# ------------------------------------------------------- the phased scan
 
 def plan_scan_phases(stages: Sequence[int], n: int, chunk: int,
                      T: int = SCAN_TILE_LOG,
                      halo_max: int | None = None) -> tuple:
-    """B5's and B15's phases: ((first stage, stage count, tiling, halo),
+    """The phased scan's phases (K3, B5, B8's fill and scan, B15): ((first
+    stage, stage count, tiling, halo),
     ...) for the r3 layer and the scan stages ``stages`` (strictly
     increasing) over n slots in runs of ``chunk``, on tiles of 2^T slots
     (``csrc/closg.cu`` describes the tilings; the kernels' T is
@@ -361,16 +378,20 @@ def _scan_plan(stages: tuple, n: int, chunk: int, halo_max: int):
             (ctypes.c_int32 * len(flat))(*flat), len(phases))
 
 
-def _scan_phases(key, v, w3, hi_ptr, stages: Sequence[int],
-                 chunk: int) -> torch.Tensor:
-    """The r3 layer and the scan ``stages`` in the phases of
-    ``plan_scan_phases`` (B5, B15's scan), one launch a phase."""
+def _scan_phases(key, v, w3, hi_ptr, stages: Sequence[int], chunk: int,
+                 vals: torch.Tensor | None = None,
+                 select: bool = False) -> torch.Tensor:
+    """The r3 layer (× ``vals`` if given) and the scan ``stages`` (or, with
+    ``select``, the forward-fill stages) in the phases of
+    ``plan_scan_phases``, one launch a phase (K3's, B5's and B15's scan;
+    B8's fill and scan). The C entry refuses ``select`` with ``vals``."""
     n = v.numel()
     ks, n_stages, phases, n_phases = _scan_plan(tuple(stages), n, chunk,
                                                 SCAN_HALO_MAX)
     out = torch.empty_like(v)
     tmp = torch.empty_like(v) if n_phases > 1 else None
     _launch("closg_scan_phases", v.data_ptr(), w3.data_ptr(), hi_ptr,
+            None if vals is None else vals.data_ptr(), int(select),
             out.data_ptr(), None if tmp is None else tmp.data_ptr(), n,
             chunk, ks, n_stages, phases, n_phases, _stream(v))
     LAUNCHES[key] += n_phases
@@ -462,31 +483,6 @@ def _check_back(v, word, chunk: int) -> None:
                          f"{chunk}")
 
 
-def _r3_scan_launch(key, v, perm_r3, hi_ptr, stages: Sequence[int],
-                    chunk: int, step: str = "closg_scan_step",
-                    vals=None) -> torch.Tensor:
-    """The r3 layer (× ``vals`` if given: CLOS's perm network), then one
-    launch of ``step`` (the scan, or CLOS's fill) per stage (ping-pong
-    buffers): K3 and B8."""
-    n = v.numel()
-    a = torch.empty_like(v)
-    b = torch.empty_like(v)
-    stream = _stream(v)
-    if vals is None:
-        _launch("closg_invreg", v.data_ptr(), perm_r3.data_ptr(),
-                a.data_ptr(), n, LANES, stream)
-    else:
-        _launch("clos_r3", v.data_ptr(), perm_r3.data_ptr(), vals.data_ptr(),
-                a.data_ptr(), n, R3_VALS, stream)
-    LAUNCHES[key] += 1
-    for k in stages:
-        _launch(step, a.data_ptr(), b.data_ptr(), perm_r3.data_ptr(), hi_ptr,
-                k, n, chunk, stream)
-        LAUNCHES[key] += 1
-        a, b = b, a
-    return a
-
-
 def closg_r3_scan(v, perm_r3, scan_hi, stages: Sequence[int]) -> torch.Tensor:
     """r3 layer + full segmented scan (kernel B5): the scanned (8V, 128)
     plane, in the phases of ``plan_scan_phases``. Stages ≥ 15 read their
@@ -524,7 +520,10 @@ def closg_cand_yext(scr: torch.Tensor, ycand: torch.Tensor,
 
 def closg_r3_scan_yext(v, perm_r3, scan_hi, ysel_w, wstart, acc_ptr, acc_src,
                        stages: Sequence[int]) -> torch.Tensor:
-    """r3 layer + capped segmented scan + y extraction (kernel K3)."""
+    """r3 layer + capped segmented scan + y extraction (kernel K3): the
+    scan in the phases of ``plan_scan_phases``, one launch a phase, then
+    one extraction launch. Stages ≥ 15 read their guards from
+    ``scan_hi``."""
     if not _on_cuda(v, perm_r3, scan_hi, ysel_w, wstart, acc_ptr, acc_src):
         return closg_r3_scan_yext_torch(v, perm_r3, scan_hi, ysel_w, wstart,
                                         acc_ptr, acc_src, stages)
@@ -541,7 +540,7 @@ def closg_r3_scan_yext(v, perm_r3, scan_hi, ysel_w, wstart, acc_ptr, acc_src,
     _check_hi(stages, scan_hi, n)
     y = torch.empty((n_batches * SUB, LANES), dtype=v.dtype, device=v.device)
     with torch.cuda.device(v.device):
-        a = _r3_scan_launch(
+        a = _scan_phases(
             "closg_r3_scan_yext", v, perm_r3,
             scan_hi.data_ptr() if scan_hi.numel() == n else None, stages, n)
         if n_batches:
@@ -583,8 +582,10 @@ def closgx_r3_scan_yext(v, r3, ysel_w, wstart_abs, stages: int,
 
 
 def clos_r3_fill(v, widen_r3, fill_hi, stages: Sequence[int]) -> torch.Tensor:
-    """CLOS widen network's r3 layer + forward fill (kernel B8): (8V, 128).
-    Stages ≥ 15 read their take bits from ``fill_hi``."""
+    """CLOS widen network's r3 layer + forward fill (kernel B8): (8V, 128),
+    in the phases of ``plan_scan_phases`` (the phased scan in select mode,
+    one launch a phase). Stages ≥ 15 read their take bits from
+    ``fill_hi``."""
     if not _on_cuda(v, widen_r3, fill_hi):
         return clos_r3_fill_torch(v, widen_r3, fill_hi, stages)
     n = v.numel()
@@ -592,16 +593,17 @@ def clos_r3_fill(v, widen_r3, fill_hi, stages: Sequence[int]) -> torch.Tensor:
     _check(fill_hi, "fill_hi", torch.int32)
     _check_hi(stages, fill_hi, n, "fill")
     with torch.cuda.device(v.device):
-        return _r3_scan_launch(
+        return _scan_phases(
             "clos_r3_fill", v, widen_r3,
             fill_hi.data_ptr() if fill_hi.numel() == n else None, stages, n,
-            step="clos_fill_step")
+            select=True)
 
 
 def clos_r3_scan(v, perm_r3, vals, scan_hi,
                  stages: Sequence[int]) -> torch.Tensor:
     """CLOS perm network's r3 layer × vals + full segmented scan (kernel
-    B8): (8V, 128). Stages ≥ 15 read their guards from ``scan_hi``."""
+    B8): (8V, 128), in the phases of ``plan_scan_phases``, one launch a
+    phase. Stages ≥ 15 read their guards from ``scan_hi``."""
     if not _on_cuda(v, perm_r3, vals, scan_hi):
         return clos_r3_scan_torch(v, perm_r3, vals, scan_hi, stages)
     n = v.numel()
@@ -610,22 +612,24 @@ def clos_r3_scan(v, perm_r3, vals, scan_hi,
     _check(scan_hi, "scan_hi", torch.int32)
     _check_hi(stages, scan_hi, n)
     with torch.cuda.device(v.device):
-        return _r3_scan_launch(
+        return _scan_phases(
             "clos_r3_scan", v, perm_r3,
             scan_hi.data_ptr() if scan_hi.numel() == n else None, stages, n,
             vals=vals)
 
 
-def clos_r3_valid(v, compact_r3) -> torch.Tensor:
+def clos_r3_valid(v, compact_r3, m: int | None = None) -> torch.Tensor:
     """CLOS compact network's r3 layer + out-valid mask (kernel B8):
-    (8V, 128)."""
+    (8V, 128), or with ``m`` only the leading 1024-slot blocks that hold
+    slots [0, m) (the rows of y), ⌈m/1024⌉·8 rows; one launch."""
     if not _on_cuda(v, compact_r3):
-        return clos_r3_valid_torch(v, compact_r3)
-    n = v.numel()
-    _check_back(v, compact_r3, n)
-    out = torch.empty_like(v)
-    with torch.cuda.device(v.device):
-        _launch("clos_r3", v.data_ptr(), compact_r3.data_ptr(), None,
-                out.data_ptr(), n, R3_VALID, _stream(v))
-    LAUNCHES["clos_r3_valid"] += 1
+        return clos_r3_valid_torch(v, compact_r3, m)
+    _check_back(v, compact_r3, v.numel())
+    rows = _valid_rows(v.shape[0], m)
+    out = torch.empty((rows, LANES), dtype=v.dtype, device=v.device)
+    if rows:
+        with torch.cuda.device(v.device):
+            _launch("clos_r3_valid", v.data_ptr(), compact_r3.data_ptr(),
+                    out.data_ptr(), rows * LANES, _stream(v))
+        LAUNCHES["clos_r3_valid"] += 1
     return out

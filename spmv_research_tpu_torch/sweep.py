@@ -86,7 +86,7 @@ def main(argv=None) -> None:
     ap.add_argument("--matrices", help="file with one matrix spec per line")
     ap.add_argument("--matrix", action="append", default=[],
                     help="inline matrix spec (repeatable)")
-    ap.add_argument("--formats", nargs="+", default=["csr", "closg"])
+    ap.add_argument("--formats", nargs="+", default=["csr", "bfly"])
     ap.add_argument("--workloads", nargs="+", default=["spmv"])
     ap.add_argument("--out", default="out_logs")
     ap.add_argument("--job", action="append", default=[],

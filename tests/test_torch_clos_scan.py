@@ -1,35 +1,54 @@
-"""B5's and B15's phased scan (``clos_cuda.plan_scan_phases``) on the CPU.
+"""The phased scan (``clos_cuda.plan_scan_phases``) on the CPU: K3's capped
+scan, B5, B8's fill and scan, and B15's scan.
 
 The CUDA kernels (``csrc/closg.cu`` ``scan_contig_kernel`` and
-``scan_strided_kernel``) run the r3 layer and the guarded segmented scan in
-phases of tiles with a halo. Here a plain PyTorch emulation follows the
-planner's tiles, halos and strided views exactly as the kernels index them
-(all tiles of a phase at once, one row each) and must equal the plain versions ``closg_r3_scan_torch`` and
-``closgx_r3_scan_yext_torch`` bit for bit: on CLOSG's W = 0 programs (the
-``w0`` case, and ``scan_hi``, whose stage 15 reads the overflow plane), on
-a CLOSGX stack, and on random planes, at several tile sizes and halo
-budgets. The planner's arithmetic is checked on its own.
+``scan_strided_kernel``) run the r3 layer (× vals for B8's scan) and the
+guarded segmented scan (or, in select mode, B8's forward fill) in phases of
+tiles with a halo. Here a plain PyTorch emulation follows the planner's
+tiles, halos and strided views exactly as the kernels index them (all tiles
+of a phase at once, one row each; a read that leaves the window is NaN, the
+kernels' garbage, which must reach no tile slot) and must equal the plain
+versions bit for bit: ``closg_r3_scan_torch`` and
+``closgx_r3_scan_yext_torch`` on CLOSG's W = 0 programs (the ``w0`` case,
+and ``scan_hi``, whose stage 15 reads the overflow plane), on a CLOSGX
+stack, and on K3's capped scan of a W > 0 program; ``clos_r3_fill_torch``
+and ``clos_r3_scan_torch`` on CLOS programs (their stages past 14 on the
+hi planes); and random planes in all three modes, at several tile sizes
+and halo budgets. The planner's arithmetic is checked on its own, and on
+the scircuit twin's programs (the chip smoke's shapes).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from spmv_research_tpu_torch import bench
+from spmv_research_tpu_torch.convert.reorder import rcm_if_beneficial
 from spmv_research_tpu_torch.core.host import HostCSR
+from spmv_research_tpu_torch.gen import generate_from_line
 from spmv_research_tpu_torch.ops import build_clos_gather, build_clos_gather_xl
 from spmv_research_tpu_torch.ops import clos_cuda as K
-from spmv_research_tpu_torch.ops.clos import invreg_torch
+from spmv_research_tpu_torch.ops.clos import build_clos, invreg_torch
 from spmv_research_tpu_torch.ops.clos_route import LANES
 
-from torch_cases import random_matrix, w0_matrix
+from torch_cases import (capped_scan_matrix, clos_hi_matrix, fill_chunks,
+                         random_matrix, w0_matrix)
 
 
-def _phased_emulation(v, w3, hi, stages, chunk, T, halo_max):
+def _phased_emulation(v, w3, hi, stages, chunk, T, halo_max, vals=None,
+                      select=False):
     """The phased scan in plain PyTorch: each tiled phase gathers every
-    tile's window (halo first), runs the r3 layer on it (phase 0) and the
-    phase's stages as shifts by D window slots, a read that would leave the
-    window taking no add, and writes back the tiles' own slots; a global
-    phase is one stage over the plane."""
+    tile's window (halo first), runs the r3 layer on it (phase 0; × vals at
+    each window slot's plane slot, where given) and the phase's stages as
+    shifts by D window slots, a read that would leave the window reading
+    NaN, and writes back the tiles' own slots; a global phase is one stage
+    over the plane. A stage adds the value read where the guard is set, or
+    (``select``) takes it where the take bit is set."""
+    def step(cur, take, read):
+        if select:
+            return torch.where(take, read, cur)
+        return cur + torch.where(take, read, 0.0)
+
     n = v.numel()
     v, w3 = v.reshape(-1), w3.reshape(-1).long() & 0xFFFFFFFF
     hi = (hi.reshape(-1).long() & 0xFFFFFFFF if hi.numel() == n
@@ -47,8 +66,7 @@ def _phased_emulation(v, w3, hi, stages, chunk, T, halo_max):
             k = ks[0]
             u = src.view(C, chunk)
             g = ((guards >> k) & 1).bool().view(C, chunk)
-            src = (u + torch.where(g, torch.roll(u, 1 << k, dims=1),
-                                   0.0)).reshape(-1)
+            src = step(u, g, torch.roll(u, 1 << k, dims=1)).reshape(-1)
             continue
         k0 = ks[0] if ks else 0
         if tiling == K.CONTIG:
@@ -70,6 +88,8 @@ def _phased_emulation(v, w3, hi, stages, chunk, T, halo_max):
             gi = cbase + (((local << R) + i - H) & (chunk - 1))
             cur = invreg_torch(src[gi].view(-1, LANES),
                                w3[gi].int().view(-1, LANES)).view(-1, W)
+            if vals is not None:
+                cur = cur * vals.reshape(-1)[gi]
             shifts = [1 << k for k in ks]
         else:
             jt, rg = local & ((1 << (jl - R)) - 1), local >> (jl - R)
@@ -82,11 +102,12 @@ def _phased_emulation(v, w3, hi, stages, chunk, T, halo_max):
             q = i - d
             if whole:
                 q = q & (W - 1)
-            take = ((g >> k) & 1).bool() & (q >= 0)
-            cur = cur + torch.where(take, cur[:, q.clamp(min=0)], 0.0)
+            read = torch.where(q >= 0, cur[:, q.clamp(min=0)], float("nan"))
+            cur = step(cur, ((g >> k) & 1).bool(), read)
         dst = torch.full_like(src, float("nan"))
         dst[gi[:, H:]] = cur[:, H:]
-        assert not torch.isnan(dst).any()       # every slot written once
+        # every slot written once, and no garbage read reached a tile slot
+        assert not torch.isnan(dst).any()
         src = dst
     return src.view(-1, LANES)
 
@@ -141,7 +162,7 @@ def test_phased_schedule_equals_closgx_back_end(xl_stack, T, halo_max):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("chunk,n_chunks,stages,T,halo_max", [
+RANDOM_SHAPES = pytest.mark.parametrize("chunk,n_chunks,stages,T,halo_max", [
     (1 << 15, 1, tuple(range(15)), 10, 1024),     # strided, some whole
     (1 << 14, 3, tuple(range(14)), 11, 512),
     (1 << 14, 2, (0, 2, 5, 9, 11, 13), 10, 1024),  # sparse stages
@@ -149,22 +170,120 @@ def test_phased_schedule_equals_closgx_back_end(xl_stack, T, halo_max):
     (1 << 16, 1, tuple(range(17)), 10, 16),        # tiny budget: global
     (1 << 10, 4, tuple(range(12)), 13, 1024),      # chunk < tile, k >= L
 ])
-def test_phased_schedule_on_random_planes(chunk, n_chunks, stages, T,
-                                          halo_max):
-    """Random words and guards (any bit may be set, wrapping or not) and
-    random values: the schedule equals the plain scan whatever the guards,
-    so the halo alone carries its exactness."""
+
+
+def _random_planes(chunk, n_chunks, stages):
     rng = np.random.Generator(np.random.PCG64(chunk + len(stages)))
     n = chunk * n_chunks
     w3 = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, n).astype(
         np.int32)).view(-1, LANES)
     hi = torch.from_numpy(rng.integers(0, 2 ** 16, n).astype(np.int32))
-    v = _v(n, 5)
+    return _v(n, 5), w3, hi
+
+
+@RANDOM_SHAPES
+def test_phased_schedule_on_random_planes(chunk, n_chunks, stages, T,
+                                          halo_max):
+    """Random words and guards (any bit may be set, wrapping or not) and
+    random values: the schedule equals the plain scan whatever the guards,
+    so the halo alone carries its exactness."""
+    v, w3, hi = _random_planes(chunk, n_chunks, stages)
     want = (K.closg_r3_scan_torch(v, w3, hi, stages) if n_chunks == 1 else
             K._scan_torch(invreg_torch(v, w3).reshape(-1), w3.reshape(-1),
                           hi, stages, chunk).view(-1, LANES))
     got = _phased_emulation(v, w3, hi, stages, chunk, T, halo_max)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["select", "vals"])
+@RANDOM_SHAPES
+def test_phased_fill_and_vals_on_random_planes(mode, chunk, n_chunks, stages,
+                                               T, halo_max):
+    """The same shapes in select mode (B8's fill) and with vals (B8's
+    scan): equal to ``clos_r3_fill_torch`` and ``clos_r3_scan_torch`` on one
+    chunk, to their stages run per chunk on several."""
+    v, w3, hi = _random_planes(chunk, n_chunks, stages)
+    vals = _v(v.numel(), 6)
+    if mode == "select":
+        want = (K.clos_r3_fill_torch(v, w3, hi, stages) if n_chunks == 1
+                else fill_chunks(invreg_torch(v, w3), w3, hi, stages, chunk))
+        got = _phased_emulation(v, w3, hi, stages, chunk, T, halo_max,
+                                select=True)
+    else:
+        want = (K.clos_r3_scan_torch(v, w3, vals, hi, stages) if n_chunks == 1
+                else K._scan_torch((invreg_torch(v, w3) * vals).reshape(-1),
+                                   w3.reshape(-1), hi, stages,
+                                   chunk).view(-1, LANES))
+        got = _phased_emulation(v, w3, hi, stages, chunk, T, halo_max,
+                                vals=vals)
+    assert torch.equal(got, want)
+
+
+B5_TILINGS = [(13, 1024), (11, 1024), (10, 256), (12, 64)]
+
+
+@pytest.fixture(scope="module", params=["random", "hi_planes"])
+def clos_case(request):
+    mat = (clos_hi_matrix() if request.param == "hi_planes"
+           else random_matrix(3000, 2500, 0.002, 8))
+    A = build_clos(HostCSR.from_scipy(mat))
+    hi = request.param == "hi_planes"
+    assert (A.fill_hi.numel() == A.N) == hi == (max(A.fill_stages) >= 15)
+    assert (A.scan_hi.numel() == A.N) == hi == (max(A.scan_stages) >= 15)
+    return A
+
+
+@pytest.mark.parametrize("T,halo_max", B5_TILINGS)
+def test_phased_schedule_equals_clos_fill_and_scan(clos_case, T, halo_max):
+    """B8 on CLOS programs: the fill in select mode (take bits in widen_r3
+    and fill_hi) and the r3 layer × vals with the scan, at B5's tile sizes
+    and halo budgets."""
+    A = clos_case
+    v = _v(A.N, 6)
+    want = K.clos_r3_fill_torch(v, A.widen_r3, A.fill_hi, A.fill_stages)
+    got = _phased_emulation(v, A.widen_r3, A.fill_hi, A.fill_stages, A.N, T,
+                            halo_max, select=True)
+    assert torch.equal(got, want)
+    want = K.clos_r3_scan_torch(v, A.perm_r3, A.vals, A.scan_hi,
+                                A.scan_stages)
+    got = _phased_emulation(v, A.perm_r3, A.scan_hi, A.scan_stages, A.N, T,
+                            halo_max, vals=A.vals)
+    assert torch.equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def capped():
+    A = build_clos_gather(HostCSR.from_scipy(capped_scan_matrix()))
+    assert A.W > 0 and 0 < len(A.scan_cap) < len(A.scan_stages)
+    assert A.acc_src.numel() > 0
+    return A
+
+
+@pytest.mark.parametrize("T,halo_max", B5_TILINGS)
+def test_phased_schedule_equals_closg_capped_scan(capped, T, halo_max):
+    """K3's capped scan on a W > 0 program with accumulate records: the
+    scanned plane its plain version extracts y from."""
+    A = capped
+    v = _v(A.N, 7)
+    want = K.closg_r3_scan_torch(v, A.perm_r3, A.scan_hi, A.scan_cap)
+    got = _phased_emulation(v, A.perm_r3, A.scan_hi, A.scan_cap, A.N, T,
+                            halo_max)
+    assert torch.equal(got, want)
+
+
+def test_clos_r3_valid_leading_blocks(clos_case):
+    """With m, the valid step's plain version gives the leading 1024-slot
+    blocks that hold slots [0, m), equal to the whole plane's rows."""
+    A = clos_case
+    u = _v(A.N, 8)
+    whole = K.clos_r3_valid_torch(u, A.compact_r3)
+    assert whole.shape == (A.N // LANES, LANES)
+    for m in (A.m, 0, 1, 1024, 1025, A.N):
+        rows = -(-m // 1024) * 8
+        got = K.clos_r3_valid_torch(u, A.compact_r3, m)
+        assert got.shape == (rows, LANES) and torch.equal(got, whole[:rows])
+    with pytest.raises(ValueError, match="past the plane"):
+        K.clos_r3_valid_torch(u, A.compact_r3, A.N + 1)
 
 
 # ------------------------------------------------------ the planner
@@ -218,6 +337,21 @@ def test_plan_of_the_smoke_shapes():
         (0, 13, K.CONTIG, 0),)
     assert len(K.plan_scan_phases(range(16), 1 << 20, 1 << 20)) == 3
     assert K.plan_scan_phases((), 1 << 20, 1 << 20) == ((0, 0, K.CONTIG, 0),)
+
+
+def test_plan_of_the_scircuit_programs():
+    """The chip smoke's main-path shapes, on the scircuit twin (bench.py's
+    line, RCM) at N = 2^20: K3's 7 capped stages, CLOS's 6 fill and 9 scan
+    stages, one contiguous phase each."""
+    host = rcm_if_beneficial(generate_from_line(bench.SCIRCUIT_LINE)[0])[0]
+    G, C = build_clos_gather(host), build_clos(host)
+    N = 1 << 20
+    assert G.N == C.N == N and G.W > 0
+    assert K.plan_scan_phases(G.scan_cap, N, N) == ((0, 7, K.CONTIG, 127),)
+    assert K.plan_scan_phases(C.fill_stages, N, N) == (
+        (0, 6, K.CONTIG, 63),)
+    assert K.plan_scan_phases(C.scan_stages, N, N) == (
+        (0, 9, K.CONTIG, 511),)
 
 
 @pytest.mark.parametrize("stages,n,chunk", [

@@ -44,7 +44,7 @@ from torch_cases import (TWIN_LINE, banded_matrix, bfly_pathological,
                          btile_banded, btile_special_matrix,
                          capped_scan_matrix, clos_hi_matrix,
                          dirty_sellr_matrix, ds_banded, ds_staged_matrix,
-                         random_matrix,
+                         fill_chunks, random_matrix,
                          skewed_matrix, skewed_xl_matrix,
                          staged_sellw_matrix, w0_matrix)
 
@@ -77,12 +77,23 @@ def test_kernels_match_plain_versions(cuda, case):
     v2_in = _t_fwd(v1, A.V)
     v2 = K.clos_invreg(v2_in, A.perm_r2)
     assert torch.equal(v2, K.clos_invreg_torch(v2_in, A.perm_r2))
+    stages = A.scan_cap or A.scan_stages
     args = (_t_bwd(v2, A.V), A.perm_r3, A.scan_hi, A.ysel_w, A.wstart,
-            A.acc_ptr, A.acc_src, A.scan_cap or A.scan_stages)
+            A.acc_ptr, A.acc_src, stages)
+    K.reset_launch_counts()
     y = K.closg_r3_scan_yext(*args)
     y_plain = K.closg_r3_scan_yext_torch(*args)
     torch.cuda.synchronize()
     assert (y - y_plain).abs().max() <= 1e-6 * y_plain.abs().max()
+    # K3: the phased scan, one launch a phase, then the extraction; the
+    # scanned plane it extracts from equals the plain version's exactly
+    assert K.LAUNCHES["closg_r3_scan_yext"] == len(
+        K.plan_scan_phases(stages, A.N, A.N)) + 1
+    hi_ptr = A.scan_hi.data_ptr() if A.scan_hi.numel() == A.N else None
+    scr = K._scan_phases("closg_r3_scan_yext", args[0], A.perm_r3, hi_ptr,
+                         stages, A.N)
+    assert torch.equal(scr, K.closg_r3_scan_torch(args[0], A.perm_r3,
+                                                  A.scan_hi, stages))
 
     mat = host.to_scipy()
     got = spmv(A, xd).double().cpu().numpy()          # CUDA tensor: "cuda"
@@ -374,6 +385,72 @@ def test_phased_scan_refuses_bad_stages(cuda):
     assert not any(K.LAUNCHES.values())
 
 
+@pytest.mark.parametrize("mode", ["select", "vals"])
+@pytest.mark.parametrize("chunk,n_chunks,n_stages,halo_max", [
+    (1 << 13, 1, 13, 1024),   # one tile: one phase, no halo
+    (1 << 20, 1, 20, 1024),   # contiguous, strided, then hi stages
+    (1 << 17, 1, 17, 64),     # strided phases of 1-row halos
+    (1 << 16, 1, 17, 16),     # global phases
+    (1 << 10, 6, 12, 1024),   # chunks smaller than a tile, k >= chunk
+    (1 << 15, 3, 16, 1024),   # tiles whose halo wraps inside each chunk
+])
+def test_phased_fill_and_vals_on_random_planes(cuda, monkeypatch, mode,
+                                               chunk, n_chunks, n_stages,
+                                               halo_max):
+    """The phased scan in select mode (B8's fill) and with vals (B8's scan)
+    over random planes, at several chunk sizes and halo budgets
+    (monkeypatched), equals the plain stages bit for bit, one launch a
+    phase; on one chunk through the wrappers ``clos_r3_fill`` and
+    ``clos_r3_scan``."""
+    monkeypatch.setattr(K, "SCAN_HALO_MAX", halo_max)
+    n = chunk * n_chunks
+    v, w3, hi = _random_scan_planes(n, chunk + n_stages, cuda)
+    vals = _random_scan_planes(n, n_stages, cuda)[0]
+    stages = tuple(range(n_stages))
+    key = "clos_r3_fill" if mode == "select" else "clos_r3_scan"
+    K.reset_launch_counts()
+    if n_chunks == 1 and mode == "select":
+        got = K.clos_r3_fill(v, w3, hi, stages)
+        want = K.clos_r3_fill_torch(v, w3, hi, stages)
+    elif n_chunks == 1:
+        got = K.clos_r3_scan(v, w3, vals, hi, stages)
+        want = K.clos_r3_scan_torch(v, w3, vals, hi, stages)
+    else:
+        got = K._scan_phases(key, v, w3, hi.data_ptr(), stages, chunk,
+                             vals=None if mode == "select" else vals,
+                             select=mode == "select")
+        u = K.clos_invreg_torch(v, w3)
+        want = (fill_chunks(u, w3, hi, stages, chunk) if mode == "select"
+                else K._scan_torch((u * vals).reshape(-1), w3.reshape(-1),
+                                   hi, stages, chunk).view(-1, 128))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert K.LAUNCHES[key] == len(K.plan_scan_phases(
+        stages, n, chunk, halo_max=halo_max))
+
+
+def test_phased_fill_and_scan_refuse_bad_calls(cuda):
+    """Select with vals, and a stage >= 15 with no hi plane (a null pointer
+    to the C entry, or a dummy plane to the wrappers), raise before any
+    launch."""
+    v, w3, hi = _random_scan_planes(1 << 16, 2, cuda)
+    stages = tuple(range(16))
+    K.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="closg_scan_phases"):
+        K._scan_phases("clos_r3_scan", v, w3, None, range(4), 1 << 16,
+                       vals=v, select=True)
+    with pytest.raises(RuntimeError, match="closg_scan_phases"):
+        K._scan_phases("clos_r3_fill", v, w3, None, stages, 1 << 16,
+                       select=True)
+    dummy = hi[:8].contiguous()
+    with pytest.raises(ValueError, match="fill_hi"):
+        K.clos_r3_fill(v, w3, dummy, stages)
+    with pytest.raises(ValueError, match="scan_hi"):
+        K.clos_r3_scan(v, w3, v, dummy, stages)
+    torch.cuda.synchronize()
+    assert not any(K.LAUNCHES.values())
+
+
 def test_rowsplit_and_dense_on_the_card(cuda, monkeypatch):
     """RSPLIT over one CLOSG program and over CLOSGX (the split threshold
     lowered), and DENSE's torch.matmul, each within 1e-5 of |A|·|x|."""
@@ -612,9 +689,10 @@ def test_sellwds_wrapper_refuses_bad_input(cuda):
 
 @pytest.mark.parametrize("case", ["random", "hi_planes"])
 def test_clos_r3_kernels_match_plain_versions(cuda, case):
-    """B8: the fill, the r3 layer × vals with the scan, and the out-valid
-    mask equal their plain versions bit for bit (stages past 14 on the hi
-    planes); CLOS/cuda's y lies within 1e-5 of |A|·|x|."""
+    """B8: the fill, the r3 layer × vals with the scan (each one launch a
+    phase of ``plan_scan_phases``), and the out-valid mask, whole and over
+    the blocks that hold y, equal their plain versions bit for bit (stages
+    past 14 on the hi planes); CLOS/cuda's y lies within 1e-5 of |A|·|x|."""
     mat = (clos_hi_matrix() if case == "hi_planes"
            else random_matrix(3000, 2500, 0.002, 8))
     A = clos.build_clos(HostCSR.from_scipy(mat)).to(cuda)
@@ -626,18 +704,23 @@ def test_clos_r3_kernels_match_plain_versions(cuda, case):
             ("clos_r3_fill", (u, A.widen_r3, A.fill_hi, A.fill_stages)),
             ("clos_r3_scan", (u, A.perm_r3, A.vals, A.scan_hi,
                               A.scan_stages)),
-            ("clos_r3_valid", (u, A.compact_r3))):
+            ("clos_r3_valid", (u, A.compact_r3)),
+            ("clos_r3_valid", (u, A.compact_r3, A.m))):
         got = getattr(K, name)(*args)
         want = getattr(K, name + "_torch")(*args)
         torch.cuda.synchronize()
         assert torch.equal(got, want), name
+    n_fill = len(K.plan_scan_phases(A.fill_stages, A.N, A.N))
+    n_scan = len(K.plan_scan_phases(A.scan_stages, A.N, A.N))
     assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0),
-                          "clos_r3_fill": 1 + len(A.fill_stages),
-                          "clos_r3_scan": 1 + len(A.scan_stages),
-                          "clos_r3_valid": 1}
+                          "clos_r3_fill": n_fill, "clos_r3_scan": n_scan,
+                          "clos_r3_valid": 2}
+    assert n_fill + n_scan < len(A.fill_stages) + len(A.scan_stages)
     K.reset_launch_counts()
     y = spmv(A, xd)                                    # CUDA tensor: "cuda"
-    assert K.LAUNCHES["clos_invreg"] == 6 and K.LAUNCHES["clos_r3_valid"] == 1
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0), "clos_invreg": 6,
+                          "clos_r3_fill": n_fill, "clos_r3_scan": n_scan,
+                          "clos_r3_valid": 1}
     assert torch.equal(y, spmv(A, xd, impl="torch"))
     _close_to_scipy(mat, x, y)
     if case == "hi_planes":       # stages past 14 refuse a dummy hi plane

@@ -7,6 +7,8 @@ labels; the config, the three ``load_matrix`` transforms and ``build_best``'s
 format choice must match the JAX package's.
 """
 
+import argparse
+
 import numpy as np
 import pytest
 import torch
@@ -151,6 +153,41 @@ def test_cli_needs_a_gpu_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         cli.main(["--matrix", BANDED_LINE])
+
+
+class _Parsed(Exception):
+    """Raised in place of parsing: carries the parser's default formats."""
+
+
+def test_default_formats_match_jax(monkeypatch):
+    """``run_sweep``'s and the CLI's default formats are the JAX package's
+    (``harness/sweep.py``'s ``run_sweep`` and ``tools/sweep.py``'s parser):
+    csr and bfly."""
+    import importlib.util
+    import inspect
+    import pathlib
+    import sys
+    from spmv_research_tpu.harness.sweep import run_sweep as jax_run_sweep
+
+    def default(fn):
+        return tuple(inspect.signature(fn).parameters["formats"].default)
+
+    assert default(run_sweep) == default(jax_run_sweep) == ("csr", "bfly")
+
+    def stop(parser, *args, **kw):
+        raise _Parsed(tuple(parser.get_default("formats")))
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", stop)
+    monkeypatch.setattr(sys, "path", list(sys.path))  # the CLI adds "."
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / "sweep.py"
+    spec = importlib.util.spec_from_file_location("jax_sweep_cli", path)
+    jax_cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_cli)
+    with pytest.raises(_Parsed) as ours:
+        cli.main([])
+    with pytest.raises(_Parsed) as theirs:
+        jax_cli.main()
+    assert ours.value.args[0] == theirs.value.args[0] == ("csr", "bfly")
 
 
 @pytest.mark.parametrize("rcm", [False, True, "auto"])

@@ -3,6 +3,9 @@ can import them on a machine without it)."""
 
 import numpy as np
 import scipy.sparse as sp
+import torch
+
+from spmv_research_tpu_torch.ops.clos import _stage_bit
 
 # bench.py's scircuit twin line, cut to 2000 rows (V=16, W=2, capped scan
 # with 10 accumulate records)
@@ -273,3 +276,14 @@ def btile_special_matrix():
     out = sp.coo_matrix((vals, (rows, cols)), shape=mat.shape).tocsr()
     out.sort_indices()
     return out
+
+
+def fill_chunks(u, w3, hi, stages, chunk):
+    """B8's forward fill over flat slots, the shift rolling within each run
+    of ``chunk`` slots (``clos_r3_fill_torch``'s stages, chunk by chunk):
+    the reference of the phased fill on a stack of chunks."""
+    u, w3, hi = u.view(-1, chunk), w3.reshape(-1, chunk), hi.view(-1, chunk)
+    for k in stages:
+        u = torch.where(_stage_bit(k, w3, hi), torch.roll(u, 1 << k, dims=1),
+                        u)
+    return u.reshape(-1, 128)

@@ -1,0 +1,90 @@
+#!/usr/bin/env python3
+"""Device times of the PyTorch port's kernels that share the phased Clos
+scan, on one tree of the port and one NVIDIA GPU.
+
+    python3 time_clos_scans.py [--tree DIR]
+
+Imports ``spmv_research_tpu_torch`` from DIR (default: this checkout), so
+that two trees, such as a parent commit unpacked into a git-ignored
+directory and this checkout, can be timed in turns on one card: parent,
+change, change, parent. Each call is timed alone by ``chip_smoke.py``'s
+``DeviceTimer`` (CUDA events after a 1 GiB L2 flush and a spin kernel that
+hides the host's enqueue), the mean of 30 calls:
+
+* K3 ``closg_r3_scan_yext`` on the scircuit twin's CLOSG program (bench.py's
+  line, RCM, N = 2^20) with its capped stages;
+* B8 ``clos_r3_fill``, ``clos_r3_scan`` and ``clos_r3_valid`` (the whole
+  plane) on the same twin's CLOS program;
+* B5 ``closg_r3_scan`` on a random 2^20-slot plane, 14 stages;
+* B15's scan over 12 random chunks of 2^20 slots, 9 stages.
+
+Inputs are made from seeds. Prints the card's name and power limit, then
+one JSON line: each kernel's ms and its launches a call.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=os.path.dirname(os.path.abspath(
+        __file__)), help="checkout whose spmv_research_tpu_torch is timed")
+    args = ap.parse_args()
+    from chip_smoke import DeviceTimer       # this checkout's timer
+    sys.path.insert(0, os.path.abspath(args.tree))
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("time_clos_scans: needs a CUDA device")
+    from spmv_research_tpu_torch import bench
+    from spmv_research_tpu_torch.convert.reorder import rcm_if_beneficial
+    from spmv_research_tpu_torch.gen import generate_from_line
+    from spmv_research_tpu_torch.ops import build_clos_gather
+    from spmv_research_tpu_torch.ops import clos_cuda as K
+    from spmv_research_tpu_torch.ops.clos import build_clos
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    dev = torch.device("cuda")
+    K.build()
+    host = rcm_if_beneficial(generate_from_line(bench.SCIRCUIT_LINE)[0])[0]
+    G, C = build_clos_gather(host).to(dev), build_clos(host).to(dev)
+    rng = np.random.Generator(np.random.PCG64(7))
+
+    def plane(n, ints=False):
+        a = (rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32) if ints
+             else rng.uniform(-1, 1, n).astype(np.float32))
+        return torch.as_tensor(a, device=dev).view(-1, 128)
+
+    v = plane(G.N)
+    w3, hi = plane(1 << 20, ints=True), plane(1 << 20, ints=True)
+    vx, w3x = plane(12 << 20), plane(12 << 20, ints=True)
+    calls = {
+        "closg_r3_scan_yext": lambda: K.closg_r3_scan_yext(
+            v, G.perm_r3, G.scan_hi, G.ysel_w, G.wstart, G.acc_ptr,
+            G.acc_src, G.scan_cap or G.scan_stages),
+        "clos_r3_fill": lambda: K.clos_r3_fill(v, C.widen_r3, C.fill_hi,
+                                               C.fill_stages),
+        "clos_r3_scan": lambda: K.clos_r3_scan(v, C.perm_r3, C.vals,
+                                               C.scan_hi, C.scan_stages),
+        "clos_r3_valid": lambda: K.clos_r3_valid(v, C.compact_r3),
+        "closg_r3_scan": lambda: K.closg_r3_scan(v, w3, hi, range(14)),
+        "closgx_r3_scan_yext": lambda: K._scan_phases(
+            "closgx_r3_scan_yext", vx, w3x, None, range(9), 1 << 20),
+    }
+    timer = DeviceTimer(spec=None)
+    out = {}
+    for name, fn in calls.items():
+        K.reset_launch_counts()
+        fn()
+        launches = K.LAUNCHES[name]          # one call's
+        out[name] = {"ms": timer.ms(fn), "launches": launches}
+    print(json.dumps({"tree": args.tree, "kernels": out}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
