@@ -28,7 +28,9 @@ failure (non-zero exit, no result line):
 6. the shipsec1 twin (datasets/validation_twins.txt:27): RCM, ``build_best``
    (asserts SELLR, SELLW and a chunked CLOSG with W > 0 in every chunk),
    each program's fields, the SELLW kernel and SELLR's two kernels against
-   their plain versions (exact) and timed, K1-K3 against theirs on every
+   their plain versions (exact) and timed beside cuSPARSE's SpMV of the
+   same matrix (their persistent grids, blocks an SM and registers
+   logged), K1-K3 against theirs on every
    CLOSG chunk (tolerances as in phase 4; the widest chunk timed), K3's
    plan on the widest chunk logged and one counted SpMV of each chunk and
    of the program (K3 once a phase of each chunk's plan + the extraction,
@@ -36,7 +38,8 @@ failure (non-zero exit, no result line):
    torch.profiler trace of a chain of 50 (device time, wall time, busy
    share, top events);
 7. a streamed SELLW program (seeded tridiagonal, n = 1.2M, so
-   ``stream_wins``): the kernel against its plain version, timed, then one
+   ``stream_wins``): the kernel against its plain version, timed beside
+   cuSPARSE's SpMV of the same matrix, then one
    SpMV through ``ops.spmv`` between a reset and a read of the counters,
    y within 1e-5 of |A|·|x|;
 8. the sweep path: ``harness.run_sweep`` on the shipsec1 line with formats
@@ -141,11 +144,13 @@ Every kernel entry carries its bound: the larger of the bytes the function
 must move (each input read once, each output written once, a gather
 counting the elements it picks) over the card's data-sheet memory rate and
 its fp32 operations over the fp32 peak (``utils/roofline.py``), from this
-run's inputs. ``library_ms`` is null for the fp32 SpMV kernels and the
-SELLWDS combine: no single PyTorch call computes one of their functions
-(phases 10 and 11 time cuSPARSE's whole SpMV); the SpMM and SDDMM kernels
-have cuSPARSE's (``torch.sparse.mm``, ``torch.sparse.sampled_addmm``), and
-B13, whose
+run's inputs. ``library_ms`` is null for the Clos and butterfly layers,
+scans and networks and the SELLWDS combine: no single PyTorch call
+computes one of their functions (phases 10 and 11 time cuSPARSE's whole
+SpMV). The locality SpMV kernels (SELLW's B11; SELLR's place and flush,
+which write y between them) and B10 have cuSPARSE's fp32 CSR SpMV of the
+same matrix; the SpMM and SDDMM kernels have cuSPARSE's
+(``torch.sparse.mm``, ``torch.sparse.sampled_addmm``), and B13, whose
 function is an fp64-accurate SpMV, cuSPARSE's fp64 CSR SpMV (a float64
 ``torch.sparse_csr`` product), none of which the port ever calls.
 B16a's entry also carries ``combine_launches``, the sweep's launches
@@ -236,11 +241,15 @@ class DeviceTimer:
     """Mean device ms per call of fn, each call timed alone with CUDA events
     after a 1 GiB L2 flush (larger than the 50 MB L2) and a spin kernel of
     ``hold_ms`` that keeps the card busy while the host enqueues the call.
+    The flush writes the 1 GiB, so the timed call finds the L2 full of
+    dirty lines and its first 50 MB of traffic also write them back; with
+    ``clean`` it reads the 1 GiB instead, which leaves clean lines.
     ``spec`` holds the card's data-sheet rates, for the kernels' bounds."""
 
-    def __init__(self, spec, hold_ms: float = 8.0):
+    def __init__(self, spec, hold_ms: float = 8.0, clean: bool = False):
         import torch
         self.spec = spec
+        self.clean = clean
         self.flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -257,7 +266,10 @@ class DeviceTimer:
             fn()
         total = 0.0
         for _ in range(iters):
-            self.flush.zero_()
+            if self.clean:
+                self.flush.max()
+            else:
+                self.flush.zero_()
             torch.cuda._sleep(self.cycles)
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
@@ -725,13 +737,15 @@ def main() -> None:
               Ar.rolls)
     f_args = (KS.sellr_place_torch(*p_args), Ar.gptr, Ar.gchunk)
     sell_ops = 2 * Aw.vals.numel()        # a product and a sum per slot
+    lib = cusparse(ship, dev)             # the same SpMV, one library call
     k_sellw = check_kernel(timer, "sellw", SELL_SRC,
                            "spmv_research_tpu/ops/sellw.py:490",
                            [(lambda: KS.sellw_planes(*w_args),
                              lambda: KS.sellw_planes_torch(*w_args))], exact,
                            (nbytes(*w_args)
                             + nbytes(KS.sellw_planes_torch(*w_args)),
-                            sell_ops))
+                            sell_ops),
+                           library=lambda: lib @ xsd.unsqueeze(1))
     p_out = f_args[0]
     f_out = KS.sellr_flush_torch(*f_args)
     k_sellr = [check_kernel(timer, f"sellr_{part}", SELL_SRC,
@@ -739,12 +753,30 @@ def main() -> None:
                             [(lambda f=getattr(KS, f"sellr_{part}"), a=args:
                               f(*a),
                               lambda f=getattr(KS, f"sellr_{part}_torch"),
-                              a=args: f(*a))], exact, work)
+                              a=args: f(*a))], exact, work,
+                            library=lambda: lib @ xsd.unsqueeze(1))
                for part, args, work in (
                    ("place", p_args, (nbytes(*p_args) + nbytes(p_out),
                                       2 * Ar.vals.numel())),
                    ("flush", f_args, (nbytes(*f_args) + nbytes(f_out),
                                       p_out.numel())))]
+    b14_ms = k_sellr[0]["ms"] + k_sellr[1]["ms"]
+    log(f"# B14 place + flush {b14_ms:.4f} ms, B11 {k_sellw['ms']:.4f} ms "
+        f"(before _combine_y); cuSPARSE's SpMV of the same matrix "
+        f"{k_sellw['library_ms']:.4f} ms: {b14_ms / k_sellw['library_ms']:.2f}"
+        f"x and {k_sellw['ms'] / k_sellw['library_ms']:.2f}x")
+    for name, stages, n in (*(("sellw_spmv", st, cnt)
+                              for _, cnt, st in class_plan(Aw)),
+                            ("sellr_place", 0, Ar.nchunks)):
+        n_sms, per_sm = KS.occupancy(name, stages, dev)
+        log(f"# {name} (depth {stages}): grid "
+            f"{KS.grid_of(name, stages, n, dev)} persistent blocks "
+            f"({per_sm} an SM x {n_sms} SMs) over {n} chunks")
+    log(f"# sellr_flush: {KS.FLUSH_SPLIT * (Ar.gptr.numel() - 1)} blocks "
+        f"({KS.FLUSH_SPLIT} a group of 1024 cells)")
+    log("# ptxas of B11 (sellw_spmv_kernel<0..7>) and B14: " + ptxas_of(
+        KS.build_log(), (*(f"sellw_spmv_kernelILi{d}E" for d in range(8)),
+                         "sellr_place_kernel", "sellr_flush_kernel")))
     # K1-K3 at the chunks' own shapes, the widest chunk timed
     k_chunks = closg_checks(timer, K, sorted(Ac.chunks, key=lambda c: -c.N),
                             xsd, suffix="_chunked")
@@ -765,9 +797,10 @@ def main() -> None:
         "SELLR/cuda": lambda v: spmv(Ar, v, impl="cuda"),
         "SELLW/cuda": lambda v: spmv(Aw, v, impl="cuda"),
         "CLOSG/cuda": lambda v: spmv(Ac, v, impl="cuda"),
-        "CSR/torch": lambda v: spmv(csr, v, impl="torch")},
+        "CSR/torch": lambda v: spmv(csr, v, impl="torch"),
+        "cuSPARSE (library)": lambda v: lib @ v.unsqueeze(1)},
         ("SELLR/cuda", "SELLW/cuda", "CLOSG/cuda", "CSR/torch"), xsd)
-    del Ar, Ac, csr, fmts, w_args, p_args, f_args, p_out, f_out
+    del Ar, Ac, csr, fmts, w_args, p_args, f_args, p_out, f_out, lib
     log(f"# phase 6 done at {time.perf_counter() - t_start:.0f}s")
 
     # --- 7. the streamed SELLW program ---
@@ -778,7 +811,8 @@ def main() -> None:
                     rng.uniform(-1, 1, STREAM_N - 1)], [-1, 0, 1],
                    shape=(STREAM_N, STREAM_N), format="csr")
     t0 = time.perf_counter()
-    As = build_sellw(HostCSR.from_scipy(tri))
+    tri_host = HostCSR.from_scipy(tri)
+    As = build_sellw(tri_host)
     log(f"# streamed SELLW (tridiagonal n={STREAM_N}): build "
         f"{time.perf_counter() - t0:.2f}s nchunks={As.nchunks} "
         f"footprint_MB={As.mem_footprint_bytes() / 1e6:.2f} "
@@ -789,6 +823,7 @@ def main() -> None:
     xt = rng.uniform(-1.0, 1.0, STREAM_N)
     xtd = torch.as_tensor(xt, dtype=torch.float32, device=dev)
     s_args = (As.word, As.vals, As.wrow, xtd, class_plan(As), As.G)
+    lib_tri = cusparse(tri_host, dev)
     k_stream = check_kernel(timer, "sellw_stream", SELL_SRC,
                             "spmv_research_tpu/ops/sellw.py:521",
                             [(lambda: KS.sellw_planes(*s_args,
@@ -796,7 +831,8 @@ def main() -> None:
                               lambda: KS.sellw_planes_torch(*s_args))], exact,
                             (nbytes(*s_args)
                              + nbytes(KS.sellw_planes_torch(*s_args)),
-                             2 * As.vals.numel()))
+                             2 * As.vals.numel()),
+                            library=lambda: lib_tri @ xtd.unsqueeze(1))
     KS.reset_launch_counts()
     y = spmv(As, xtd)
     torch.cuda.synchronize()
@@ -810,7 +846,7 @@ def main() -> None:
     log(f"# streamed SELLW/cuda y vs scipy: max rel (|A||x|) = {rel}; "
         f"one SpMV, device time "
         f"{timer.ms(lambda: spmv(As, xtd), iters=10):.4f} ms")
-    del As, s_args, y, tri
+    del As, s_args, y, tri, tri_host, lib_tri
 
     # --- 8. the sweep path ---
     cfg = BenchConfig(min_num_loops=64, min_time_s=1.0,

@@ -21,14 +21,12 @@
 //   SELLR [22,25) roll r, [25] wrap: the part's target sublane is
 //           (s + r) mod 8 within the same chunk
 //
-// The SpMV kernels of SELLW and SELLR run one block of 1024 threads per
-// chunk, thread (s, l), and their scan stages ping-pong two shared buffers
-// (each stage reads the previous stage's whole row); the SELLW SpMM and the
-// SELLWDS kernels hold the scan in registers (below). The product is
-// rounded before any add (__fmul_rn: nvcc would otherwise contract it with
-// the first scan add into an fma, which the TPU kernels do not), and every
-// sum runs in a fixed order, so the plain PyTorch versions in sell_cuda.py
-// reproduce the results exactly.
+// Every kernel holds a chunk's slots in registers, a warp a sublane (the
+// layout is described before lane_scan below), and runs the segmented lane
+// scan in shuffles. The product is rounded before any add (__fmul_rn: nvcc
+// would otherwise contract it with the first scan add into an fma, which
+// the TPU kernels do not), and every sum runs in a fixed order, so the
+// plain PyTorch versions in sell_cuda.py reproduce the results exactly.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,112 +39,226 @@ constexpr int kChunk = kSub * kLanes;
 // SELLR's smeta: per step of kNB chunks, kSmemBlk ints.
 constexpr int kNB = 64;
 constexpr int kSmemBlk = 1024;
+// The register-layout kernels (B11-B14): a warp a sublane, 4 lanes a thread.
+constexpr int kRowThreads = kSub * 32;
 
-// Shared steps of both kernels for thread (s, l) of one chunk: the gathered
-// product x2d[wrow, lane] * val, `stages` guarded Hillis-Steele stages of
-// the segmented lane scan, then the pick of the part end at eidx. Returns
-// the pick; buf[2][1024] is the block's scratch.
-__device__ __forceinline__ float scan_pick(uint32_t w, float val, int32_t wr,
-                                           const float* __restrict__ x,
-                                           int64_t n_x, int stages,
-                                           float (*buf)[kChunk]) {
-  const int t = threadIdx.x;
-  const int row = t & ~(kLanes - 1);
-  const int l = t & (kLanes - 1);
-  const int64_t col = (int64_t)wr * kLanes + (w & 0x7F);
-  const float xv = col < n_x ? x[col] : 0.0f;  // the x plane's zero padding
-  int cur = 0;
-  buf[0][t] = __fmul_rn(xv, val);
-  __syncthreads();
-  for (int k = 0; k < stages; ++k) {
-    float v = buf[cur][t];
-    if ((w >> (7 + k)) & 1u) v = v + buf[cur][row + ((l - (1 << k)) & 127)];
-    buf[cur ^ 1][t] = v;
-    __syncthreads();
-    cur ^= 1;
-  }
-  return buf[cur][row + ((w >> 14) & 0x7F)];
+// The SpMV kernels of SELLW (B11) and SELLR (B14's place) share the layout
+// of sellw_spmm_kernel below, at one column, in persistent blocks:
+//   * 256 threads a block: warp s is sublane s, and lane t of it holds the
+//     row's lanes 4t..4t+3 (word and value read as one 16-byte load each,
+//     streamed past L1 and early out of L2: they are read once; the four
+//     x picks read straight into registers through the read-only path);
+//   * a block walks the chunks blockIdx.x, blockIdx.x + gridDim.x, ...; the
+//     grid is the SMs times the blocks an SM holds
+//     (cudaOccupancyMaxActiveBlocksPerMultiprocessor, sell_blocks_per_sm),
+//     at most one block a chunk (sell_cuda.persistent_grid);
+//   * loads stay in flight through registers, double-buffered: the word,
+//     values and x row of the chunk after next are requested before the
+//     next chunk's x picks, and those picks before this chunk's barrier,
+//     so an SM holds about 40 KB of loads in flight while it scans and sums
+//     (the card's 3.35 TB/s times ~1 us of latency is ~25 KB an SM). A
+//     cp.async.bulk ring behind mbarriers would hold more, but needs a
+//     producer warp and a ring per block; the registers reach the bytes in
+//     flight that the card needs with no more code than a swap;
+//   * the product __fmul_rn(x, val) and the guarded stages of the segmented
+//     lane scan in registers (lane_scan: stage k adds the value 2^k lanes
+//     back where guard bit 7+k is set, from the stage's old values; for
+//     2^k = 1 and 2 from the same thread or one lane back, for 2^k >= 4 the
+//     same element 2^k / 4 threads back; lanes wrap modulo 128, and a
+//     guarded read never leaves its part);
+//   * the warp stores its scanned sublane to shared memory once (one
+//     16-byte store a thread) and, after a __syncwarp, reads each slot's
+//     pick at its eidx; the picks and a byte of tag per slot (SELLW: the
+//     bid where live, SELLR: the roll code where live; else 0xFF) go to a
+//     double-buffered shared plane, 16 and 4 bytes a thread, so one
+//     __syncthreads() a chunk orders them;
+//   * after it, each warp reads eight sublanes' picks and tags at its own
+//     four lanes (16 + 4 bytes a sublane) and adds them in the plain
+//     version's order, and writes its result as one 16-byte store a thread.
+// The products, stages, picks and sums are the plain versions' (sublanes
+// 0..7 in order, the roll sources by r), so the results equal them bit for
+// bit. The first kernels (a 1024-thread block a chunk, the scan
+// ping-ponging two shared buffers with a barrier a stage, 2 blocks an SM)
+// moved ~1.0 TB/s on an H100 SXM.
+constexpr int kSpmvMinBlocks = 4;  // <= 64 registers a thread
+
+// One thread's four slots of a chunk: words, values and the x plane's
+// offset of their sublane's row (SELLR: also the stages its step scans).
+struct Slots {
+  uint4 w;
+  float4 v;
+  int64_t xrow;
+  int nst;
+};
+
+__device__ __forceinline__ Slots load_slots(const uint32_t* __restrict__ word,
+                                            const float* __restrict__ vals,
+                                            int64_t c, int s, int lane) {
+  const int64_t off = c * kChunk + s * kLanes + 4 * lane;
+  Slots q;
+  q.w = __ldcs(reinterpret_cast<const uint4*>(word + off));
+  q.v = __ldcs(reinterpret_cast<const float4*>(vals + off));
+  return q;
 }
 
-// SELLW SpMV (entry sellw_spmv, kernel B11; NC = 1, n_cols = 1) —
-// replaces spmv_research_tpu/ops/sellw.py `_sellw_kernel` and
-// `_sellw_stream_kernel`. One block per chunk of one stage class. The TPU
-// kernels first copied each sublane's 128-wide x row into VMEM (or, for
-// n > 2^20, streamed windows that XLA pre-gathered); here each thread reads
-// its x element straight from device memory, so one kernel serves both
-// program kinds and a stream_wins program moves 12 B/slot less. The block
-// keeps its slot's word, value and x row index in registers and runs the
-// pipeline for NC columns of X at a time (column k's x at x + k * n_x), one
-// shared buffer pair per column. (The SpMM ran it with NC = 4 until it got
-// its own kernel, sellw_spmm_kernel below; the SpMV keeps this code and
-// its timing as they were.)
-// Output: per column k, G planes at out + k * plane_stride, plane g at rows
-// [g*npad, (g+1)*npad); row c of plane g is the sum over sublanes 0..7, in
-// order, of the part ends whose bid is g.
+// The slots' x picks x2d[row, lane], zero past n_x (the x plane's padding).
+__device__ __forceinline__ void gather_x(const float* __restrict__ x,
+                                         int64_t n_x, const Slots& q,
+                                         float (&xv)[4]) {
+  const uint32_t w[4] = {q.w.x, q.w.y, q.w.z, q.w.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int64_t col = q.xrow + (w[e] & 0x7F);
+    xv[e] = col < n_x ? __ldg(x + col) : 0.0f;
+  }
+}
+
+// The first nst (<= kMax, uniform over the block) guarded stages of the
+// segmented lane scan of the warp's sublane, in registers.
+template <int kMax>
+__device__ __forceinline__ void lane_scan(float (&v)[4],
+                                          const uint32_t (&w)[4], int lane,
+                                          int nst) {
+  const unsigned full = 0xffffffffu;
+#pragma unroll
+  for (int k = 0; k < kMax; ++k) {
+    if (k >= nst) break;
+    float o[4];  // each element's value 2^k lanes back
+    if (k == 0) {
+      o[0] = __shfl_sync(full, v[3], (lane - 1) & 31);
+      o[1] = v[0];
+      o[2] = v[1];
+      o[3] = v[2];
+    } else if (k == 1) {
+      o[0] = __shfl_sync(full, v[2], (lane - 1) & 31);
+      o[1] = __shfl_sync(full, v[3], (lane - 1) & 31);
+      o[2] = v[0];
+      o[3] = v[1];
+    } else {
+      const int src = (lane - (1 << (k - 2))) & 31;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[e] = __shfl_sync(full, v[e], src);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if ((w[e] >> (7 + k)) & 1u) v[e] = v[e] + o[e];
+  }
+}
+
+// Products and scan of the thread's slots, then the picks at eidx: the warp
+// stores its scanned sublane to row (its own 128 floats) and reads the
+// picks back; the picks go to pick[s*128 + 4*lane ..] and the four tag
+// bytes (from tag_of(word)) to tag[s*32 + lane].
+template <int kMax, typename TagOf>
+__device__ __forceinline__ void scan_and_pick(const Slots& q,
+                                              const float (&xv)[4],
+                                              int nst, int s, int lane,
+                                              float* row, float* pick,
+                                              uint32_t* tag, TagOf tag_of) {
+  const uint32_t w[4] = {q.w.x, q.w.y, q.w.z, q.w.w};
+  float v[4] = {__fmul_rn(xv[0], q.v.x), __fmul_rn(xv[1], q.v.y),
+                __fmul_rn(xv[2], q.v.z), __fmul_rn(xv[3], q.v.w)};
+  lane_scan<kMax>(v, w, lane, nst);
+  float* r = row + s * kLanes;
+  *reinterpret_cast<float4*>(r + 4 * lane) = make_float4(v[0], v[1], v[2],
+                                                         v[3]);
+  __syncwarp();
+  float p[4];
+  uint32_t tg = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    p[e] = r[(w[e] >> 14) & 0x7F];
+    tg |= ((w[e] >> 21) & 1u ? tag_of(w[e]) : 0xFFu) << (8 * e);
+  }
+  *reinterpret_cast<float4*>(pick + s * kLanes + 4 * lane) =
+      make_float4(p[0], p[1], p[2], p[3]);
+  tag[s * 32 + lane] = tg;
+}
+
+__device__ __forceinline__ uint32_t tag_byte(uint32_t tags, int e) {
+  return (tags >> (8 * e)) & 0xFFu;
+}
+
+// SELLW SpMV (entry sellw_spmv, kernel B11) — replaces spmv_research_tpu/
+// ops/sellw.py `_sellw_kernel` and `_sellw_stream_kernel`. The chunks
+// [chunk0, chunk0 + n_chunks) of one stage class, kStages scan stages (one
+// instance per depth 0..7, so the stages unroll). The TPU kernels first
+// copied each sublane's 128-wide x row into VMEM (or, for n > 2^20,
+// streamed windows that XLA pre-gathered); here each thread reads its x
+// picks straight from device memory, so one kernel serves both program
+// kinds and a stream_wins program moves 12 B/slot less.
+// Output: G planes at out, plane g at rows [g*npad, (g+1)*npad); row c of
+// plane g is, per lane, the sum over sublanes 0..7, in order, of the part
+// ends whose bid is g (acc = acc + (bid == g ? pick : 0)), which warp g
+// adds and writes.
 // Bound: device memory, 8 bytes per slot (word, value), x from L2 (its
 // rows are shared by neighbouring chunks), 512*G bytes written per chunk.
-template <int NC>
-__global__ void __launch_bounds__(kChunk, 2)
-    sellw_kernel(const uint32_t* __restrict__ word,
-                 const float* __restrict__ vals,
-                 const int32_t* __restrict__ wrow,
-                 const float* __restrict__ x, int64_t n_x, int n_cols,
-                 float* __restrict__ out, int64_t plane_stride, int64_t npad,
-                 int64_t chunk0, int stages, int G) {
-  __shared__ float buf[2][NC][kChunk];
-  __shared__ int8_t tag[kChunk];
+template <int kStages>
+__global__ void __launch_bounds__(kRowThreads, kSpmvMinBlocks)
+    sellw_spmv_kernel(const uint32_t* __restrict__ word,
+                      const float* __restrict__ vals,
+                      const int32_t* __restrict__ wrow,
+                      const float* __restrict__ x, int64_t n_x,
+                      float* __restrict__ out, int64_t npad, int64_t chunk0,
+                      int64_t n_chunks, int G) {
+  __shared__ __align__(16) float row[kChunk];
+  __shared__ __align__(16) float pick[2][kChunk];
+  __shared__ uint32_t tag[2][kChunk / 4];
   const int t = threadIdx.x;
-  const int row = t & ~(kLanes - 1);
-  const int l = t & (kLanes - 1);
-  const int64_t c = chunk0 + blockIdx.x;
-  const int64_t off = c * kChunk + t;
-  const uint32_t w = word[off];
-  const float val = vals[off];
-  const int64_t col =
-      (int64_t)wrow[c * kSub + t / kLanes] * kLanes + (w & 0x7F);
-  const int pick = row + ((w >> 14) & 0x7F);
-  tag[t] = (w >> 21) & 1u ? (int8_t)((w >> 22) & (uint32_t)(G - 1))
-                          : (int8_t)-1;
-  for (int k0 = 0; k0 < n_cols; k0 += NC) {
-    const int nc = min(NC, n_cols - k0);
-    if (k0) __syncthreads();  // the last columns' sums have read E
-#pragma unroll
-    for (int q = 0; q < NC; ++q) {
-      // the x plane's zero padding past n_x, as scan_pick
-      const float xv = q < nc && col < n_x ? x[(k0 + q) * n_x + col] : 0.0f;
-      buf[0][q][t] = __fmul_rn(xv, val);
+  const int s = t >> 5;
+  const int lane = t & 31;
+  const int64_t step = gridDim.x;
+  const uint32_t gmask = (uint32_t)(G - 1);
+  auto load = [&](int64_t i) {
+    Slots q = load_slots(word, vals, chunk0 + i, s, lane);
+    q.xrow = (int64_t)wrow[(chunk0 + i) * kSub + s] * kLanes;
+    q.nst = kStages;
+    return q;
+  };
+  int64_t i = blockIdx.x;
+  if (i >= n_chunks) return;
+  Slots cur = load(i);
+  Slots nxt{};
+  if (i + step < n_chunks) nxt = load(i + step);
+  float xv[4];
+  gather_x(x, n_x, cur, xv);
+  for (int b = 0; i < n_chunks; i += step, b ^= 1) {
+    scan_and_pick<kStages>(cur, xv, kStages, s, lane, row, pick[b], tag[b],
+                           [gmask](uint32_t w) { return (w >> 22) & gmask; });
+    Slots after{};
+    if (i + 2 * step < n_chunks) after = load(i + 2 * step);
+    if (i + step < n_chunks) {
+      cur = nxt;
+      gather_x(x, n_x, cur, xv);
+      nxt = after;
     }
     __syncthreads();
-    int cur = 0;
-    for (int k = 0; k < stages; ++k) {
-      const bool guard = (w >> (7 + k)) & 1u;
-      const int src = row + ((l - (1 << k)) & 127);
+    if (s < G) {
+      float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-      for (int q = 0; q < NC; ++q) {
-        float v = buf[cur][q][t];
-        if (guard) v = v + buf[cur][q][src];
-        buf[cur ^ 1][q][t] = v;
-      }
-      __syncthreads();
-      cur ^= 1;
-    }
-    // the last stage's reads of buf[cur ^ 1] are done: E goes there, the
-    // buffer the picks do not read
+      for (int si = 0; si < kSub; ++si) {
+        const float4 p4 =
+            *reinterpret_cast<const float4*>(&pick[b][si * kLanes + 4 * lane]);
+        const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+        const uint32_t tg = tag[b][si * 32 + lane];
 #pragma unroll
-    for (int q = 0; q < NC; ++q) buf[cur ^ 1][q][t] = buf[cur][q][pick];
-    __syncthreads();
-    if (t < G * kLanes) {
-      const int g = t / kLanes;
-      for (int q = 0; q < nc; ++q) {
-        const float* E = buf[cur ^ 1][q];
-        float acc = 0.0f;
-        for (int s = 0; s < kSub; ++s)
-          acc = acc + (tag[s * kLanes + l] == g ? E[s * kLanes + l] : 0.0f);
-        out[(k0 + q) * plane_stride + (g * npad + c) * kLanes + l] = acc;
+        for (int e = 0; e < 4; ++e)
+          a[e] = a[e] + (tag_byte(tg, e) == (uint32_t)s ? p[e] : 0.0f);
       }
+      *reinterpret_cast<float4*>(
+          out + ((int64_t)s * npad + chunk0 + i) * kLanes + 4 * lane) =
+          make_float4(a[0], a[1], a[2], a[3]);
     }
   }
 }
+
+using SellwSpmv = void (*)(const uint32_t*, const float*, const int32_t*,
+                          const float*, int64_t, float*, int64_t, int64_t,
+                          int64_t, int);
+const SellwSpmv kSellwSpmv[] = {
+    sellw_spmv_kernel<0>, sellw_spmv_kernel<1>, sellw_spmv_kernel<2>,
+    sellw_spmv_kernel<3>, sellw_spmv_kernel<4>, sellw_spmv_kernel<5>,
+    sellw_spmv_kernel<6>, sellw_spmv_kernel<7>};
 
 // SELLW SpMM (entry sellw_spmm, kernel B12) — replaces spmv_research_tpu/
 // ops/sellw.py `_sellw_spmm_kernel`. The SpMV pipeline (product, guarded
@@ -157,13 +269,8 @@ __global__ void __launch_bounds__(kChunk, 2)
 //     of it holds the row's lanes 4t..4t+3 (their words, values and x
 //     column indices read once, as one 16-byte load each);
 //   * per column, the four products __fmul_rn(x, val) and the class's
-//     scan stages in registers (one kernel instance per depth, so the
-//     stages unroll): stage k adds the value 2^k lanes
-//     back where guard bit 7+k is set, from the stage's old values. For
-//     2^k = 1 and 2 the source is in the same thread or one lane back
-//     (one or two shuffles); for 2^k >= 4 it is the same element 2^k / 4
-//     threads back (four shuffles). Lane indices wrap modulo 128 as
-//     sellw_kernel's (a guarded read never leaves its part);
+//     scan stages in registers (lane_scan; one kernel instance per depth,
+//     so the stages unroll);
 //   * the scanned row goes to shared memory once (one 16-byte store a
 //     thread), and thread (h, l) (l = lane, h = t / 128) sums, for each
 //     bid g ≡ h mod 2, the picks of sublanes 0..7 at lane l in order,
@@ -174,14 +281,14 @@ __global__ void __launch_bounds__(kChunk, 2)
 //   * kCols columns per pass, double-buffered: one __syncthreads() a pass;
 //     the next pass's x is loaded while this pass scans and sums.
 // Shared-memory traffic per slot and column: one write and at most one
-// read, against ~80-100 B in the first SpMM kernel's shared scan
-// (sellw_kernel with four columns a pass). The products, stages, picks and
-// sums are the SpMV's, in its order, so the planes equal
+// read, against ~80-100 B in the first SpMM kernel's shared scan (the
+// first SpMV kernel with four columns a pass). The products, stages, picks
+// and sums are the SpMV's, in its order, so the planes equal
 // sellw_spmm_planes_torch exactly.
-// Output: per column k, sellw_kernel's G planes at out + k * plane_stride.
+// Output: per column k, sellw_spmv_kernel's G planes at out + k *
+// plane_stride.
 // Bound: device memory; at K = 128 the planes (512 * G bytes per chunk and
 // column) are most of it, x read once per column from L2.
-constexpr int kSpmmThreads = kSub * 32;
 constexpr int kCols = 4;
 // a scanned row and, at kChunk, a zero the sums of dead entries read
 constexpr int kRow = kChunk + 4;
@@ -189,7 +296,7 @@ constexpr int kRow = kChunk + 4;
 // 3 blocks an SM: <= 80 registers, no spills (the x of two passes in
 // flight); one instance per scan depth, so the stages unroll.
 template <int kStages>
-__global__ void __launch_bounds__(kSpmmThreads, 3)
+__global__ void __launch_bounds__(kRowThreads, 3)
     sellw_spmm_kernel(const uint32_t* __restrict__ word,
                       const float* __restrict__ vals,
                       const int32_t* __restrict__ wrow,
@@ -224,7 +331,6 @@ __global__ void __launch_bounds__(kSpmmThreads, 3)
                           (si * kLanes + ((we >> 14) & 0x7F)))
                   : -1;
   }
-  const unsigned full = 0xffffffffu;
   // x of the next pass is loaded while this pass scans and sums
   float xn[kCols][4];
   auto load_x = [&](int k0) {
@@ -232,7 +338,7 @@ __global__ void __launch_bounds__(kSpmmThreads, 3)
     for (int q = 0; q < kCols; ++q)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        // the x plane's zero padding past n_x, as sellw_kernel
+        // the x plane's zero padding past n_x, as gather_x
         xn[q][e] = k0 + q < n_cols && col[e] < n_x
                        ? xt[(int64_t)(k0 + q) * n_x + col[e]]
                        : 0.0f;
@@ -247,34 +353,7 @@ __global__ void __launch_bounds__(kSpmmThreads, 3)
       for (int e = 0; e < 4; ++e) v[q][e] = __fmul_rn(xn[q][e], val[e]);
     if (k0 + kCols < n_cols) load_x(k0 + kCols);
 #pragma unroll
-    for (int k = 0; k < kStages; ++k) {
-      bool g[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) g[e] = (w[e] >> (7 + k)) & 1u;
-#pragma unroll
-      for (int q = 0; q < kCols; ++q) {
-        float o[4];  // each element's value 2^k lanes back
-        if (k == 0) {
-          o[0] = __shfl_sync(full, v[q][3], (lane - 1) & 31);
-          o[1] = v[q][0];
-          o[2] = v[q][1];
-          o[3] = v[q][2];
-        } else if (k == 1) {
-          o[0] = __shfl_sync(full, v[q][2], (lane - 1) & 31);
-          o[1] = __shfl_sync(full, v[q][3], (lane - 1) & 31);
-          o[2] = v[q][0];
-          o[3] = v[q][1];
-        } else {
-          const int src = (lane - (1 << (k - 2))) & 31;
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            o[e] = __shfl_sync(full, v[q][e], src);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (g[e]) v[q][e] = v[q][e] + o[e];
-      }
-    }
+    for (int q = 0; q < kCols; ++q) lane_scan<kStages>(v[q], w, lane, kStages);
 #pragma unroll
     for (int q = 0; q < kCols; ++q)
       *reinterpret_cast<float4*>(&buf[pass][q][s * kLanes + 4 * lane]) =
@@ -296,71 +375,143 @@ __global__ void __launch_bounds__(kSpmmThreads, 3)
   }
 }
 
-// SELLR kernel 1 (entry sellr_place) — with kernel 2, replaces
-// spmv_research_tpu/ops/sellr.py `_sellr_kernel`. One block per live chunk
-// computes the chunk's placed
-// plane R (8 x 128): the part sums P = (emask ? pick : 0), each moved from
-// its sublane s to its target sublane (s + r) mod 8 of the same chunk. Per
-// target cell the sources are added in the order of the JAX kernel's roll
-// set, sorted by r: R = P[t] where (r, wrap) = (0, 0), then + P[(t - r) mod
-// 8] for r = 1..7 where that source's code is (r, wrap). The scan runs only
-// the stages the chunk's step needs (smeta's smax; the rest are no-ops).
-// Bound: device memory, 8 bytes per slot read and 4 written (R).
-__global__ void __launch_bounds__(kChunk)
+// SELLR kernel 1 (entry sellr_place, B14 with kernel 2) — with kernel 2,
+// replaces spmv_research_tpu/ops/sellr.py `_sellr_kernel`. The live chunks
+// [0, n_chunks) in persistent blocks, on the layout above: per chunk the
+// placed plane R (8 x 128), the part sums P (the picks of live part ends)
+// each moved from its sublane s to its target sublane (s + r) mod 8 of the
+// same chunk. The scan runs the stages the chunk's step needs (smeta's
+// smax, capped by `stages`; uniform over a chunk, so one guarded unrolled
+// loop over 0..6 serves). Warp s then builds target sublane s: per cell the
+// sources in the order of the JAX kernel's roll set, sorted by r: R = P[s]
+// where its code (r, wrap) is (0, 0), then + P[(s - r) mod 8] for r = 1..7
+// where that source's code is (r, wrap) with wrap = (s - r < 0), each read
+// as 16 bytes of picks and 4 of codes; R written as 16-byte stores.
+// Bound: device memory, 8 bytes per slot read and 4 written (R); x from L2.
+__global__ void __launch_bounds__(kRowThreads, kSpmvMinBlocks)
     sellr_place_kernel(const uint32_t* __restrict__ word,
                        const float* __restrict__ vals,
                        const int32_t* __restrict__ smeta,
                        const float* __restrict__ x, int64_t n_x,
-                       float* __restrict__ R, int stages) {
-  __shared__ float buf[2][kChunk];
-  __shared__ int8_t code[kChunk];
+                       float* __restrict__ R, int64_t n_chunks, int stages) {
+  __shared__ __align__(16) float row[kChunk];
+  __shared__ __align__(16) float pick[2][kChunk];
+  __shared__ uint32_t code[2][kChunk / 4];
   const int t = threadIdx.x;
-  const int s = t / kLanes;
-  const int l = t % kLanes;
-  const int64_t c = blockIdx.x;
-  const int32_t* sm = smeta + (c / kNB) * kSmemBlk;
-  const int nst = min(stages, (int)sm[kNB * kSub + kNB + 1]);
-  const int64_t off = c * kChunk + t;
-  const uint32_t w = word[off];
-  const float e = scan_pick(w, vals[off], sm[(c % kNB) * kSub + s], x, n_x,
-                            nst, buf);
-  float* P = buf[(nst & 1) ^ 1];
-  const bool live = (w >> 21) & 1u;
-  P[t] = live ? e : 0.0f;
-  code[t] = live ? (int8_t)((w >> 22) & 0xF) : (int8_t)-1;
-  __syncthreads();
-  float acc = code[t] == 0 ? P[t] : 0.0f;
-  for (int r = 1; r < kSub; ++r) {
-    const int src = (s - r) & (kSub - 1);
-    const int want = r | ((src + r >= kSub) << 3);
-    if (code[src * kLanes + l] == want) acc = acc + P[src * kLanes + l];
+  const int s = t >> 5;
+  const int lane = t & 31;
+  const int64_t step = gridDim.x;
+  auto load = [&](int64_t c) {
+    Slots q = load_slots(word, vals, c, s, lane);
+    const int32_t* sm = smeta + (c / kNB) * kSmemBlk;
+    q.xrow = (int64_t)sm[(c % kNB) * kSub + s] * kLanes;
+    q.nst = min(stages, (int)sm[kNB * kSub + kNB + 1]);
+    return q;
+  };
+  int64_t c = blockIdx.x;
+  if (c >= n_chunks) return;
+  Slots cur = load(c);
+  Slots nxt{};
+  if (c + step < n_chunks) nxt = load(c + step);
+  float xv[4];
+  gather_x(x, n_x, cur, xv);
+  for (int b = 0; c < n_chunks; c += step, b ^= 1) {
+    scan_and_pick<kSub - 1>(cur, xv, cur.nst, s, lane, row, pick[b], code[b],
+                            [](uint32_t w) { return (w >> 22) & 0xFu; });
+    Slots after{};
+    if (c + 2 * step < n_chunks) after = load(c + 2 * step);
+    if (c + step < n_chunks) {
+      cur = nxt;
+      gather_x(x, n_x, cur, xv);
+      nxt = after;
+    }
+    __syncthreads();
+    const float4 p0 =
+        *reinterpret_cast<const float4*>(&pick[b][s * kLanes + 4 * lane]);
+    const uint32_t c0 = code[b][s * 32 + lane];
+    float a[4] = {tag_byte(c0, 0) == 0 ? p0.x : 0.0f,
+                  tag_byte(c0, 1) == 0 ? p0.y : 0.0f,
+                  tag_byte(c0, 2) == 0 ? p0.z : 0.0f,
+                  tag_byte(c0, 3) == 0 ? p0.w : 0.0f};
+#pragma unroll
+    for (int r = 1; r < kSub; ++r) {
+      const int src = (s - r) & (kSub - 1);
+      const uint32_t want = r | ((src + r >= kSub) << 3);
+      const float4 p4 =
+          *reinterpret_cast<const float4*>(&pick[b][src * kLanes + 4 * lane]);
+      const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+      const uint32_t cr = code[b][src * 32 + lane];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (tag_byte(cr, e) == want) a[e] = a[e] + p[e];
+    }
+    *reinterpret_cast<float4*>(R + c * kChunk + s * kLanes + 4 * lane) =
+        make_float4(a[0], a[1], a[2], a[3]);
   }
-  R[off] = acc;
 }
 
-// SELLR kernel 2 (entry sellr_flush): the run-flush. On the TPU the chunks ran in order with
-// one run accumulator (acc += R_c; on a flush chunk y[group] += acc and
-// acc = 0) and y resident in VMEM. Here one block per y group (8 x 128
-// cells) replays its chunks in that order from the host-made list (gptr,
-// gchunk = chunk<<1 | flush), so no two blocks write one cell: no atomics,
-// deterministic, the TPU kernel's sums. Bound: reading R once (4 B/slot).
-__global__ void __launch_bounds__(kChunk)
+// SELLR kernel 2 (entry sellr_flush): the run-flush. On the TPU the chunks
+// ran in order with one run accumulator (acc += R_c; on a flush chunk
+// y[group] += acc and acc = 0) and y resident in VMEM. Here each y group (8
+// x 128 cells) replays its chunks in that order from the host-made list
+// (gptr, gchunk = chunk<<1 | flush), so no two blocks write one cell: no
+// atomics, deterministic, the TPU kernel's sums. A group's 1024 cells are
+// split over kFlushSplit blocks of kFlushThreads threads, four cells (one
+// 16-byte load of R a chunk) a thread, so a shipsec1 SpMV runs 552 blocks
+// on 132 SMs, not 138. Each thread keeps kAhead chunks' R loads in flight:
+// it reads the list kAhead entries ahead, issues the next kAhead loads, then
+// adds them in the listed order. (Two such batches in flight measured no
+// faster on an H100 SXM.)
+// Bound: reading R once (4 B/slot), y written once.
+constexpr int kFlushThreads = 64;
+constexpr int kFlushSplit = kChunk / (4 * kFlushThreads);
+constexpr int kAhead = 8;
+
+__global__ void __launch_bounds__(kFlushThreads)
     sellr_flush_kernel(const float* __restrict__ R,
                        const int32_t* __restrict__ gptr,
                        const int32_t* __restrict__ gchunk,
                        float* __restrict__ y) {
-  const int t = threadIdx.x;
-  const int g = blockIdx.x;
-  float yv = 0.0f, acc = 0.0f;
-  for (int i = gptr[g]; i < gptr[g + 1]; ++i) {
-    const int32_t e = gchunk[i];
-    acc = acc + R[(int64_t)(e >> 1) * kChunk + t];
-    if (e & 1) {
-      yv = yv + acc;
-      acc = 0.0f;
+  const int g = blockIdx.x / kFlushSplit;
+  const int cell =
+      ((blockIdx.x % kFlushSplit) * kFlushThreads + threadIdx.x) * 4;
+  const int end = gptr[g + 1];
+  int i = gptr[g];
+  int e[kAhead];
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j) e[j] = i + j < end ? gchunk[i + j] : 0;
+  float yv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (; i < end; i += kAhead) {
+    float4 r[kAhead];
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j)
+      if (i + j < end)
+        r[j] = __ldcs(reinterpret_cast<const float4*>(
+            R + (int64_t)(e[j] >> 1) * kChunk + cell));
+    int en[kAhead];
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j)
+      en[j] = i + kAhead + j < end ? gchunk[i + kAhead + j] : 0;
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      if (i + j >= end) break;
+      const float rv[4] = {r[j].x, r[j].y, r[j].z, r[j].w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[q] = acc[q] + rv[q];
+      if (e[j] & 1) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          yv[q] = yv[q] + acc[q];
+          acc[q] = 0.0f;
+        }
+      }
     }
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) e[j] = en[j];
   }
-  y[(int64_t)g * kChunk + t] = yv;
+  *reinterpret_cast<float4*>(y + (int64_t)g * kChunk + cell) =
+      make_float4(yv[0], yv[1], yv[2], yv[3]);
 }
 
 // Double-single arithmetic for SELLWDS. Every multiply, add and subtract is
@@ -412,13 +563,13 @@ __device__ __forceinline__ void split32(float a, float& hi, float& lo) {
 // Every multiply, add and subtract is an __f*_rn intrinsic, in the plain
 // version's order (sellwds_planes_torch), so the planes equal it bit for
 // bit. Output: plane g of out_s and out_e at rows [g*npad, (g+1)*npad),
-// as sellw_kernel's.
+// as sellw_spmv_kernel's.
 // Bound: device memory, 12 bytes per slot read (word, vhi, vlo), x hi and
 // lo from L2, 2 * 512 * G bytes written per chunk. The first kernel (one
 // 1024-thread block a chunk, the product and the scan through four
 // shared buffers with a barrier a stage) ran 3.0x this bound.
 template <int kStages>
-__global__ void __launch_bounds__(kSpmmThreads, 4)
+__global__ void __launch_bounds__(kRowThreads, 4)
     sellwds_kernel(const uint32_t* __restrict__ word,
                    const float* __restrict__ vhi,
                    const float* __restrict__ vlo,
@@ -588,15 +739,29 @@ const char* sell_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Chunks [chunk0, chunk0 + n_chunks) of one stage class; out holds G planes
-// of npad rows each.
+// Blocks an SM holds of a persistent SpMV kernel (kernel 0: B11 at the
+// given scan depth, 1: SELLR's place), into *blocks; the grid of a launch
+// is at most the SMs times this (sell_cuda.persistent_grid).
+int sell_blocks_per_sm(int kernel, int stages, int* blocks) {
+  if (stages < 0 || stages > 7 || kernel < 0 || kernel > 1)
+    return (int)cudaErrorInvalidValue;
+  return kernel == 0 ? (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                           blocks, kSellwSpmv[stages], kRowThreads, 0)
+                     : (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                           blocks, sellr_place_kernel, kRowThreads, 0);
+}
+
+// Chunks [chunk0, chunk0 + n_chunks) of one stage class, n_chunks > 0, on
+// grid persistent blocks; out holds G planes of npad rows each.
 int sellw_spmv(const void* word, const void* vals, const void* wrow,
                const void* x, int64_t n_x, void* out, int64_t npad,
-               int64_t chunk0, int64_t n_chunks, int stages, int G,
+               int64_t chunk0, int64_t n_chunks, int stages, int G, int grid,
                void* stream) {
-  sellw_kernel<1><<<(unsigned)n_chunks, kChunk, 0, (cudaStream_t)stream>>>(
+  if (stages < 0 || stages > 7 || grid < 1) return (int)cudaErrorInvalidValue;
+  kSellwSpmv[stages]<<<(unsigned)grid, kRowThreads, 0,
+                       (cudaStream_t)stream>>>(
       (const uint32_t*)word, (const float*)vals, (const int32_t*)wrow,
-      (const float*)x, n_x, 1, (float*)out, 0, npad, chunk0, stages, G);
+      (const float*)x, n_x, (float*)out, npad, chunk0, n_chunks, G);
   return (int)cudaGetLastError();
 }
 
@@ -614,7 +779,7 @@ int sellw_spmm(const void* word, const void* vals, const void* wrow,
       sellw_spmm_kernel<3>, sellw_spmm_kernel<4>, sellw_spmm_kernel<5>,
       sellw_spmm_kernel<6>, sellw_spmm_kernel<7>};
   if (stages < 0 || stages > 7) return (int)cudaErrorInvalidValue;
-  kernels[stages]<<<(unsigned)n_chunks, kSpmmThreads, 0,
+  kernels[stages]<<<(unsigned)n_chunks, kRowThreads, 0,
                     (cudaStream_t)stream>>>(
       (const uint32_t*)word, (const float*)vals, (const int32_t*)wrow,
       (const float*)xt, n_x, n_cols, (float*)out, plane_stride, npad, chunk0,
@@ -622,20 +787,25 @@ int sellw_spmm(const void* word, const void* vals, const void* wrow,
   return (int)cudaGetLastError();
 }
 
-// R: (n_chunks * 1024,), the placed planes of the n_chunks > 0 live chunks.
+// R: (n_chunks * 1024,), the placed planes of the n_chunks > 0 live chunks,
+// on grid persistent blocks.
 int sellr_place(const void* word, const void* vals, const void* smeta,
                 const void* x, int64_t n_x, void* R, int64_t n_chunks,
-                int stages, void* stream) {
-  sellr_place_kernel<<<(unsigned)n_chunks, kChunk, 0, (cudaStream_t)stream>>>(
+                int stages, int grid, void* stream) {
+  if (stages < 0 || stages > 7 || grid < 1) return (int)cudaErrorInvalidValue;
+  sellr_place_kernel<<<(unsigned)grid, kRowThreads, 0,
+                       (cudaStream_t)stream>>>(
       (const uint32_t*)word, (const float*)vals, (const int32_t*)smeta,
-      (const float*)x, n_x, (float*)R, stages);
+      (const float*)x, n_x, (float*)R, n_chunks, stages);
   return (int)cudaGetLastError();
 }
 
-// y: (n_groups * 1024,), n_groups > 0, from R and the listed run order.
+// y: (n_groups * 1024,), n_groups > 0, from R and the listed run order;
+// kFlushSplit blocks a group.
 int sellr_flush(const void* R, const void* gptr, const void* gchunk, void* y,
                 int n_groups, void* stream) {
-  sellr_flush_kernel<<<(unsigned)n_groups, kChunk, 0, (cudaStream_t)stream>>>(
+  sellr_flush_kernel<<<(unsigned)n_groups * kFlushSplit, kFlushThreads, 0,
+                       (cudaStream_t)stream>>>(
       (const float*)R, (const int32_t*)gptr, (const int32_t*)gchunk,
       (float*)y);
   return (int)cudaGetLastError();
@@ -656,7 +826,7 @@ int sellwds_spmv(const void* word, const void* vhi, const void* vlo,
       sellwds_kernel<3>, sellwds_kernel<4>, sellwds_kernel<5>,
       sellwds_kernel<6>, sellwds_kernel<7>};
   if (stages < 0 || stages > 7) return (int)cudaErrorInvalidValue;
-  kernels[stages]<<<(unsigned)n_chunks, kSpmmThreads, 0,
+  kernels[stages]<<<(unsigned)n_chunks, kRowThreads, 0,
                     (cudaStream_t)stream>>>(
       (const uint32_t*)word, (const float*)vhi, (const float*)vlo,
       (const int32_t*)wrow, (const float*)xh, (const float*)xl, n_x,

@@ -9,17 +9,18 @@ wrapper                 replaces
 ======================  ===================================================
 ``sellw_planes``        ``sellw.py:_sellw_kernel`` and
                         ``:_sellw_stream_kernel`` (one launch per stage
-                        class; one kernel for both program kinds, counted
-                        apart: ``sellw`` and ``sellw_stream``)
+                        class, persistent blocks over its chunks; one
+                        kernel for both program kinds, counted apart:
+                        ``sellw`` and ``sellw_stream``)
 ``sellw_spmm_planes``   ``sellw.py:_sellw_spmm_kernel``: the SpMV's
                         pipeline over the columns of X in its own kernel,
                         the chunk decoded once and the scan in registers
                         (one launch per stage class, counted as
                         ``sellw_spmm``)
 ``sellr_place``         ``sellr.py:_sellr_kernel``, with ``sellr_flush``:
-                        the placed chunk planes R
-``sellr_flush``         the run-flush of R into y, one block per y group in
-                        the order the host listed
+                        the placed chunk planes R (persistent blocks)
+``sellr_flush``         the run-flush of R into y, four blocks per y group,
+                        each cell in the order the host listed
 ``sellwds_planes``      ``sellw_ds.py:_sellwds_kernel``: SELLW's pipeline
                         in double-single arithmetic, the s and e planes
                         (one launch per stage class, counted as
@@ -31,7 +32,9 @@ wrapper                 replaces
                         ``sellwds_combine``)
 ======================  ===================================================
 
-``sellr_y`` chains the two SELLR wrappers. Each wrapper takes the kernels'
+``sellr_y`` chains the two SELLR wrappers. The persistent launches take
+``grid_of``'s grid: the card's SMs times the blocks an SM holds, at most
+one block a chunk (``persistent_grid``). Each wrapper takes the kernels'
 plain PyTorch version (``*_torch``) only when its tensors lie on the CPU.
 For CUDA tensors it launches the kernel or raises; nothing falls back.
 ``LAUNCHES`` counts the kernel launches, beside each launch. The plain
@@ -61,6 +64,7 @@ from .cuda_lib import CudaLib, check, on_cuda, stream
 
 SELLR_NB = 64            # SELLR chunks per smeta step
 SELLR_SMEM_BLK = 1024    # smeta ints per step
+FLUSH_SPLIT = 4          # sellr_flush's blocks per y group (csrc/sell.cu)
 
 LAUNCHES = {"sellw": 0, "sellw_stream": 0, "sellw_spmm": 0,
             "sellr_place": 0, "sellr_flush": 0, "sellwds": 0,
@@ -69,17 +73,19 @@ LAUNCHES = {"sellw": 0, "sellw_stream": 0, "sellw_spmm": 0,
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.sell_blocks_per_sm.argtypes = [i32, i32, ctypes.POINTER(i32)]
     lib.sellw_spmv.argtypes = [p, p, p, p, i64, p, i64, i64, i64, i32, i32,
-                               p]
+                               i32, p]
     lib.sellw_spmm.argtypes = [p, p, p, p, i64, i32, p, i64, i64, i64, i64,
                                i32, i32, p]
-    lib.sellr_place.argtypes = [p, p, p, p, i64, p, i64, i32, p]
+    lib.sellr_place.argtypes = [p, p, p, p, i64, p, i64, i32, i32, p]
     lib.sellr_flush.argtypes = [p, p, p, p, i32, p]
     lib.sellwds_spmv.argtypes = [p, p, p, p, p, p, i64, p, p, i64, i64, i64,
                                  i32, i32, p]
     lib.sellwds_combine.argtypes = [p, p, p, i32, i64, i64, p, p, p, p]
-    for fn in (lib.sellw_spmv, lib.sellw_spmm, lib.sellr_place,
-               lib.sellr_flush, lib.sellwds_spmv, lib.sellwds_combine):
+    for fn in (lib.sell_blocks_per_sm, lib.sellw_spmv, lib.sellw_spmm,
+               lib.sellr_place, lib.sellr_flush, lib.sellwds_spmv,
+               lib.sellwds_combine):
         fn.restype = i32
 
 
@@ -92,6 +98,44 @@ build_log = _CUDA.build_log
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+# the persistent SpMV kernels, numbered as sell_blocks_per_sm takes them
+PERSISTENT = ("sellw_spmv", "sellr_place")
+_OCCUPANCY: dict = {}
+
+
+def persistent_grid(n_chunks: int, n_sms: int, per_sm: int) -> int:
+    """Blocks of a persistent launch over ``n_chunks`` chunks: as many as
+    the card's ``n_sms`` SMs hold at ``per_sm`` each, and no more than
+    there are chunks; a block walks every grid-th chunk."""
+    if n_chunks < 1 or n_sms < 1 or per_sm < 1:
+        raise ValueError(f"no persistent grid for {n_chunks} chunks on "
+                         f"{n_sms} SMs at {per_sm} blocks an SM")
+    return min(n_chunks, n_sms * per_sm)
+
+
+def occupancy(kernel: str, stages: int, device: torch.device) -> tuple:
+    """(SMs of ``device``, blocks of ``kernel`` one SM holds at once): the
+    CUDA occupancy calculator for one of ``PERSISTENT`` (B11 at its scan
+    depth ``stages``), asked once per device, kernel and depth."""
+    key = (device.index, kernel, stages)
+    if key not in _OCCUPANCY:
+        n = ctypes.c_int()
+        with torch.cuda.device(device):
+            _CUDA.launch("sell_blocks_per_sm", PERSISTENT.index(kernel),
+                         stages, ctypes.byref(n))
+        _OCCUPANCY[key] = (
+            torch.cuda.get_device_properties(device).multi_processor_count,
+            n.value)
+    return _OCCUPANCY[key]
+
+
+def grid_of(kernel: str, stages: int, n_chunks: int,
+            device: torch.device) -> int:
+    """The persistent grid ``kernel`` is launched with over ``n_chunks``
+    chunks of ``device``."""
+    return persistent_grid(n_chunks, *occupancy(kernel, stages, device))
 
 
 def _x2d(x: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -284,6 +328,16 @@ def _check_classes(classes, npad: int, G: int) -> int:
     return covered
 
 
+def _check_aligned(*ts) -> None:
+    """The register-layout kernels read word, values and R 16 bytes at a
+    time."""
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError("word, vals and R: the kernels read them 16 "
+                             "bytes at a time, so they must be 16-byte "
+                             "aligned")
+
+
 def _planes_out(vals, cols: int, G: int, npad: int, covered: int):
     """(cols, G·npad + 1, 128) output (cols: X's columns, or SELLWDS's s
     and e planes) with the rows no launch writes (the zero row, chunks past
@@ -306,6 +360,7 @@ def sellw_planes(word, vals, wrow, x, classes: Sequence[Tuple[int, int, int]],
     npad = _check_chunks(word, vals, wrow, x)
     check(wrow, "wrow", torch.int32, (npad * SUB,))
     covered = _check_classes(classes, npad, G)
+    _check_aligned(word, vals)
     out = _planes_out(vals, 1, G, npad, covered)[0]
     key = "sellw_stream" if stream_wins else "sellw"
     st = stream(x)
@@ -314,7 +369,9 @@ def sellw_planes(word, vals, wrow, x, classes: Sequence[Tuple[int, int, int]],
             if cnt:
                 _CUDA.launch("sellw_spmv", word.data_ptr(), vals.data_ptr(),
                              wrow.data_ptr(), x.data_ptr(), x.shape[0],
-                             out.data_ptr(), npad, start, cnt, stages, G, st)
+                             out.data_ptr(), npad, start, cnt, stages, G,
+                             grid_of("sellw_spmv", stages, cnt, x.device),
+                             st)
                 LAUNCHES[key] += 1
     return out
 
@@ -331,9 +388,7 @@ def sellw_spmm_planes(word, vals, wrow, xt, classes: Sequence[Tuple[int, int,
     npad = _check_chunks(word, vals, wrow, xt.view(-1))
     check(wrow, "wrow", torch.int32, (npad * SUB,))
     covered = _check_classes(classes, npad, G)
-    if word.data_ptr() % 16 or vals.data_ptr() % 16:
-        raise ValueError("word and vals: the SpMM kernel reads them 16 "
-                         "bytes at a time, so they must be 16-byte aligned")
+    _check_aligned(word, vals)
     cols, n_x = xt.shape
     if n_x >= 1 << 31:
         raise ValueError(f"x of {n_x} rows: the SpMM kernel indexes x with "
@@ -419,13 +474,16 @@ def sellr_place(word, vals, smeta, x, nchunks: int, stages: int,
     if nch_pad % SELLR_NB or not 0 <= nchunks <= nch_pad or stages > 7:
         raise ValueError(f"SELLR program of {nch_pad} chunks ({nchunks} "
                          f"live, {stages} stages) is malformed")
+    _check_aligned(word, vals)
     R = torch.empty((nchunks * SUB, LANES), dtype=vals.dtype,
                     device=vals.device)
     if nchunks:
         with torch.cuda.device(x.device):
             _CUDA.launch("sellr_place", word.data_ptr(), vals.data_ptr(),
                          smeta.data_ptr(), x.data_ptr(), x.shape[0],
-                         R.data_ptr(), nchunks, stages, stream(x))
+                         R.data_ptr(), nchunks, stages,
+                         grid_of("sellr_place", 0, nchunks, x.device),
+                         stream(x))
         LAUNCHES["sellr_place"] += 1
     return R
 
@@ -439,6 +497,7 @@ def sellr_flush(R, gptr, gchunk) -> torch.Tensor:
     check(R, "R", torch.float32, (nchunks * SUB, LANES))
     check(gptr, "gptr", torch.int32)
     check(gchunk, "gchunk", torch.int32, (nchunks,))
+    _check_aligned(R)
     y = torch.empty((n_groups * SUB, LANES), dtype=R.dtype, device=R.device)
     if n_groups:
         with torch.cuda.device(R.device):

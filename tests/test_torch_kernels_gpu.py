@@ -19,6 +19,8 @@ zeros): they are held to 1e-5 of |A|·|X| per element and of Σ|a||b| per
 slot.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -165,30 +167,114 @@ def test_sellw_kernel_matches_plain_version(cuda, kind, monkeypatch):
     _close_to_scipy(mat, x, spmv(A, xd))               # CUDA tensor: "cuda"
 
 
+def _seven_blocks(n_chunks, n_sms, per_sm):
+    """A persistent grid of at most 7 blocks (no stage class of the test
+    programs is a multiple of 7 chunks)."""
+    return min(n_chunks, 7)
+
+
+@functools.lru_cache(maxsize=None)
+def _staged_sellw(G, stream):
+    """``ds_staged_matrix``'s SELLW program at group G (a stage class at
+    every scan depth 0..7; at G = 1 the depth-0 class holds 1280 chunks,
+    more than the card's persistent grid), x resident or ``stream_wins``."""
+    limit = sellw._X_VMEM_LIMIT
+    sellw._X_VMEM_LIMIT = 512 if stream else limit
+    try:
+        return sellw.build_sellw(HostCSR.from_scipy(_ds_staged()), group=G,
+                                 part_cap=128)
+    finally:
+        sellw._X_VMEM_LIMIT = limit
+
+
+@functools.lru_cache(maxsize=None)
+def _ds_staged():
+    return ds_staged_matrix()
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["resident", "stream"])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_sellw_kernel_at_every_scan_depth(cuda, G, stream, monkeypatch):
+    """B11 on a program with a stage class at every scan depth 0..7, both
+    program kinds: the planes equal the plain version's bit for bit on the
+    card's persistent grid and on a grid of 7 blocks, one launch per class,
+    counted under the program kind."""
+    A = _staged_sellw(G, stream).to(cuda)
+    plan = sellw.class_plan(A)
+    assert [st for _, _, st in plan] == list(range(8))
+    assert A.stream_wins == stream and A.G == G
+    x, xd = _x(A.n, cuda)
+    args = (A.word, A.vals, A.wrow, xd, plan, G)
+    want = KS.sellw_planes_torch(*args)
+    key = "sellw_stream" if stream else "sellw"
+    for grid in ("card", "seven"):
+        if grid == "seven":
+            monkeypatch.setattr(KS, "persistent_grid", _seven_blocks)
+        KS.reset_launch_counts()
+        got = KS.sellw_planes(*args, stream_wins=stream)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), grid
+        assert {k: v for k, v in KS.LAUNCHES.items() if v} == {key: 8}
+    _close_to_scipy(_ds_staged(), x, spmv(A, xd))
+
+
 @pytest.mark.parametrize("kind", ["multi_step", "dirty"])
-def test_sellr_kernels_match_plain_version(cuda, kind):
+def test_sellr_kernels_match_plain_version(cuda, kind, monkeypatch):
+    """B14 on a program of two steps with different scan depths (smeta's
+    smax 5 and 6) and on one with dirty chunks and wrap rolls: place and
+    flush equal their plain versions bit for bit on the card's persistent
+    grid and on a grid of 7 blocks; one launch each."""
     if kind == "dirty":
         mat, factor = dirty_sellr_matrix(), 12.0
     else:
         mat, factor = banded_matrix(2000, 2000, 400, 80, 0), 4.0
     A = sellr.build_sellr(HostCSR.from_scipy(mat),
                           max_slot_factor=factor).to(cuda)
+    smax = A.smeta.view(-1, sellr.SMEM_BLK)[:, sellr.NB * 9 + 1].tolist()
+    assert kind == "dirty" or len(set(smax)) > 1
     x, xd = _x(mat.shape[1], cuda)
     args = (A.word, A.vals, A.smeta, A.gptr, A.gchunk, xd, A.nchunks,
             A.stages, A.rolls)
     place = (A.word, A.vals, A.smeta, xd, A.nchunks, A.stages, A.rolls)
-    KS.reset_launch_counts()
-    R = KS.sellr_place(*place)
     R_plain = KS.sellr_place_torch(*place)
-    got = KS.sellr_flush(R_plain, A.gptr, A.gchunk)
     want = KS.sellr_flush_torch(R_plain, A.gptr, A.gchunk)
-    torch.cuda.synchronize()
-    assert torch.equal(R, R_plain) and torch.equal(got, want)
-    assert KS.LAUNCHES == {"sellw": 0, "sellw_stream": 0, "sellw_spmm": 0,
-                           "sellr_place": 1, "sellr_flush": 1, "sellwds": 0,
-                           "sellwds_combine": 0}
+    for grid in ("card", "seven"):
+        if grid == "seven":
+            monkeypatch.setattr(KS, "persistent_grid", _seven_blocks)
+        KS.reset_launch_counts()
+        R = KS.sellr_place(*place)
+        got = KS.sellr_flush(R_plain, A.gptr, A.gchunk)
+        torch.cuda.synchronize()
+        assert torch.equal(R, R_plain) and torch.equal(got, want), grid
+        assert KS.LAUNCHES == {"sellw": 0, "sellw_stream": 0,
+                               "sellw_spmm": 0, "sellr_place": 1,
+                               "sellr_flush": 1, "sellwds": 0,
+                               "sellwds_combine": 0}
     assert torch.equal(KS.sellr_y(*args), KS.sellr_y_torch(*args))
     _close_to_scipy(mat, x, spmv(A, xd))
+
+
+def test_sellr_flush_on_ragged_groups(cuda):
+    """B14's flush on groups of 1 chunk, none, 8 and 9 (one batch of
+    loads in flight, and one more), 100 (past shipsec1's most, 64), with
+    flush marks anywhere (a group's last chunk unflushed too) and values
+    over many magnitudes: y equals the plain version bit for bit, one
+    launch."""
+    rng = np.random.default_rng(5)
+    counts = [1, 0, 8, 9, 100, 3, 17]
+    n = sum(counts)
+    R = (rng.uniform(-1, 1, (n * 8, 128))
+         * rng.lognormal(0, 4, (n * 8, 128))).astype(np.float32)
+    gchunk = (rng.permutation(n) << 1) | (rng.random(n) < 0.3)
+    gptr = np.concatenate([[0], np.cumsum(counts)])
+    R, gptr, gchunk = (torch.as_tensor(a, device=cuda) for a in (
+        R, gptr.astype(np.int32), gchunk.astype(np.int32)))
+    KS.reset_launch_counts()
+    got = KS.sellr_flush(R, gptr, gchunk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, KS.sellr_flush_torch(R, gptr, gchunk))
+    assert {k: v for k, v in KS.LAUNCHES.items() if v} == {"sellr_flush": 1}
+    assert not got[8:16].any()                      # the empty group
 
 
 def test_sell_wrappers_refuse_bad_input(cuda):
@@ -207,6 +293,10 @@ def test_sell_wrappers_refuse_bad_input(cuda):
     with pytest.raises(ValueError, match="several devices"):
         KS.sellr_y(R.word, R.vals, R.smeta, R.gptr.cpu(), R.gchunk, xd,
                    R.nchunks, R.stages, R.rolls)
+    n = R.gchunk.numel()
+    skew = torch.zeros(n * 1024 + 1, device=cuda)[1:].view(n * 8, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        KS.sellr_flush(skew, R.gptr, R.gchunk)
     with pytest.raises(ValueError, match="CUDA"):
         spmv(R.to("cpu"), torch.ones(300), impl="cuda")
 

@@ -125,3 +125,30 @@ def test_cuda_impl_refuses_cpu_tensors(case):
     _, _, A, _, x = case
     with pytest.raises(ValueError, match="CUDA"):
         spmv(A, torch.from_numpy(x), impl="cuda")
+
+
+def test_flush_plain_version_on_ragged_groups():
+    """``sellr_flush_torch`` (the flush kernel's plain version) against a
+    plain replay of the run-flush, cell by cell in list order: groups of 1
+    chunk, none, 8, 9 and 100 chunks, flush marks anywhere (a group's last
+    chunk unflushed: its run never reaches y). Exact: the same adds in the
+    same order."""
+    rng = np.random.default_rng(5)
+    counts = [1, 0, 8, 9, 100, 3]
+    n = sum(counts)
+    R = (rng.uniform(-1, 1, (n * 8, 128))
+         * rng.lognormal(0, 4, (n * 8, 128))).astype(np.float32)
+    gchunk = ((rng.permutation(n) << 1)
+              | (rng.random(n) < 0.3)).astype(np.int32)
+    gptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    want = np.zeros((len(counts), 1024), np.float32)
+    Rc = R.reshape(n, 1024)
+    for g in range(len(counts)):
+        acc = np.zeros(1024, np.float32)
+        for e in gchunk[gptr[g]:gptr[g + 1]]:
+            acc = acc + Rc[e >> 1]
+            if e & 1:
+                want[g] = want[g] + acc
+                acc = np.zeros(1024, np.float32)
+    got = K.sellr_flush_torch(*map(torch.from_numpy, (R, gptr, gchunk)))
+    assert np.array_equal(got.numpy().reshape(len(counts), 1024), want)

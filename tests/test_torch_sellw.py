@@ -205,3 +205,26 @@ def test_program_moves_whole_and_refuses_cuda_impl_on_cpu(case):
 def test_scattered_matrix_refused():
     with pytest.raises(sellw.SellWBuildError, match="no column locality"):
         sellw.build_sellw(HostCSR.from_scipy(scattered_matrix()))
+
+
+@pytest.mark.parametrize("n_chunks, n_sms, per_sm, want", [
+    (11456, 132, 4, 528),      # shipsec1's class: 21 waves and 368 chunks
+    (4736, 132, 5, 660),       # the streamed tridiagonal at 5 an SM
+    (192, 132, 4, 192),        # fewer chunks than the card holds blocks
+    (1, 132, 8, 1),
+])
+def test_persistent_grid(n_chunks, n_sms, per_sm, want):
+    """The SpMV kernels' grid: the card's resident blocks, at most one a
+    chunk; block b walks chunks b, b + grid, ..., so every chunk is taken
+    once."""
+    grid = K.persistent_grid(n_chunks, n_sms, per_sm)
+    assert grid == want
+    walked = np.concatenate([np.arange(b, n_chunks, grid)
+                             for b in range(grid)])
+    assert np.array_equal(np.sort(walked), np.arange(n_chunks))
+
+
+@pytest.mark.parametrize("args", [(0, 132, 4), (10, 132, 0), (10, 0, 4)])
+def test_persistent_grid_refuses_empty_launches(args):
+    with pytest.raises(ValueError, match="no persistent grid"):
+        K.persistent_grid(*args)
