@@ -16,11 +16,17 @@ failure (non-zero exit, no result line):
 3. generate the full-size scircuit twin (bench.py's line), RCM, build the
    CLOSG program (asserts N = 2^20, one program) and print its fields;
 4. each CLOSG kernel against its plain PyTorch version on the card, at the
-   main path's shapes (K1, K2 exact; K3 within 1e-6 of max |y|), both timed
-   with CUDA events (L2 flushed before each call); K3's phase plan logged
-   and one counted SpMV (K3 launched once a phase of its plan and once for
-   the extraction, 2 in all, asserted); the device time of one whole
-   CLOSG/cuda and CSR/torch SpMV, and CLOSG/cuda's traced chain of 50;
+   main path's shapes (B1 and B2's ``clos_r2``, the r2 layer with its
+   transposes, exact; K3 within 1e-6 of max |y|), both timed with CUDA
+   events (L2 flushed before each call); B1 and ``clos_r2`` also timed warm
+   (back to back, inputs in the L2), and ``clos_r2`` beside the same
+   function as two PyTorch transposes around the natural-layout layer
+   kernel (``unfolded_ms``, the parent's three launches), B1's persistent
+   grid logged; K3's phase plan logged and one counted SpMV (4 wrapper
+   launches: B1, ``clos_r2``, K3 once a phase of its plan and once for the
+   extraction, asserted); a profiled run of 10 SpMVs (4 device kernels a
+   SpMV and no copy, asserted); the device time of one whole CLOSG/cuda
+   and CSR/torch SpMV, and CLOSG/cuda's traced chain of 50;
 5. the bench path: ``spmv_research_tpu_torch.bench.run`` end to end, with
    the kernels' launch counters reset just before and read just after (each
    must have launched); y checked against the longdouble gold within 1e-5
@@ -53,17 +59,20 @@ failure (non-zero exit, no result line):
    through ``ops.spmv`` between a reset and a read of the counters, y within
    1e-5 of |A|·|x| of the gold;
 10. the gupta3 twin (validation_twins.txt:30): ``build_best`` (asserts a
-    chunked CLOSG with W = 0 in every chunk), B5 and B6 against their plain
-    versions on every chunk (exact; the widest timed), B5's phases on the
-    widest chunk logged, the host time of one B5 call and of one SpMV
-    (enqueue only), one SpMV of each chunk (at most 3 phases in its B5
+    chunked CLOSG with W = 0 in every chunk), B1, ``clos_r2``, B5 and B6
+    against their plain versions on every chunk (exact; the widest timed;
+    B1 and ``clos_r2`` also warm and ``clos_r2`` beside ``unfolded_ms``),
+    B5's phases on the widest chunk logged, the host time of one B5 call
+    and of one SpMV (enqueue only), one SpMV of each chunk (at most 3 phases in its B5
     plan, and B5 launched once per phase, asserted) and one
     of the program through ``ops.spmv`` between a reset and a read of the
-    counters, y within 1e-5 of |A|·|x|; device times of CLOSG/cuda,
+    counters (50 wrapper launches, B1 and ``clos_r2`` once a chunk,
+    asserted), y within 1e-5 of |A|·|x|; device times of CLOSG/cuda,
     DENSE/torch, CSR/torch and the cuSPARSE product (a library yardstick),
     and the traced chain of 50;
 11. the mip1 twin (validation_twins.txt:31): ``build_best`` (asserts an
-    RSPLIT over a CLOSGX), K1, K2 and B15 on the stacked planes against
+    RSPLIT over a CLOSGX), B1, ``clos_r2`` and B15 on the stacked planes
+    against
     their plain versions (exact) and timed, B15's phases logged, one SpMV
     as in phase 10 (B15 launched once per phase and once for the
     extraction, at most 3 in all, asserted), y within 1e-5 of
@@ -116,7 +125,9 @@ failure (non-zero exit, no result line):
 16. the fallback engines CLOS and BFLY (``fallback_phase``): the scircuit
     twin as the sweep loads it (RCM where it narrows the band), CLOS
     (asserts N = 2^20) and BFLY (N = 2^20, L = 20) built, cold build times
-    and program shapes logged; B8's three parts (fill, scan, valid) and
+    and program shapes logged; CLOS's r1 layers (``clos_invreg``) and r2
+    layers (``clos_r2``, also beside ``unfolded_ms``) on its three
+    networks, B8's three parts (fill, scan, valid) and
     B9's three (exchange network, fill, scan) against their plain versions
     on the program's own pipeline inputs (``torch.equal``; the valid step
     at m, over the blocks that hold y, and over the whole plane) and timed,
@@ -125,8 +136,9 @@ failure (non-zero exit, no result line):
     (the program in phases, one launch a phase) against its plain version
     and B9's chain (``torch.equal``), timed beside cuSPARSE's fp32 SpMV,
     its phases and launches per SpMV logged; one counted
-    SpMV per engine (launches per SpMV; CLOS's B8 launches asserted to be
-    one a phase of the fill's and scan's plans + 1, BFLY's B9 launches one
+    SpMV per engine (launches per SpMV; CLOS's asserted to be 3
+    ``clos_invreg``, 3 ``clos_r2`` and B8 one a phase of the fill's and
+    scan's plans + 1, BFLY's B9 launches one
     a phase of its calls' plans, 11), one SpMV's device time and a
     traced chain of 50 per engine (and B10 and cuSPARSE timed alone); the
     sweep with formats csr, clos and bfly (the B8 and B9 kernels must
@@ -214,6 +226,7 @@ REPLACES = {
     "closg_front_lut": "spmv_research_tpu/ops/clos_gather.py:734",
     "closg_front_win": "spmv_research_tpu/ops/clos_gather.py:602",
     "clos_invreg": "spmv_research_tpu/ops/clos_pallas.py:52",
+    "clos_r2": "spmv_research_tpu/ops/clos_pallas.py:52",
     "closg_r3_scan_yext": "spmv_research_tpu/ops/clos_pallas.py:117",
     "closg_r3_scan": "spmv_research_tpu/ops/clos_pallas.py:106",
     "closg_cand_yext": "spmv_research_tpu/ops/clos_gather.py:752",
@@ -280,6 +293,23 @@ class DeviceTimer:
             total += e0.elapsed_time(e1)
         return total / iters
 
+    def warm_ms(self, fn, iters: int = 30) -> float:
+        """Mean device ms per call of fn over iters calls back to back behind
+        the spin kernel, no flush: the inputs stay in the L2, as on the main
+        path, where a kernel reads the output of the one before."""
+        import torch
+        for _ in range(3):
+            fn()
+        torch.cuda._sleep(self.cycles)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(iters):
+            fn()
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1) / iters
+
     def bound(self, nbytes: float, ops: float) -> tuple:
         """(bound_ms, bound_by): bytes over the memory rate or fp32
         operations over the fp32 peak, whichever takes longer."""
@@ -334,7 +364,6 @@ def closg_stages(K, A, xd):
     """(kernel, args, (bytes, ops)) for each kernel of one CLOSG program's
     SpMV, each stage's input made by the plain versions of the stages
     before it (the kernels match them exactly)."""
-    from spmv_research_tpu_torch.ops.clos import _t_bwd, _t_fwd
     N = A.N
     if A.fused_win:
         front = ("closg_front_win", (A.gbase, A.nbids, A.perm_r1, A.vals_cs,
@@ -345,9 +374,9 @@ def closg_stages(K, A, xd):
         front = ("closg_front", (A.rowidx, A.perm_r1, A.vals_cs, xd))
     yield front[0], front[1], (nbytes(*front[1]) + 4 * N, N)
     v = getattr(K, front[0] + "_torch")(*front[1])
-    mid = (_t_fwd(v, A.V), A.perm_r2)
-    yield "clos_invreg", mid, (nbytes(*mid) + 4 * N, 0)
-    v = _t_bwd(K.clos_invreg_torch(*mid), A.V)
+    mid = (v, A.perm_r2, A.V)
+    yield "clos_r2", mid, (nbytes(*mid) + 4 * N, 0)
+    v = K.clos_r2_torch(*mid)
     if A.W:
         stages = A.scan_cap or A.scan_stages
         back = (v, A.perm_r3, A.scan_hi, A.ysel_w, A.wstart, A.acc_ptr,
@@ -367,15 +396,14 @@ def closg_stages(K, A, xd):
 
 
 def closgx_stages(K, A, xd):
-    """As ``closg_stages`` for a CLOSGX stack: K1 and K2 over the stacked
-    planes, then B15 over all chunks at once."""
-    from spmv_research_tpu_torch.ops.clos import _t_bwd, _t_fwd
+    """As ``closg_stages`` for a CLOSGX stack: B1 and ``clos_r2`` over the
+    stacked planes, then B15 over all chunks at once."""
     C, N, V = A.n_chunks, A.N, A.V
     front = (A.rowidx.view(-1), A.r1.view(-1, 128), A.vals.view(-1, 128), xd)
     yield "closg_front", front, (nbytes(*front) + 4 * C * N, C * N)
-    mid = (_t_fwd(K.closg_front_torch(*front), V), A.r2.view(-1, V // 8))
-    yield "clos_invreg", mid, (nbytes(*mid) + 4 * C * N, 0)
-    back = (_t_bwd(K.clos_invreg_torch(*mid), V), A.r3.view(-1, 128),
+    mid = (K.closg_front_torch(*front), A.r2.view(-1, V // 8), V)
+    yield "clos_r2", mid, (nbytes(*mid) + 4 * C * N, 0)
+    back = (K.clos_r2_torch(*mid), A.r3.view(-1, 128),
             A.ysel_w.view(-1, 128), A.wstart_abs.view(-1), A.stages, N)
     yield "closgx_r3_scan_yext", back, (nbytes(*back) + 4 * A.ysel_w.numel(),
                                         C * N)
@@ -455,6 +483,56 @@ def host_us(fn, n: int = 200) -> float:
     t = (time.perf_counter() - t0) / n
     torch.cuda.synchronize()
     return t * 1e6
+
+
+def device_kernels(fn, n: int = 10) -> dict:
+    """The device events of one call of fn by name (kernels, copies,
+    memsets): n calls after a warm one, under torch.profiler, each name's
+    count over n."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return {k: v / n for k, v in counts.items()}
+
+
+def layer_times(timer, K, entries, args, label):
+    """Warm times (``DeviceTimer.warm_ms``) of B1 and ``clos_r2`` in
+    ``entries`` (by name), and ``clos_r2``'s function computed as before
+    its transposes were folded (``_t_fwd``, the natural-layout layer
+    kernel, ``_t_bwd``: three launches), checked equal and timed cold and
+    warm: kept in the entries as ``warm_ms``, ``unfolded_ms`` and
+    ``unfolded_warm_ms``."""
+    import torch
+    from spmv_research_tpu_torch.ops.clos import _t_bwd, _t_fwd
+    for k in entries:
+        name = k["name"]
+        for base in ("closg_front", "clos_r2"):
+            if name == base or name.startswith(base + "_"):
+                fn = (lambda f=getattr(K, base), a=args[base]: f(*a))
+                k["warm_ms"] = timer.warm_ms(fn)
+        if k["name"] in ("clos_r2", "clos_r2" + label):
+            v, w, V = args["clos_r2"]
+            unfolded = (lambda: _t_bwd(K.clos_invreg(_t_fwd(v, V), w), V))
+            if not torch.equal(unfolded(), K.clos_r2(v, w, V)):
+                fail(f"{name}: the unfolded r2 layer differs from clos_r2")
+            k["unfolded_ms"] = timer.ms(unfolded)
+            k["unfolded_warm_ms"] = timer.warm_ms(unfolded)
+    log(f"# {label or 'scircuit'} B1/B2 cold and warm ms: " + "; ".join(
+        f"{k['name']} {k['ms']:.5f} / {k['warm_ms']:.5f}"
+        + (f" (unfolded: transposes + natural layer {k['unfolded_ms']:.5f}"
+           f" / {k['unfolded_warm_ms']:.5f})" if "unfolded_ms" in k else "")
+        for k in entries if "warm_ms" in k))
 
 
 def closg_checks(timer, K, programs, xd, suffix="", stages=closg_stages,
@@ -665,12 +743,29 @@ def main() -> None:
     x = np.random.Generator(np.random.PCG64(7)).uniform(0.0, 1.0, A.n)
     xd = torch.as_tensor(x, dtype=torch.float32, device=dev)
     kernels = closg_checks(timer, K, [A], xd)
+    layer_times(timer, K, kernels, {name: a for name, a, _ in
+                                    closg_stages(K, A, xd)}, "")
+    n_sms, per_sm = K._OCCUPANCY[dev.index]
+    log(f"# B1 (front_kernel): grid {K.front_grid(A.N // 1024, dev)} "
+        f"persistent blocks ({per_sm} an SM x {n_sms} SMs) over "
+        f"{A.N // 1024} tiles; ptxas: " + ptxas_of(K.build_log(), (
+            "front_kernel", "layer_kernelILb0E", "layer_kernelILb1E")))
     k3_scircuit = k3_launches(K, "scircuit", [A], xd)
     if k3_scircuit != 2:
         fail(f"a scircuit CLOSG SpMV takes {k3_scircuit} K3 launches, not 2 "
              f"(one phase and the extraction)")
-    log(f"# launches during one scircuit CLOSG SpMV: "
-        f"{counted_spmv(A, xd, K)[1]}")
+    launches = counted_spmv(A, xd, K)[1]
+    log(f"# launches during one scircuit CLOSG SpMV: {launches}")
+    if launches != {**dict.fromkeys(K.LAUNCHES, 0), "closg_front": 1,
+                    "clos_r2": 1, "closg_r3_scan_yext": 2}:
+        fail("a scircuit CLOSG SpMV is not 4 wrapper launches: B1, clos_r2, "
+             "K3's phase and its extraction")
+    kinds = device_kernels(lambda: spmv(A, xd, impl="cuda"))
+    log(f"# device events a scircuit CLOSG/cuda SpMV (10 profiled): {kinds}")
+    if sum(kinds.values()) != 4 or any(
+            "copy" in k.lower() or "memset" in k.lower() for k in kinds):
+        fail(f"a scircuit CLOSG/cuda SpMV ran {sum(kinds.values())} device "
+             f"events, not 4 kernels and no copy")
     csr = build_csr(host).to(dev)
     time_candidates(timer, "scircuit", {
         "CLOSG/cuda": lambda v: spmv(A, v, impl="cuda"),
@@ -861,7 +956,7 @@ def main() -> None:
         launches = {**K.LAUNCHES, **KS.LAUNCHES}
         log(f"# launches during the sweep path: {launches}")
         for name in ("sellw", "sellr_place", "sellr_flush", "closg_front",
-                     "clos_invreg", "closg_r3_scan_yext"):
+                     "clos_r2", "closg_r3_scan_yext"):
             if launches[name] <= 0:
                 fail(f"the sweep path never launched {name}")
         check_csvs(out_dir, csv_labels(synthetic=True),
@@ -934,6 +1029,10 @@ def main() -> None:
     widest = max(Ag.chunks, key=lambda c: c.N)
     k_w0 = closg_checks(timer, K, sorted(Ag.chunks, key=lambda c: -c.N),
                         xgd, names=("closg_r3_scan", "closg_cand_yext"))
+    k_g = closg_checks(timer, K, sorted(Ag.chunks, key=lambda c: -c.N),
+                       xgd, suffix="_gupta3", names=("closg_front", "clos_r2"))
+    layer_times(timer, K, k_g, {name: a for name, a, _ in
+                                closg_stages(K, widest, xgd)}, "_gupta3")
     plans = [K.plan_scan_phases(c.scan_stages, c.N, c.N) for c in Ag.chunks]
     log(f"# gupta3 B5 plan of the widest chunk (N = {widest.N}, "
         f"{len(widest.scan_stages)} stages, T = {K.SCAN_TILE_LOG}, halo "
@@ -958,10 +1057,17 @@ def main() -> None:
     log(f"# launches during one gupta3 SpMV: {launches} (B5 "
         f"{[len(p) for p in plans]} per chunk; "
         f"{sum(launches.values())} in all)")
-    for k in k_w0:
-        k["launches"] = launches[k["name"]]
+    for k in (*k_w0, *k_g):
+        k["launches"] = launches[k["name"].removesuffix("_gupta3")]
         if k["launches"] <= 0:
             fail(f"the gupta3 SpMV never launched {k['name']}")
+    n_c = len(Ag.chunks)
+    if not (launches["closg_front"] == launches["clos_r2"]
+            == launches["closg_cand_yext"] == n_c
+            and sum(launches.values()) == 3 * n_c + sum(map(len, plans))
+            == 50):
+        fail(f"a gupta3 SpMV launched {launches}: not B1, clos_r2 and B6 "
+             f"once a chunk and B5 once a phase, 50 in all")
     if launches["closg_r3_scan"] != sum(map(len, plans)):
         fail(f"the gupta3 SpMV launched closg_r3_scan "
              f"{launches['closg_r3_scan']} times, not once per phase "
@@ -1022,6 +1128,9 @@ def main() -> None:
             fail(f"the mip1 SpMV never launched {k['name']}")
         if k["name"] != "closgx_r3_scan_yext":
             k["name"] += "_xl"
+    if (launches["closg_front"], launches["clos_r2"]) != (1, 1):
+        fail(f"a mip1 SpMV launched {launches}: not B1 and clos_r2 once for "
+             f"the whole stack")
     if len(plan_x) + 1 > 3:
         fail(f"mip1's B15 plan has {len(plan_x)} phases: with the "
              f"extraction more than 3 launches")
@@ -1049,7 +1158,7 @@ def main() -> None:
         torch.cuda.synchronize()
         launches = dict(K.LAUNCHES)
         log(f"# launches during the gupta3 + mip1 sweep: {launches}")
-        for name in ("closg_front", "clos_invreg", "closg_r3_scan",
+        for name in ("closg_front", "clos_r2", "closg_r3_scan",
                      "closg_cand_yext", "closgx_r3_scan_yext"):
             if launches[name] <= 0:
                 fail(f"the gupta3 + mip1 sweep never launched {name}")
@@ -1102,7 +1211,7 @@ def main() -> None:
     k_fb = fallback_phase(timer, dev, cfg)
     log(f"# all phases done at {time.perf_counter() - t_start:.0f}s")
 
-    kernels += [*k_chunks, k_sellw, k_stream, *k_sellr, *k_opt, *k_w0,
+    kernels += [*k_chunks, k_sellw, k_stream, *k_sellr, *k_opt, *k_w0, *k_g,
                 *k_xl, *k_kdim, *k_ds, *k_fb]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1614,7 +1723,6 @@ def fallback_phase(timer, dev, cfg) -> list:
     from spmv_research_tpu_torch.ops import bfly as BF
     from spmv_research_tpu_torch.ops import bfly_cuda as KF
     from spmv_research_tpu_torch.ops import clos_cuda as K
-    from spmv_research_tpu_torch.ops.clos import _t_bwd, _t_fwd
     from spmv_research_tpu_torch.ops.clos_route import ClosRoutingError
 
     t_phase = time.perf_counter()
@@ -1661,10 +1769,15 @@ def fallback_phase(timer, dev, cfg) -> list:
         return check_kernel(timer, name, source, REPLACES[name], cases,
                             exact, work, library)
 
-    # B8 on the program's own pipeline inputs (the plain stages before it)
+    # B2 (the r1 layer, then the r2 layer with its transposes) and B8 on
+    # the program's own pipeline inputs (the plain stages before them)
+    layers = {"clos_invreg": [], "clos_r2": []}
+
     def net(v, r1, r2):
-        v = _t_fwd(K.clos_invreg_torch(v, r1), Ac.V)
-        return _t_bwd(K.clos_invreg_torch(v, r2), Ac.V)
+        layers["clos_invreg"].append((v, r1))
+        v = K.clos_invreg_torch(v, r1)
+        layers["clos_r2"].append((v, r2, Ac.V))
+        return K.clos_r2_torch(v, r2, Ac.V)
 
     hi = lambda t: t if t.numel() == N else None  # noqa: E731
     u = net(F.pad(xd, (0, N - Ac.n)).view(-1, 128), Ac.widen_r1,
@@ -1680,6 +1793,16 @@ def fallback_phase(timer, dev, cfg) -> list:
     b8_case = lambda name, a: (  # noqa: E731
         lambda: getattr(K, name)(*a),
         lambda: getattr(K, name + "_torch")(*a))
+    # the layers on the three networks (the widen network timed); 12 bytes
+    # a slot: word and value read, out written
+    k_b2 = [entry(name, CLOSG_SRC,
+                  [b8_case(name, a) for a in layers[name]],
+                  (nbytes(*layers[name][0]) + 4 * N, 0))
+            for name in ("clos_invreg", "clos_r2")]
+    k_b2[1]["name"] = "clos_r2_clos"
+    layer_times(timer, K, k_b2[1:], {"clos_r2": layers["clos_r2"][0]},
+                "_clos")
+    del layers
     k_b8 = [entry(name, CLOSG_SRC, cases, work)
             for name, cases, work in (
                 ("clos_r3_fill", [b8_case("clos_r3_fill", fill)],
@@ -1775,6 +1898,10 @@ def fallback_phase(timer, dev, cfg) -> list:
                       "clos_r3_valid": 1}:
                 fail(f"one scircuit CLOS/cuda SpMV launched B8 {b8}, not "
                      f"one a phase of its fill and scan plans + 1")
+            if (launches["clos_invreg"], launches["clos_r2"]) != (3, 3):
+                fail(f"one scircuit CLOS/cuda SpMV launched the layers "
+                     f"{launches['clos_invreg']} + {launches['clos_r2']} "
+                     f"times, not 3 + 3 (a network each)")
     if {k: launches[k] for k in KF.LAUNCHES} != {**b9_want, "bfly_full": 0}:
         fail(f"one scircuit BFLY/cuda SpMV launched "
              f"{ {k: launches[k] for k in KF.LAUNCHES} }, not one launch a "
@@ -1802,8 +1929,8 @@ def fallback_phase(timer, dev, cfg) -> list:
         log(f"# launches during the csr/clos/bfly sweep: {launches}")
         check_csvs(out_dir, csv_labels(synthetic=True),
                    {f"{f}_spmv": 1 for f in ("csr", "clos", "bfly")})
-    for k in (*k_b8, *k_b9):
-        k["launches"] = launches[k["name"]]
+    for k in (*k_b2, *k_b8, *k_b9):
+        k["launches"] = launches[k["name"].removesuffix("_clos")]
         if k["launches"] <= 0:
             fail(f"the csr/clos/bfly sweep never launched {k['name']}")
     check_rows(results, ["CSR/torch", "CLOS/cuda", "BFLY/cuda"],
@@ -1896,7 +2023,7 @@ def fallback_phase(timer, dev, cfg) -> list:
         check_csvs(out_dir, csv_labels(synthetic=True), {"bfly_spmv": 1})
     check_rows(results, ["BFLY/cuda"], {"mac_econ_fwd500": mac}, xm)
     log(f"# phase 16 done in {time.perf_counter() - t_phase:.0f}s")
-    return [*k_b8, *k_b9, k_b10]
+    return [*k_b2, *k_b8, *k_b9, k_b10]
 
 
 def b9_calls(A):

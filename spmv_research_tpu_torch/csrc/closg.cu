@@ -1,9 +1,11 @@
 // Hand-written Hopper (sm_90a) kernels of the CLOSG SpMV engine: the front
-// ends (plain, value-LUT, fused windows), the in-vreg layer, the segmented
-// scan in phases of tiles with a halo (K3's capped scan, B5, B15), and the
-// three y extractions (windowed, candidate-plane, CLOSGX); and the r3 steps
-// of the exact-CLOS engine (B8: the same phased scan × values, or selecting
-// for the forward fill, and the r3 layer with the out-valid mask).
+// ends (plain, value-LUT, fused windows), the in-vreg layer (natural, and
+// the r2 layer with its two transposes folded into its addressing), the
+// segmented scan in phases of tiles with a halo (K3's capped scan, B5,
+// B15), and the three y extractions (windowed, candidate-plane, CLOSGX);
+// and the r3 steps of the exact-CLOS engine (B8: the same phased scan ×
+// values, or selecting for the forward fill, and the r3 layer with the
+// out-valid mask).
 //
 // Built by spmv_research_tpu_torch/ops/clos_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
@@ -25,10 +27,11 @@
 //   s2 = 8*(s/8) + (s%8 + rot(w[s,c])) % 8
 //   l  = lane1(w[s2,c])
 //   out[s,l'] = v[s2,l]
-// A 1024-slot block holds whole 8-row tiles for every L <= 128, so one
+// A 1024-slot block holds whole 8-row tiles for every L <= 128, so a
 // thread block stages its words and values in shared memory and resolves
 // the three dependent picks there.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,20 +52,15 @@ __device__ __forceinline__ float invreg_pick(const uint32_t* w, const float* v,
   return v[s2 * L + l];
 }
 
-// K2 `clos_invreg` — replaces spmv_research_tpu/ops/clos_pallas.py
-// `_invreg_kernel` (the r2 layer).
-// Bound: device memory, 12 bytes per slot (read word and value, write out);
-// the three picks hit shared memory. One block per 1024 slots.
-//
-// kValid: B8's valid step — replaces clos_pallas.py `_r3_valid_kernel` (the
-// compact network's r3 layer, then 0 unless bit 17 of the r3 word, the
-// out-valid bit). A pick stays inside its 1024-slot block, so the wrapper
-// launches only the leading blocks that hold y. Bound: device memory, 12
-// bytes per slot of those blocks.
-template <bool kValid>
-__global__ void invreg_kernel(const float* __restrict__ v,
-                              const uint32_t* __restrict__ word,
-                              float* __restrict__ out, int lshift) {
+// B8's valid step — replaces spmv_research_tpu/ops/clos_pallas.py
+// `_r3_valid_kernel` (the compact network's r3 layer, then 0 unless bit 17
+// of the r3 word, the out-valid bit). One block per 1024 slots, one slot a
+// thread. A pick stays inside its 1024-slot block, so the wrapper launches
+// only the leading blocks that hold y. Bound: device memory, 12 bytes per
+// slot of those blocks.
+__global__ void valid_kernel(const float* __restrict__ v,
+                             const uint32_t* __restrict__ word,
+                             float* __restrict__ out) {
   __shared__ uint32_t w_sh[kBlockSlots];
   __shared__ float v_sh[kBlockSlots];
   const int64_t off = (int64_t)blockIdx.x * kBlockSlots;
@@ -70,42 +68,373 @@ __global__ void invreg_kernel(const float* __restrict__ v,
   w_sh[t] = word[off + t];
   v_sh[t] = v[off + t];
   __syncthreads();
-  const float r = invreg_pick(w_sh, v_sh, t, lshift);
-  out[off + t] = (!kValid || ((w_sh[t] >> 17) & 1u)) ? r : 0.0f;
+  const float r = invreg_pick(w_sh, v_sh, t, 7);
+  out[off + t] = ((w_sh[t] >> 17) & 1u) ? r : 0.0f;
 }
 
-// K1 `closg_front` — replaces spmv_research_tpu/ops/clos_gather.py
-// `_gmul_r1_dma_kernel`: product x2d[rowidx[s], λ] * vals_cs[s, l], then
-// the r1 layer. Bound: device memory, 12 bytes per slot plus the x reads,
-// which come from L2 (x is 4 bytes per column; the scircuit twin's is
-// 684 KB). The TPU kernel copied each sublane's 128-wide x window into VMEM
-// first; here each thread reads its own x element directly (columns past n
-// read as 0, the zero padding of the x plane), so any x size is served:
-// this is also the non-LUT mode of `_gmul_r1_kernel` (x past 4 MB).
+// ------------------------------------------------------------------- B2
 //
-// B4 (kLut) — replaces the value-LUT mode of clos_gather.py
-// `_gmul_r1_kernel`: the value is entry (w >> 24) & 0x7F of the 128-entry
-// dictionary (row 0 of the (8,128) dictionary plane), staged in shared
-// memory; the value plane is not read at all (8 bytes per slot).
-template <bool kLut>
-__global__ void front_kernel(const int32_t* __restrict__ rowidx,
-                             const uint32_t* __restrict__ word,
-                             const float* __restrict__ vals,
-                             const float* __restrict__ x, int64_t n_x,
-                             float* __restrict__ out) {
+// The in-vreg layer — replaces spmv_research_tpu/ops/clos_pallas.py
+// `_invreg_kernel` — in two addressings of one tile body (layer_kernel):
+//   `clos_r2` (kTrans): the r2 layer with the transposes around it, the
+//     JAX package's _t_bwd(invreg(_t_fwd(v, V), r2), V), on the natural
+//     (8V, 128) planes of C stacked programs: no transposed copy of the
+//     plane is ever made;
+//   `clos_invreg`: one layer on a natural (S, L) plane, L <= 128 (CLOS's
+//     r1 layers; L = 128).
+// _t_fwd views a plane of N = 1024·V slots as V natural blocks a of 1024
+// slots and lays slot (a, b) at b·V + a: an 8-row group of the transposed
+// (8·1024, V/8) plane is one offset b of every natural block, and the
+// layer's picks stay in it. So a tile of nb consecutive offsets [b0, b0 +
+// nb) reads one run of nb floats from each natural block (out is written
+// to the same runs) and nb·V consecutive words of the stored r2 plane, and
+// its picks need nothing outside it.
+// Bound: device memory, 12 bytes per slot (word and value read once, out
+// written once); the picks hit shared memory.
+// The design: the words are 16-byte loads, streamed past L1 (__ldcs),
+// kR2Quads a thread, issued before any use (a 1024-thread tile holds 32 KB
+// of them in flight) and staged in transposed order, the rows of V words
+// padded by 4 (V >= 32) so that the first pick, a column read of the word
+// rows by the threads of one run, is free of bank conflicts at nb = 8.
+// The natural addressing loads and stores its values the same way. The
+// transposed tile's values are V runs of nb floats 4 KB apart, in and
+// out. They move by TMA: one thread issues 2-D tensor copies of boxes of
+// nb floats × up to 256 blocks (the plane viewed as rows of 1024 floats,
+// 4 KB apart) into shared memory in natural order, completing on an
+// mbarrier; after the words' barrier and the copies' mbarrier each thread
+// resolves its own 4 natural-order slots' three picks from shared memory
+// into a staged natural-order output tile, which goes back by TMA the same
+// way. As 16-byte loads and stores through L1 (a warp's request touches
+// 16 lines, one 32-byte sector each, for 512 bytes) the tile took 0.0187
+// ms cold, 0.0137 warm (H100 SXM, 700 W), with TMA loads and 16-byte
+// stores 0.0188 and 0.0122, with TMA both ways 0.0138 and 0.0075; the
+// natural addressing, the same bytes in whole lines, takes 0.0117 and
+// 0.0056 (time_clos_scans.py).
+// The tile width nb follows from V: runs of kR2Run floats (one 32-byte
+// sector) where V >= 1024 / kR2Run, so a plane is 1024 / kR2Run = 128
+// tiles at every V >= 128 (1024 threads at V = 1024, 2 blocks an SM by the
+// launch bounds); whole r2 blocks of 1024 slots below that (longer runs).
+// At V = 1024, runs of 4 floats (256 tiles of 512 threads) took 0.0153
+// ms cold and runs of 16 (64 tiles) 0.0162, against 0.0137 at 8
+// (time_clos_scans.py --set kR2Run=R, the same card). The natural
+// addressing stages kR2Run·1024 contiguous slots.
+constexpr int kR2Run = 8;  // floats of each natural block a tile reads
+// 16-byte quads of values and of words a thread: 1024 threads a tile
+constexpr int kR2Quads = kR2Run > 8 ? kR2Run / 4 : 2;
+constexpr int kR2MaxThreads = kR2Run * kBlockSlots / (4 * kR2Quads);
+constexpr int kTmaBoxRows = 256;   // a TMA box's most rows (natural blocks)
+
+// A tile's geometry: nb b offsets (0 in the natural addressing), its slots,
+// the staged word row stride (kTrans), its threads, and its shared bytes.
+struct R2Geom {
+  int nb, slots, rs, threads, smem;
+};
+
+// vlog = log2 V of a transposed tile, or -1 for the natural addressing.
+// Mirrored by ops/clos_cuda.py r2_geometry.
+__host__ __device__ inline R2Geom r2_geom(int vlog) {
+  R2Geom g;
+  if (vlog >= 0) {
+    g.nb = (kBlockSlots >> vlog) > kR2Run ? kBlockSlots >> vlog : kR2Run;
+    g.slots = g.nb << vlog;
+    g.rs = (1 << vlog) + (vlog >= 5 ? 4 : 0);
+    // values, the output, words, the mbarrier
+    g.smem = 4 * (2 * g.slots + g.nb * g.rs) + 8;
+  } else {
+    g.nb = 0;
+    g.slots = kR2Run * kBlockSlots;
+    g.rs = 0;
+    g.smem = 8 * g.slots;
+  }
+  g.threads = g.slots / (4 * kR2Quads);
+  return g;
+}
+
+// The in-vreg pick of slot i = j·L + l' of one 8-row group of L = 2^lshift
+// lanes: its words at w[0, 8L), its values at vals[x·vstride] for group
+// slot x. Lanes are masked to the row, so a word can never leave its group.
+__device__ __forceinline__ float group_pick(const uint32_t* w,
+                                            const float* vals, int vstride,
+                                            int i, int lshift) {
+  const int lmask = (1 << lshift) - 1;
+  const int c = (w[i] >> 10) & lmask;
+  const int j = i >> lshift;
+  const int j2 = (j + ((w[(j << lshift) + c] >> 7) & 0x7)) & (kSub - 1);
+  const int l = w[(j2 << lshift) + c] & lmask;
+  return vals[((j2 << lshift) + l) * vstride];
+}
+
+// TMA: 2-D tensor copies between a plane viewed as rows of 1024 floats and
+// shared memory, completing on an mbarrier (loads) or a bulk group
+// (stores).
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int col, int row, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];"
+      :: "r"(smem_addr(dst)), "l"(map), "r"(col), "r"(row),
+         "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, int col,
+                                          int row, const void* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2}], [%3];"
+      :: "l"(map), "r"(col), "r"(row), "r"(smem_addr(src))
+      : "memory");
+}
+
+// Wait until the mbarrier's phase `parity` completes; trap rather than
+// spin forever if the copies never land.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (int64_t spins = 0; !done; ++spins) {
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
+        "%2; selp.u32 %0, 1, 0, p; }"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    if (!done && spins > (int64_t(1) << 30)) __trap();
+  }
+}
+
+// One tile: kTrans, the r2 layer of tile blockIdx.x (plane blockIdx.x /
+// (1024 / nb), offsets b0 = nb·(blockIdx.x mod (1024 / nb))) on natural
+// planes of 2^(vlog + 10) slots, L = V/8 = 2^lshift, the values in and out
+// by TMA through vmap and omap (the planes as rows of 1024 floats, boxes of
+// nb × min(V, 256)); else slots [tile·slots, +slots) of a natural (S,
+// 2^lshift) plane of n_slots (a multiple of 1024; the last tile may be
+// short), the maps unused.
+template <bool kTrans>
+__global__ void __launch_bounds__(kR2MaxThreads, kR2Quads > 2 ? 1 : 2)
+    layer_kernel(const float* __restrict__ v,
+                 const uint32_t* __restrict__ word, float* __restrict__ out,
+                 int64_t n_slots, int lshift, int vlog,
+                 const __grid_constant__ CUtensorMap vmap,
+                 const __grid_constant__ CUtensorMap omap) {
+  // the only shared memory: its start is aligned as TMA needs (128 B)
+  extern __shared__ __align__(128) float r2_sm[];
+  const R2Geom g = r2_geom(kTrans ? vlog : -1);
+  float* const vs = r2_sm;
+  float* const os = r2_sm + g.slots;  // kTrans: the output
+  uint32_t* const ws =
+      reinterpret_cast<uint32_t*>(r2_sm + (kTrans ? 2 : 1) * g.slots);
+  uint64_t* const bar = reinterpret_cast<uint64_t*>(ws + g.nb * g.rs);
+  int64_t base;   // the tile's first slot (kTrans: its plane's)
+  int64_t wbase;  // its first word
+  int b0 = 0, row0 = 0, nq = g.slots >> 2;
+  const int qlog = kTrans ? __ffs(g.nb) - 3 : 0;  // log2 quads a run
+  const int box = kTrans && vlog < 8 ? 1 << vlog : kTmaBoxRows;
+  if (kTrans) {
+    const int tpp = kBlockSlots / g.nb;
+    row0 = (blockIdx.x / tpp) << vlog;  // the plane's first natural block
+    base = (int64_t)row0 << 10;
+    b0 = (blockIdx.x % tpp) * g.nb;
+    wbase = base + ((int64_t)b0 << vlog);
+    if (threadIdx.x == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   :: "r"(smem_addr(bar)) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   :: "r"(smem_addr(bar)), "r"(4 * g.slots) : "memory");
+      for (int r = 0; r < (1 << vlog); r += box)
+        tma_load(vs + r * g.nb, &vmap, b0, row0 + r, bar);
+    }
+  } else {
+    base = wbase = (int64_t)blockIdx.x * g.slots;
+    if (n_slots - base < g.slots) nq = (int)(n_slots - base) >> 2;
+  }
+  // quad q: kTrans, offsets b0 + 4p.. of natural block a (q = a·nb/4 +
+  // p), at 4q in the staged natural-order tiles; else slots base + 4q
+  float4 vq[kR2Quads];
+  uint4 wq[kR2Quads];
+#pragma unroll
+  for (int e = 0; e < kR2Quads; ++e) {
+    const int q = threadIdx.x + e * g.threads;
+    if (q < nq) {
+      if (!kTrans)
+        vq[e] = __ldcs(reinterpret_cast<const float4*>(v + base + 4 * q));
+      wq[e] = __ldcs(reinterpret_cast<const uint4*>(word + wbase + 4 * q));
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < kR2Quads; ++e) {
+    const int q = threadIdx.x + e * g.threads;
+    if (q < nq) {
+      if (!kTrans) *reinterpret_cast<float4*>(vs + 4 * q) = vq[e];
+      const int wi = kTrans ? ((4 * q) >> vlog) * g.rs +
+                                  ((4 * q) & ((1 << vlog) - 1))
+                            : 4 * q;
+      *reinterpret_cast<uint4*>(ws + wi) = wq[e];
+    }
+  }
+  __syncthreads();
+  if (kTrans) mbar_wait(bar, 0);
+#pragma unroll
+  for (int e = 0; e < kR2Quads; ++e) {
+    const int q = threadIdx.x + e * g.threads;
+    if (q < nq) {
+      float r[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (kTrans) {
+          // slot (a, b0 + beta): transposed group beta, group slot a
+          const int beta = 4 * (q & ((1 << qlog) - 1)) + k;
+          r[k] = group_pick(ws + beta * g.rs, vs + beta, g.nb, q >> qlog,
+                            lshift);
+        } else {
+          const int t = 4 * q + k;
+          const int g0 = t & ~((kSub << lshift) - 1);
+          r[k] = group_pick(ws + g0, vs + g0, 1, t - g0, lshift);
+        }
+      }
+      const float4 r4 = make_float4(r[0], r[1], r[2], r[3]);
+      if (kTrans)
+        *reinterpret_cast<float4*>(os + 4 * q) = r4;
+      else
+        *reinterpret_cast<float4*>(out + base + 4 * q) = r4;
+    }
+  }
+  if (kTrans) {
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int r = 0; r < (1 << vlog); r += box)
+        tma_store(&omap, b0, row0 + r, os + r * g.nb);
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    }
+  }
+}
+
+// ------------------------------------------------------------------- B1
+//
+// `closg_front` — replaces spmv_research_tpu/ops/clos_gather.py
+// `_gmul_r1_dma_kernel`: product x2d[rowidx[s], λ] · vals_cs[s, l] (λ = r1
+// bits [17, 24), columns past n read 0: the x plane's zero padding), then
+// the r1 layer on each 1024-slot tile (8 rows of 128). Also the non-LUT
+// mode of `_gmul_r1_kernel` (x past 4 MB): x is read from device memory at
+// any n.
+// Bound: device memory, 12 bytes per slot plus x once.
+// The design, per 1024-slot tile, 256 threads, 4 slots a thread (warp s is
+// row s, lane t of it holds lanes 4t..4t+3):
+//   * the tile's 8 x windows (8 rows of 128 floats, 4 KB) are staged in
+//     shared memory as the TPU kernel staged them in VMEM: thread t loads
+//     quad t of its own row's window with one 16-byte load (scalar, masked,
+//     where the window passes n or x is not 16-byte aligned), so a warp
+//     reads one 512-byte window in 4 requests instead of 32 scattered ones;
+//   * word and value are one 16-byte streamed load each, the output one
+//     16-byte store;
+//   * persistent blocks: the grid is the SMs times the blocks an SM holds
+//     (closg_blocks_per_sm, at most one block a tile); a block walks tiles
+//     blockIdx.x, + gridDim.x, ..., and issues the next tile's word, value
+//     and window loads (and the rowidx of the one after) before this tile's
+//     products and picks, so the loads of two tiles are in flight;
+//   * two barriers a tile: the windows staged, then the products and words;
+//     the picks (invreg_pick) read shared memory. One buffer of each
+//     serves: a tile's writes come after a barrier that every thread
+//     reaches only when done with the tile before.
+constexpr int kFrontThreads = kBlockSlots / 4;
+
+struct FrontSlots {
+  uint4 w;
+  float4 v, x;
+};
+
+// Quad col..col+3 of x, 0 past n_x (x16: x is 16-byte aligned).
+__device__ __forceinline__ float4 x_quad(const float* __restrict__ x,
+                                         int64_t n_x, bool x16,
+                                         int64_t col) {
+  if (x16 && col + 4 <= n_x)
+    return __ldg(reinterpret_cast<const float4*>(x + col));
+  return make_float4(col < n_x ? __ldg(x + col) : 0.0f,
+                     col + 1 < n_x ? __ldg(x + col + 1) : 0.0f,
+                     col + 2 < n_x ? __ldg(x + col + 2) : 0.0f,
+                     col + 3 < n_x ? __ldg(x + col + 3) : 0.0f);
+}
+
+__global__ void __launch_bounds__(kFrontThreads)
+    front_kernel(const int32_t* __restrict__ rowidx,
+                 const uint32_t* __restrict__ word,
+                 const float* __restrict__ vals,
+                 const float* __restrict__ x, int64_t n_x, int x16,
+                 float* __restrict__ out, int64_t n_tiles) {
+  __shared__ __align__(16) float xs[kBlockSlots];
+  __shared__ __align__(16) float vs[kBlockSlots];
+  __shared__ __align__(16) uint32_t ws[kBlockSlots];
+  const int i = 4 * threadIdx.x;         // my first slot: row s, lane 4t
+  const int row0 = i & ~(kLanes - 1);    // my row's first slot (and window)
+  const int s = threadIdx.x >> 5;
+  const int64_t step = gridDim.x;
+  int64_t c = blockIdx.x;
+  if (c >= n_tiles) return;
+  auto row_of = [&](int64_t tile) -> int32_t {
+    return tile < n_tiles ? __ldg(rowidx + tile * kSub + s) : 0;
+  };
+  auto load = [&](int64_t tile, int32_t row) {
+    FrontSlots q;
+    const int64_t off = tile * kBlockSlots + i;
+    q.w = __ldcs(reinterpret_cast<const uint4*>(word + off));
+    q.v = __ldcs(reinterpret_cast<const float4*>(vals + off));
+    q.x = x_quad(x, n_x, x16, (int64_t)row * kLanes + (i - row0));
+    return q;
+  };
+  FrontSlots cur = load(c, row_of(c));
+  int32_t row_next = row_of(c + step);
+  for (; c < n_tiles; c += step) {
+    FrontSlots nxt{};
+    if (c + step < n_tiles) nxt = load(c + step, row_next);
+    row_next = row_of(c + 2 * step);
+    *reinterpret_cast<float4*>(xs + i) = cur.x;
+    __syncthreads();
+    const uint32_t w[4] = {cur.w.x, cur.w.y, cur.w.z, cur.w.w};
+    const float val[4] = {cur.v.x, cur.v.y, cur.v.z, cur.v.w};
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      p[e] = __fmul_rn(xs[row0 + ((w[e] >> 17) & 0x7F)], val[e]);
+    *reinterpret_cast<uint4*>(ws + i) = cur.w;
+    *reinterpret_cast<float4*>(vs + i) = make_float4(p[0], p[1], p[2], p[3]);
+    __syncthreads();
+    float r[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) r[e] = invreg_pick(ws, vs, i + e, 7);
+    *reinterpret_cast<float4*>(out + c * kBlockSlots + i) =
+        make_float4(r[0], r[1], r[2], r[3]);
+    cur = nxt;
+  }
+}
+
+// B4 `closg_front_lut` — replaces the value-LUT mode of
+// spmv_research_tpu/ops/clos_gather.py `_gmul_r1_kernel`: as B1's product
+// with the value entry (w >> 24) & 0x7F of the 128-entry dictionary (row 0
+// of the (8,128) dictionary plane), staged in shared memory; the value
+// plane is not read at all (8 bytes per slot). One slot a thread, each
+// thread reading its own x element. Bound: device memory, 8 bytes per slot
+// plus x.
+__global__ void front_lut_kernel(const int32_t* __restrict__ rowidx,
+                                 const uint32_t* __restrict__ word,
+                                 const float* __restrict__ vals,
+                                 const float* __restrict__ x, int64_t n_x,
+                                 float* __restrict__ out) {
   __shared__ uint32_t w_sh[kBlockSlots];
   __shared__ float v_sh[kBlockSlots];
   __shared__ float dict_sh[kLanes];
   const int64_t off = (int64_t)blockIdx.x * kBlockSlots;
   const int t = threadIdx.x;
-  if (kLut && t < kLanes) dict_sh[t] = vals[t];
+  if (t < kLanes) dict_sh[t] = vals[t];
   const uint32_t wd = word[off + t];
   w_sh[t] = wd;
   const int64_t col = (int64_t)rowidx[(off + t) / kLanes] * kLanes +
                       ((wd >> 17) & 0x7F);
   const float xv = col < n_x ? x[col] : 0.0f;
-  if (kLut) __syncthreads();
-  v_sh[t] = xv * (kLut ? dict_sh[(wd >> 24) & 0x7F] : vals[off + t]);
+  __syncthreads();
+  v_sh[t] = xv * dict_sh[(wd >> 24) & 0x7F];
   __syncthreads();
   out[off + t] = invreg_pick(w_sh, v_sh, t, 7);
 }
@@ -544,6 +873,64 @@ __global__ void cand_yext_kernel(const float* __restrict__ scr,
   y[e] = scr[row * kLanes + (sel & 0x7F)];
 }
 
+// cuTensorMapEncodeTiled, looked up in libcuda through the runtime's entry
+// point query (the library does not link libcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// The TMA map of n_slots floats at p (16-byte aligned) viewed as rows of
+// 1024, 4 KB apart, in boxes of nb floats × rows rows.
+cudaError_t plane_map(CUtensorMap* map, const void* p, int64_t n_slots,
+                      int nb, int rows) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorNotSupported;
+    encode = (EncodeTiled)fn;
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)kBlockSlots,
+                              (cuuint64_t)(n_slots / kBlockSlots)};
+  const cuuint64_t strides[1] = {kBlockSlots * sizeof(float)};
+  const cuuint32_t box[2] = {(cuuint32_t)nb, (cuuint32_t)rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(p),
+                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+// The layer kernels' shared memory past 48 KB, once per device before the
+// first launch.
+cudaError_t allow_layer_smem() {
+  static bool allowed[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && allowed[dev])) return err;
+  int smem = r2_geom(-1).smem;
+  for (int vlog = 3; vlog <= 10; ++vlog)
+    smem = r2_geom(vlog).smem > smem ? r2_geom(vlog).smem : smem;
+  err = cudaFuncSetAttribute(layer_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(layer_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  if (err == cudaSuccess && dev < 64) allowed[dev] = true;
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -552,14 +939,48 @@ const char* closg_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// n_slots: a multiple of 1024; lanes: a power of two <= 128.
+// One layer on a natural (n_slots / lanes, lanes) plane: n_slots a positive
+// multiple of 1024, lanes a power of two <= 128.
 int closg_invreg(const void* v, const void* word, void* out, int64_t n_slots,
                  int lanes, void* stream) {
   int lshift = 0;
   while ((1 << lshift) < lanes) ++lshift;
-  invreg_kernel<false><<<(unsigned)(n_slots / kBlockSlots), kBlockSlots, 0,
-                         (cudaStream_t)stream>>>(
-      (const float*)v, (const uint32_t*)word, (float*)out, lshift);
+  if (n_slots <= 0 || n_slots % kBlockSlots || (1 << lshift) != lanes ||
+      lanes > kLanes)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_layer_smem();
+  if (err != cudaSuccess) return (int)err;
+  const R2Geom g = r2_geom(-1);
+  const CUtensorMap unused{};
+  layer_kernel<false><<<(unsigned)((n_slots + g.slots - 1) / g.slots),
+                        g.threads, g.smem, (cudaStream_t)stream>>>(
+      (const float*)v, (const uint32_t*)word, (float*)out, n_slots, lshift,
+      -1, unused, unused);
+  return (int)cudaGetLastError();
+}
+
+// The r2 layer with its transposes on n_slots / (1024·V) stacked natural
+// planes of (8V, 128); word: the stored r2 planes, (n_slots / (V/8), V/8).
+// V a power of two in [8, 1024]; v and out 16-byte aligned (TMA).
+int clos_r2(const void* v, const void* word, void* out, int64_t n_slots,
+            int V, void* stream) {
+  int vlog = 0;
+  while ((1 << vlog) < V) ++vlog;
+  if ((1 << vlog) != V || vlog < 3 || vlog > 10 || n_slots <= 0 ||
+      n_slots % ((int64_t)V * kBlockSlots))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_layer_smem();
+  if (err != cudaSuccess) return (int)err;
+  const R2Geom g = r2_geom(vlog);
+  const int rows = V < kTmaBoxRows ? V : kTmaBoxRows;
+  CUtensorMap vmap, omap;
+  err = plane_map(&vmap, v, n_slots, g.nb, rows);
+  if (err == cudaSuccess) err = plane_map(&omap, out, n_slots, g.nb, rows);
+  if (err != cudaSuccess) return (int)err;
+  layer_kernel<true><<<(unsigned)(n_slots / g.slots), g.threads, g.smem,
+                       (cudaStream_t)stream>>>(
+      (const float*)v, (const uint32_t*)word, (float*)out, n_slots, vlog - 3,
+      vlog, vmap, omap);
   return (int)cudaGetLastError();
 }
 
@@ -567,26 +988,41 @@ int closg_invreg(const void* v, const void* word, void* out, int64_t n_slots,
 // positive multiple of 1024) of the plane.
 int clos_r3_valid(const void* v, const void* word, void* out, int64_t n_slots,
                   void* stream) {
-  invreg_kernel<true><<<(unsigned)(n_slots / kBlockSlots), kBlockSlots, 0,
-                        (cudaStream_t)stream>>>(
-      (const float*)v, (const uint32_t*)word, (float*)out, 7);
+  valid_kernel<<<(unsigned)(n_slots / kBlockSlots), kBlockSlots, 0,
+                 (cudaStream_t)stream>>>(
+      (const float*)v, (const uint32_t*)word, (float*)out);
   return (int)cudaGetLastError();
 }
 
-// n_slots: a multiple of 1024 (rows of 128 lanes). lut != 0: vals is the
-// (8,128) dictionary plane.
+// Blocks of B1's persistent front_kernel an SM holds, into *blocks; the
+// grid of a launch is at most the SMs times this (cuda_lib.persistent_grid).
+int closg_blocks_per_sm(int* blocks) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, front_kernel, kFrontThreads, 0);
+}
+
+// B1 over n_slots (a positive multiple of 1024) rows of 128 lanes, on grid
+// persistent blocks.
 int closg_front(const void* rowidx, const void* perm_r1, const void* vals,
                 const void* x, int64_t n_x, void* out, int64_t n_slots,
-                int lut, void* stream) {
-  const unsigned blocks = (unsigned)(n_slots / kBlockSlots);
-  if (lut)
-    front_kernel<true><<<blocks, kBlockSlots, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)rowidx, (const uint32_t*)perm_r1, (const float*)vals,
-        (const float*)x, n_x, (float*)out);
-  else
-    front_kernel<false><<<blocks, kBlockSlots, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)rowidx, (const uint32_t*)perm_r1, (const float*)vals,
-        (const float*)x, n_x, (float*)out);
+                int grid, void* stream) {
+  if (n_slots <= 0 || n_slots % kBlockSlots || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  front_kernel<<<(unsigned)grid, kFrontThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)rowidx, (const uint32_t*)perm_r1, (const float*)vals,
+      (const float*)x, n_x, ((uintptr_t)x & 15) == 0, (float*)out,
+      n_slots / kBlockSlots);
+  return (int)cudaGetLastError();
+}
+
+// B4: vals is the (8,128) dictionary plane.
+int closg_front_lut(const void* rowidx, const void* perm_r1, const void* vals,
+                    const void* x, int64_t n_x, void* out, int64_t n_slots,
+                    void* stream) {
+  front_lut_kernel<<<(unsigned)(n_slots / kBlockSlots), kBlockSlots, 0,
+                     (cudaStream_t)stream>>>(
+      (const int32_t*)rowidx, (const uint32_t*)perm_r1, (const float*)vals,
+      (const float*)x, n_x, (float*)out);
   return (int)cudaGetLastError();
 }
 

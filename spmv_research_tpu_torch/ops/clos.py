@@ -8,10 +8,11 @@ engine, the fallback ``build_best`` tries where CLOSG refuses a matrix: the
 ``execute_clos_numpy``, ``clos_from_jax``, and two SpMV impls:
 
 * ``"cuda"`` — ``spmv_clos_pallas``'s pipeline on the hand-written kernels:
-  per network the r1 and r2 layers on ``clos_invreg`` (B2), the
-  ``_t_fwd``/``_t_bwd`` transposes between them as PyTorch copies, then the
-  network's r3 step on B8 (``clos_r3_fill``, ``clos_r3_scan``,
-  ``clos_r3_valid`` in ``clos_cuda.py``);
+  per network the r1 layer on ``clos_invreg`` and the r2 layer with the
+  ``_t_fwd``/``_t_bwd`` transposes around it on ``clos_r2`` (both B2: the
+  transposes are folded into the kernel's addressing), then the network's
+  r3 step on B8 (``clos_r3_fill``, ``clos_r3_scan``, ``clos_r3_valid`` in
+  ``clos_cuda.py``);
 * ``"torch"`` — the same pipeline on the kernels' plain versions, in the
   role of the JAX package's ``xla`` impl (the same function: rolls,
   selects, one product per slot, adds in the same order).
@@ -259,8 +260,7 @@ def _pipeline(A: Clos, x: torch.Tensor, plain: bool) -> torch.Tensor:
         return getattr(K, name + "_torch" if plain else name)
 
     def net(v, r1, r2):          # the r1 and r2 layers of one network
-        v = _t_fwd(k("clos_invreg")(v, r1), A.V)
-        return _t_bwd(k("clos_invreg")(v, r2), A.V)
+        return k("clos_r2")(k("clos_invreg")(v, r1), r2, A.V)
 
     v = F.pad(x.to(A.vals.dtype), (0, A.N - x.shape[0])).view(-1, LANES)
     v = k("clos_r3_fill")(net(v, A.widen_r1, A.widen_r2), A.widen_r3,

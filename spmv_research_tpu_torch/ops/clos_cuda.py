@@ -12,14 +12,19 @@ wrapper                    replaces
 ``closg_front``            ``clos_gather.py:_gmul_r1_dma_kernel`` (x window
                            gather × value, then the r1 layer); also the
                            non-LUT mode of ``_gmul_r1_kernel``, since the
-                           kernel reads x from device memory at any n
+                           kernel reads x from device memory at any n —
+                           persistent blocks (``front_grid``)
 ``closg_front_lut``        ``clos_gather.py:_gmul_r1_kernel`` in value-LUT
                            mode (the value from a 128-entry dictionary)
 ``closg_front_win``        ``clos_gather.py:_gmul_r1_win_kernel`` (fused
                            windows: x row = base of the 8-row group + a
                            per-slot rotation)
+``clos_r2``                ``clos_pallas.py:_invreg_kernel`` as the r2
+                           layer with the ``_t_fwd``/``_t_bwd`` transposes
+                           around it, on C stacked natural planes: one
+                           launch, no transposed copy
 ``clos_invreg``            ``clos_pallas.py:_invreg_kernel`` (one in-vreg
-                           layer; the r2 layer)
+                           layer on a natural plane: CLOS's r1 layers)
 ``closg_r3_scan_yext``     ``clos_pallas.py:_r3_scan_yext_kernel`` (r3 layer,
                            capped segmented scan, windowed y extraction) —
                            launches: one per phase of ``plan_scan_phases``
@@ -52,8 +57,9 @@ wrapper                    replaces
 Each wrapper takes the kernel's plain PyTorch version (``*_torch``) only when
 its tensors lie on the CPU. For CUDA tensors it launches the kernel or raises;
 nothing falls back. ``LAUNCHES`` counts, per wrapper, its kernel launches.
-The ``_t_fwd``/``_t_bwd`` transposes between the layers stay PyTorch copies
-(``clos.py``), as they were XLA ops in the JAX package.
+The ``_t_fwd``/``_t_bwd`` transposes around the r2 layer, XLA ops in the JAX
+package, are folded into ``clos_r2``'s addressing; ``clos.py`` keeps them for
+the plain version ``clos_r2_torch``.
 
 The kernels are compiled by ``nvcc`` from ``csrc/closg.cu`` at first CUDA use
 (``cuda_lib.CudaLib``); importing this module builds and loads nothing.
@@ -68,13 +74,16 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-from .clos import SPARE_BITS, SPARE_SHIFT, _stage_bit, invreg_torch
-from .clos_route import LANES, SUB
-from .cuda_lib import CudaLib, check as _check, on_cuda as _on_cuda
-from .cuda_lib import stream as _stream
+from .clos import (SPARE_BITS, SPARE_SHIFT, _stage_bit, _t_bwd, _t_fwd,
+                   invreg_torch)
+from .clos_route import BLK, LANES, SUB
+from .cuda_lib import (CudaLib, check as _check, check_aligned,
+                       on_cuda as _on_cuda, persistent_grid,
+                       stream as _stream)
 
 LAUNCHES = {"closg_front": 0, "closg_front_lut": 0, "closg_front_win": 0,
-            "clos_invreg": 0, "closg_r3_scan_yext": 0, "closg_r3_scan": 0,
+            "clos_r2": 0, "clos_invreg": 0, "closg_r3_scan_yext": 0,
+            "closg_r3_scan": 0,
             "closg_cand_yext": 0, "closgx_r3_scan_yext": 0,
             "clos_r3_fill": 0, "clos_r3_scan": 0, "clos_r3_valid": 0}
 VLUT_SHIFT = SPARE_SHIFT + 7    # r1 bits [24,31): value index / rotation
@@ -87,12 +96,19 @@ SCAN_TILE_LOG = 13
 SCAN_HALO_MAX = 1024
 MAX_SCAN_STAGE = 30
 MAX_SCAN_PHASES = 32
+# the layer kernels' tiles (csrc/closg.cu kR2Run, kR2Quads): runs of R2_RUN
+# floats of each natural block, R2_QUADS 16-byte quads a thread
+R2_RUN = 8
+R2_QUADS = R2_RUN // 4 if R2_RUN > 8 else 2
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.closg_invreg.argtypes = [p, p, p, i64, i32, p]
+    lib.clos_r2.argtypes = [p, p, p, i64, i32, p]
+    lib.closg_blocks_per_sm.argtypes = [ctypes.POINTER(i32)]
     lib.closg_front.argtypes = [p, p, p, p, i64, p, i64, i32, p]
+    lib.closg_front_lut.argtypes = [p, p, p, p, i64, p, i64, p]
     lib.closg_front_win.argtypes = [p, p, i64, p, p, p, i64, p, i64, p]
     lib.closg_yext.argtypes = [p, p, p, p, p, p, i32, p]
     lib.closg_cand_yext.argtypes = [p, p, p, i64, p, p]
@@ -100,7 +116,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     ints = ctypes.POINTER(ctypes.c_int32)
     lib.closg_scan_phases.argtypes = [p, p, p, p, i32, p, p, i64, i64, ints,
                                       i32, ints, i32, p]
-    for fn in (lib.closg_invreg, lib.closg_front, lib.closg_front_win,
+    for fn in (lib.closg_invreg, lib.clos_r2, lib.closg_blocks_per_sm,
+               lib.closg_front, lib.closg_front_lut, lib.closg_front_win,
                lib.closg_yext, lib.closg_cand_yext, lib.clos_r3_valid,
                lib.closg_scan_phases):
         fn.restype = i32
@@ -119,15 +136,70 @@ def reset_launch_counts() -> None:
 
 
 def _check_slots(n_slots: int, lanes: int) -> None:
-    if n_slots % 1024 or lanes < 1 or lanes > LANES or lanes & (lanes - 1):
-        raise ValueError(f"layer shape needs a multiple of 1024 slots and a "
-                         f"power-of-two lane width <= {LANES}; got {n_slots} "
-                         f"slots of {lanes} lanes")
+    if (n_slots <= 0 or n_slots % 1024 or lanes < 1 or lanes > LANES
+            or lanes & (lanes - 1)):
+        raise ValueError(f"layer shape needs a positive multiple of 1024 "
+                         f"slots and a power-of-two lane width <= {LANES}; "
+                         f"got {n_slots} slots of {lanes} lanes")
+
+
+def _check_r2(n_slots: int, V: int) -> None:
+    if (V < SUB or V > SUB * LANES or V & (V - 1) or n_slots <= 0
+            or n_slots % (BLK * V)):
+        raise ValueError(f"the r2 layer needs a power-of-two V in [{SUB}, "
+                         f"{SUB * LANES}] and whole planes of 1024·V slots; "
+                         f"got V = {V}, {n_slots} slots")
+
+
+def r2_geometry(V: int | None) -> tuple:
+    """The layer kernels' tile (``csrc/closg.cu`` ``r2_geom``): (nb,
+    slots, rs, threads, shared bytes). ``clos_r2`` at V: nb offsets b of
+    every natural block (runs of ``R2_RUN`` floats, or whole r2 blocks of
+    1024 slots where V < 1024 / R2_RUN), nb·V slots, the values staged in
+    natural order (and the output, moved by TMA), the words as nb rows of
+    V padded by 4 where V >= 32 (stride rs), then the mbarrier;
+    ``clos_invreg`` (V None): ``R2_RUN``·1024 contiguous slots, nb = rs =
+    0. A thread moves ``R2_QUADS`` quads of words (and, natural, of
+    values)."""
+    if V is None:
+        slots = R2_RUN * BLK
+        return 0, slots, 0, slots // (4 * R2_QUADS), 8 * slots
+    nb = max(R2_RUN, BLK // V)
+    rs = V + (4 if V >= 32 else 0)
+    return (nb, nb * V, rs, nb * V // (4 * R2_QUADS),
+            4 * (2 * nb * V + nb * rs) + 8)
+
+
+# B1's persistent grid: (SMs, blocks an SM) per device
+_OCCUPANCY: dict = {}
+
+
+def front_grid(n_tiles: int, device: torch.device) -> int:
+    """The persistent grid B1 (``closg_front``) is launched with over
+    ``n_tiles`` 1024-slot tiles of ``device``: the card's SMs times the
+    blocks of ``front_kernel`` an SM holds (asked once per device), at
+    most one block a tile."""
+    if device.index not in _OCCUPANCY:
+        n = ctypes.c_int()
+        with torch.cuda.device(device):
+            _launch("closg_blocks_per_sm", ctypes.byref(n))
+        _OCCUPANCY[device.index] = (
+            torch.cuda.get_device_properties(device).multi_processor_count,
+            n.value)
+    return persistent_grid(n_tiles, *_OCCUPANCY[device.index])
 
 
 # ------------------------------------------------------------ plain versions
 
 clos_invreg_torch = invreg_torch
+
+
+def clos_r2_torch(v: torch.Tensor, word: torch.Tensor,
+                  V: int) -> torch.Tensor:
+    """The r2 layer on C stacked natural (8V, 128) planes: ``_t_fwd``, the
+    in-vreg layer on the transposed (C·8·1024, V/8) plane with the stored
+    r2 words, ``_t_bwd`` (the JAX package's three steps)."""
+    return _t_bwd(invreg_torch(_t_fwd(v, V), word), V)
 
 
 def _x2d(x: torch.Tensor) -> torch.Tensor:
@@ -401,12 +473,14 @@ def _scan_phases(key, v, w3, hi_ptr, stages: Sequence[int], chunk: int,
 # ------------------------------------------------------------------ wrappers
 
 def clos_invreg(v: torch.Tensor, word: torch.Tensor) -> torch.Tensor:
-    """One in-vreg layer on an (S, L) plane (kernel K2)."""
+    """One in-vreg layer on a natural (S, L) plane (kernel B2's tile body,
+    natural addressing): CLOS's r1 layers."""
     if not _on_cuda(v, word):
         return clos_invreg_torch(v, word)
     _check(v, "v", torch.float32)
     _check(word, "word", torch.int32, v.shape)
     _check_slots(v.numel(), v.shape[1])
+    check_aligned(v=v, word=word)
     out = torch.empty_like(v)
     with torch.cuda.device(v.device):
         _launch("closg_invreg", v.data_ptr(), word.data_ptr(), out.data_ptr(),
@@ -415,7 +489,26 @@ def clos_invreg(v: torch.Tensor, word: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _front(key, rowidx, perm_r1, vals_cs, x, lut: bool) -> torch.Tensor:
+def clos_r2(v: torch.Tensor, word: torch.Tensor, V: int) -> torch.Tensor:
+    """The r2 layer with its transposes (kernel B2): ``_t_bwd(invreg(
+    _t_fwd(v, V), word), V)`` on C stacked natural (8V, 128) planes, in
+    one launch; ``word`` the stored r2 planes, (C·8·1024, V/8)."""
+    if not _on_cuda(v, word):
+        return clos_r2_torch(v, word, V)
+    n = v.numel()
+    _check(v, "v", torch.float32, (n // LANES, LANES))
+    _check_r2(n, V)
+    _check(word, "word", torch.int32, (n // (V // SUB), V // SUB))
+    check_aligned(v=v, word=word)     # v by TMA, word 16 bytes at a time
+    out = torch.empty_like(v)
+    with torch.cuda.device(v.device):
+        _launch("clos_r2", v.data_ptr(), word.data_ptr(), out.data_ptr(), n,
+                V, _stream(v))
+    LAUNCHES["clos_r2"] += 1
+    return out
+
+
+def _check_front(rowidx, perm_r1, vals_cs, x, lut: bool) -> int:
     S = rowidx.shape[0]
     _check(rowidx, "rowidx", torch.int32, (S,))
     _check(perm_r1, "perm_r1", torch.int32, (S, LANES))
@@ -423,30 +516,40 @@ def _front(key, rowidx, perm_r1, vals_cs, x, lut: bool) -> torch.Tensor:
            else (S, LANES))
     _check(x, "x", torch.float32, (x.shape[0],))
     _check_slots(S * LANES, LANES)
-    out = torch.empty_like(perm_r1, dtype=torch.float32)
-    with torch.cuda.device(x.device):
-        _launch("closg_front", rowidx.data_ptr(), perm_r1.data_ptr(),
-                vals_cs.data_ptr(), x.data_ptr(), x.shape[0], out.data_ptr(),
-                S * LANES, int(lut), _stream(x))
-    LAUNCHES[key] += 1
-    return out
+    return S * LANES
 
 
 def closg_front(rowidx: torch.Tensor, perm_r1: torch.Tensor,
                 vals_cs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Window gather × value, then the r1 layer (kernel K1): (8V, 128)."""
+    """Window gather × value, then the r1 layer (kernel B1), in
+    persistent blocks (``front_grid``): (8V, 128)."""
     if not _on_cuda(rowidx, perm_r1, vals_cs, x):
         return closg_front_torch(rowidx, perm_r1, vals_cs, x)
-    return _front("closg_front", rowidx, perm_r1, vals_cs, x, lut=False)
+    n = _check_front(rowidx, perm_r1, vals_cs, x, lut=False)
+    check_aligned(perm_r1=perm_r1, vals_cs=vals_cs)
+    out = torch.empty_like(vals_cs)
+    with torch.cuda.device(x.device):
+        _launch("closg_front", rowidx.data_ptr(), perm_r1.data_ptr(),
+                vals_cs.data_ptr(), x.data_ptr(), x.shape[0], out.data_ptr(),
+                n, front_grid(n // 1024, x.device), _stream(x))
+    LAUNCHES["closg_front"] += 1
+    return out
 
 
 def closg_front_lut(rowidx: torch.Tensor, perm_r1: torch.Tensor,
                     vals_cs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """K1 with the value read from the (8, 128) dictionary plane's row 0
-    at r1 bits [24,31) (kernel B4)."""
+    """B1's function with the value read from the (8, 128) dictionary
+    plane's row 0 at r1 bits [24,31) (kernel B4)."""
     if not _on_cuda(rowidx, perm_r1, vals_cs, x):
         return closg_front_lut_torch(rowidx, perm_r1, vals_cs, x)
-    return _front("closg_front_lut", rowidx, perm_r1, vals_cs, x, lut=True)
+    n = _check_front(rowidx, perm_r1, vals_cs, x, lut=True)
+    out = torch.empty_like(perm_r1, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        _launch("closg_front_lut", rowidx.data_ptr(), perm_r1.data_ptr(),
+                vals_cs.data_ptr(), x.data_ptr(), x.shape[0], out.data_ptr(),
+                n, _stream(x))
+    LAUNCHES["closg_front_lut"] += 1
+    return out
 
 
 def closg_front_win(gbase: torch.Tensor, nbids: torch.Tensor,

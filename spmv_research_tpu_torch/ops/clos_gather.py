@@ -15,12 +15,13 @@ identical program arrays, every option included), the float64 host executor
 
 The pipeline: a front end (window gather × value, then the r1 layer; the
 value may come from a 128-entry dictionary, ``use_vlut``, and the window
-from a per-8-row base plus a rotation, ``fused_win``) → ``_t_fwd`` →
-``clos_invreg`` (r2 layer) → ``_t_bwd`` → a back end. Programs with windowed
-extraction (W > 0) run ``closg_r3_scan_yext`` (r3 layer, capped segmented
-scan, y extraction); W = 0 programs, whose 128-row groups span more than 64
-window octaves, run ``closg_r3_scan`` (r3 layer, full scan) and then
-``closg_cand_yext`` (per y slot, a pick from one of C candidate rows).
+from a per-8-row base plus a rotation, ``fused_win``) → ``clos_r2`` (the r2
+layer with the ``_t_fwd``/``_t_bwd`` transposes around it) → a back end.
+Programs with windowed extraction (W > 0) run ``closg_r3_scan_yext`` (r3
+layer, capped segmented scan, y extraction); W = 0 programs, whose 128-row
+groups span more than 64 window octaves, run ``closg_r3_scan`` (r3 layer,
+full scan) and then ``closg_cand_yext`` (per y slot, a pick from one of C
+candidate rows).
 
 ``build_clos_gather_auto`` also routes a matrix to the long-row split
 (``rowsplit.py``) and to the XL tier (``clos_xl.py``), as the JAX builder
@@ -40,8 +41,7 @@ from ..core.formats import _move
 from ..core.host import HostCSR
 from .dispatch import register_spmm_column_loop, register_spmv
 from .clos_route import BLK, LANES, SUB, ClosRoutingError, route_clos
-from .clos import (LANE2_SHIFT, ROT_SHIFT, SPARE_BITS, SPARE_SHIFT, _pack,
-                   _t_fwd, _t_bwd)
+from .clos import LANE2_SHIFT, ROT_SHIFT, SPARE_BITS, SPARE_SHIFT, _pack
 from . import clos_cuda as K
 
 DATA_FIELDS = ("rowidx", "vals_cs", "perm_r1", "perm_r2", "perm_r3",
@@ -590,7 +590,7 @@ def _pipeline(A: ClosG, x: torch.Tensor, plain: bool) -> torch.Tensor:
         v = k("closg_front_lut")(A.rowidx, A.perm_r1, A.vals_cs, x)
     else:
         v = k("closg_front")(A.rowidx, A.perm_r1, A.vals_cs, x)
-    v = _t_bwd(k("clos_invreg")(_t_fwd(v, A.V), A.perm_r2), A.V)
+    v = k("clos_r2")(v, A.perm_r2, A.V)
     if A.W:
         y = k("closg_r3_scan_yext")(v, A.perm_r3, A.scan_hi, A.ysel_w,
                                     A.wstart, A.acc_ptr, A.acc_src,

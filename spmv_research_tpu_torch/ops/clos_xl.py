@@ -9,11 +9,11 @@ row boundaries are multiples of 128, so y is one row gather (``ymap``) over
 the stacked (C·mrp, 128) output.
 
 The JAX package runs a ``lax.scan`` over the chunks, one chunk pipeline per
-step. Here each step of the pipeline runs once for all chunks: K1 over C·S
-rows, one batched transpose each way, K2 over the stacked r2 plane, and
-``clos_cuda.closgx_r3_scan_yext`` (the r3 layer, the scan stages with the
-shift kept inside each chunk, one extraction launch over every chunk's
-batches), then the ``ymap`` gather — 7 + stages launches per SpMV whatever C.
+step. Here each step of the pipeline runs once for all chunks: B1 over C·S
+rows, ``clos_r2`` (the r2 layer with its transposes) over the stacked natural
+planes, and ``clos_cuda.closgx_r3_scan_yext`` (the r3 layer, the scan stages
+with the shift kept inside each chunk, in the phased scan, and one
+extraction launch over every chunk's batches), then the ``ymap`` gather.
 
 XL chunks carry no accumulate records and their base records are in place
 (``border`` src = dst), so every batch of every chunk is extracted where it
@@ -34,7 +34,7 @@ import torch
 from ..core.formats import _move
 from ..core.host import HostCSR
 from .dispatch import register_spmm_column_loop, register_spmv
-from .clos import SPARE_SHIFT, _t_bwd, _t_fwd
+from .clos import SPARE_SHIFT
 from .clos_route import BLK, LANES, SUB, ClosRoutingError
 from . import clos_cuda as K
 
@@ -263,8 +263,8 @@ def _pipeline(A: ClosGX, x: torch.Tensor, plain: bool) -> torch.Tensor:
     C, V = A.n_chunks, A.V
     v = k("closg_front")(A.rowidx.view(-1), A.r1.view(-1, LANES),
                          A.vals.view(-1, LANES), x)
-    v = k("clos_invreg")(_t_fwd(v, V), A.r2.view(-1, V // SUB))
-    y = k("closgx_r3_scan_yext")(_t_bwd(v, V), A.r3.view(-1, LANES),
+    v = k("clos_r2")(v, A.r2.view(-1, V // SUB), V)
+    y = k("closgx_r3_scan_yext")(v, A.r3.view(-1, LANES),
                                  A.ysel_w.view(-1, LANES),
                                  A.wstart_abs.view(-1), A.stages, A.N)
     return y[A.ymap.long()].view(-1)[: A.m]

@@ -8,7 +8,8 @@ module that holds a ``CudaLib`` builds and loads nothing. nvcc's output
 (``-Xptxas -v``: registers, shared memory, spills per kernel) is kept beside
 the library as ``.log``.
 
-Also here: the argument checks every kernel wrapper makes before a launch.
+Also here: the argument checks every kernel wrapper makes before a launch,
+and the grid of a persistent launch.
 """
 
 from __future__ import annotations
@@ -114,6 +115,25 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
+
+
+def check_aligned(**tensors: torch.Tensor) -> None:
+    """Each named tensor must start 16-byte aligned: the kernel moves it 16
+    bytes at a time (or by TMA)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel moves it 16 bytes at a "
+                             f"time, so it must be 16-byte aligned")
+
+
+def persistent_grid(n_items: int, n_sms: int, per_sm: int) -> int:
+    """Blocks of a persistent launch over ``n_items`` work items (chunks,
+    tiles): as many as the card's ``n_sms`` SMs hold at ``per_sm`` each,
+    and no more than there are items; a block walks every grid-th item."""
+    if n_items < 1 or n_sms < 1 or per_sm < 1:
+        raise ValueError(f"no persistent grid for {n_items} work items on "
+                         f"{n_sms} SMs at {per_sm} blocks an SM")
+    return min(n_items, n_sms * per_sm)
 
 
 def stream(t: torch.Tensor) -> int:

@@ -60,7 +60,8 @@ import torch.nn.functional as F
 
 from .clos_route import LANES, SUB
 from .compensated import _two_prod, _two_sum
-from .cuda_lib import CudaLib, check, on_cuda, stream
+from .cuda_lib import (CudaLib, check, check_aligned, on_cuda,
+                       persistent_grid, stream)
 
 SELLR_NB = 64            # SELLR chunks per smeta step
 SELLR_SMEM_BLK = 1024    # smeta ints per step
@@ -103,16 +104,6 @@ def reset_launch_counts() -> None:
 # the persistent SpMV kernels, numbered as sell_blocks_per_sm takes them
 PERSISTENT = ("sellw_spmv", "sellr_place")
 _OCCUPANCY: dict = {}
-
-
-def persistent_grid(n_chunks: int, n_sms: int, per_sm: int) -> int:
-    """Blocks of a persistent launch over ``n_chunks`` chunks: as many as
-    the card's ``n_sms`` SMs hold at ``per_sm`` each, and no more than
-    there are chunks; a block walks every grid-th chunk."""
-    if n_chunks < 1 or n_sms < 1 or per_sm < 1:
-        raise ValueError(f"no persistent grid for {n_chunks} chunks on "
-                         f"{n_sms} SMs at {per_sm} blocks an SM")
-    return min(n_chunks, n_sms * per_sm)
 
 
 def occupancy(kernel: str, stages: int, device: torch.device) -> tuple:
@@ -328,15 +319,6 @@ def _check_classes(classes, npad: int, G: int) -> int:
     return covered
 
 
-def _check_aligned(*ts) -> None:
-    """The register-layout kernels read word, values and R 16 bytes at a
-    time."""
-    for t in ts:
-        if t.data_ptr() % 16:
-            raise ValueError("word, vals and R: the kernels read them 16 "
-                             "bytes at a time, so they must be 16-byte "
-                             "aligned")
-
 
 def _planes_out(vals, cols: int, G: int, npad: int, covered: int):
     """(cols, G·npad + 1, 128) output (cols: X's columns, or SELLWDS's s
@@ -360,7 +342,7 @@ def sellw_planes(word, vals, wrow, x, classes: Sequence[Tuple[int, int, int]],
     npad = _check_chunks(word, vals, wrow, x)
     check(wrow, "wrow", torch.int32, (npad * SUB,))
     covered = _check_classes(classes, npad, G)
-    _check_aligned(word, vals)
+    check_aligned(word=word, vals=vals)
     out = _planes_out(vals, 1, G, npad, covered)[0]
     key = "sellw_stream" if stream_wins else "sellw"
     st = stream(x)
@@ -388,7 +370,7 @@ def sellw_spmm_planes(word, vals, wrow, xt, classes: Sequence[Tuple[int, int,
     npad = _check_chunks(word, vals, wrow, xt.view(-1))
     check(wrow, "wrow", torch.int32, (npad * SUB,))
     covered = _check_classes(classes, npad, G)
-    _check_aligned(word, vals)
+    check_aligned(word=word, vals=vals)
     cols, n_x = xt.shape
     if n_x >= 1 << 31:
         raise ValueError(f"x of {n_x} rows: the SpMM kernel indexes x with "
@@ -474,7 +456,7 @@ def sellr_place(word, vals, smeta, x, nchunks: int, stages: int,
     if nch_pad % SELLR_NB or not 0 <= nchunks <= nch_pad or stages > 7:
         raise ValueError(f"SELLR program of {nch_pad} chunks ({nchunks} "
                          f"live, {stages} stages) is malformed")
-    _check_aligned(word, vals)
+    check_aligned(word=word, vals=vals)
     R = torch.empty((nchunks * SUB, LANES), dtype=vals.dtype,
                     device=vals.device)
     if nchunks:
@@ -497,7 +479,7 @@ def sellr_flush(R, gptr, gchunk) -> torch.Tensor:
     check(R, "R", torch.float32, (nchunks * SUB, LANES))
     check(gptr, "gptr", torch.int32)
     check(gchunk, "gchunk", torch.int32, (nchunks,))
-    _check_aligned(R)
+    check_aligned(R=R)
     y = torch.empty((n_groups * SUB, LANES), dtype=R.dtype, device=R.device)
     if n_groups:
         with torch.cuda.device(R.device):

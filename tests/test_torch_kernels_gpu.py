@@ -3,9 +3,9 @@
 Marked ``gpu``: they need a CUDA device and nvcc, and skip without them.
 On the GPU machine, which has no JAX for ``tests/conftest.py``, run them
 with ``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q``.
-Tolerances: K1 and K2 are gathers and one product per slot and must match
-exactly; K3 runs the same additions in the same order as its plain version
-and is held to 1e-6 of max |y| (fp32 add-order slack). The SELLW and SELLR
+Tolerances: K1 and K2 (B1, and B2 as ``clos_r2`` and ``clos_invreg``) are
+gathers and one product per slot and must match exactly; K3 runs the same
+additions in the same order as its plain version and is held to 1e-6 of max |y| (fp32 add-order slack). The SELLW and SELLR
 kernels add in their plain versions' order and must match exactly, as must
 B4-B7 and B15 (gathers, one product per slot, and scan stages that add in
 the plain versions' order), and B12, the SELLW SpMM kernel (the SpMV
@@ -37,7 +37,6 @@ from spmv_research_tpu_torch.ops import bfly_cuda as KF
 from spmv_research_tpu_torch.ops import btile_cuda as KB
 from spmv_research_tpu_torch.ops import clos_gather as cg
 from spmv_research_tpu_torch.ops import clos_cuda as K
-from spmv_research_tpu_torch.ops.clos import _t_bwd, _t_fwd
 from spmv_research_tpu_torch.ops import sell_cuda as KS
 from spmv_research_tpu_torch.ops import bfly, clos, sellr, sellw, sellw_ds
 from spmv_research_tpu_torch.ops.compensated import _split_f64
@@ -76,11 +75,10 @@ def test_kernels_match_plain_versions(cuda, case):
     v1 = K.closg_front(A.rowidx, A.perm_r1, A.vals_cs, xd)
     assert torch.equal(v1, K.closg_front_torch(A.rowidx, A.perm_r1,
                                                A.vals_cs, xd))
-    v2_in = _t_fwd(v1, A.V)
-    v2 = K.clos_invreg(v2_in, A.perm_r2)
-    assert torch.equal(v2, K.clos_invreg_torch(v2_in, A.perm_r2))
+    v2 = K.clos_r2(v1, A.perm_r2, A.V)
+    assert torch.equal(v2, K.clos_r2_torch(v1, A.perm_r2, A.V))
     stages = A.scan_cap or A.scan_stages
-    args = (_t_bwd(v2, A.V), A.perm_r3, A.scan_hi, A.ysel_w, A.wstart,
+    args = (v2, A.perm_r3, A.scan_hi, A.ysel_w, A.wstart,
             A.acc_ptr, A.acc_src, stages)
     K.reset_launch_counts()
     y = K.closg_r3_scan_yext(*args)
@@ -98,9 +96,15 @@ def test_kernels_match_plain_versions(cuda, case):
                                                   A.scan_hi, stages))
 
     mat = host.to_scipy()
+    K.reset_launch_counts()
     got = spmv(A, xd).double().cpu().numpy()          # CUDA tensor: "cuda"
     scale = np.abs(mat) @ np.abs(x) + 1e-30
     assert np.max(np.abs(got - mat @ x) / scale) <= 1e-5
+    # one SpMV: B1, the r2 layer with its transposes, K3's phases and its
+    # extraction, nothing else
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0), "closg_front": 1,
+                          "clos_r2": 1, "closg_r3_scan_yext": len(
+                              K.plan_scan_phases(stages, A.N, A.N)) + 1}
 
 
 def test_invreg_any_lane_width(cuda):
@@ -117,6 +121,96 @@ def test_invreg_any_lane_width(cuda):
         assert torch.equal(K.clos_invreg(v, w), K.clos_invreg_torch(v, w))
 
 
+def _random_words(rng, S, L):
+    return torch.as_tensor(
+        (rng.integers(0, L, (S, L)) | rng.integers(0, 8, (S, L)) << 7
+         | rng.integers(0, L, (S, L)) << 10
+         | rng.integers(0, 1 << 15, (S, L)) << 17
+         ).astype(np.uint32).view(np.int32))
+
+
+@pytest.mark.parametrize("n_planes", [1, 2, 12])
+@pytest.mark.parametrize("V", [8, 16, 32, 64, 128, 256, 512, 1024])
+def test_clos_r2_on_every_v(cuda, V, n_planes):
+    """B2's r2 layer with its transposes equals its plain version bit for
+    bit at every V, on 1, 2 and 12 stacked planes (CLOSGX's stack), in
+    one launch."""
+    rng = np.random.Generator(np.random.PCG64(V * 16 + n_planes))
+    v = torch.as_tensor(rng.uniform(-1, 1, (n_planes * 8 * V, 128)),
+                        dtype=torch.float32, device=cuda)
+    w = _random_words(rng, n_planes * 8 * 1024, V // 8).to(cuda)
+    K.reset_launch_counts()
+    got = K.clos_r2(v, w, V)
+    want = K.clos_r2_torch(v, w, V)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0), "clos_r2": 1}
+
+
+def _seven_tiles_grid(n_items, n_sms, per_sm):
+    """A persistent grid of at most 7 blocks."""
+    return min(n_items, 7)
+
+
+@pytest.mark.parametrize("grid", ["card", "seven"])
+@pytest.mark.parametrize("case", ["ragged", "past_4mb", "tail_window",
+                                  "unaligned"])
+def test_front_on_awkward_x(cuda, case, grid, monkeypatch):
+    """B1 equals its plain version bit for bit where x's staging is
+    awkward: n % 128 != 0, x past 4 MB, windows that end at x's tail (the
+    last, partial x row), x not 16-byte aligned; on the card's persistent
+    grid and on 7 blocks; one launch."""
+    if grid == "seven":
+        monkeypatch.setattr(K, "persistent_grid", _seven_tiles_grid)
+    rng = np.random.Generator(np.random.PCG64(17))
+    n_x = {"ragged": 5000 + 37, "past_4mb": (1 << 20) + 4099,
+           "tail_window": 3 * 128 + 5, "unaligned": 2000 + 3}[case]
+    S = 8 * 300
+    x_rows = -(-n_x // 128)
+    rowidx = rng.integers(0, x_rows, S)
+    if case == "tail_window":
+        rowidx[::3] = x_rows - 1
+    buf = torch.as_tensor(rng.uniform(-1, 1, n_x + 1), dtype=torch.float32,
+                          device=cuda)
+    x = buf[1:] if case == "unaligned" else buf[:n_x]
+    assert (x.data_ptr() % 16 != 0) == (case == "unaligned")
+    args = (torch.as_tensor(rowidx, dtype=torch.int32, device=cuda),
+            _random_words(rng, S, 128).to(cuda),
+            torch.as_tensor(rng.uniform(-1, 1, (S, 128)),
+                            dtype=torch.float32, device=cuda), x)
+    K.reset_launch_counts()
+    got = K.closg_front(*args)
+    want = K.closg_front_torch(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0), "closg_front": 1}
+    assert K.front_grid(S // 8, x.device) == (
+        7 if grid == "seven" else min(S // 8, K.front_grid(1 << 30,
+                                                           x.device)))
+
+
+@pytest.mark.parametrize("grid", ["card", "seven"])
+def test_closg_programs_through_b1_and_b2(cuda, grid, monkeypatch):
+    """B1 and the r2 layer on the twin's program and on a CLOSGX stack of
+    several V = 8 chunks, on both grids, against their plain versions."""
+    if grid == "seven":
+        monkeypatch.setattr(K, "persistent_grid", _seven_tiles_grid)
+    host = _host("twin")
+    x = np.random.Generator(np.random.PCG64(7)).uniform(0.0, 1.0, host.n)
+    xd = torch.as_tensor(x, dtype=torch.float32, device=cuda)
+    A = build_clos_gather(host).to(cuda)
+    X = build_clos_gather_xl(HostCSR.from_scipy(
+        random_matrix(4000, 900, 0.008, 5)), chunk_N=8192).to(cuda)
+    for front, r2 in (
+            ((A.rowidx, A.perm_r1, A.vals_cs, xd), (A.perm_r2, A.V)),
+            ((X.rowidx.view(-1), X.r1.view(-1, 128), X.vals.view(-1, 128),
+              xd[:900]), (X.r2.view(-1, X.V // 8), X.V))):
+        v1 = K.closg_front(*front)
+        assert torch.equal(v1, K.closg_front_torch(*front))
+        assert torch.equal(K.clos_r2(v1, *r2), K.clos_r2_torch(v1, *r2))
+    assert X.n_chunks > 1
+
+
 def test_wrappers_refuse_bad_input(cuda):
     v = torch.zeros((8, 128), device=cuda)
     with pytest.raises(TypeError):
@@ -127,6 +221,28 @@ def test_wrappers_refuse_bad_input(cuda):
     K.clos_invreg(torch.zeros((8, 128), device=cuda),
                   torch.zeros((8, 128), dtype=torch.int32, device=cuda))
     assert K.LAUNCHES["clos_invreg"] == 1
+    v = torch.zeros((64, 128), device=cuda)           # one plane at V = 8
+    w = torch.zeros((8192, 1), dtype=torch.int32, device=cuda)
+    K.clos_r2(v, w, 8)
+    with pytest.raises(ValueError, match="power-of-two V"):
+        K.clos_r2(v, w.view(-1, 2), 16)               # half a plane
+    with pytest.raises(ValueError, match="power-of-two V"):
+        K.clos_r2(v, w.view(-1, 2), 12)
+    with pytest.raises(ValueError, match="shape"):
+        K.clos_r2(v, w[:4096], 8)
+    with pytest.raises(TypeError):
+        K.clos_r2(v, w.float(), 8)
+    # the layer kernels and B1 move their planes 16 bytes at a time (the
+    # r2 layer's values by TMA): a plane that starts off 16 bytes is refused
+    off = torch.zeros(64 * 128 + 1, device=cuda)[1:].view(64, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.clos_r2(off, w, 8)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.clos_invreg(off, w.view(64, 128))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.closg_front(torch.zeros(64, dtype=torch.int32, device=cuda),
+                      w.view(64, 128), off, torch.ones(300, device=cuda))
+    assert K.LAUNCHES["clos_r2"] == 1 and K.LAUNCHES["closg_front"] == 0
     mat = sp.identity(100, format="csr")
     A = build_clos_gather(HostCSR.from_scipy(mat)).to(cuda)
     with pytest.raises(ValueError, match="CUDA"):
@@ -303,7 +419,7 @@ def test_sell_wrappers_refuse_bad_input(cuda):
 
 def _r3_input(A, xd):
     v = K.closg_front(A.rowidx, A.perm_r1, A.vals_cs, xd)
-    return _t_bwd(K.clos_invreg(_t_fwd(v, A.V), A.perm_r2), A.V)
+    return K.clos_r2(v, A.perm_r2, A.V)
 
 
 @pytest.mark.parametrize("case", ["w0", "scan_hi"])
@@ -373,10 +489,10 @@ def test_closgx_kernels_match_plain_versions(cuda):
              xd)
     v1 = K.closg_front(*front)
     assert torch.equal(v1, K.closg_front_torch(*front))
-    mid = (_t_fwd(v1, V), A.r2.view(-1, V // 8))
-    v2 = K.clos_invreg(*mid)
-    assert torch.equal(v2, K.clos_invreg_torch(*mid))
-    back = (_t_bwd(v2, V), A.r3.view(-1, LANES), A.ysel_w.view(-1, LANES),
+    mid = (v1, A.r2.view(-1, V // 8), V)
+    v2 = K.clos_r2(*mid)
+    assert torch.equal(v2, K.clos_r2_torch(*mid))
+    back = (v2, A.r3.view(-1, LANES), A.ysel_w.view(-1, LANES),
             A.wstart_abs.view(-1), A.stages, A.N)
     K.reset_launch_counts()
     y = K.closgx_r3_scan_yext(*back)
@@ -808,7 +924,8 @@ def test_clos_r3_kernels_match_plain_versions(cuda, case):
     assert n_fill + n_scan < len(A.fill_stages) + len(A.scan_stages)
     K.reset_launch_counts()
     y = spmv(A, xd)                                    # CUDA tensor: "cuda"
-    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0), "clos_invreg": 6,
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0), "clos_invreg": 3,
+                          "clos_r2": 3,
                           "clos_r3_fill": n_fill, "clos_r3_scan": n_scan,
                           "clos_r3_valid": 1}
     assert torch.equal(y, spmv(A, xd, impl="torch"))

@@ -1,16 +1,25 @@
 #!/usr/bin/env python3
-"""Device times of the PyTorch port's kernels that share the phased Clos
-scan, on one tree of the port and one NVIDIA GPU.
+"""Device times of the PyTorch port's Clos kernels (the phased scan's, the
+front end and the in-vreg layers), on one tree of the port and one NVIDIA
+GPU.
 
-    python3 time_clos_scans.py [--tree DIR]
+    python3 time_clos_scans.py [--tree DIR] [--set NAME=VALUE ...]
 
 Imports ``spmv_research_tpu_torch`` from DIR (default: this checkout), so
 that two trees, such as a parent commit unpacked into a git-ignored
 directory and this checkout, can be timed in turns on one card: parent,
 change, change, parent. Each call is timed alone by ``chip_smoke.py``'s
 ``DeviceTimer`` (CUDA events after a 1 GiB L2 flush and a spin kernel that
-hides the host's enqueue), the mean of 30 calls:
+hides the host's enqueue), the mean of 30 calls, and warm (30 calls back to
+back behind the spin kernel, no flush: the inputs in the L2, as on the main
+path):
 
+* B1 ``closg_front`` on the scircuit twin's CLOSG program (bench.py's line,
+  RCM, N = 2^20) with x from a seed;
+* the r2 step of that program (``clos_r2``: the r2 layer with its
+  transposes; on a tree without it, ``_t_fwd``, ``clos_invreg`` and
+  ``_t_bwd`` timed as one unit) and of the same twin's CLOS perm network,
+  and ``clos_invreg`` on the CLOS perm network's r1 layer;
 * K3 ``closg_r3_scan_yext`` on the scircuit twin's CLOSG program (bench.py's
   line, RCM, N = 2^20) with its capped stages;
 * B8 ``clos_r3_fill``, ``clos_r3_scan`` and ``clos_r3_valid`` (the whole
@@ -18,21 +27,30 @@ hides the host's enqueue), the mean of 30 calls:
 * B5 ``closg_r3_scan`` on a random 2^20-slot plane, 14 stages;
 * B15's scan over 12 random chunks of 2^20 slots, 9 stages.
 
+With ``--set NAME=VALUE`` the tree's ``csrc/closg.cu`` is built with its
+constant ``constexpr ... NAME`` set to VALUE, to compare designs of one
+kernel on one card, such as ``kR2Run`` (floats of each natural block an
+r2 tile reads: the tile width at V = 1024).
 Inputs are made from seeds. Prints the card's name and power limit, then
-one JSON line: each kernel's ms and its launches a call.
+one JSON line: each kernel's cold ms, warm ms and launches a call.
 """
 
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.abspath(
         __file__)), help="checkout whose spmv_research_tpu_torch is timed")
+    ap.add_argument("--set", action="append", default=[],
+                    metavar="NAME=VALUE",
+                    help="build closg.cu with constexpr NAME = VALUE")
     args = ap.parse_args()
     from chip_smoke import DeviceTimer       # this checkout's timer
     sys.path.insert(0, os.path.abspath(args.tree))
@@ -50,10 +68,26 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     dev = torch.device("cuda")
+    tmp = tempfile.TemporaryDirectory()
+    if args.set:
+        with open(K.SOURCE) as f:
+            src = f.read()
+        for item in args.set:
+            name, value = item.split("=", 1)
+            src, n = re.subn(rf"(constexpr \w+ {name} = )[^;]+;",
+                             rf"\g<1>{value};", src)
+            if n != 1:
+                sys.exit(f"time_clos_scans: no constexpr {name} in "
+                         f"{K.SOURCE}")
+        K._CUDA.source = os.path.join(tmp.name, "closg.cu")
+        with open(K._CUDA.source, "w") as f:
+            f.write(src)
     K.build()
     host = rcm_if_beneficial(generate_from_line(bench.SCIRCUIT_LINE)[0])[0]
     G, C = build_clos_gather(host).to(dev), build_clos(host).to(dev)
     rng = np.random.Generator(np.random.PCG64(7))
+    xd = torch.as_tensor(rng.uniform(0.0, 1.0, host.n), dtype=torch.float32,
+                         device=dev)
 
     def plane(n, ints=False):
         a = (rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32) if ints
@@ -63,7 +97,19 @@ def main() -> None:
     v = plane(G.N)
     w3, hi = plane(1 << 20, ints=True), plane(1 << 20, ints=True)
     vx, w3x = plane(12 << 20), plane(12 << 20, ints=True)
+    def r2(v, w, V):
+        """The r2 layer with its transposes, as the tree computes it."""
+        if hasattr(K, "clos_r2"):
+            return K.clos_r2(v, w, V)
+        from spmv_research_tpu_torch.ops.clos import _t_bwd, _t_fwd
+        return _t_bwd(K.clos_invreg(_t_fwd(v, V), w), V)
+
     calls = {
+        "closg_front": lambda: K.closg_front(G.rowidx, G.perm_r1, G.vals_cs,
+                                             xd),
+        "r2_closg": lambda: r2(v, G.perm_r2, G.V),
+        "r2_clos": lambda: r2(v, C.perm_r2, C.V),
+        "clos_invreg": lambda: K.clos_invreg(v, C.perm_r1),
         "closg_r3_scan_yext": lambda: K.closg_r3_scan_yext(
             v, G.perm_r3, G.scan_hi, G.ysel_w, G.wstart, G.acc_ptr,
             G.acc_src, G.scan_cap or G.scan_stages),
@@ -81,9 +127,12 @@ def main() -> None:
     for name, fn in calls.items():
         K.reset_launch_counts()
         fn()
-        launches = K.LAUNCHES[name]          # one call's
-        out[name] = {"ms": timer.ms(fn), "launches": launches}
-    print(json.dumps({"tree": args.tree, "kernels": out}), flush=True)
+        launches = sum(K.LAUNCHES.values())  # one call's
+        out[name] = {"ms": timer.ms(fn), "warm_ms": timer.warm_ms(fn),
+                     "launches": launches}
+    print(json.dumps({"tree": args.tree, "set": args.set,
+                      "kernels": out}), flush=True)
+    tmp.cleanup()
 
 
 if __name__ == "__main__":
