@@ -55,19 +55,26 @@ failure (non-zero exit, no result line):
    longdouble gold; the 8 error metrics per row;
 9. the opt-in front ends on the scircuit twin: a value-LUT program (values
    quantised to 64 seeded levels) and a ``fuse_windows=True`` program; B4
-   and B7 against their plain versions (exact) and timed; one SpMV of each
+   and B7 against their plain versions (exact) and timed, B7 also warm, its
+   persistent grid and registers logged; one SpMV of each
    through ``ops.spmv`` between a reset and a read of the counters, y within
    1e-5 of |A|·|x| of the gold;
 10. the gupta3 twin (validation_twins.txt:30): ``build_best`` (asserts a
     chunked CLOSG with W = 0 in every chunk), B1, ``clos_r2``, B5 and B6
     against their plain versions on every chunk (exact; the widest timed;
     B1 and ``clos_r2`` also warm and ``clos_r2`` beside ``unfolded_ms``),
+    B6 as the SpMV runs it, one launch over all chunks with y in place,
+    against its plain version (exact) and timed (its entry keeps the
+    widest chunk's time as ``chunk_ms``),
     B5's phases on the widest chunk logged, the host time of one B5 call
     and of one SpMV (enqueue only), one SpMV of each chunk (at most 3 phases in its B5
     plan, and B5 launched once per phase, asserted) and one
     of the program through ``ops.spmv`` between a reset and a read of the
-    counters (50 wrapper launches, B1 and ``clos_r2`` once a chunk,
-    asserted), y within 1e-5 of |A|·|x|; device times of CLOSG/cuda,
+    counters (41 wrapper launches: B1 and ``clos_r2`` once a chunk, B5
+    once a phase, B6 once, asserted), a profiled SpMV (only those kernels,
+    B6 once, no concatenation or copy, asserted), y within 1e-5 of
+    |A|·|x|; device
+    times of CLOSG/cuda,
     DENSE/torch, CSR/torch and the cuSPARSE product (a library yardstick),
     and the traced chain of 50;
 11. the mip1 twin (validation_twins.txt:31): ``build_best`` (asserts an
@@ -556,6 +563,28 @@ def closg_checks(timer, K, programs, xd, suffix="", stages=closg_stages,
             for name in cases]
 
 
+def b6_chunked(timer, K, A, xd, per_chunk):
+    """B6 as an all-W = 0 ClosGChunked SpMV runs it: one launch over every
+    chunk's scanned plane (the plain stages' output), each chunk's y
+    written in place, against its plain version (exact) and timed; its
+    bound the chunks' ycand, ysel and y bytes and one 4-byte scanned
+    element read per y element. ``per_chunk``, the single-program entry
+    timed on the widest chunk, is kept in it as ``chunk_*``."""
+    parts = [dict((nm, a) for nm, a, _ in closg_stages(K, c, xd))[
+        "closg_cand_yext"] for c in A.chunks]
+    k = check_kernel(
+        timer, "closg_cand_yext", CLOSG_SRC, REPLACES["closg_cand_yext"],
+        [(lambda: K.closg_cand_yext_chunked(parts, A.row_split),
+          lambda: K.closg_cand_yext_chunked_torch(parts, A.row_split))],
+        exact, (sum(nbytes(c.ycand, c.ysel) for c in A.chunks) + 8 * A.m, 0))
+    k.update({f"chunk_{f}": per_chunk[f]
+              for f in ("ms", "plain_ms", "bound_ms")})
+    log(f"# gupta3 B6 over {len(A.chunks)} chunks in one launch: "
+        f"{k['ms']:.5f} ms (bound {k['bound_ms']:.5f}); one chunk alone "
+        f"{per_chunk['ms']:.5f} ms (bound {per_chunk['bound_ms']:.5f})")
+    return k
+
+
 def counted_spmv(A, xd, *libs):
     """One SpMV through ``ops.spmv`` between a reset and a read of the
     launch counters of ``libs`` (the kernel modules): (y, launches)."""
@@ -745,11 +774,12 @@ def main() -> None:
     kernels = closg_checks(timer, K, [A], xd)
     layer_times(timer, K, kernels, {name: a for name, a, _ in
                                     closg_stages(K, A, xd)}, "")
-    n_sms, per_sm = K._OCCUPANCY[dev.index]
-    log(f"# B1 (front_kernel): grid {K.front_grid(A.N // 1024, dev)} "
-        f"persistent blocks ({per_sm} an SM x {n_sms} SMs) over "
-        f"{A.N // 1024} tiles; ptxas: " + ptxas_of(K.build_log(), (
-            "front_kernel", "layer_kernelILb0E", "layer_kernelILb1E")))
+    n_sms, per_sm = K.front_occupancy(dev)
+    log(f"# B1 (front_kernel<false>): grid "
+        f"{K.front_grid(A.N // 1024, dev)} persistent blocks ({per_sm} an "
+        f"SM x {n_sms} SMs) over {A.N // 1024} tiles; ptxas: "
+        + ptxas_of(K.build_log(), ("front_kernelILb0E", "layer_kernelILb0E",
+                                   "layer_kernelILb1E")))
     k3_scircuit = k3_launches(K, "scircuit", [A], xd)
     if k3_scircuit != 2:
         fail(f"a scircuit CLOSG SpMV takes {k3_scircuit} K3 launches, not 2 "
@@ -990,6 +1020,17 @@ def main() -> None:
     for label, Ao, hh, name in (("LUT", Al, hq, "closg_front_lut"),
                                 ("fused", Af, host, "closg_front_win")):
         k = closg_checks(timer, K, [Ao], xd, names=(name,))[0]
+        if name == "closg_front_win":
+            args = next(a for nm, a, _ in closg_stages(K, Ao, xd)
+                        if nm == name)
+            k["warm_ms"] = timer.warm_ms(lambda: K.closg_front_win(*args))
+            n_sms, per_sm = K.front_occupancy(dev, win=True)
+            log(f"# B7 (front_kernel<true>): grid "
+                f"{K.front_grid(Ao.N // 1024, dev, win=True)} persistent "
+                f"blocks ({per_sm} an SM x {n_sms} SMs) over {Ao.N // 1024} "
+                f"tiles, nbids {Ao.nbids.numel()} of {Ao.x_rows} x rows; "
+                f"cold {k['ms']:.5f} ms, warm {k['warm_ms']:.5f} ms; "
+                f"ptxas: " + ptxas_of(K.build_log(), ("front_kernelILb1E",)))
         y, launches = counted_spmv(Ao, xd, K)
         log(f"# launches during one {label} SpMV: {launches}")
         k["launches"] = launches[name]
@@ -1029,6 +1070,9 @@ def main() -> None:
     widest = max(Ag.chunks, key=lambda c: c.N)
     k_w0 = closg_checks(timer, K, sorted(Ag.chunks, key=lambda c: -c.N),
                         xgd, names=("closg_r3_scan", "closg_cand_yext"))
+    k_w0 = [k for k in k_w0 if k["name"] != "closg_cand_yext"] + [
+        b6_chunked(timer, K, Ag, xgd, next(
+            k for k in k_w0 if k["name"] == "closg_cand_yext"))]
     k_g = closg_checks(timer, K, sorted(Ag.chunks, key=lambda c: -c.N),
                        xgd, suffix="_gupta3", names=("closg_front", "clos_r2"))
     layer_times(timer, K, k_g, {name: a for name, a, _ in
@@ -1062,12 +1106,26 @@ def main() -> None:
         if k["launches"] <= 0:
             fail(f"the gupta3 SpMV never launched {k['name']}")
     n_c = len(Ag.chunks)
-    if not (launches["closg_front"] == launches["clos_r2"]
-            == launches["closg_cand_yext"] == n_c
-            and sum(launches.values()) == 3 * n_c + sum(map(len, plans))
-            == 50):
-        fail(f"a gupta3 SpMV launched {launches}: not B1, clos_r2 and B6 "
-             f"once a chunk and B5 once a phase, 50 in all")
+    if not (launches["closg_front"] == launches["clos_r2"] == n_c
+            and launches["closg_cand_yext"] == 1
+            and sum(launches.values()) == 2 * n_c + sum(map(len, plans)) + 1
+            == 41):
+        fail(f"a gupta3 SpMV launched {launches}: not B1 and clos_r2 once "
+             f"a chunk, B5 once a phase and B6 once, 41 in all")
+    # the profiler may drop a few of 410 events: the kernels are counted
+    # by the wrappers above, the trace shows which ran
+    kinds = device_kernels(lambda: spmv(Ag, xgd, impl="cuda"))
+    log(f"# device events a gupta3 CLOSG/cuda SpMV (10 profiled): "
+        f"{sum(kinds.values())} in all; {kinds}")
+    ours = ("front_kernel<false>", "layer_kernel<true>", "scan_contig_kernel",
+            "scan_strided_kernel", "scan_step_kernel", "cand_yext_kernel")
+    if (sum(kinds.values()) > 41
+            or not all(any(o in k for o in ours) for k in kinds)
+            or not 0 < sum(v for k, v in kinds.items()
+                           if "cand_yext_kernel" in k) <= 1):
+        fail(f"a gupta3 CLOSG/cuda SpMV ran device events other than the "
+             f"41 kernels of B1, clos_r2, B5 and one B6 (a concatenation, "
+             f"a copy?): {kinds}")
     if launches["closg_r3_scan"] != sum(map(len, plans)):
         fail(f"the gupta3 SpMV launched closg_r3_scan "
              f"{launches['closg_r3_scan']} times, not once per phase "

@@ -312,29 +312,42 @@ __global__ void __launch_bounds__(kR2MaxThreads, kR2Quads > 2 ? 1 : 2)
   }
 }
 
-// ------------------------------------------------------------------- B1
+// ------------------------------------------------------------- B1 and B7
 //
-// `closg_front` — replaces spmv_research_tpu/ops/clos_gather.py
-// `_gmul_r1_dma_kernel`: product x2d[rowidx[s], λ] · vals_cs[s, l] (λ = r1
-// bits [17, 24), columns past n read 0: the x plane's zero padding), then
-// the r1 layer on each 1024-slot tile (8 rows of 128). Also the non-LUT
-// mode of `_gmul_r1_kernel` (x past 4 MB): x is read from device memory at
-// any n.
+// One persistent tile body, front_kernel<kWin>, for two front ends:
+//   B1 `closg_front` (kWin false) — replaces
+//     spmv_research_tpu/ops/clos_gather.py `_gmul_r1_dma_kernel`: product
+//     x2d[rowidx[s], λ] · vals_cs[s, l] (λ = r1 bits [17, 24), columns
+//     past n read 0: the x plane's zero padding), then the r1 layer on
+//     each 1024-slot tile (8 rows of 128). Also the non-LUT mode of
+//     `_gmul_r1_kernel` (x past 4 MB): x is read from device memory at
+//     any n.
+//   B7 `closg_front_win` (kWin) — replaces clos_gather.py
+//     `_gmul_r1_win_kernel` (fused windows): the tile is one 8-sublane
+//     group whose slots read the compacted x rows gbase[c] .. gbase[c] +
+//     7; slot (s, l) reads row (s + rot) & 7 of them, rot = r1 bits [24,
+//     27). Compacted row r is x block nbids[r] (or r itself when every
+//     block is non-empty: nbids == nullptr), and rows past the n_nb
+//     compacted rows read 0 (the TPU kernel's 8-row overrun pad).
 // Bound: device memory, 12 bytes per slot plus x once.
 // The design, per 1024-slot tile, 256 threads, 4 slots a thread (warp s is
 // row s, lane t of it holds lanes 4t..4t+3):
 //   * the tile's 8 x windows (8 rows of 128 floats, 4 KB) are staged in
-//     shared memory as the TPU kernel staged them in VMEM: thread t loads
-//     quad t of its own row's window with one 16-byte load (scalar, masked,
-//     where the window passes n or x is not 16-byte aligned), so a warp
-//     reads one 512-byte window in 4 requests instead of 32 scattered ones;
+//     shared memory as the TPU kernels staged them in VMEM: thread t loads
+//     quad t of window s (B1: x row rowidx[8c + s]; B7: compacted row
+//     gbase[c] + s) with one 16-byte load (scalar, masked, where the
+//     window passes n or x is not 16-byte aligned), so a warp reads one
+//     512-byte window in 4 requests instead of 32 scattered ones;
 //   * word and value are one 16-byte streamed load each, the output one
 //     16-byte store;
 //   * persistent blocks: the grid is the SMs times the blocks an SM holds
 //     (closg_blocks_per_sm, at most one block a tile); a block walks tiles
 //     blockIdx.x, + gridDim.x, ..., and issues the next tile's word, value
-//     and window loads (and the rowidx of the one after) before this tile's
-//     products and picks, so the loads of two tiles are in flight;
+//     and window loads before this tile's products and picks, so the loads
+//     of two tiles are in flight. A window's x row is itself a load (B1:
+//     rowidx) or two dependent ones (B7: gbase, then nbids), fetched one
+//     tile further ahead per step of the chain (B7: gbase three tiles
+//     ahead, nbids two);
 //   * two barriers a tile: the windows staged, then the products and words;
 //     the picks (invreg_pick) read shared memory. One buffer of each
 //     serves: a tile's writes come after a barrier that every thread
@@ -358,8 +371,12 @@ __device__ __forceinline__ float4 x_quad(const float* __restrict__ x,
                      col + 3 < n_x ? __ldg(x + col + 3) : 0.0f);
 }
 
+// rows: B1's rowidx (8 a tile) or B7's gbase (1 a tile); nbids and n_nb
+// B7's only.
+template <bool kWin>
 __global__ void __launch_bounds__(kFrontThreads)
-    front_kernel(const int32_t* __restrict__ rowidx,
+    front_kernel(const int32_t* __restrict__ rows,
+                 const int32_t* __restrict__ nbids, int64_t n_nb,
                  const uint32_t* __restrict__ word,
                  const float* __restrict__ vals,
                  const float* __restrict__ x, int64_t n_x, int x16,
@@ -373,31 +390,47 @@ __global__ void __launch_bounds__(kFrontThreads)
   const int64_t step = gridDim.x;
   int64_t c = blockIdx.x;
   if (c >= n_tiles) return;
-  auto row_of = [&](int64_t tile) -> int32_t {
-    return tile < n_tiles ? __ldg(rowidx + tile * kSub + s) : 0;
+  // B7: the group's first compacted x row
+  auto base_of = [&](int64_t tile) -> int32_t {
+    return tile < n_tiles ? __ldg(rows + tile) : 0;
   };
-  auto load = [&](int64_t tile, int32_t row) {
+  // the x block of window s of a tile, or -1: a window of zeros
+  auto block_of = [&](int64_t tile, int32_t base) -> int64_t {
+    if (tile >= n_tiles) return -1;
+    if (!kWin) return __ldg(rows + tile * kSub + s);
+    const int64_t r = (int64_t)base + s;
+    if (nbids == nullptr) return r;
+    return r < n_nb ? __ldg(nbids + r) : -1;
+  };
+  auto load = [&](int64_t tile, int64_t blk) {
     FrontSlots q;
     const int64_t off = tile * kBlockSlots + i;
     q.w = __ldcs(reinterpret_cast<const uint4*>(word + off));
     q.v = __ldcs(reinterpret_cast<const float4*>(vals + off));
-    q.x = x_quad(x, n_x, x16, (int64_t)row * kLanes + (i - row0));
+    q.x = blk < 0 ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
+                  : x_quad(x, n_x, x16, blk * kLanes + (i - row0));
     return q;
   };
-  FrontSlots cur = load(c, row_of(c));
-  int32_t row_next = row_of(c + step);
+  FrontSlots cur = load(c, block_of(c, kWin ? base_of(c) : 0));
+  int64_t blk_next = block_of(c + step, kWin ? base_of(c + step) : 0);
+  int32_t base_next = kWin ? base_of(c + 2 * step) : 0;  // tile c + 2 step
   for (; c < n_tiles; c += step) {
     FrontSlots nxt{};
-    if (c + step < n_tiles) nxt = load(c + step, row_next);
-    row_next = row_of(c + 2 * step);
+    if (c + step < n_tiles) nxt = load(c + step, blk_next);
+    blk_next = block_of(c + 2 * step, base_next);
+    if (kWin) base_next = base_of(c + 3 * step);
     *reinterpret_cast<float4*>(xs + i) = cur.x;
     __syncthreads();
     const uint32_t w[4] = {cur.w.x, cur.w.y, cur.w.z, cur.w.w};
     const float val[4] = {cur.v.x, cur.v.y, cur.v.z, cur.v.w};
     float p[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      p[e] = __fmul_rn(xs[row0 + ((w[e] >> 17) & 0x7F)], val[e]);
+    for (int e = 0; e < 4; ++e) {
+      // the window: my row's (B1), or rotated by rot (B7)
+      const int win = kWin ? ((s + (w[e] >> 24)) & (kSub - 1)) * kLanes
+                           : row0;
+      p[e] = __fmul_rn(xs[win + ((w[e] >> 17) & 0x7F)], val[e]);
+    }
     *reinterpret_cast<uint4*>(ws + i) = cur.w;
     *reinterpret_cast<float4*>(vs + i) = make_float4(p[0], p[1], p[2], p[3]);
     __syncthreads();
@@ -435,41 +468,6 @@ __global__ void front_lut_kernel(const int32_t* __restrict__ rowidx,
   const float xv = col < n_x ? x[col] : 0.0f;
   __syncthreads();
   v_sh[t] = xv * dict_sh[(wd >> 24) & 0x7F];
-  __syncthreads();
-  out[off + t] = invreg_pick(w_sh, v_sh, t, 7);
-}
-
-// B7 `closg_front_win` — replaces spmv_research_tpu/ops/clos_gather.py
-// `_gmul_r1_win_kernel` (fused windows). The TPU kernel sliced one (8,128)
-// window per 8-sublane group from a VMEM-resident compacted x plane and
-// resolved each slot by a rotation select. Here each thread resolves its
-// own x row, xr = gbase[s/8] + ((s%8 + rot) & 7) with rot = (w >> 24) & 7,
-// the x block is nbids[xr] (or xr itself when every block is non-empty:
-// nbids == nullptr), and rows past the n_nb compacted rows read 0 (the TPU
-// kernel's 8-row overrun pad). Bound: device memory, as K1.
-__global__ void front_win_kernel(const int32_t* __restrict__ gbase,
-                                 const int32_t* __restrict__ nbids,
-                                 int64_t n_nb,
-                                 const uint32_t* __restrict__ word,
-                                 const float* __restrict__ vals,
-                                 const float* __restrict__ x, int64_t n_x,
-                                 float* __restrict__ out) {
-  __shared__ uint32_t w_sh[kBlockSlots];
-  __shared__ float v_sh[kBlockSlots];
-  const int64_t off = (int64_t)blockIdx.x * kBlockSlots;
-  const int t = threadIdx.x;
-  const uint32_t wd = word[off + t];
-  w_sh[t] = wd;
-  const int64_t s = (off + t) / kLanes;
-  const int64_t xr = (int64_t)gbase[s / kSub] +
-                     (((s % kSub) + ((wd >> 24) & 0x7)) & (kSub - 1));
-  float xv = 0.0f;
-  if (nbids == nullptr || xr < n_nb) {
-    const int64_t blk = nbids == nullptr ? xr : (int64_t)nbids[xr];
-    const int64_t col = blk * kLanes + ((wd >> 17) & 0x7F);
-    if (col < n_x) xv = x[col];
-  }
-  v_sh[t] = xv * vals[off + t];
   __syncthreads();
   out[off + t] = invreg_pick(w_sh, v_sh, t, 7);
 }
@@ -854,23 +852,96 @@ __global__ void yext_kernel(const float* __restrict__ scr,
 }
 
 // B6 `closg_cand_yext` — replaces spmv_research_tpu/ops/clos_gather.py
-// `_extract_y_kernel` (the W = 0 back end's extraction). One thread per y
-// element (j, l): cid = bits [7,14) and lane = bits [0,7) of ysel[j,l],
-// y = scr[ycand[cid*m_rows + j], lane]. The candidates are read in place:
+// `_extract_y_kernel` (the W = 0 back end's extraction), over a list of W =
+// 0 programs in one launch. Element (j, l) of program c, with cid = bits
+// [7,14) and lane = bits [0,7) of ysel_c[j,l], is
+//   y[row0_c + 128·j + l] = scr_c[ycand_c[cid·m_rows_c + j], lane],
+// written only where 128·j + l < m_c. The candidates are read in place:
 // the TPU path first copied the C candidate planes out with an XLA gather
 // and then looped over C in the kernel. Empty rows read slot nnz, which
-// the scan leaves exactly 0. Bound: ysel and y (8 bytes per element) plus
-// one scattered 4-byte read each.
-__global__ void cand_yext_kernel(const float* __restrict__ scr,
-                                 const int32_t* __restrict__ ycand,
-                                 const uint32_t* __restrict__ ysel,
-                                 int64_t m_rows, float* __restrict__ y) {
-  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= m_rows * kLanes) return;
-  const uint32_t sel = ysel[e];
-  const int64_t row =
-      ycand[(int64_t)((sel >> 7) & 0x7F) * m_rows + e / kLanes];
-  y[e] = scr[row * kLanes + (sel & 0x7F)];
+// the scan leaves exactly 0.
+// Bound: ysel and y (8 bytes per element) plus one 4-byte ycand read and
+// one scattered 4-byte scr read each; on a gupta3 chunk (≈ 1,700 rows) a
+// launch is launch and load latency, not bytes, and the JAX package's
+// chunked dispatch ran one launch a chunk.
+// The design: the programs come by value in the launch's parameters
+// (YextChunks, at most kYextMaxChunks; the wrapper makes as few launches
+// as the cap allows), so one launch extracts every chunk of a
+// ClosGChunked straight into its rows of y: no per-chunk launch, no
+// concatenation, no host-to-device copy. Each block belongs to one
+// program, found by a walk over the prefix of block counts. A thread
+// takes kYextQuads 16-byte ysel quads (rows of 512 bytes: 16-byte
+// aligned) and issues each of the three dependent loads for all of its
+// elements before the next: 4 chains in flight a thread. The chains are
+// latency, so small blocks on many SMs won: on gupta3's 10 chunks, cold
+// and warm, 1 quad and 64 threads took 0.00856 and 0.00322 ms, 1 and
+// 128 0.0086 and 0.0034, 2 and 128 0.0106 and 0.0042, 4 and 128 0.0120
+// and 0.0054 (time_clos_scans.py --set, H100 SXM, 700 W).
+constexpr int kYextMaxChunks = 32;  // programs a launch takes by value
+constexpr int kYextThreads = 64;
+constexpr int kYextQuads = 1;       // 16-byte ysel quads a thread
+constexpr int kYextBlockElems = 4 * kYextQuads * kYextThreads;  // 2 y rows
+
+struct YextChunks {
+  const float* scr[kYextMaxChunks];
+  const int32_t* ycand[kYextMaxChunks];
+  const uint32_t* ysel[kYextMaxChunks];
+  int64_t m_rows[kYextMaxChunks];
+  int64_t m[kYextMaxChunks];      // elements of y the program writes
+  int64_t row0[kYextMaxChunks];   // its first element of y
+  int32_t block0[kYextMaxChunks + 1];  // its first block; [n]: the grid
+};
+
+__global__ void __launch_bounds__(kYextThreads)
+    cand_yext_kernel(const __grid_constant__ YextChunks P,
+                     float* __restrict__ y) {
+  int c = 0;
+  while ((int)blockIdx.x >= P.block0[c + 1]) ++c;
+  const float* __restrict__ scr = P.scr[c];
+  const int32_t* __restrict__ ycand = P.ycand[c];
+  const uint32_t* __restrict__ ysel = P.ysel[c];
+  const int64_t m_rows = P.m_rows[c], m = P.m[c];
+  const int64_t e0 =
+      (int64_t)((int)blockIdx.x - P.block0[c]) * kYextBlockElems;
+  uint32_t sel[kYextQuads][4];
+  int32_t row[kYextQuads][4];
+  float v[kYextQuads][4];
+#pragma unroll
+  for (int q = 0; q < kYextQuads; ++q) {
+    const int64_t e = e0 + 4 * (threadIdx.x + q * kYextThreads);
+    if (e < m) {
+      const uint4 s4 = __ldcs(reinterpret_cast<const uint4*>(ysel + e));
+      sel[q][0] = s4.x;
+      sel[q][1] = s4.y;
+      sel[q][2] = s4.z;
+      sel[q][3] = s4.w;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kYextQuads; ++q) {
+    const int64_t e = e0 + 4 * (threadIdx.x + q * kYextThreads);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (e + k < m)
+        row[q][k] = __ldg(ycand + (int64_t)((sel[q][k] >> 7) & 0x7F) * m_rows +
+                          (e >> 7));
+  }
+#pragma unroll
+  for (int q = 0; q < kYextQuads; ++q) {
+    const int64_t e = e0 + 4 * (threadIdx.x + q * kYextThreads);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (e + k < m)
+        v[q][k] = __ldg(scr + (int64_t)row[q][k] * kLanes + (sel[q][k] & 0x7F));
+  }
+  float* const yc = y + P.row0[c];
+#pragma unroll
+  for (int q = 0; q < kYextQuads; ++q) {
+    const int64_t e = e0 + 4 * (threadIdx.x + q * kYextThreads);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (e + k < m) yc[e + k] = v[q][k];
+  }
 }
 
 // cuTensorMapEncodeTiled, looked up in libcuda through the runtime's entry
@@ -994,11 +1065,13 @@ int clos_r3_valid(const void* v, const void* word, void* out, int64_t n_slots,
   return (int)cudaGetLastError();
 }
 
-// Blocks of B1's persistent front_kernel an SM holds, into *blocks; the
-// grid of a launch is at most the SMs times this (cuda_lib.persistent_grid).
-int closg_blocks_per_sm(int* blocks) {
+// Blocks of the persistent front_kernel<win != 0> (B1, or B7) an SM holds,
+// into *blocks; the grid of a launch is at most the SMs times this
+// (cuda_lib.persistent_grid).
+int closg_blocks_per_sm(int* blocks, int win) {
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, front_kernel, kFrontThreads, 0);
+      blocks, win ? front_kernel<true> : front_kernel<false>, kFrontThreads,
+      0);
 }
 
 // B1 over n_slots (a positive multiple of 1024) rows of 128 lanes, on grid
@@ -1008,10 +1081,11 @@ int closg_front(const void* rowidx, const void* perm_r1, const void* vals,
                 int grid, void* stream) {
   if (n_slots <= 0 || n_slots % kBlockSlots || grid < 1)
     return (int)cudaErrorInvalidValue;
-  front_kernel<<<(unsigned)grid, kFrontThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)rowidx, (const uint32_t*)perm_r1, (const float*)vals,
-      (const float*)x, n_x, ((uintptr_t)x & 15) == 0, (float*)out,
-      n_slots / kBlockSlots);
+  front_kernel<false><<<(unsigned)grid, kFrontThreads, 0,
+                        (cudaStream_t)stream>>>(
+      (const int32_t*)rowidx, nullptr, 0, (const uint32_t*)perm_r1,
+      (const float*)vals, (const float*)x, n_x, ((uintptr_t)x & 15) == 0,
+      (float*)out, n_slots / kBlockSlots);
   return (int)cudaGetLastError();
 }
 
@@ -1026,15 +1100,20 @@ int closg_front_lut(const void* rowidx, const void* perm_r1, const void* vals,
   return (int)cudaGetLastError();
 }
 
-// nbids may be null (every x block is non-empty: no compaction).
+// B7 over n_slots (a positive multiple of 1024) rows of 128 lanes, on grid
+// persistent blocks; gbase holds one compacted row a tile. nbids may be
+// null (every x block is non-empty: no compaction, n_nb unused).
 int closg_front_win(const void* gbase, const void* nbids, int64_t n_nb,
                     const void* perm_r1, const void* vals, const void* x,
-                    int64_t n_x, void* out, int64_t n_slots, void* stream) {
-  front_win_kernel<<<(unsigned)(n_slots / kBlockSlots), kBlockSlots, 0,
-                     (cudaStream_t)stream>>>(
+                    int64_t n_x, void* out, int64_t n_slots, int grid,
+                    void* stream) {
+  if (n_slots <= 0 || n_slots % kBlockSlots || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  front_kernel<true><<<(unsigned)grid, kFrontThreads, 0,
+                       (cudaStream_t)stream>>>(
       (const int32_t*)gbase, (const int32_t*)nbids, n_nb,
       (const uint32_t*)perm_r1, (const float*)vals, (const float*)x, n_x,
-      (float*)out);
+      ((uintptr_t)x & 15) == 0, (float*)out, n_slots / kBlockSlots);
   return (int)cudaGetLastError();
 }
 
@@ -1174,15 +1253,35 @@ int closg_yext(const void* scr, const void* ysel_w, const void* wstart,
   return (int)cudaGetLastError();
 }
 
-int closg_cand_yext(const void* scr, const void* ycand, const void* ysel,
-                    int64_t m_rows, void* y, void* stream) {
-  const int threads = 256;
-  const int64_t n = m_rows * kLanes;
-  if (n == 0) return 0;
-  cand_yext_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                     (cudaStream_t)stream>>>(
-      (const float*)scr, (const int32_t*)ycand, (const uint32_t*)ysel,
-      m_rows, (float*)y);
+// B6 over n programs (1 <= n <= kYextMaxChunks): program i's scanned
+// plane scr[i], candidate rows ycand[i] and ysel[i] (m_rows[i] rows of
+// 128, 16-byte aligned) write their first m[i] <= 128·m_rows[i] elements
+// to y at row0[i]. One launch.
+int closg_cand_yext(int n, const void* const* scr, const void* const* ycand,
+                    const void* const* ysel, const int64_t* m_rows,
+                    const int64_t* m, const int64_t* row0, void* y,
+                    void* stream) {
+  if (n < 1 || n > kYextMaxChunks) return (int)cudaErrorInvalidValue;
+  YextChunks P{};
+  int64_t blocks = 0;
+  for (int i = 0; i < n; ++i) {
+    if (m_rows[i] < 0 || m[i] < 0 || m[i] > m_rows[i] * kLanes ||
+        row0[i] < 0 || ((uintptr_t)ysel[i] & 15))
+      return (int)cudaErrorInvalidValue;
+    P.scr[i] = (const float*)scr[i];
+    P.ycand[i] = (const int32_t*)ycand[i];
+    P.ysel[i] = (const uint32_t*)ysel[i];
+    P.m_rows[i] = m_rows[i];
+    P.m[i] = m[i];
+    P.row0[i] = row0[i];
+    P.block0[i] = (int32_t)blocks;
+    blocks += (m[i] + kYextBlockElems - 1) / kYextBlockElems;
+    if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
+  }
+  for (int i = n; i <= kYextMaxChunks; ++i) P.block0[i] = (int32_t)blocks;
+  if (blocks == 0) return (int)cudaSuccess;
+  cand_yext_kernel<<<(unsigned)blocks, kYextThreads, 0,
+                     (cudaStream_t)stream>>>(P, (float*)y);
   return (int)cudaGetLastError();
 }
 

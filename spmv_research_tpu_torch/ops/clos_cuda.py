@@ -18,7 +18,8 @@ wrapper                    replaces
                            mode (the value from a 128-entry dictionary)
 ``closg_front_win``        ``clos_gather.py:_gmul_r1_win_kernel`` (fused
                            windows: x row = base of the 8-row group + a
-                           per-slot rotation)
+                           per-slot rotation) — B1's persistent tile body
+                           (``front_grid``)
 ``clos_r2``                ``clos_pallas.py:_invreg_kernel`` as the r2
                            layer with the ``_t_fwd``/``_t_bwd`` transposes
                            around it, on C stacked natural planes: one
@@ -35,7 +36,10 @@ wrapper                    replaces
                            launches: one per phase of ``plan_scan_phases``
                            (a 2^20-slot chunk of 14 stages: 2)
 ``closg_cand_yext``        ``clos_gather.py:_extract_y_kernel`` (W = 0: per y
-                           slot, a pick from one of C candidate rows)
+                           slot, a pick from one of C candidate rows); also
+                           ``closg_cand_yext_chunked``: every W = 0 chunk
+                           of a ``ClosGChunked`` in one launch (up to
+                           ``YEXT_MAX_CHUNKS`` a launch), y in place
 ``closgx_r3_scan_yext``    ``clos_xl.py:_r3_scan_yext_dyn_kernel`` (the CLOSGX
                            back end over all stacked chunks at once) —
                            launches: one per phase of ``plan_scan_phases``
@@ -100,18 +104,27 @@ MAX_SCAN_PHASES = 32
 # floats of each natural block, R2_QUADS 16-byte quads a thread
 R2_RUN = 8
 R2_QUADS = R2_RUN // 4 if R2_RUN > 8 else 2
+# B6 (csrc/closg.cu cand_yext_kernel): programs a launch takes by value
+# (kYextMaxChunks), a block's threads and the 16-byte ysel quads of each,
+# and so the y elements a block extracts (kYextBlockElems)
+YEXT_MAX_CHUNKS = 32
+YEXT_THREADS = 64
+YEXT_QUADS = 1
+YEXT_BLOCK_ELEMS = 4 * YEXT_QUADS * YEXT_THREADS
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.closg_invreg.argtypes = [p, p, p, i64, i32, p]
     lib.clos_r2.argtypes = [p, p, p, i64, i32, p]
-    lib.closg_blocks_per_sm.argtypes = [ctypes.POINTER(i32)]
+    lib.closg_blocks_per_sm.argtypes = [ctypes.POINTER(i32), i32]
     lib.closg_front.argtypes = [p, p, p, p, i64, p, i64, i32, p]
     lib.closg_front_lut.argtypes = [p, p, p, p, i64, p, i64, p]
-    lib.closg_front_win.argtypes = [p, p, i64, p, p, p, i64, p, i64, p]
+    lib.closg_front_win.argtypes = [p, p, i64, p, p, p, i64, p, i64, i32, p]
     lib.closg_yext.argtypes = [p, p, p, p, p, p, i32, p]
-    lib.closg_cand_yext.argtypes = [p, p, p, i64, p, p]
+    ptrs, i64s = ctypes.POINTER(p), ctypes.POINTER(i64)
+    lib.closg_cand_yext.argtypes = [i32, ptrs, ptrs, ptrs, i64s, i64s, i64s,
+                                    p, p]
     lib.clos_r3_valid.argtypes = [p, p, p, i64, p]
     ints = ctypes.POINTER(ctypes.c_int32)
     lib.closg_scan_phases.argtypes = [p, p, p, p, i32, p, p, i64, i64, ints,
@@ -170,23 +183,45 @@ def r2_geometry(V: int | None) -> tuple:
             4 * (2 * nb * V + nb * rs) + 8)
 
 
-# B1's persistent grid: (SMs, blocks an SM) per device
+# the front ends' persistent grids: (SMs, blocks an SM) per (device, B7)
 _OCCUPANCY: dict = {}
 
 
-def front_grid(n_tiles: int, device: torch.device) -> int:
-    """The persistent grid B1 (``closg_front``) is launched with over
-    ``n_tiles`` 1024-slot tiles of ``device``: the card's SMs times the
-    blocks of ``front_kernel`` an SM holds (asked once per device), at
-    most one block a tile."""
-    if device.index not in _OCCUPANCY:
+def front_occupancy(device: torch.device, win: bool = False) -> tuple:
+    """(SMs, blocks an SM) of ``front_kernel`` on ``device``: B1's, or
+    with ``win`` B7's (asked once per device and kernel)."""
+    key = (device.index, win)
+    if key not in _OCCUPANCY:
         n = ctypes.c_int()
         with torch.cuda.device(device):
-            _launch("closg_blocks_per_sm", ctypes.byref(n))
-        _OCCUPANCY[device.index] = (
+            _launch("closg_blocks_per_sm", ctypes.byref(n), int(win))
+        _OCCUPANCY[key] = (
             torch.cuda.get_device_properties(device).multi_processor_count,
             n.value)
-    return persistent_grid(n_tiles, *_OCCUPANCY[device.index])
+    return _OCCUPANCY[key]
+
+
+def front_grid(n_tiles: int, device: torch.device, win: bool = False) -> int:
+    """The persistent grid B1 (``closg_front``), or with ``win`` B7
+    (``closg_front_win``), is launched with over ``n_tiles`` 1024-slot
+    tiles of ``device``: the card's SMs times the blocks of its
+    ``front_kernel`` an SM holds, at most one block a tile."""
+    return persistent_grid(n_tiles, *front_occupancy(device, win))
+
+
+def cand_yext_plan(ms: Sequence[int]) -> list:
+    """B6's launches over programs that write ``ms`` elements of y each
+    (``csrc/closg.cu`` ``closg_cand_yext``): per launch, its programs (at
+    most ``YEXT_MAX_CHUNKS``, in order) and the prefix of their block
+    counts (a program's first block; the last entry is the grid)."""
+    plan = []
+    for g in range(0, len(ms), YEXT_MAX_CHUNKS):
+        ids = list(range(g, min(g + YEXT_MAX_CHUNKS, len(ms))))
+        block0 = [0]
+        for i in ids:
+            block0.append(block0[-1] - (-ms[i] // YEXT_BLOCK_ELEMS))
+        plan.append((ids, block0))
+    return plan
 
 
 # ------------------------------------------------------------ plain versions
@@ -307,6 +342,19 @@ def closg_cand_yext_torch(scr: torch.Tensor, ycand: torch.Tensor,
     cid = ((ysel >> 7) & 0x7F).long()
     j = torch.arange(m_rows, device=ysel.device).unsqueeze(1)
     return scr[ycand.long()[cid * m_rows + j], (ysel & 0x7F).long()]
+
+
+def closg_cand_yext_chunked_torch(parts: Sequence[tuple],
+                                  row_split: Sequence[int]) -> torch.Tensor:
+    """B6 over the W = 0 chunks of a ``ClosGChunked``: chunk c's
+    extraction ``closg_cand_yext_torch(*parts[c])`` (parts[c] = (scr,
+    ycand, ysel)), its first ``row_split[c + 1] − row_split[c]`` elements
+    written to y at ``row_split[c]``. Returns y, (row_split[-1],)."""
+    scr = parts[0][0]
+    y = torch.empty(row_split[-1], dtype=scr.dtype, device=scr.device)
+    for (s, ycand, ysel), r0, r1 in zip(parts, row_split, row_split[1:]):
+        y[r0:r1] = closg_cand_yext_torch(s, ycand, ysel).reshape(-1)[:r1 - r0]
+    return y
 
 
 def closgx_r3_scan_yext_torch(v, r3, ysel_w, wstart_abs, stages: int,
@@ -555,7 +603,8 @@ def closg_front_lut(rowidx: torch.Tensor, perm_r1: torch.Tensor,
 def closg_front_win(gbase: torch.Tensor, nbids: torch.Tensor,
                     perm_r1: torch.Tensor, vals_cs: torch.Tensor,
                     x: torch.Tensor, dense_blocks: bool) -> torch.Tensor:
-    """Fused-window front end (kernel B7): (8V, 128)."""
+    """Fused-window front end (kernel B7, B1's persistent tile body
+    with each group's x rows from ``gbase`` and ``nbids``): (8V, 128)."""
     if not _on_cuda(gbase, nbids, perm_r1, vals_cs, x):
         return closg_front_win_torch(gbase, nbids, perm_r1, vals_cs, x,
                                      dense_blocks)
@@ -566,12 +615,14 @@ def closg_front_win(gbase: torch.Tensor, nbids: torch.Tensor,
     _check(vals_cs, "vals_cs", torch.float32, (S, LANES))
     _check(x, "x", torch.float32, (x.shape[0],))
     _check_slots(S * LANES, LANES)
+    check_aligned(perm_r1=perm_r1, vals_cs=vals_cs)
     out = torch.empty_like(vals_cs)
     with torch.cuda.device(x.device):
         _launch("closg_front_win", gbase.data_ptr(),
                 None if dense_blocks else nbids.data_ptr(), nbids.shape[0],
                 perm_r1.data_ptr(), vals_cs.data_ptr(), x.data_ptr(),
-                x.shape[0], out.data_ptr(), S * LANES, _stream(x))
+                x.shape[0], out.data_ptr(), S * LANES,
+                front_grid(S // SUB, x.device, win=True), _stream(x))
     LAUNCHES["closg_front_win"] += 1
     return out
 
@@ -602,22 +653,68 @@ def closg_r3_scan(v, perm_r3, scan_hi, stages: Sequence[int]) -> torch.Tensor:
             scan_hi.data_ptr() if scan_hi.numel() == n else None, stages, n)
 
 
-def closg_cand_yext(scr: torch.Tensor, ycand: torch.Tensor,
-                    ysel: torch.Tensor) -> torch.Tensor:
-    """W = 0 candidate-plane y extraction (kernel B6): (m_rows, 128)."""
-    if not _on_cuda(scr, ycand, ysel):
-        return closg_cand_yext_torch(scr, ycand, ysel)
+def _check_cand(scr, ycand, ysel) -> int:
     m_rows = ysel.shape[0]
     _check(scr, "scr", torch.float32, (scr.shape[0], LANES))
     _check(ysel, "ysel", torch.int32, (m_rows, LANES))
     _check(ycand, "ycand", torch.int32)
     if ycand.numel() % max(m_rows, 1):
         raise ValueError("ycand holds no whole number of candidate rows")
+    check_aligned(ysel=ysel)          # 16-byte ysel quads
+    return m_rows
+
+
+def _cand_yext(parts, ms, row0s, y: torch.Tensor) -> None:
+    """B6 over ``parts`` ((scr, ycand, ysel) each, checked), program i
+    writing its first ms[i] elements to y at row0s[i]: one launch per
+    group of ``cand_yext_plan``."""
+    P, I = ctypes.c_void_p, ctypes.c_int64
+    with torch.cuda.device(y.device):
+        for ids, _ in cand_yext_plan(ms):
+            n = len(ids)
+            _launch("closg_cand_yext", n,
+                    *((P * n)(*(parts[i][k].data_ptr() for i in ids))
+                      for k in range(3)),
+                    (I * n)(*(parts[i][2].shape[0] for i in ids)),
+                    (I * n)(*(ms[i] for i in ids)),
+                    (I * n)(*(row0s[i] for i in ids)), y.data_ptr(),
+                    _stream(y))
+            LAUNCHES["closg_cand_yext"] += 1
+
+
+def closg_cand_yext(scr: torch.Tensor, ycand: torch.Tensor,
+                    ysel: torch.Tensor) -> torch.Tensor:
+    """W = 0 candidate-plane y extraction (kernel B6) of one program:
+    (m_rows, 128)."""
+    if not _on_cuda(scr, ycand, ysel):
+        return closg_cand_yext_torch(scr, ycand, ysel)
+    m_rows = _check_cand(scr, ycand, ysel)
     y = torch.empty((m_rows, LANES), dtype=scr.dtype, device=scr.device)
-    with torch.cuda.device(scr.device):
-        _launch("closg_cand_yext", scr.data_ptr(), ycand.data_ptr(),
-                ysel.data_ptr(), m_rows, y.data_ptr(), _stream(scr))
-    LAUNCHES["closg_cand_yext"] += 1
+    if m_rows:
+        _cand_yext([(scr, ycand, ysel)], [m_rows * LANES], [0], y)
+    return y
+
+
+def closg_cand_yext_chunked(parts: Sequence[tuple],
+                            row_split: Sequence[int]) -> torch.Tensor:
+    """Kernel B6 over the W = 0 chunks of a ``ClosGChunked``, each
+    chunk's y written in place: parts[c] = (scr, ycand, ysel) of chunk c,
+    whose rows are [row_split[c], row_split[c + 1]). One launch for up to
+    ``YEXT_MAX_CHUNKS`` chunks; no concatenation. Returns y,
+    (row_split[-1],)."""
+    if len(row_split) != len(parts) + 1 or not parts:
+        raise ValueError(f"{len(parts)} chunks need {len(parts) + 1} row "
+                         f"boundaries, got {len(row_split)}")
+    if not _on_cuda(*(t for part in parts for t in part)):
+        return closg_cand_yext_chunked_torch(parts, row_split)
+    ms = [r1 - r0 for r0, r1 in zip(row_split, row_split[1:])]
+    for part, m in zip(parts, ms):
+        if not 0 <= m <= _check_cand(*part) * LANES:
+            raise ValueError(f"a chunk of {m} rows past its y plane of "
+                             f"{part[2].shape[0]} × {LANES}")
+    y = torch.empty(row_split[-1], dtype=parts[0][0].dtype,
+                    device=parts[0][0].device)
+    _cand_yext(parts, ms, list(row_split[:-1]), y)
     return y
 
 

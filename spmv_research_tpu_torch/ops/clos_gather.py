@@ -21,7 +21,10 @@ Programs with windowed extraction (W > 0) run ``closg_r3_scan_yext`` (r3
 layer, capped segmented scan, y extraction); W = 0 programs, whose 128-row
 groups span more than 64 window octaves, run ``closg_r3_scan`` (r3 layer,
 full scan) and then ``closg_cand_yext`` (per y slot, a pick from one of C
-candidate rows).
+candidate rows); on the card a ``ClosGChunked`` whose chunks all have W = 0
+runs that extraction once over every chunk, y written in place
+(``closg_cand_yext_chunked``), where the JAX package extracts chunk by
+chunk and concatenates.
 
 ``build_clos_gather_auto`` also routes a matrix to the long-row split
 (``rowsplit.py``) and to the XL tier (``clos_xl.py``), as the JAX builder
@@ -576,13 +579,15 @@ def build_clos_gather(csr: HostCSR, max_N: int = 1 << 20,
     return _closg(arrays, meta)
 
 
-def _pipeline(A: ClosG, x: torch.Tensor, plain: bool) -> torch.Tensor:
-    """One program's SpMV through the wrappers of ``clos_cuda`` (``plain``:
-    their plain PyTorch versions, on any device)."""
-    def k(name):
-        return getattr(K, name + "_torch" if plain else name)
+def _kernels(plain: bool):
+    """The wrappers of ``clos_cuda`` by name, or (``plain``) their plain
+    PyTorch versions, which run on any device."""
+    return lambda name: getattr(K, name + "_torch" if plain else name)
 
-    x = x.to(torch.float32)
+
+def _r3_input(A: ClosG, x: torch.Tensor, k) -> torch.Tensor:
+    """The plane that enters a program's back end: the front end, then
+    the r2 layer with its transposes."""
     if A.fused_win:
         v = k("closg_front_win")(A.gbase, A.nbids, A.perm_r1, A.vals_cs, x,
                                  A.dense_blocks)
@@ -590,15 +595,41 @@ def _pipeline(A: ClosG, x: torch.Tensor, plain: bool) -> torch.Tensor:
         v = k("closg_front_lut")(A.rowidx, A.perm_r1, A.vals_cs, x)
     else:
         v = k("closg_front")(A.rowidx, A.perm_r1, A.vals_cs, x)
-    v = k("clos_r2")(v, A.perm_r2, A.V)
+    return k("clos_r2")(v, A.perm_r2, A.V)
+
+
+def _w0_scan(A: ClosG, x: torch.Tensor, k) -> torch.Tensor:
+    """A W = 0 program's scanned plane: the r3 layer and the full scan."""
+    return k("closg_r3_scan")(_r3_input(A, x, k), A.perm_r3, A.scan_hi,
+                              A.scan_stages)
+
+
+def _pipeline(A: ClosG, x: torch.Tensor, plain: bool) -> torch.Tensor:
+    """One program's SpMV through the wrappers of ``clos_cuda`` (``plain``:
+    their plain PyTorch versions, on any device)."""
+    k = _kernels(plain)
+    x = x.to(torch.float32)
     if A.W:
+        v = _r3_input(A, x, k)
         y = k("closg_r3_scan_yext")(v, A.perm_r3, A.scan_hi, A.ysel_w,
                                     A.wstart, A.acc_ptr, A.acc_src,
                                     A.scan_cap or A.scan_stages)
     else:
-        scr = k("closg_r3_scan")(v, A.perm_r3, A.scan_hi, A.scan_stages)
-        y = k("closg_cand_yext")(scr, A.ycand, A.ysel)
+        y = k("closg_cand_yext")(_w0_scan(A, x, k), A.ycand, A.ysel)
     return y.reshape(-1)[: A.m]
+
+
+def _w0_chunks(A: ClosGChunked, x: torch.Tensor,
+               plain: bool) -> torch.Tensor:
+    """A ``ClosGChunked`` whose chunks all have W = 0: each chunk's front
+    end, r2 layer and scan, every chunk's scanned plane kept alive (≤ 4
+    MB each at N = 2^20), then one extraction over all chunks that writes
+    each chunk's rows of y in place (``closg_cand_yext_chunked``): no
+    per-chunk extraction, no concatenation."""
+    k = _kernels(plain)
+    x = x.to(torch.float32)
+    parts = [(_w0_scan(c, x, k), c.ycand, c.ysel) for c in A.chunks]
+    return k("closg_cand_yext_chunked")(parts, A.row_split)
 
 
 @register_spmv("CLOSG", "torch")
@@ -616,6 +647,8 @@ def spmv_closg_cuda(A, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"CLOSG/cuda needs the program and x on one CUDA "
                          f"device, got {A.device} and {x.device}")
     if isinstance(A, ClosGChunked):
+        if all(c.W == 0 for c in A.chunks):
+            return _w0_chunks(A, x, plain=False)
         return torch.cat([spmv_closg_cuda(c, x) for c in A.chunks])
     return _pipeline(A, x, plain=False)
 

@@ -10,6 +10,13 @@ JAX package.
   the non-empty x blocks (``_gmul_r1_win_kernel``); once with every block
   non-empty and once with empty blocks compacted away.
 
+On the card B7 runs B1's persistent tile body: a numpy emulation of its
+walk (block b takes tiles b, b + grid, ...; the x rows of a tile fetched
+ahead, gbase three tiles and nbids two; the tile's 8 windows staged with
+columns past n and rows past the compacted plane zero) equals the plain
+version, with and without compaction, at n % 128 != 0, on grids of 1, 7
+and the card's blocks.
+
 Both packages build the program from the same matrix and must give
 identical arrays. The Pallas kernels run in interpret mode; the port runs
 the plain versions, which its wrappers take for CPU tensors. A front end is
@@ -39,7 +46,7 @@ from spmv_research_tpu_torch.ops.clos_gather import (
     DATA_FIELDS, META_FIELDS, from_jax_program)
 from spmv_research_tpu_torch.ops.clos_route import ClosRoutingError
 
-from torch_cases import random_matrix
+from torch_cases import random_matrix, random_win_inputs
 
 
 def _compacted_matrix():
@@ -147,3 +154,94 @@ def test_lut_and_fused_windows_are_exclusive():
     with pytest.raises(ClosRoutingError, match="both"):
         from_jax_program({f: np.asarray(getattr(Aj, f)) for f in DATA_FIELDS},
                          meta)
+
+
+# ------------------------------------------------ B7's persistent tile walk
+
+def _emulate_front_win(gbase, nbids, perm_r1, vals, x, dense, grid):
+    """``csrc/closg.cu`` ``front_kernel<true>`` in numpy: block b walks
+    tiles b, b + grid, ... with the kernel's pipeline — a tile's gbase
+    fetched three tiles ahead, its windows' x blocks (nbids, or the
+    compacted row itself when ``dense``) two, its words, values and x
+    windows one — and per tile stages the 8 windows (columns past n, and
+    rows past the n_nb compacted rows, 0), multiplies each slot's value by
+    window ((s + rot) & 7) at lane λ, and applies the r1 layer's picks."""
+    n_tiles, n_x, n_nb = gbase.size, x.size, nbids.size
+    w = perm_r1.reshape(-1).view(np.uint32)
+    out = np.full(n_tiles * 1024, np.nan, np.float32)
+    taken = np.zeros(n_tiles, np.int64)
+    rows, cols, i = np.arange(8), np.arange(128), np.arange(1024)
+
+    def base_of(tile):
+        return int(gbase[tile]) if tile < n_tiles else 0
+
+    def block_of(tile, base):
+        if tile >= n_tiles:
+            return np.full(8, -1)
+        r = base + rows
+        if dense:
+            return r
+        return np.where(r < n_nb, nbids[np.minimum(r, n_nb - 1)], -1)
+
+    def load(tile, blk):
+        col = blk[:, None].astype(np.int64) * 128 + cols
+        xs = np.where((blk[:, None] >= 0) & (col < n_x),
+                      x[np.clip(col, 0, n_x - 1)], 0.0).astype(np.float32)
+        return (w[tile * 1024:(tile + 1) * 1024],
+                vals[tile * 1024:(tile + 1) * 1024], xs.reshape(-1))
+
+    for b in range(min(grid, n_tiles)):
+        c = b
+        cur = load(c, block_of(c, base_of(c)))
+        blk_next = block_of(c + grid, base_of(c + grid))
+        base_next = base_of(c + 2 * grid)
+        while c < n_tiles:
+            nxt = (load(c + grid, blk_next) if c + grid < n_tiles else None)
+            blk_next = block_of(c + 2 * grid, base_next)
+            base_next = base_of(c + 3 * grid)
+            ws, vs, xs = cur
+            win = (((i >> 7) + (ws >> 24)) & 7) * 128
+            p = xs[win + ((ws >> 17) & 0x7F)] * vs
+            taken[c] += 1
+            out[c * 1024 + i] = _pick(ws, p)
+            cur, c = nxt, c + grid
+    assert (taken == 1).all()
+    return out
+
+
+def _pick(w, v):
+    """The r1 layer's three picks on one 1024-slot tile (rows of 128)."""
+    i = np.arange(1024)
+    s = i >> 7
+    c = (w >> 10) & 0x7F
+    rot = (w[s * 128 + c] >> 7) & 7
+    s2 = (s & ~7) + (((s & 7) + rot) & 7)
+    lane = w[s2 * 128 + c] & 0x7F
+    return v[s2 * 128 + lane]
+
+
+@pytest.mark.parametrize("grid", [1, 7, 528])
+@pytest.mark.parametrize("dense", [True, False], ids=["dense", "compacted"])
+@pytest.mark.parametrize("n_tiles, n_x", [(40, 5037), (600, 20000)])
+def test_front_win_persistent_walk_matches_plain(n_tiles, n_x, dense, grid):
+    rng = np.random.Generator(np.random.PCG64(n_tiles + n_x + dense))
+    gbase, nbids, perm_r1, vals, x = random_win_inputs(rng, n_tiles, n_x,
+                                                       dense)
+    got = _emulate_front_win(gbase, nbids, perm_r1, vals, x, dense, grid)
+    want = K.closg_front_win_torch(
+        torch.from_numpy(gbase), torch.from_numpy(nbids),
+        torch.from_numpy(perm_r1), torch.from_numpy(vals).view(-1, 128),
+        torch.from_numpy(x), dense)
+    assert np.array_equal(got, want.numpy().reshape(-1))
+
+
+@pytest.mark.parametrize("name", ["fused", "fused_compacted"])
+def test_front_win_walk_on_built_programs(name):
+    """The emulated walk on the built programs (7 blocks) equals the plain
+    version and the JAX package's fused front end."""
+    _, _, Aj, A, x = _case(name)
+    got = _emulate_front_win(A.gbase.numpy(), A.nbids.numpy(),
+                             A.perm_r1.numpy(), A.vals_cs.numpy().reshape(-1),
+                             x, A.dense_blocks, 7)
+    assert np.array_equal(got, np.asarray(_gmul_win(Aj, jnp.asarray(x))
+                                          ).reshape(-1))

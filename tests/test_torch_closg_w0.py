@@ -8,6 +8,13 @@ candidate scan rows (``_extract_y_kernel``). Two matrices: 130 rows of 520
 nnz (W = 0, C = 128, no capping), and the same shape with one row of 33,000
 nnz, whose scan needs stage 15 and so the ``scan_hi`` guard plane.
 
+A third matrix, 600 such rows under ``max_N = 2^17``, builds a
+``ClosGChunked`` of 3 W = 0 chunks. On the card its SpMV extracts every
+chunk's y in one launch of B6, written in place
+(``closg_cand_yext_chunked``); here its plain version equals the per-chunk
+extraction and concatenation, and a numpy emulation of the kernel's
+block-to-chunk walk writes every y element once.
+
 Both packages build the program from the same matrix and must give
 identical arrays. The Pallas kernels run in interpret mode on the CPU; the
 port runs the plain PyTorch versions, which its wrappers take for CPU
@@ -34,18 +41,23 @@ from spmv_research_tpu.ops.bfly_pallas import _call
 from spmv_research_tpu.ops.clos_gather import _extract_y_kernel
 from spmv_research_tpu.ops.clos_gather import build_clos_gather as jax_build
 from spmv_research_tpu.ops.clos_gather import (
+    build_clos_gather_auto as jax_build_auto)
+from spmv_research_tpu.ops.clos_gather import (
     execute_closg_numpy as jax_execute_numpy)
 from spmv_research_tpu.ops.clos_pallas import _r3_scan_kernel_noval
 
 from spmv_research_tpu_torch.core.host import HostCSR
-from spmv_research_tpu_torch.ops import build_clos_gather, spmv
+from spmv_research_tpu_torch.ops import (ClosGChunked, build_clos_gather,
+                                         build_clos_gather_auto, spmv)
 from spmv_research_tpu_torch.ops import clos_cuda as K
+from spmv_research_tpu_torch.ops import clos_gather as CG
 from spmv_research_tpu_torch.ops.clos import _t_bwd, _t_fwd
 from spmv_research_tpu_torch.ops.clos_gather import (
     DATA_FIELDS, META_FIELDS, execute_closg_numpy)
 from spmv_research_tpu_torch.ops.clos_route import LANES, SUB
 
-from torch_cases import rel_err, w0_matrix
+from torch_cases import (W0_CHUNK_N, random_cand_parts, rel_err,
+                         w0_chunked_matrix, w0_matrix)
 
 MATRICES = {"w0": lambda: w0_matrix(130, 520),
             "scan_hi": lambda: w0_matrix(130, 600, heavy=33000)}
@@ -140,3 +152,102 @@ def test_from_jax_program_runs_w0(case):
                          {f: getattr(Aj, f) for f in META_FIELDS})
     xt = torch.from_numpy(x)
     assert torch.equal(spmv(B, xt), spmv(A, xt))
+
+
+# ------------------------------------------------ the chunked W = 0 program
+
+@pytest.fixture(scope="module")
+def chunked():
+    """(matrix, JAX ClosGChunked, the port's own, x)."""
+    mat = w0_chunked_matrix()
+    Aj = jax_build_auto(JaxHostCSR.from_scipy(mat), max_N=W0_CHUNK_N)
+    A = build_clos_gather_auto(HostCSR.from_scipy(mat), max_N=W0_CHUNK_N)
+    x = np.random.Generator(np.random.PCG64(7)).uniform(0.0, 1.0,
+                                                         mat.shape[1])
+    return mat, Aj, A, x.astype(np.float32)
+
+
+def test_chunked_program_identical(chunked):
+    _, Aj, A, _ = chunked
+    assert isinstance(A, ClosGChunked) and len(A.chunks) >= 3
+    assert all(c.W == 0 for c in A.chunks)
+    assert A.row_split == tuple(Aj.row_split)
+    assert all((r1 - r0) % LANES for r0, r1 in zip(A.row_split,
+                                                    A.row_split[1:]))
+    for c, cj in zip(A.chunks, Aj.chunks):
+        assert c.m == cj.m
+        for f in DATA_FIELDS:
+            assert np.array_equal(getattr(c, f).numpy(),
+                                  np.asarray(getattr(cj, f))), f
+
+
+def test_chunked_extraction_in_place(chunked):
+    """The one-launch extraction's plain version equals the per-chunk
+    extraction and concatenation exactly; the W = 0 dispatch through the
+    plain versions equals the torch impl, and y is within 1e-6 of
+    |A|·|x| of JAX's SpMV of the same program."""
+    mat, Aj, A, x = chunked
+    xt = torch.from_numpy(x)
+    parts = [(CG._w0_scan(c, xt, CG._kernels(plain=True)), c.ycand, c.ysel)
+             for c in A.chunks]
+    got = K.closg_cand_yext_chunked_torch(parts, A.row_split)
+    want = torch.cat([K.closg_cand_yext_torch(*p).reshape(-1)[:c.m]
+                      for p, c in zip(parts, A.chunks)])
+    assert torch.equal(got, want)
+    # the wrapper takes the plain version for CPU tensors
+    assert torch.equal(K.closg_cand_yext_chunked(parts, A.row_split), got)
+    y = CG._w0_chunks(A, xt, plain=True)
+    assert torch.equal(y, got) and torch.equal(y, spmv(A, xt))
+    want_j = np.asarray(jax_spmv(Aj, jnp.asarray(x), impl="xla"))
+    scale = np.abs(mat) @ np.abs(x.astype(np.float64)) + 1e-30
+    assert np.max(np.abs(y.numpy() - want_j) / scale) <= 1e-6
+
+
+def _emulate_b6(parts, ms, row0s, n_y):
+    """``csrc/closg.cu`` ``cand_yext_kernel`` in numpy, launch by launch of
+    ``cand_yext_plan``: block b finds its program by walking the prefix of
+    block counts; thread t takes the ysel quads at 4·(t + q·threads) of
+    the block's elements; element e of program i, if e < ms[i], is
+    y[row0s[i] + e]. Returns (y, the number of writes of each element)."""
+    y = np.full(n_y, np.nan, np.float32)
+    writes = np.zeros(n_y, np.int64)
+    t = np.arange(K.YEXT_THREADS)
+    for ids, block0 in K.cand_yext_plan(ms):
+        assert len(ids) <= K.YEXT_MAX_CHUNKS and block0[0] == 0
+        for b in range(block0[-1]):
+            c = 0
+            while b >= block0[c + 1]:
+                c += 1
+            i = ids[c]
+            scr, ycand, ysel = (p.numpy() for p in parts[i])
+            sel = ysel.reshape(-1).view(np.uint32)
+            m_rows = ysel.shape[0]
+            e0 = (b - block0[c]) * K.YEXT_BLOCK_ELEMS
+            for q in range(K.YEXT_QUADS):
+                e = (e0 + 4 * (t + q * K.YEXT_THREADS))[:, None] + np.arange(4)
+                e = e[e < ms[i]]
+                s = sel[e]
+                row = ycand[((s >> 7) & 0x7F).astype(np.int64) * m_rows
+                            + (e >> 7)]
+                y[row0s[i] + e] = scr[row, s & 0x7F]
+                np.add.at(writes, row0s[i] + e, 1)
+    return y, writes
+
+
+@pytest.mark.parametrize("ms", [
+    [1000, 100, 4101],                 # ragged, and under 128 rows
+    [128, 1, 1024, 1025, 127],         # whole and part blocks
+    [77] * 40,                         # more chunks than the by-value cap
+    list(range(1, 70)),                # 3 launches, every remainder
+], ids=["ragged", "blocks", "past_cap", "many"])
+def test_b6_block_walk_writes_each_row_once(ms):
+    rng = np.random.Generator(np.random.PCG64(len(ms)))
+    parts = random_cand_parts(rng, ms)
+    row_split = np.concatenate([[0], np.cumsum(ms)]).tolist()
+    y, writes = _emulate_b6(parts, ms, row_split[:-1], row_split[-1])
+    assert (writes == 1).all()
+    want = K.closg_cand_yext_chunked_torch(parts, row_split)
+    assert np.array_equal(y, want.numpy())
+    plan = K.cand_yext_plan(ms)
+    assert len(plan) == -(-len(ms) // K.YEXT_MAX_CHUNKS)
+    assert [i for ids, _ in plan for i in ids] == list(range(len(ms)))

@@ -45,9 +45,10 @@ from torch_cases import (TWIN_LINE, banded_matrix, bfly_pathological,
                          btile_banded, btile_special_matrix,
                          capped_scan_matrix, clos_hi_matrix,
                          dirty_sellr_matrix, ds_banded, ds_staged_matrix,
-                         fill_chunks, random_matrix,
-                         skewed_matrix, skewed_xl_matrix,
-                         staged_sellw_matrix, w0_matrix)
+                         fill_chunks, random_cand_parts, random_matrix,
+                         random_win_inputs, skewed_matrix, skewed_xl_matrix,
+                         staged_sellw_matrix, W0_CHUNK_N, w0_chunked_matrix,
+                         w0_matrix)
 
 pytestmark = pytest.mark.gpu
 
@@ -475,6 +476,107 @@ def test_opt_in_front_ends_match_plain_versions(cuda, case):
     torch.cuda.synchronize()
     assert torch.equal(got, want) and K.LAUNCHES[key] == 1
     _close_to_scipy(mat, x, spmv(A, xd))
+
+
+@pytest.mark.parametrize("n_chunks", [1, 3, 10, 70])
+def test_b6_one_launch_over_chunks(cuda, n_chunks):
+    """B6 over 1, 3, 10 and 70 programs (past the by-value cap of 32:
+    3 launches) with ragged rows, rows under 128 and empty programs, each
+    program's y written in place: equal to its plain version bit for bit,
+    one launch per 32 programs."""
+    rng = np.random.Generator(np.random.PCG64(n_chunks))
+    ms = rng.integers(1, 3000, n_chunks)
+    ms[::3] = rng.integers(1, 128, ms[::3].size)
+    if n_chunks > 3:
+        ms[5] = 0
+    ms = [int(m) for m in ms]
+    parts = [tuple(t.to(cuda) for t in p)
+             for p in random_cand_parts(rng, ms)]
+    row_split = np.concatenate([[0], np.cumsum(ms)]).tolist()
+    K.reset_launch_counts()
+    got = K.closg_cand_yext_chunked(parts, row_split)
+    want = K.closg_cand_yext_chunked_torch(parts, row_split)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0),
+                          "closg_cand_yext": -(-n_chunks // 32)}
+
+
+def test_w0_chunked_spmv_one_b6_launch(cuda):
+    """An all-W = 0 ClosGChunked SpMV on the card: B1, ``clos_r2`` and B5
+    per chunk, then one B6 launch over every chunk; y equals the torch
+    impl's (per-chunk extraction and concatenation) bit for bit."""
+    mat = w0_chunked_matrix()
+    A = build_clos_gather_auto(HostCSR.from_scipy(mat),
+                               max_N=W0_CHUNK_N).to(cuda)
+    assert isinstance(A, cg.ClosGChunked) and len(A.chunks) == 3
+    x, xd = _x(mat.shape[1], cuda)
+    K.reset_launch_counts()
+    y = spmv(A, xd)
+    torch.cuda.synchronize()
+    phases = sum(len(K.plan_scan_phases(c.scan_stages, c.N, c.N))
+                 for c in A.chunks)
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0), "closg_front": 3,
+                          "clos_r2": 3, "closg_r3_scan": phases,
+                          "closg_cand_yext": 1}
+    assert torch.equal(y, spmv(A, xd, impl="torch"))
+    _close_to_scipy(mat, x, y)
+
+
+def test_b6_refuses_bad_input(cuda):
+    rng = np.random.Generator(np.random.PCG64(4))
+    parts = [tuple(t.to(cuda) for t in p)
+             for p in random_cand_parts(rng, [300, 200])]
+    with pytest.raises(ValueError, match="row boundaries"):
+        K.closg_cand_yext_chunked(parts, [0, 300])
+    with pytest.raises(ValueError, match="past its y plane"):
+        K.closg_cand_yext_chunked(parts, [0, 300, 757])
+    scr, ycand, ysel = parts[0]
+    off = torch.zeros(ysel.numel() + 1, dtype=torch.int32,
+                      device=cuda)[1:].view(ysel.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.closg_cand_yext(scr, ycand, off)
+    with pytest.raises(ValueError, match="whole number"):
+        K.closg_cand_yext(scr, ycand[:-1], ysel)
+
+
+@pytest.mark.parametrize("grid", ["card", "seven"])
+@pytest.mark.parametrize("case", ["dense", "compacted", "unaligned",
+                                  "tail_window"])
+def test_front_win_on_awkward_x(cuda, case, grid, monkeypatch):
+    """B7 equals its plain version bit for bit on dense and compacted x
+    planes with rows past the plane, n % 128 != 0, x not 16-byte aligned
+    and windows at x's tail (the last, partial x row); on the card's
+    persistent grid and on 7 blocks; one launch."""
+    if grid == "seven":
+        monkeypatch.setattr(K, "persistent_grid", _seven_tiles_grid)
+    rng = np.random.Generator(np.random.PCG64(23))
+    n_x = {"dense": 20000 + 37, "compacted": 20000 + 37,
+           "unaligned": 5000 + 3, "tail_window": 3 * 128 + 5}[case]
+    n_tiles = 900
+    gbase, nbids, perm_r1, vals, x = random_win_inputs(
+        rng, n_tiles, n_x, case != "compacted")
+    if case == "tail_window":
+        gbase[::3] = nbids.size - 1
+    buf = torch.as_tensor(np.concatenate([[0.5], x]).astype(np.float32),
+                          device=cuda)
+    xd = buf[1:] if case == "unaligned" else buf[1:].clone()
+    assert (xd.data_ptr() % 16 != 0) == (case == "unaligned")
+    dense = case != "compacted"
+    args = (torch.as_tensor(gbase, device=cuda),
+            torch.as_tensor(nbids, device=cuda),
+            torch.as_tensor(perm_r1, device=cuda),
+            torch.as_tensor(vals, device=cuda).view(-1, 128), xd, dense)
+    K.reset_launch_counts()
+    got = K.closg_front_win(*args)
+    want = K.closg_front_win_torch(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0),
+                          "closg_front_win": 1}
+    assert K.front_grid(n_tiles, cuda, win=True) == (
+        7 if grid == "seven" else min(n_tiles, K.front_grid(
+            1 << 30, cuda, win=True)))
 
 
 def test_closgx_kernels_match_plain_versions(cuda):

@@ -124,6 +124,19 @@ def w0_matrix(m=130, k=520, heavy=0, seed=3):
     return mat
 
 
+# the smallest program a W = 0 chunk fits: a 128-row group of w0_matrix's
+# rows spans 66,560 slots, past the 64 window octaves (65,536 slots) of a
+# 2^17-slot program
+W0_CHUNK_N = 1 << 17
+
+
+def w0_chunked_matrix():
+    """``w0_matrix(600, 520)``: under ``max_N = W0_CHUNK_N`` a ClosGChunked
+    of 3 chunks (rows [0, 226), [226, 452), [452, 600): none a multiple of
+    128), each with W = 0 and C = 128."""
+    return w0_matrix(600, 520)
+
+
 def random_matrix(m, n, density, seed, levels=0):
     """Seeded uniform random m × n matrix, values uniform in [-1, 1), or
     drawn from ``levels`` seeded values (a quantised matrix)."""
@@ -287,3 +300,43 @@ def fill_chunks(u, w3, hi, stages, chunk):
         u = torch.where(_stage_bit(k, w3, hi), torch.roll(u, 1 << k, dims=1),
                         u)
     return u.reshape(-1, 128)
+
+
+def random_cand_parts(rng, ms):
+    """Random inputs of B6 over programs of ms[i] rows of y: (scr, ycand,
+    ysel) each — a scanned plane, C candidate rows of each 128-row group of
+    y (C random in 1..128), ysel picking a lane and a candidate."""
+    parts = []
+    for m in ms:
+        m_rows = -(-m // 128)
+        C = int(rng.integers(1, 129))
+        S = int(rng.integers(8, 40))
+        parts.append((
+            torch.from_numpy(rng.uniform(-1, 1, (S, 128)).astype(np.float32)),
+            torch.from_numpy(rng.integers(0, S, C * m_rows).astype(np.int32)),
+            torch.from_numpy((rng.integers(0, 128, (m_rows, 128))
+                              | rng.integers(0, C, (m_rows, 128)) << 7
+                              ).astype(np.int32))))
+    return parts
+
+
+def random_win_inputs(rng, n_tiles, n_x, dense):
+    """Random inputs of B7 over x of n_x and n_tiles 1024-slot tiles:
+    (gbase, nbids, perm_r1, vals, x) as numpy arrays — every x block, or a
+    sorted 3/4 of them, compacted (nbids); group bases anywhere in the
+    compacted plane, the last at its last row, so its windows pass it;
+    random words (any rotation) and values."""
+    x_rows = -(-n_x // 128)
+    nbids = (np.arange(x_rows) if dense else np.sort(
+        rng.choice(x_rows, 3 * x_rows // 4, replace=False))).astype(np.int32)
+    gbase = rng.integers(0, nbids.size, n_tiles).astype(np.int32)
+    gbase[-1] = nbids.size - 1
+    S = 8 * n_tiles
+    perm_r1 = (rng.integers(0, 128, (S, 128))
+               | rng.integers(0, 8, (S, 128)) << 7
+               | rng.integers(0, 128, (S, 128)) << 10
+               | rng.integers(0, 1 << 15, (S, 128)) << 17
+               ).astype(np.uint32).view(np.int32)
+    vals = rng.uniform(-1, 1, S * 128).astype(np.float32)
+    x = rng.uniform(-1, 1, n_x).astype(np.float32)
+    return gbase, nbids, perm_r1, vals, x

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device times of the PyTorch port's Clos kernels (the phased scan's, the
-front end and the in-vreg layers), on one tree of the port and one NVIDIA
-GPU.
+front ends, the in-vreg layers and the W = 0 extraction), on one tree of
+the port and one NVIDIA GPU.
 
     python3 time_clos_scans.py [--tree DIR] [--set NAME=VALUE ...]
 
@@ -15,7 +15,8 @@ back behind the spin kernel, no flush: the inputs in the L2, as on the main
 path):
 
 * B1 ``closg_front`` on the scircuit twin's CLOSG program (bench.py's line,
-  RCM, N = 2^20) with x from a seed;
+  RCM, N = 2^20) with x from a seed, and B7 ``closg_front_win`` on the
+  same twin's ``fuse_windows=True`` program;
 * the r2 step of that program (``clos_r2``: the r2 layer with its
   transposes; on a tree without it, ``_t_fwd``, ``clos_invreg`` and
   ``_t_bwd`` timed as one unit) and of the same twin's CLOS perm network,
@@ -25,7 +26,15 @@ path):
 * B8 ``clos_r3_fill``, ``clos_r3_scan`` and ``clos_r3_valid`` (the whole
   plane) on the same twin's CLOS program;
 * B5 ``closg_r3_scan`` on a random 2^20-slot plane, 14 stages;
-* B15's scan over 12 random chunks of 2^20 slots, 9 stages.
+* B15's scan over 12 random chunks of 2^20 slots, 9 stages;
+* B6 on the gupta3 twin's 10-chunk W = 0 program (validation_twins.txt:30,
+  RCM), each chunk's scanned plane from the plain versions: the y of all
+  chunks, as the tree's chunked SpMV extracts it — one launch over every
+  chunk (``closg_cand_yext_chunked``), or on a tree without it one launch a
+  chunk and the concatenation of their rows;
+* one whole gupta3 CLOSG SpMV through ``ops.spmv``: its device time (cold
+  only) and ``host_us``, the host's enqueue time of one SpMV (20 calls
+  back to back, no synchronize between them), measured 5 times.
 
 With ``--set NAME=VALUE`` the tree's ``csrc/closg.cu`` is built with its
 constant ``constexpr ... NAME`` set to VALUE, to compare designs of one
@@ -52,7 +61,8 @@ def main() -> None:
                     metavar="NAME=VALUE",
                     help="build closg.cu with constexpr NAME = VALUE")
     args = ap.parse_args()
-    from chip_smoke import DeviceTimer       # this checkout's timer
+    from chip_smoke import (GUPTA3_LINE, DeviceTimer,  # this checkout's
+                            host_us)
     sys.path.insert(0, os.path.abspath(args.tree))
     import numpy as np
     import torch
@@ -61,7 +71,8 @@ def main() -> None:
     from spmv_research_tpu_torch import bench
     from spmv_research_tpu_torch.convert.reorder import rcm_if_beneficial
     from spmv_research_tpu_torch.gen import generate_from_line
-    from spmv_research_tpu_torch.ops import build_clos_gather
+    from spmv_research_tpu_torch.ops import (build_clos_gather,
+                                             build_clos_gather_auto, spmv)
     from spmv_research_tpu_torch.ops import clos_cuda as K
     from spmv_research_tpu_torch.ops.clos import build_clos
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -85,6 +96,9 @@ def main() -> None:
     K.build()
     host = rcm_if_beneficial(generate_from_line(bench.SCIRCUIT_LINE)[0])[0]
     G, C = build_clos_gather(host).to(dev), build_clos(host).to(dev)
+    F = build_clos_gather(host, fuse_windows=True).to(dev)
+    gup = rcm_if_beneficial(generate_from_line(GUPTA3_LINE)[0])[0]
+    Ag = build_clos_gather_auto(gup).to(dev)
     rng = np.random.Generator(np.random.PCG64(7))
     xd = torch.as_tensor(rng.uniform(0.0, 1.0, host.n), dtype=torch.float32,
                          device=dev)
@@ -95,6 +109,23 @@ def main() -> None:
         return torch.as_tensor(a, device=dev).view(-1, 128)
 
     v = plane(G.N)
+    xg = torch.as_tensor(rng.uniform(0.0, 1.0, gup.n), dtype=torch.float32,
+                         device=dev)
+    parts = []
+    for c in Ag.chunks:
+        u = K.clos_r2_torch(K.closg_front_torch(c.rowidx, c.perm_r1,
+                                                c.vals_cs, xg),
+                            c.perm_r2, c.V)
+        parts.append((K.closg_r3_scan_torch(u, c.perm_r3, c.scan_hi,
+                                            c.scan_stages), c.ycand, c.ysel))
+
+    def b6():
+        """The y of every gupta3 chunk, as the tree's SpMV extracts it."""
+        if hasattr(K, "closg_cand_yext_chunked"):
+            return K.closg_cand_yext_chunked(parts, Ag.row_split)
+        return torch.cat([K.closg_cand_yext(*p).reshape(-1)[:c.m]
+                          for p, c in zip(parts, Ag.chunks)])
+
     w3, hi = plane(1 << 20, ints=True), plane(1 << 20, ints=True)
     vx, w3x = plane(12 << 20), plane(12 << 20, ints=True)
     def r2(v, w, V):
@@ -107,6 +138,8 @@ def main() -> None:
     calls = {
         "closg_front": lambda: K.closg_front(G.rowidx, G.perm_r1, G.vals_cs,
                                              xd),
+        "closg_front_win": lambda: K.closg_front_win(
+            F.gbase, F.nbids, F.perm_r1, F.vals_cs, xd, F.dense_blocks),
         "r2_closg": lambda: r2(v, G.perm_r2, G.V),
         "r2_clos": lambda: r2(v, C.perm_r2, C.V),
         "clos_invreg": lambda: K.clos_invreg(v, C.perm_r1),
@@ -121,6 +154,7 @@ def main() -> None:
         "closg_r3_scan": lambda: K.closg_r3_scan(v, w3, hi, range(14)),
         "closgx_r3_scan_yext": lambda: K._scan_phases(
             "closgx_r3_scan_yext", vx, w3x, None, range(9), 1 << 20),
+        "b6_gupta3": b6,
     }
     timer = DeviceTimer(spec=None)
     out = {}
@@ -130,6 +164,9 @@ def main() -> None:
         launches = sum(K.LAUNCHES.values())  # one call's
         out[name] = {"ms": timer.ms(fn), "warm_ms": timer.warm_ms(fn),
                      "launches": launches}
+    out["spmv_gupta3"] = {
+        "ms": timer.ms(lambda: spmv(Ag, xg), iters=10),
+        "host_us": [host_us(lambda: spmv(Ag, xg), n=20) for _ in range(5)]}
     print(json.dumps({"tree": args.tree, "set": args.set,
                       "kernels": out}), flush=True)
     tmp.cleanup()
