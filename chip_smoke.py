@@ -55,8 +55,9 @@ failure (non-zero exit, no result line):
    longdouble gold; the 8 error metrics per row;
 9. the opt-in front ends on the scircuit twin: a value-LUT program (values
    quantised to 64 seeded levels) and a ``fuse_windows=True`` program; B4
-   and B7 against their plain versions (exact) and timed, B7 also warm, its
-   persistent grid and registers logged; one SpMV of each
+   and B7 (B1's persistent tile body in its LUT and window modes) against
+   their plain versions (exact) and timed cold and warm, their persistent
+   grids and registers logged; one SpMV of each
    through ``ops.spmv`` between a reset and a read of the counters, y within
    1e-5 of |A|·|x| of the gold;
 10. the gupta3 twin (validation_twins.txt:30): ``build_best`` (asserts a
@@ -157,7 +158,21 @@ failure (non-zero exit, no result line):
     y against the gold, one counted BFLY/cuda SpMV (B9 one launch a phase
     of its plans, asserted) against the gold, and the sweep with clos and
     bfly skips
-    clos as unsuitable and gives a BFLY/cuda row within 1e-5.
+    clos as unsuitable and gives a BFLY/cuda row within 1e-5;
+17. IC(0)/ILU(0) and the trisolve (``ilu_phase``; plain PyTorch, no hand
+    kernel, as the JAX package solves in XLA), on the shipsec1_spd twin
+    cut to half its rows (at full size its factors take chunked schedules,
+    too slow for the smoke): the trisolve workload once through the sweep
+    (its residual gated at 1e-2, the schedules' kinds and step counts, the
+    solve's time), a CG job with ``precond=ic0`` (SELLW), and a BiCGStab
+    job with ``precond=ilu0`` on scircuit_dd (CLOSG), each converged
+    below 1e-5, and per preconditioner one apply's device kernels
+    (torch.profiler) and time.
+
+Every sweep with ``csr`` in it gives CSR/torch and CSR/sparse rows side by
+side (cuSPARSE's SpMV through the registry: the JAX package's CSR/bcoo),
+each y held to 1e-5 of |A|·|x| as every other row's; phase 16 asserts the
+pair in the scircuit twin's csr_spmv.csv.
 
 Every kernel entry carries its bound: the larger of the bytes the function
 must move (each input read once, each output written once, a gather
@@ -219,6 +234,16 @@ KINDS = {17: ("RSPLIT", [1, 1, 1, 1, 32, 32]),
          33: ("CLOSGX", 13, 8),
          36: ("refused", "XL chunk fell back to legacy extraction")}
 STREAM_N = 1_200_000      # > 2^20 columns: a stream_wins SELLW program
+# the shipsec1 line cut to half its rows, for phase 17's trisolve and CG +
+# IC(0): at full size 7.9% of the ILU(0) factors' entries lie past the
+# widest band the band-block budget allows (8192 columns), so
+# build_schedule takes chunked schedules of ≈ 17k chunks, one Python step
+# each (trisolve_plan.py), and a full-size trisolve through the sweep did
+# not end within the smoke's limit; the half-size twin's factors fit the
+# band (Q = 18, 138 blocks a factor)
+SHIPSEC1_HALF_LINE = ("70437 70437 55.4637761404 11.0748106399 normal "
+                      "random 0.0458755451 0.8390381452 1.7123850245 "
+                      "0.8734443677 14 shipsec1_half")
 # the JAX package's SpMM/SDDMM CSV labels (spmv_research_tpu/harness/
 # sweep.py:_labels_for)
 WORKLOAD_LABELS = ("matrix_name,format_name,impl,K,time_iter_median,gflops,"
@@ -775,10 +800,10 @@ def main() -> None:
     layer_times(timer, K, kernels, {name: a for name, a, _ in
                                     closg_stages(K, A, xd)}, "")
     n_sms, per_sm = K.front_occupancy(dev)
-    log(f"# B1 (front_kernel<false>): grid "
+    log(f"# B1 (front_kernel<0>): grid "
         f"{K.front_grid(A.N // 1024, dev)} persistent blocks ({per_sm} an "
         f"SM x {n_sms} SMs) over {A.N // 1024} tiles; ptxas: "
-        + ptxas_of(K.build_log(), ("front_kernelILb0E", "layer_kernelILb0E",
+        + ptxas_of(K.build_log(), ("front_kernelILi0E", "layer_kernelILb0E",
                                    "layer_kernelILb1E")))
     k3_scircuit = k3_launches(K, "scircuit", [A], xd)
     if k3_scircuit != 2:
@@ -990,11 +1015,11 @@ def main() -> None:
             if launches[name] <= 0:
                 fail(f"the sweep path never launched {name}")
         check_csvs(out_dir, csv_labels(synthetic=True),
-                   {f"{f}_spmv": 1 for f in formats})
+                   {f"{f}_spmv": 2 if f == "csr" else 1 for f in formats})
     for k in (k_sellw, *k_sellr, *k_chunks):
         k["launches"] = launches[k["name"].removesuffix("_chunked")]
-    check_rows(results, ["CLOSG/cuda", "CSR/torch", "SELLR/cuda",
-                         "SELLW/cuda"], {"shipsec1": ship}, xs)
+    check_rows(results, ["CLOSG/cuda", "CSR/sparse", "CSR/torch",
+                         "SELLR/cuda", "SELLW/cuda"], {"shipsec1": ship}, xs)
     del results
     log(f"# phases 7-8 done at {time.perf_counter() - t_start:.0f}s")
 
@@ -1020,17 +1045,19 @@ def main() -> None:
     for label, Ao, hh, name in (("LUT", Al, hq, "closg_front_lut"),
                                 ("fused", Af, host, "closg_front_win")):
         k = closg_checks(timer, K, [Ao], xd, names=(name,))[0]
-        if name == "closg_front_win":
-            args = next(a for nm, a, _ in closg_stages(K, Ao, xd)
-                        if nm == name)
-            k["warm_ms"] = timer.warm_ms(lambda: K.closg_front_win(*args))
-            n_sms, per_sm = K.front_occupancy(dev, win=True)
-            log(f"# B7 (front_kernel<true>): grid "
-                f"{K.front_grid(Ao.N // 1024, dev, win=True)} persistent "
-                f"blocks ({per_sm} an SM x {n_sms} SMs) over {Ao.N // 1024} "
-                f"tiles, nbids {Ao.nbids.numel()} of {Ao.x_rows} x rows; "
-                f"cold {k['ms']:.5f} ms, warm {k['warm_ms']:.5f} ms; "
-                f"ptxas: " + ptxas_of(K.build_log(), ("front_kernelILb1E",)))
+        args = next(a for nm, a, _ in closg_stages(K, Ao, xd) if nm == name)
+        k["warm_ms"] = timer.warm_ms(lambda f=getattr(K, name): f(*args))
+        mode = K.FRONT_LUT if name == "closg_front_lut" else K.FRONT_WIN
+        n_sms, per_sm = K.front_occupancy(dev, mode)
+        log(f"# {'B4' if mode == K.FRONT_LUT else 'B7'} (front_kernel<"
+            f"{mode}>): grid {K.front_grid(Ao.N // 1024, dev, mode)} "
+            f"persistent blocks ({per_sm} an SM x {n_sms} SMs) over "
+            f"{Ao.N // 1024} tiles"
+            + (f", nbids {Ao.nbids.numel()} of {Ao.x_rows} x rows"
+               if mode == K.FRONT_WIN else "")
+            + f"; cold {k['ms']:.5f} ms, warm {k['warm_ms']:.5f} ms; "
+            f"ptxas: " + ptxas_of(K.build_log(),
+                                  (f"front_kernelILi{mode}E",)))
         y, launches = counted_spmv(Ao, xd, K)
         log(f"# launches during one {label} SpMV: {launches}")
         k["launches"] = launches[name]
@@ -1117,7 +1144,7 @@ def main() -> None:
     kinds = device_kernels(lambda: spmv(Ag, xgd, impl="cuda"))
     log(f"# device events a gupta3 CLOSG/cuda SpMV (10 profiled): "
         f"{sum(kinds.values())} in all; {kinds}")
-    ours = ("front_kernel<false>", "layer_kernel<true>", "scan_contig_kernel",
+    ours = ("front_kernel<0>", "layer_kernel<true>", "scan_contig_kernel",
             "scan_strided_kernel", "scan_step_kernel", "cand_yext_kernel")
     if (sum(kinds.values()) > 41
             or not all(any(o in k for o in ours) for k in kinds)
@@ -1221,9 +1248,10 @@ def main() -> None:
             if launches[name] <= 0:
                 fail(f"the gupta3 + mip1 sweep never launched {name}")
         check_csvs(out_dir, csv_labels(synthetic=True),
-                   {"csr_spmv": 2, "closg_spmv": 2, "dense_spmv": 1})
-    check_rows(results, ["CLOSG/cuda", "CSR/torch", "CSR/torch",
-                         "DENSE/torch", "RSPLIT/cuda"],
+                   {"csr_spmv": 4, "closg_spmv": 2, "dense_spmv": 1})
+    check_rows(results, ["CLOSG/cuda", "CSR/sparse", "CSR/sparse",
+                         "CSR/torch", "CSR/torch", "DENSE/torch",
+                         "RSPLIT/cuda"],
                {"gupta3": gup, "mip1": mip}, None,
                {"gupta3": (xg, gold_g), "mip1": (xm, gold_m)})
     del mip, results
@@ -1267,6 +1295,10 @@ def main() -> None:
 
     # --- 16. the fallback engines CLOS and BFLY ---
     k_fb = fallback_phase(timer, dev, cfg)
+    log(f"# phase 16 done at {time.perf_counter() - t_start:.0f}s")
+
+    # --- 17. IC(0)/ILU(0) and the trisolve ---
+    ilu_phase(timer, dev, cfg)
     log(f"# all phases done at {time.perf_counter() - t_start:.0f}s")
 
     kernels += [*k_chunks, k_sellw, k_stream, *k_sellr, *k_opt, *k_w0, *k_g,
@@ -1667,11 +1699,12 @@ def ds_phase(timer, dev, cfg) -> list:
                  f"times for {launches['sellwds_combine']} combines, not "
                  f"{n_classes} per SpMV")
         check_csvs(out_dir, csv_labels(synthetic=True),
-                   {f"{f}_spmv": 1 for f in formats})
+                   {f"{f}_spmv": 2 if f == "csr" else 1 for f in formats})
     k_b13["launches"] = launches["sellwds"]
     k_comb["launches"] = launches["sellwds_combine"]
-    check_rows(results, ["CSR/torch", "SELLW/cuda", "SELLWDS/cuda",
-                         "CSRDS/torch"], {"shipsec1": ship}, xs)
+    check_rows(results, ["CSR/sparse", "CSR/torch", "SELLW/cuda",
+                         "SELLWDS/cuda", "CSRDS/torch"], {"shipsec1": ship},
+               xs)
     for r in results:
         ds = r.format_name in ("SELLWDS", "CSRDS")
         if ds != (r.roofline_kind == "csr64") or (ds and not (
@@ -1699,10 +1732,10 @@ def ds_phase(timer, dev, cfg) -> list:
     for workload, line, transform, fmts, libs, build, solve, rows in (
             ("cg", SHIPSEC1_LINE, "spd", ("csr", "sellw", "sellwds"), (KS,),
              build_sellwds, solve_cg,
-             ["CSR/torch", "SELLW/cuda", "SELLWDS/cuda"]),
+             ["CSR/sparse", "CSR/torch", "SELLW/cuda", "SELLWDS/cuda"]),
             ("bicgstab", bench.SCIRCUIT_LINE, "dd", ("csr", "closg"), (K,),
              build_clos_gather_auto, solve_bicgstab,
-             ["CSR/torch", "CLOSG/cuda"])):
+             ["CSR/sparse", "CSR/torch", "CLOSG/cuda"])):
         scfg = dataclasses.replace(
             cfg, use_rcm_reordering=True if workload == "cg" else "auto",
             matrix_transform=transform, cg_max_num_iters=50)
@@ -1715,7 +1748,8 @@ def ds_phase(timer, dev, cfg) -> list:
             launches = {k: v for lib in libs for k, v in lib.LAUNCHES.items()}
             log(f"# launches during the {workload} sweep: {launches}")
             check_csvs(out_dir, WORKLOAD_LABELS,
-                       {f"{f}_{workload}": 1 for f in fmts})
+                       {f"{f}_{workload}": 2 if f == "csr" else 1
+                        for f in fmts})
         got = sorted(f"{r.format_name}/{r.impl}" for r in results)
         if got != sorted(rows):
             fail(f"{workload} sweep rows {got}, want {sorted(rows)}")
@@ -1773,6 +1807,7 @@ def fallback_phase(timer, dev, cfg) -> list:
     import torch
     import torch.nn.functional as F
     from spmv_research_tpu_torch import bench
+    from spmv_research_tpu_torch.convert import build_csr
     from spmv_research_tpu_torch.harness import run_sweep
     from spmv_research_tpu_torch.harness.bench import csv_labels
     from spmv_research_tpu_torch.harness.sweep import load_matrix
@@ -1986,13 +2021,35 @@ def fallback_phase(timer, dev, cfg) -> list:
         launches = {**K.LAUNCHES, **KF.LAUNCHES}
         log(f"# launches during the csr/clos/bfly sweep: {launches}")
         check_csvs(out_dir, csv_labels(synthetic=True),
-                   {f"{f}_spmv": 1 for f in ("csr", "clos", "bfly")})
+                   {"csr_spmv": 2, "clos_spmv": 1, "bfly_spmv": 1})
+        csr_labels = sorted(c for ln in open(os.path.join(
+            out_dir, "csr_spmv.csv")).read().splitlines()[1:]
+            for c in ln.split(",") if c.startswith("CSR_"))
+        if csr_labels != ["CSR_sparse", "CSR_torch"]:
+            fail(f"the scircuit csr_spmv.csv rows are {csr_labels}, not a "
+                 f"CSR/torch and a CSR/sparse row")
     for k in (*k_b2, *k_b8, *k_b9):
         k["launches"] = launches[k["name"].removesuffix("_clos")]
         if k["launches"] <= 0:
             fail(f"the csr/clos/bfly sweep never launched {k['name']}")
-    check_rows(results, ["CSR/torch", "CLOS/cuda", "BFLY/cuda"],
-               {"scircuit_twin": host}, x)
+    check_rows(results, ["CSR/sparse", "CSR/torch", "CLOS/cuda",
+                         "BFLY/cuda"], {"scircuit_twin": host}, x)
+    log("# scircuit CSR/sparse (cuSPARSE through the registry) beside "
+        "CSR/torch: " + "; ".join(
+            f"{r.format_name}/{r.impl} {r.nnz_per_s / 1e9:.4f} Gnnz/s "
+            f"median {r.time_iter_median * 1e6:.1f} us"
+            for r in results if r.format_name == "CSR"))
+    # CSR/sparse's host time: the call, on the format's sparse_csr view
+    # (built once), and what a build of that view each call would add
+    Ar = build_csr(host).to(dev)
+    build_us = host_us(lambda: torch.sparse_csr_tensor(
+        Ar.indptr, Ar.indices[:Ar.nnz], Ar.data[:Ar.nnz], size=Ar.shape,
+        check_invariants=False))
+    log(f"# scircuit CSR/sparse host enqueue: one SpMV "
+        f"{host_us(lambda: spmv(Ar, xd, impl='sparse')):.1f} us (the "
+        f"sparse_csr view built once; a build {build_us:.1f} us); "
+        f"CSR/torch {host_us(lambda: spmv(Ar, xd, impl='torch')):.1f} us")
+    del Ar
     del results
     # B10's path: the unregistered fused SpMV, called as a user would
     KF.reset_launch_counts()
@@ -2082,6 +2139,142 @@ def fallback_phase(timer, dev, cfg) -> list:
     check_rows(results, ["BFLY/cuda"], {"mac_econ_fwd500": mac}, xm)
     log(f"# phase 16 done in {time.perf_counter() - t_phase:.0f}s")
     return [*k_b2, *k_b8, *k_b9, k_b10]
+
+
+def ilu_phase(timer, dev, cfg) -> None:
+    """Phase 17, IC(0)/ILU(0) and the level-scheduled trisolve (plain
+    PyTorch on the card, no hand kernel: the JAX package solves in XLA):
+    the trisolve workload on the shipsec1_spd twin cut to half its rows
+    (``SHIPSEC1_HALF_LINE``, RCM as phase 15's CG), once through the
+    sweep; a CG job with ``precond=ic0`` on the same twin (SELLW) and a
+    BiCGStab job with ``precond=ilu0`` on scircuit_dd (CLOSG). Each
+    gated (the trisolve's residual at 1e-2, the solves converged below
+    1e-5), each schedule's kind and step count logged, and for each
+    solver one preconditioner apply's device kernels counted under
+    torch.profiler and timed (the builders are wrapped to keep what the
+    sweep built)."""
+    import dataclasses
+    import torch
+    from spmv_research_tpu_torch import bench
+    from spmv_research_tpu_torch import solvers
+    from spmv_research_tpu_torch.harness import run_sweep
+    from spmv_research_tpu_torch.harness.workloads import schedule_kind
+    from spmv_research_tpu_torch.ops import clos_cuda as K
+    from spmv_research_tpu_torch.ops import sell_cuda as KS
+    from spmv_research_tpu_torch.solvers import ilu
+
+    def kept(module, name, store):
+        orig = getattr(module, name)
+
+        def keep(*args, **kw):
+            out = orig(*args, **kw)
+            store.append(out)
+            return out
+        setattr(module, name, keep)
+        return orig
+
+    def describe(scheds):
+        return ", ".join(
+            f"{'L' if s.lower else 'U'} {schedule_kind(s)} "
+            f"{s.n_levels} steps"
+            + (f" (B {s.B}, Q {s.Q}, outliers {s.olvals.shape[1]} a block)"
+               if schedule_kind(s) == "band" else "")
+            for s in scheds)
+
+    def apply_launches(label, fn, r):
+        kinds = device_kernels(lambda: fn(r), n=1)
+        n = int(round(sum(kinds.values())))
+        ms = timer.ms(lambda: fn(r), iters=3)
+        log(f"# {label}: one preconditioner apply, {n} device kernels "
+            f"(plain PyTorch: no kernel wrapper counts), {ms:.3f} ms "
+            f"(host-bound: the enqueue of each step); top: " + "; ".join(
+                f"{k[:40]} {v:g}" for k, v in sorted(
+                    kinds.items(), key=lambda kv: -kv[1])[:4]))
+        if n <= 0:
+            fail(f"{label}: a preconditioner apply ran no device kernel")
+
+    t_phase = time.perf_counter()
+    tcfg = dataclasses.replace(cfg, use_rcm_reordering=True,
+                               matrix_transform="spd", min_num_loops=8,
+                               warmup_iters=2, inner_iters=8, min_time_s=0.5)
+    # 1. the trisolve, once per matrix through the sweep
+    built = []
+    orig = kept(ilu, "build_schedule", built)
+    try:
+        with tempfile.TemporaryDirectory() as out_dir:
+            results = run_sweep([SHIPSEC1_HALF_LINE], formats=("csr",),
+                                workloads=("trisolve",), out_dir=out_dir,
+                                config=tcfg, device=dev)
+            torch.cuda.synchronize()
+            check_csvs(out_dir, WORKLOAD_LABELS, {"trisolve": 1})
+    finally:
+        ilu.build_schedule = orig
+    if len(results) != 1 or len(built) != 2:
+        fail(f"the trisolve sweep gave {len(results)} rows from "
+             f"{len(built)} schedules, not one row from L's and U's")
+    r = results[0]
+    e = r.extra
+    if not (r.mape <= 1e-2 and np.isfinite(r.out).all()
+            and r.out.shape == (r.out.size,)):
+        fail(f"trisolve on {r.matrix_name}: residual {r.mape}")
+    log(f"# trisolve {r.matrix_name} {r.format_name}/{r.impl}: residual "
+        f"‖LUx - b‖/‖b‖ = {r.mape}, one solve "
+        f"{r.time_iter_median * 1e3:.3f} ms ({r.num_loops} timed), "
+        f"{r.gflops:.4f} GFLOPS; ILU(0) {e['t_factorize']:.1f}s, schedules "
+        f"{e['t_schedule']:.1f}s; " + describe(built))
+    del built, results
+    log(f"# phase 17 trisolve done in {time.perf_counter() - t_phase:.0f}s")
+
+    # 2. CG + IC(0) on shipsec1_spd, 3. BiCGStab + ILU(0) on scircuit_dd
+    for workload, line, transform, fmt, precond, lib, row in (
+            ("cg", SHIPSEC1_HALF_LINE, "spd", "sellw", "ic0", KS,
+             "SELLW/cuda+ic0"),
+            ("bicgstab", bench.SCIRCUIT_LINE, "dd", "closg", "ilu0", K,
+             "CLOSG/cuda+ilu0")):
+        scfg = dataclasses.replace(
+            cfg, use_rcm_reordering=True if workload == "cg" else "auto",
+            matrix_transform=transform, cg_max_num_iters=50,
+            solver_precond=precond)
+        states = []
+        orig = kept(solvers, "make_precond_state", states)
+        try:
+            with tempfile.TemporaryDirectory() as out_dir:
+                lib.reset_launch_counts()
+                results = run_sweep([line], formats=(fmt,),
+                                    workloads=(workload,), out_dir=out_dir,
+                                    config=scfg, device=dev)
+                torch.cuda.synchronize()
+                launches = {k: v for k, v in lib.LAUNCHES.items() if v}
+                check_csvs(out_dir, WORKLOAD_LABELS,
+                           {f"{fmt}_{workload}": 1})
+        finally:
+            solvers.make_precond_state = orig
+        got = [f"{r.format_name}/{r.impl}" for r in results]
+        if got != [row] or len(states) != 1:
+            fail(f"{workload} + {precond} sweep rows {got} from "
+                 f"{len(states)} preconditioners, want [{row!r}] from one")
+        r = results[0]
+        e = r.extra
+        apply_fn, (Ls, Us) = states[0]
+        log(f"# {workload} + {precond} {r.matrix_name} {row}: converged="
+            f"{e['converged']} iterations={r.num_loops} (loop "
+            f"{e['loop_iterations']}) relative residual="
+            f"{e['relative_residual']}, solve {e['solve_time'] * 1e3:.3f} "
+            f"ms, per iteration {r.time_iter_median * 1e3:.3f} ms, "
+            f"{r.gflops:.4f} GFLOPS, first solve {e['compile_time']:.2f}s, "
+            f"preconditioner {e['precond_setup_time']:.1f}s ("
+            + describe((Ls, Us)) + f"); kernel launches in the sweep "
+            f"{launches}")
+        if not (e["converged"] and e["relative_residual"] < 1e-5):
+            fail(f"{workload} + {precond} {row} did not converge below "
+                 f"1e-5: {e}")
+        if not launches:
+            fail(f"the {workload} + {precond} sweep launched no kernel")
+        rv = torch.ones(Ls.m, dtype=torch.float32, device=dev)
+        apply_launches(f"{precond} {r.matrix_name}",
+                       lambda v: apply_fn((Ls, Us), v), rv)
+        del states, results, Ls, Us, apply_fn
+    log(f"# phase 17 done in {time.perf_counter() - t_phase:.0f}s")
 
 
 def b9_calls(A):

@@ -9,6 +9,7 @@ here (the baseline of the main path); the engines' formats live in their
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import torch
@@ -76,3 +77,14 @@ class CSR:
         """True (unpadded) footprint, reference model ``spmv_kernel.h:21-24``."""
         vb = self.data.element_size()
         return self.nnz * (vb + 4) + (self.m + 1) * 4
+
+    @functools.cached_property
+    def sparse_csr(self) -> torch.Tensor:
+        """The matrix as a ``torch.sparse_csr_tensor`` viewing the live
+        entries (no copy, no invariants check), built at first use and
+        kept: CSR/sparse's operand. Its build took 30 of a CSR/sparse
+        call's 70 µs of host time on an H100 machine (``chip_smoke.py``
+        phase 16)."""
+        return torch.sparse_csr_tensor(self.indptr, self.indices[:self.nnz],
+                                       self.data[:self.nnz], size=self.shape,
+                                       check_invariants=False)

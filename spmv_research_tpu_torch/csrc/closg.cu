@@ -312,47 +312,55 @@ __global__ void __launch_bounds__(kR2MaxThreads, kR2Quads > 2 ? 1 : 2)
   }
 }
 
-// ------------------------------------------------------------- B1 and B7
+// --------------------------------------------------------- B1, B4 and B7
 //
-// One persistent tile body, front_kernel<kWin>, for two front ends:
-//   B1 `closg_front` (kWin false) — replaces
+// One persistent tile body, front_kernel<kMode>, for three front ends:
+//   B1 `closg_front` (kFrontPlain) — replaces
 //     spmv_research_tpu/ops/clos_gather.py `_gmul_r1_dma_kernel`: product
 //     x2d[rowidx[s], λ] · vals_cs[s, l] (λ = r1 bits [17, 24), columns
 //     past n read 0: the x plane's zero padding), then the r1 layer on
 //     each 1024-slot tile (8 rows of 128). Also the non-LUT mode of
 //     `_gmul_r1_kernel` (x past 4 MB): x is read from device memory at
 //     any n.
-//   B7 `closg_front_win` (kWin) — replaces clos_gather.py
+//   B4 `closg_front_lut` (kFrontLut) — replaces the value-LUT mode of
+//     clos_gather.py `_gmul_r1_kernel`: B1's product with the value entry
+//     (w >> 24) & 0x7F of the 128-entry dictionary (row 0 of the (8,128)
+//     dictionary plane) in place of vals_cs[s, l]; the value plane is not
+//     read at all.
+//   B7 `closg_front_win` (kFrontWin) — replaces clos_gather.py
 //     `_gmul_r1_win_kernel` (fused windows): the tile is one 8-sublane
 //     group whose slots read the compacted x rows gbase[c] .. gbase[c] +
 //     7; slot (s, l) reads row (s + rot) & 7 of them, rot = r1 bits [24,
 //     27). Compacted row r is x block nbids[r] (or r itself when every
 //     block is non-empty: nbids == nullptr), and rows past the n_nb
 //     compacted rows read 0 (the TPU kernel's 8-row overrun pad).
-// Bound: device memory, 12 bytes per slot plus x once.
+// Bound: device memory, 12 bytes per slot plus x once (B4: 8 bytes).
 // The design, per 1024-slot tile, 256 threads, 4 slots a thread (warp s is
 // row s, lane t of it holds lanes 4t..4t+3):
 //   * the tile's 8 x windows (8 rows of 128 floats, 4 KB) are staged in
 //     shared memory as the TPU kernels staged them in VMEM: thread t loads
-//     quad t of window s (B1: x row rowidx[8c + s]; B7: compacted row
+//     quad t of window s (B1, B4: x row rowidx[8c + s]; B7: compacted row
 //     gbase[c] + s) with one 16-byte load (scalar, masked, where the
 //     window passes n or x is not 16-byte aligned), so a warp reads one
 //     512-byte window in 4 requests instead of 32 scattered ones;
-//   * word and value are one 16-byte streamed load each, the output one
-//     16-byte store;
+//   * word and value are one 16-byte streamed load each (B4: the word
+//     only; its dictionary is staged in shared memory once per persistent
+//     block, not once per tile), the output one 16-byte store;
 //   * persistent blocks: the grid is the SMs times the blocks an SM holds
 //     (closg_blocks_per_sm, at most one block a tile); a block walks tiles
 //     blockIdx.x, + gridDim.x, ..., and issues the next tile's word, value
 //     and window loads before this tile's products and picks, so the loads
-//     of two tiles are in flight. A window's x row is itself a load (B1:
-//     rowidx) or two dependent ones (B7: gbase, then nbids), fetched one
-//     tile further ahead per step of the chain (B7: gbase three tiles
+//     of two tiles are in flight. A window's x row is itself a load (B1,
+//     B4: rowidx) or two dependent ones (B7: gbase, then nbids), fetched
+//     one tile further ahead per step of the chain (B7: gbase three tiles
 //     ahead, nbids two);
 //   * two barriers a tile: the windows staged, then the products and words;
 //     the picks (invreg_pick) read shared memory. One buffer of each
 //     serves: a tile's writes come after a barrier that every thread
-//     reaches only when done with the tile before.
+//     reaches only when done with the tile before (B4's dictionary, staged
+//     before the walk, is read only after the first of them).
 constexpr int kFrontThreads = kBlockSlots / 4;
+constexpr int kFrontPlain = 0, kFrontWin = 1, kFrontLut = 2;
 
 struct FrontSlots {
   uint4 w;
@@ -371,9 +379,9 @@ __device__ __forceinline__ float4 x_quad(const float* __restrict__ x,
                      col + 3 < n_x ? __ldg(x + col + 3) : 0.0f);
 }
 
-// rows: B1's rowidx (8 a tile) or B7's gbase (1 a tile); nbids and n_nb
-// B7's only.
-template <bool kWin>
+// rows: B1's and B4's rowidx (8 a tile) or B7's gbase (1 a tile); nbids
+// and n_nb B7's only; vals: the value plane, or B4's dictionary plane.
+template <int kMode>
 __global__ void __launch_bounds__(kFrontThreads)
     front_kernel(const int32_t* __restrict__ rows,
                  const int32_t* __restrict__ nbids, int64_t n_nb,
@@ -381,15 +389,19 @@ __global__ void __launch_bounds__(kFrontThreads)
                  const float* __restrict__ vals,
                  const float* __restrict__ x, int64_t n_x, int x16,
                  float* __restrict__ out, int64_t n_tiles) {
+  constexpr bool kWin = kMode == kFrontWin, kLut = kMode == kFrontLut;
   __shared__ __align__(16) float xs[kBlockSlots];
   __shared__ __align__(16) float vs[kBlockSlots];
   __shared__ __align__(16) uint32_t ws[kBlockSlots];
+  __shared__ float dict_sh[kLut ? kLanes : 1];
   const int i = 4 * threadIdx.x;         // my first slot: row s, lane 4t
   const int row0 = i & ~(kLanes - 1);    // my row's first slot (and window)
   const int s = threadIdx.x >> 5;
   const int64_t step = gridDim.x;
   int64_t c = blockIdx.x;
   if (c >= n_tiles) return;
+  if (kLut && threadIdx.x < kLanes) dict_sh[threadIdx.x] = __ldg(vals +
+                                                                 threadIdx.x);
   // B7: the group's first compacted x row
   auto base_of = [&](int64_t tile) -> int32_t {
     return tile < n_tiles ? __ldg(rows + tile) : 0;
@@ -403,10 +415,10 @@ __global__ void __launch_bounds__(kFrontThreads)
     return r < n_nb ? __ldg(nbids + r) : -1;
   };
   auto load = [&](int64_t tile, int64_t blk) {
-    FrontSlots q;
+    FrontSlots q{};
     const int64_t off = tile * kBlockSlots + i;
     q.w = __ldcs(reinterpret_cast<const uint4*>(word + off));
-    q.v = __ldcs(reinterpret_cast<const float4*>(vals + off));
+    if (!kLut) q.v = __ldcs(reinterpret_cast<const float4*>(vals + off));
     q.x = blk < 0 ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
                   : x_quad(x, n_x, x16, blk * kLanes + (i - row0));
     return q;
@@ -426,10 +438,11 @@ __global__ void __launch_bounds__(kFrontThreads)
     float p[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      // the window: my row's (B1), or rotated by rot (B7)
+      // the window: my row's (B1, B4), or rotated by rot (B7)
       const int win = kWin ? ((s + (w[e] >> 24)) & (kSub - 1)) * kLanes
                            : row0;
-      p[e] = __fmul_rn(xs[win + ((w[e] >> 17) & 0x7F)], val[e]);
+      p[e] = __fmul_rn(xs[win + ((w[e] >> 17) & 0x7F)],
+                       kLut ? dict_sh[(w[e] >> 24) & 0x7F] : val[e]);
     }
     *reinterpret_cast<uint4*>(ws + i) = cur.w;
     *reinterpret_cast<float4*>(vs + i) = make_float4(p[0], p[1], p[2], p[3]);
@@ -441,35 +454,6 @@ __global__ void __launch_bounds__(kFrontThreads)
         make_float4(r[0], r[1], r[2], r[3]);
     cur = nxt;
   }
-}
-
-// B4 `closg_front_lut` — replaces the value-LUT mode of
-// spmv_research_tpu/ops/clos_gather.py `_gmul_r1_kernel`: as B1's product
-// with the value entry (w >> 24) & 0x7F of the 128-entry dictionary (row 0
-// of the (8,128) dictionary plane), staged in shared memory; the value
-// plane is not read at all (8 bytes per slot). One slot a thread, each
-// thread reading its own x element. Bound: device memory, 8 bytes per slot
-// plus x.
-__global__ void front_lut_kernel(const int32_t* __restrict__ rowidx,
-                                 const uint32_t* __restrict__ word,
-                                 const float* __restrict__ vals,
-                                 const float* __restrict__ x, int64_t n_x,
-                                 float* __restrict__ out) {
-  __shared__ uint32_t w_sh[kBlockSlots];
-  __shared__ float v_sh[kBlockSlots];
-  __shared__ float dict_sh[kLanes];
-  const int64_t off = (int64_t)blockIdx.x * kBlockSlots;
-  const int t = threadIdx.x;
-  if (t < kLanes) dict_sh[t] = vals[t];
-  const uint32_t wd = word[off + t];
-  w_sh[t] = wd;
-  const int64_t col = (int64_t)rowidx[(off + t) / kLanes] * kLanes +
-                      ((wd >> 17) & 0x7F);
-  const float xv = col < n_x ? x[col] : 0.0f;
-  __syncthreads();
-  v_sh[t] = xv * dict_sh[(wd >> 24) & 0x7F];
-  __syncthreads();
-  out[off + t] = invreg_pick(w_sh, v_sh, t, 7);
 }
 
 // One Hillis–Steele stage of the segmented scan over the whole plane: the
@@ -1065,13 +1049,20 @@ int clos_r3_valid(const void* v, const void* word, void* out, int64_t n_slots,
   return (int)cudaGetLastError();
 }
 
-// Blocks of the persistent front_kernel<win != 0> (B1, or B7) an SM holds,
-// into *blocks; the grid of a launch is at most the SMs times this
-// (cuda_lib.persistent_grid).
-int closg_blocks_per_sm(int* blocks, int win) {
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, win ? front_kernel<true> : front_kernel<false>, kFrontThreads,
-      0);
+// Blocks of the persistent front_kernel<mode> (kFrontPlain: B1, kFrontWin:
+// B7, kFrontLut: B4) an SM holds, into *blocks; the grid of a launch is at
+// most the SMs times this (cuda_lib.persistent_grid).
+int closg_blocks_per_sm(int* blocks, int mode) {
+  if (mode == kFrontPlain)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, front_kernel<kFrontPlain>, kFrontThreads, 0);
+  if (mode == kFrontWin)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, front_kernel<kFrontWin>, kFrontThreads, 0);
+  if (mode == kFrontLut)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, front_kernel<kFrontLut>, kFrontThreads, 0);
+  return (int)cudaErrorInvalidValue;
 }
 
 // B1 over n_slots (a positive multiple of 1024) rows of 128 lanes, on grid
@@ -1081,22 +1072,25 @@ int closg_front(const void* rowidx, const void* perm_r1, const void* vals,
                 int grid, void* stream) {
   if (n_slots <= 0 || n_slots % kBlockSlots || grid < 1)
     return (int)cudaErrorInvalidValue;
-  front_kernel<false><<<(unsigned)grid, kFrontThreads, 0,
-                        (cudaStream_t)stream>>>(
+  front_kernel<kFrontPlain><<<(unsigned)grid, kFrontThreads, 0,
+                              (cudaStream_t)stream>>>(
       (const int32_t*)rowidx, nullptr, 0, (const uint32_t*)perm_r1,
       (const float*)vals, (const float*)x, n_x, ((uintptr_t)x & 15) == 0,
       (float*)out, n_slots / kBlockSlots);
   return (int)cudaGetLastError();
 }
 
-// B4: vals is the (8,128) dictionary plane.
+// B4 as B1, with vals the (8,128) dictionary plane.
 int closg_front_lut(const void* rowidx, const void* perm_r1, const void* vals,
                     const void* x, int64_t n_x, void* out, int64_t n_slots,
-                    void* stream) {
-  front_lut_kernel<<<(unsigned)(n_slots / kBlockSlots), kBlockSlots, 0,
-                     (cudaStream_t)stream>>>(
-      (const int32_t*)rowidx, (const uint32_t*)perm_r1, (const float*)vals,
-      (const float*)x, n_x, (float*)out);
+                    int grid, void* stream) {
+  if (n_slots <= 0 || n_slots % kBlockSlots || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  front_kernel<kFrontLut><<<(unsigned)grid, kFrontThreads, 0,
+                            (cudaStream_t)stream>>>(
+      (const int32_t*)rowidx, nullptr, 0, (const uint32_t*)perm_r1,
+      (const float*)vals, (const float*)x, n_x, ((uintptr_t)x & 15) == 0,
+      (float*)out, n_slots / kBlockSlots);
   return (int)cudaGetLastError();
 }
 
@@ -1109,8 +1103,8 @@ int closg_front_win(const void* gbase, const void* nbids, int64_t n_nb,
                     void* stream) {
   if (n_slots <= 0 || n_slots % kBlockSlots || grid < 1)
     return (int)cudaErrorInvalidValue;
-  front_kernel<true><<<(unsigned)grid, kFrontThreads, 0,
-                       (cudaStream_t)stream>>>(
+  front_kernel<kFrontWin><<<(unsigned)grid, kFrontThreads, 0,
+                            (cudaStream_t)stream>>>(
       (const int32_t*)gbase, (const int32_t*)nbids, n_nb,
       (const uint32_t*)perm_r1, (const float*)vals, (const float*)x, n_x,
       ((uintptr_t)x & 15) == 0, (float*)out, n_slots / kBlockSlots);

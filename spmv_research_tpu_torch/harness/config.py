@@ -49,7 +49,7 @@ class BenchConfig:
     # --- workloads ---
     k_dim: int = 128                # SDDMM/SpMM K (K_DIM env, config.sh:138-143)
     cg_max_num_iters: int = 50      # CG_MAX_NUM_ITERS (config.sh:110-112)
-    solver_precond: str = "jacobi"  # jacobi (ic0 | ilu0: not ported yet)
+    solver_precond: str = "jacobi"  # jacobi | ic0 | ilu0
 
     @staticmethod
     def from_env() -> "BenchConfig":

@@ -1,15 +1,16 @@
-"""Sweep runner for the SpMV, SpMM, SDDMM, CG and BiCGStab workloads — the
-run.sh / proc_run.sh analog.
+"""Sweep runner for the SpMV, SpMM, SDDMM, CG, BiCGStab and trisolve
+workloads — the run.sh / proc_run.sh analog.
 
 Counterpart of ``spmv_research_tpu/harness/sweep.py``. It iterates
-matrices × formats × workloads on one torch device with the JAX sweep's
-output discipline: one CSV file per (format, workload) pair
-(``<fmt>_<workload>.csv``) with the labels row first (SpMV: the JAX
-package's synthetic schema, ``csv_labels`` / ``csv_row_synthetic``; SpMM,
-SDDMM, CG and BiCGStab: its ``matrix_name,format_name,impl,K,...`` schema,
-a solver's residual in the ``mape`` and ``max_ae`` columns), human lines
-on stdout, and an idempotent done-log (``done.log``) so that a restarted
-sweep skips finished pairs.
+matrices × formats × impls × workloads on one torch device with the JAX
+sweep's output discipline: one CSV file per (format, workload) pair
+(``<fmt>_<workload>.csv``; the trisolve, which needs no format,
+``trisolve.csv``) with the labels row first (SpMV: the JAX package's
+synthetic schema, ``csv_labels`` / ``csv_row_synthetic``; the others: its
+``matrix_name,format_name,impl,K,...`` schema, a solve's residual in the
+``mape`` and ``max_ae`` columns), human lines on stdout, and an idempotent
+done-log (``done.log``, keys (matrix, format, impl, workload), and
+(matrix, ``trisolve``)) so that a restarted sweep skips finished pairs.
 
 Differences from the JAX sweep, each deliberate:
 
@@ -19,24 +20,31 @@ Differences from the JAX sweep, each deliberate:
 * ``FORMAT_BUILDERS`` holds ``csr``, ``sellr``, ``sellw``, ``closg`` (whose
   builder may return a CLOSG, RSPLIT or CLOSGX program, as in the JAX
   sweep), the fallback engines ``clos`` and ``bfly``, ``dense``, ``btile``
-  and the double-single ``csrds`` and ``sellwds``, and the workloads are ``spmv``, ``spmm``, ``sddmm``, ``cg``
-  and ``bicgstab``: any other name, and a solver preconditioner other than
-  Jacobi (``ic0`` and ``ilu0`` need ``solvers/ilu.py``), raises before the
-  sweep starts;
-* the impls are the device's (``ops.dispatch.default_impl``): on a CUDA
-  device the engines run ``cuda`` and the library formats (CSR, DENSE) run
-  ``torch``; on the CPU everything runs ``torch``. A (format, workload)
-  pair with no such impl (BTILE SpMV; DENSE, SELLW and the CLOS engines'
-  SDDMM) is skipped, as ``available_impls`` skips it in the JAX sweep; the
-  solvers run on the format's SpMV;
+  and the double-single ``csrds`` and ``sellwds``; the workloads are
+  ``spmv``, ``spmm``, ``sddmm``, ``cg``, ``bicgstab`` and ``trisolve`` (once
+  per matrix: ILU(0) and the level-scheduled solves), the solvers'
+  preconditioners ``jacobi``, ``ic0`` and ``ilu0``: any other name, SpGEMM
+  among them (ROADMAP queue A item 3), raises before the sweep starts;
+* the impls are the device's (``sweep_impls``): on a CUDA device ``cuda``
+  for an engine and every registered impl of a library format
+  (``LIBRARY_FORMATS``: CSR's SpMV runs ``torch`` and ``sparse``, the
+  cuSPARSE baseline); on the CPU every impl but ``cuda``; the engines'
+  plain versions are never sweep rows on the card. ``impls`` narrows that
+  set as the JAX sweep's does (its names in its order), and each name
+  left out is printed as a ``#`` line. A (format, workload) pair with no
+  such impl (BTILE SpMV; DENSE, SELLW and the CLOS engines' SDDMM) is
+  skipped, as ``available_impls`` skips it in the JAX sweep; the solvers
+  run on the format's SpMV;
+* a matrix's formats are built only when a workload runs on them (the
+  JAX sweep builds them for a trisolve-only sweep too);
 * a builder's suitability error (``SellRBuildError``, ``SellWBuildError``,
   ``ClosRoutingError``, ``RoutingError`` (BFLY past 2^22 slots),
   ``DenseBuildError``, ``BTileBuildError``, and ``DSRangeError``, a value
   too large for the double-single split) is
   printed and the format skipped, as in the JAX sweep; a gated row
-  (non-finite metrics, a solve without progress) is printed and logged as
-  ``FAIL``; any other exception propagates (no retries: a GPU fault is not
-  transient);
+  (non-finite metrics, a solve without progress, a trisolve residual past
+  1e-2) is printed and logged as ``FAIL``; any other exception propagates
+  (no retries: a GPU fault is not transient);
 * the TPU-worker-crash handling (``_fatal_runtime``, exit code 3, the
   ``CRASH`` records) has no counterpart on the GPU.
 """
@@ -55,6 +63,7 @@ from ..convert import (build_csr, extract_features, fix_diagonal_zeros,
 from ..convert.reorder import rcm_if_beneficial
 from ..gen import ArtificialParams, artificial_matrix_generation
 from ..ops import available_impls, default_impl
+from ..ops.dispatch import LIBRARY_FORMATS
 from ..ops.bfly import build_bfly
 from ..ops.btile import BTileBuildError, build_btile
 from ..ops.clos import build_clos
@@ -69,7 +78,8 @@ from ..ops.sellw_ds import build_sellwds
 from ..solvers import check_precond
 from .bench import BenchResult, bench_spmv, csv_labels, csv_row_synthetic
 from .config import BenchConfig
-from .workloads import BenchGateError, bench_cg, bench_sddmm, bench_spmm
+from .workloads import (BenchGateError, bench_cg, bench_sddmm, bench_spmm,
+                        bench_trisolve)
 
 FORMAT_BUILDERS = {
     "csr": build_csr,
@@ -83,8 +93,9 @@ FORMAT_BUILDERS = {
     "csrds": build_csrds,
     "sellwds": build_sellwds,
 }
-WORKLOADS = ("spmv", "spmm", "sddmm", "cg", "bicgstab")
+WORKLOADS = ("spmv", "spmm", "sddmm", "cg", "bicgstab", "trisolve")
 SOLVERS = ("cg", "bicgstab")        # workloads that run on the SpMV
+MATRIX_WORKLOADS = ("trisolve",)    # once per matrix, on no format
 # a builder raising one of these refuses the matrix: the format is skipped
 SUITABILITY_ERRORS = (SellRBuildError, SellWBuildError, ClosRoutingError,
                       RoutingError, DenseBuildError, BTileBuildError,
@@ -107,8 +118,7 @@ def check_sweep_args(formats: Sequence[str], workloads: Sequence[str],
     if bad_w:
         raise NotImplementedError(
             f"workloads {bad_w} are not ported: the sweep runs "
-            f"{', '.join(WORKLOADS)} (trisolve and SpGEMM are ROADMAP queue "
-            "A items 2 and 3)")
+            f"{', '.join(WORKLOADS)} (SpGEMM is ROADMAP queue A item 3)")
     if any(w in SOLVERS for w in workloads):
         check_precond(precond)
 
@@ -166,16 +176,32 @@ class SweepDoneLog:
             self.done.add("/".join(map(str, key)))
 
 
+def sweep_impls(workload: str, fmt: str, device) -> list:
+    """The impls a sweep runs for ``fmt``'s ``workload`` (a solver: its
+    SpMV) on ``device``: on a CUDA device ``cuda`` for an engine and every
+    registered impl of a library format; on the CPU every impl but
+    ``cuda``."""
+    kernel = "spmv" if workload in SOLVERS else workload
+    have = available_impls(kernel, fmt)
+    if device.type == "cuda" and fmt not in LIBRARY_FORMATS:
+        return [i for i in have if i == "cuda"]
+    if device.type == "cuda":
+        return have
+    return [i for i in have if i != "cuda"]
+
+
 def run_sweep(matrices: Sequence[str],
               formats: Sequence[str] = ("csr", "bfly"),
               workloads: Sequence[str] = ("spmv",),
+              impls: Optional[Sequence[str]] = None,
               out_dir: str = "out_logs",
               config: Optional[BenchConfig] = None,
               device="cuda") -> list:
-    """Benchmark every (matrix, format, workload) triple on ``device`` that
-    the format has an impl for; returns the results (``BenchResult`` for
-    SpMV, ``WorkloadResult`` otherwise) and appends each to
-    ``<out_dir>/<fmt>_<workload>.csv``."""
+    """Benchmark every (matrix, format, impl, workload) the device runs
+    (``sweep_impls``, narrowed to ``impls`` where given) and every
+    per-matrix workload (trisolve) on ``device``; returns the results
+    (``BenchResult`` for SpMV, ``WorkloadResult`` otherwise) and appends
+    each to ``<out_dir>/<fmt>_<workload>.csv`` (``<workload>.csv``)."""
     cfg = config or BenchConfig.from_env()
     check_sweep_args(formats, workloads, cfg.solver_precond)
     if cfg.dtype != "float32":
@@ -187,10 +213,46 @@ def run_sweep(matrices: Sequence[str],
     label_written = set()
     donelog = SweepDoneLog(out_dir)
 
+    def record(r, csv_name, label, key, params, feats):
+        """Append r's row to csv_name and mark its key done."""
+        workload = key[-1]
+        results.append(r)
+        csv_path = os.path.join(out_dir, csv_name)
+        with open(csv_path, "a") as f:
+            if csv_path not in label_written and f.tell() == 0:
+                f.write(_labels_for(workload) + "\n")
+            label_written.add(csv_path)
+            f.write(_row_for(r, workload, params, feats) + "\n")
+        donelog.mark("DONE", *key)
+        print(f"# {label} {workload}: {_summary(r)}", flush=True)
+
+    def gated(fn, key):
+        """fn's result, or None (logged as FAIL) where it is gated."""
+        try:
+            r = fn()
+            _gate_result(r, key[-1])
+            return r
+        except BenchGateError as e:
+            donelog.mark("FAIL", *key)
+            print(f"# GATE-FAIL {'/'.join(map(str, key))}: {e}", flush=True)
+            return None
+
+    fmt_workloads = [w for w in workloads if w not in MATRIX_WORKLOADS]
     for spec in matrices:
         host, name, params = load_matrix(spec, cfg)
         feats = extract_features(host)
-        for fmt in formats:
+        for workload in workloads:
+            if (workload not in MATRIX_WORKLOADS
+                    or donelog.skip(name, workload)):
+                continue
+            r = gated(lambda: bench_trisolve(host, config=cfg,
+                                             matrix_name=name,
+                                             device=device),
+                      (name, workload))
+            if r is not None:
+                record(r, f"{workload}.csv", name, (name, workload), params,
+                       feats)
+        for fmt in formats if fmt_workloads else ():
             t0 = time.time()
             try:
                 A = FORMAT_BUILDERS[fmt](host)
@@ -201,34 +263,25 @@ def run_sweep(matrices: Sequence[str],
             t_convert = time.time() - t0
             print(f"# convert {name} -> {fmt}: {t_convert:.2f}s", flush=True)
             A = A.to(device)
-            impl = default_impl(A.format_name, device)
-            for workload in workloads:
-                kernel = "spmv" if workload in SOLVERS else workload
-                if impl not in available_impls(kernel, A.format_name):
-                    print(f"# {A.format_name}/{impl} has no {workload}: "
-                          "skipped", flush=True)
+            for workload in fmt_workloads:
+                have = sweep_impls(workload, A.format_name, device)
+                if not have:
+                    print(f"# {A.format_name}/"
+                          f"{default_impl(A.format_name, device)} has no "
+                          f"{workload}: skipped", flush=True)
                     continue
-                if donelog.skip(name, fmt, impl, workload):
-                    continue
-                try:
-                    r = _run_one(host, A, workload, impl, cfg, name,
-                                 t_convert)
-                    _gate_result(r, workload)
-                except BenchGateError as e:
-                    donelog.mark("FAIL", name, fmt, impl, workload)
-                    print(f"# GATE-FAIL {name}/{fmt}/{impl}/{workload}: {e}",
-                          flush=True)
-                    continue
-                results.append(r)
-                csv_path = os.path.join(out_dir, f"{fmt}_{workload}.csv")
-                with open(csv_path, "a") as f:
-                    if csv_path not in label_written and f.tell() == 0:
-                        f.write(_labels_for(workload) + "\n")
-                    label_written.add(csv_path)
-                    f.write(_row_for(r, workload, params, feats) + "\n")
-                donelog.mark("DONE", name, fmt, impl, workload)
-                print(f"# {name} {fmt}/{impl} {workload}: {_summary(r)}",
-                      flush=True)
+                for i in [i for i in have if impls and i not in impls]:
+                    print(f"# {A.format_name}/{i} {workload}: not in impls "
+                          f"{list(impls)}: skipped", flush=True)
+                for impl in [i for i in (impls or have) if i in have]:
+                    if donelog.skip(name, fmt, impl, workload):
+                        continue
+                    key = (name, fmt, impl, workload)
+                    r = gated(lambda: _run_one(host, A, workload, impl, cfg,
+                                               name, t_convert), key)
+                    if r is not None:
+                        record(r, f"{fmt}_{workload}.csv",
+                               f"{name} {fmt}/{impl}", key, params, feats)
             del A   # release the format's device buffers before the next
     return results
 

@@ -1,8 +1,8 @@
-"""Benchmark runners for the workloads beside SpMV: SpMM, SDDMM, CG and
-BiCGStab.
+"""Benchmark runners for the workloads beside SpMV: SpMM, SDDMM, CG,
+BiCGStab and the ILU(0) trisolve.
 
-Counterpart of ``spmv_research_tpu/harness/workloads.py`` (its SpMM, SDDMM
-and CG/BiCGStab runners; SpGEMM and trisolve follow their slice).
+Counterpart of ``spmv_research_tpu/harness/workloads.py`` (its SpMM, SDDMM,
+CG/BiCGStab and trisolve runners; SpGEMM follows its slice).
 Protocol parity with the reference:
 
 * SpMM — ``bench_spmm.cpp``: Y = A·X, X (n × K) uniform in [0, 1) from
@@ -18,6 +18,12 @@ Protocol parity with the reference:
   schema; its per-iteration time and GFLOPS divide the solve by the
   iterations the host loop ran (``extra["loop_iterations"]``, which may
   pass the counted ones by up to ``solvers.cg.POLL_EVERY`` − 1).
+* Trisolve — ILU(0) of the matrix (diagonal zeros fixed first), the
+  schedules ``build_schedule`` picks for L and U, b uniform in [0, 1)
+  from ``PCG64(5)``; x = U⁻¹ L⁻¹ b gated at ‖L·U·x − b‖ / ‖b‖ ≤ 1e-2;
+  GFLOPS = 2·(nnz L + nnz U) / t_median; impl ``torch-<kind>`` (the JAX
+  package's ``xla-<kind>``), kind ``band``, ``dense`` (level) or
+  ``chunk``, or ``<L's>+<U's>`` where they differ.
 
 The gold is the float64 product on the host (scipy's ``A @ X``; the per-nnz
 dots of A's and B's rows), held against the result through the 8 error
@@ -242,3 +248,57 @@ def bench_cg(host: HostCSR, A, *, config: Optional[BenchConfig] = None,
                "compile_time": t_compile, "loop_iterations": loops,
                "time_divisor": "loop_iterations"},
         out=xh)
+
+
+def schedule_kind(sched) -> str:
+    """The JAX label of a schedule: ``band``, ``chunk`` or ``dense``."""
+    from ..solvers.ilu import BandBlockSchedule, ChunkSchedule
+    if isinstance(sched, BandBlockSchedule):
+        return "band"
+    return "chunk" if isinstance(sched, ChunkSchedule) else "dense"
+
+
+def bench_trisolve(host: HostCSR, *, config: Optional[BenchConfig] = None,
+                   matrix_name: str = "matrix",
+                   device="cuda") -> WorkloadResult:
+    """ILU(0) factorization on the host + the level-scheduled L and U
+    solves on ``device`` (the card unless the caller asks for the CPU);
+    gflops counts the 2·nnz(L) + 2·nnz(U) solve flops. A residual past
+    1e-2 (or not finite) raises :class:`BenchGateError`."""
+    from ..convert import fix_diagonal_zeros
+    from ..solvers.ilu import build_schedule, ilu0, ilu0_solve
+    cfg = config or BenchConfig()
+    dt = getattr(torch, cfg.dtype)
+    host = fix_diagonal_zeros(host)
+    t0 = time.perf_counter()
+    L, U = ilu0(host)
+    t_fact = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Ls = build_schedule(L, lower=True, dtype=dt, device=device)
+    Us = build_schedule(U, lower=False, dtype=dt, device=device)
+    t_sched = time.perf_counter() - t0
+    rng = np.random.Generator(np.random.PCG64(5))
+    bd = torch.as_tensor(rng.uniform(0, 1, host.m), dtype=dt, device=device)
+
+    def fn(v):
+        return ilu0_solve(Ls, Us, v)
+
+    x = fn(bd).double().cpu().numpy()
+    b = bd.double().cpu().numpy()
+    lux = L.to_scipy() @ (U.to_scipy() @ x)
+    res = float(np.linalg.norm(lux - b) / max(np.linalg.norm(b), 1e-300))
+    if not np.isfinite(res) or res > 1e-2:
+        raise BenchGateError(
+            f"trisolve on {matrix_name}: residual {res:.3g} (a NaN or "
+            "garbage schedule must fail loudly, not ship rows)")
+    t_med, loops = _timed(fn, bd, cfg)
+    kinds = (schedule_kind(Ls), schedule_kind(Us))
+    kind = kinds[0] if kinds[0] == kinds[1] else "+".join(kinds)
+    return WorkloadResult(
+        workload="trisolve", matrix_name=matrix_name, format_name="ILU0-LVL",
+        impl=f"torch-{kind}", k=0, time_iter_median=t_med,
+        gflops=2.0 * (L.nnz + U.nnz) / t_med * 1e-9, num_loops=loops,
+        mape=res, max_ae=res,
+        extra={"t_factorize": t_fact, "t_schedule": t_sched,
+               "n_levels_L": Ls.n_levels, "n_levels_U": Us.n_levels},
+        out=x)

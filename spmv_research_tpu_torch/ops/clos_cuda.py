@@ -15,7 +15,8 @@ wrapper                    replaces
                            kernel reads x from device memory at any n —
                            persistent blocks (``front_grid``)
 ``closg_front_lut``        ``clos_gather.py:_gmul_r1_kernel`` in value-LUT
-                           mode (the value from a 128-entry dictionary)
+                           mode (the value from a 128-entry dictionary) —
+                           B1's persistent tile body (``front_grid``)
 ``closg_front_win``        ``clos_gather.py:_gmul_r1_win_kernel`` (fused
                            windows: x row = base of the 8-row group + a
                            per-slot rotation) — B1's persistent tile body
@@ -91,6 +92,9 @@ LAUNCHES = {"closg_front": 0, "closg_front_lut": 0, "closg_front_win": 0,
             "closg_cand_yext": 0, "closgx_r3_scan_yext": 0,
             "clos_r3_fill": 0, "clos_r3_scan": 0, "clos_r3_valid": 0}
 VLUT_SHIFT = SPARE_SHIFT + 7    # r1 bits [24,31): value index / rotation
+# the instances of the front ends' tile body (csrc/closg.cu front_kernel's
+# mode): B1, B7, B4
+FRONT_PLAIN, FRONT_WIN, FRONT_LUT = 0, 1, 2
 # the phased scan's phases (csrc/closg.cu scan_contig_kernel and
 # scan_strided_kernel): tilings, the kernels' tile (kScanTileLog: 2^13
 # slots), the halo budget in window slots (one r3 block), and the kernels'
@@ -119,7 +123,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.clos_r2.argtypes = [p, p, p, i64, i32, p]
     lib.closg_blocks_per_sm.argtypes = [ctypes.POINTER(i32), i32]
     lib.closg_front.argtypes = [p, p, p, p, i64, p, i64, i32, p]
-    lib.closg_front_lut.argtypes = [p, p, p, p, i64, p, i64, p]
+    lib.closg_front_lut.argtypes = [p, p, p, p, i64, p, i64, i32, p]
     lib.closg_front_win.argtypes = [p, p, i64, p, p, p, i64, p, i64, i32, p]
     lib.closg_yext.argtypes = [p, p, p, p, p, p, i32, p]
     ptrs, i64s = ctypes.POINTER(p), ctypes.POINTER(i64)
@@ -183,30 +187,33 @@ def r2_geometry(V: int | None) -> tuple:
             4 * (2 * nb * V + nb * rs) + 8)
 
 
-# the front ends' persistent grids: (SMs, blocks an SM) per (device, B7)
+# the front ends' persistent grids: (SMs, blocks an SM) per (device, mode)
 _OCCUPANCY: dict = {}
 
 
-def front_occupancy(device: torch.device, win: bool = False) -> tuple:
-    """(SMs, blocks an SM) of ``front_kernel`` on ``device``: B1's, or
-    with ``win`` B7's (asked once per device and kernel)."""
-    key = (device.index, win)
+def front_occupancy(device: torch.device, mode: int = FRONT_PLAIN) -> tuple:
+    """(SMs, blocks an SM) of ``front_kernel`` on ``device`` in ``mode``:
+    B1's (``FRONT_PLAIN``), B7's (``FRONT_WIN``) or B4's (``FRONT_LUT``),
+    asked once per device and instance."""
+    key = (device.index, mode)
     if key not in _OCCUPANCY:
         n = ctypes.c_int()
         with torch.cuda.device(device):
-            _launch("closg_blocks_per_sm", ctypes.byref(n), int(win))
+            _launch("closg_blocks_per_sm", ctypes.byref(n), mode)
         _OCCUPANCY[key] = (
             torch.cuda.get_device_properties(device).multi_processor_count,
             n.value)
     return _OCCUPANCY[key]
 
 
-def front_grid(n_tiles: int, device: torch.device, win: bool = False) -> int:
-    """The persistent grid B1 (``closg_front``), or with ``win`` B7
-    (``closg_front_win``), is launched with over ``n_tiles`` 1024-slot
-    tiles of ``device``: the card's SMs times the blocks of its
-    ``front_kernel`` an SM holds, at most one block a tile."""
-    return persistent_grid(n_tiles, *front_occupancy(device, win))
+def front_grid(n_tiles: int, device: torch.device,
+               mode: int = FRONT_PLAIN) -> int:
+    """The persistent grid a front end — B1 (``closg_front``), B7
+    (``closg_front_win``) or B4 (``closg_front_lut``), by ``mode`` — is
+    launched with over ``n_tiles`` 1024-slot tiles of ``device``: the
+    card's SMs times the blocks of that ``front_kernel`` an SM holds, at
+    most one block a tile."""
+    return persistent_grid(n_tiles, *front_occupancy(device, mode))
 
 
 def cand_yext_plan(ms: Sequence[int]) -> list:
@@ -587,15 +594,17 @@ def closg_front(rowidx: torch.Tensor, perm_r1: torch.Tensor,
 def closg_front_lut(rowidx: torch.Tensor, perm_r1: torch.Tensor,
                     vals_cs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """B1's function with the value read from the (8, 128) dictionary
-    plane's row 0 at r1 bits [24,31) (kernel B4)."""
+    plane's row 0 at r1 bits [24,31) (kernel B4, B1's persistent tile
+    body: ``front_grid`` in ``FRONT_LUT`` mode): (8V, 128)."""
     if not _on_cuda(rowidx, perm_r1, vals_cs, x):
         return closg_front_lut_torch(rowidx, perm_r1, vals_cs, x)
     n = _check_front(rowidx, perm_r1, vals_cs, x, lut=True)
+    check_aligned(perm_r1=perm_r1)
     out = torch.empty_like(perm_r1, dtype=torch.float32)
     with torch.cuda.device(x.device):
         _launch("closg_front_lut", rowidx.data_ptr(), perm_r1.data_ptr(),
                 vals_cs.data_ptr(), x.data_ptr(), x.shape[0], out.data_ptr(),
-                n, _stream(x))
+                n, front_grid(n // 1024, x.device, FRONT_LUT), _stream(x))
     LAUNCHES["closg_front_lut"] += 1
     return out
 
@@ -622,7 +631,7 @@ def closg_front_win(gbase: torch.Tensor, nbids: torch.Tensor,
                 None if dense_blocks else nbids.data_ptr(), nbids.shape[0],
                 perm_r1.data_ptr(), vals_cs.data_ptr(), x.data_ptr(),
                 x.shape[0], out.data_ptr(), S * LANES,
-                front_grid(S // SUB, x.device, win=True), _stream(x))
+                front_grid(S // SUB, x.device, FRONT_WIN), _stream(x))
     LAUNCHES["closg_front_win"] += 1
     return out
 

@@ -2,10 +2,13 @@
 
 Counterpart of ``spmv_research_tpu/ops/dispatch.py``: every (format,
 workload) pair maps to a named set of implementations chosen at call time,
-for the workloads SpMV, SpMM and SDDMM. The port has two impl names:
+for the workloads SpMV, SpMM and SDDMM. The port has three impl names:
 
 * ``"cuda"`` — the hand-written kernels (``ops/*_cuda.py``);
-* ``"torch"`` — the plain PyTorch versions.
+* ``"torch"`` — the plain PyTorch versions;
+* ``"sparse"`` — CSR's SpMV through ``torch.sparse_csr_tensor`` (cuSPARSE
+  on the card), the library baseline of the JAX package's ``"bcoo"``; it
+  is never a default.
 
 With no ``impl=`` given, ``default_impl`` decides from the input tensor's
 device: a CPU tensor takes ``"torch"``; a CUDA tensor takes ``"cuda"``,

@@ -5,7 +5,8 @@ SDDMM are ported so far. The JAX package computes them in XLA, outside
 Pallas, so plain PyTorch is their faithful port, and they stay the speedup
 baselines of their workloads (the role of the reference's "Naive_CSR_CPU"
 kernel, ``spmv_kernels/csr.cpp:334-350``, and of its SDDMM dot loops,
-``sddmm_kernels/csr.cpp:109-135``).
+``sddmm_kernels/csr.cpp:109-135``). ``CSR/sparse`` is the JAX package's
+``CSR/bcoo``: the vendor library's SpMV through the same registry.
 """
 
 from __future__ import annotations
@@ -25,6 +26,17 @@ def spmv_csr(A: F.CSR, x: torch.Tensor) -> torch.Tensor:
     prod = A.data * x.index_select(0, A.indices)
     y = torch.zeros(A.m + 1, dtype=prod.dtype, device=prod.device)
     return y.index_add_(0, A.rows, prod)[: A.m]
+
+
+@register_spmv("CSR", "sparse")
+def spmv_csr_sparse(A: F.CSR, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x through ``torch.sparse_csr_tensor`` — the "vendor library
+    baseline" role of the reference's MKL/cuSPARSE adapters
+    (``mkl_csr.cpp``, ``cusparse_csr.cu``) and of the JAX package's
+    ``CSR/bcoo``: cuSPARSE's SpMV on the card, PyTorch's own CSR kernel on
+    the CPU, on the format's ``sparse_csr`` view of its arrays (built
+    once)."""
+    return torch.mv(A.sparse_csr, x)
 
 
 @register_spmm("CSR", "torch")

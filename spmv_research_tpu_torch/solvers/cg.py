@@ -30,9 +30,11 @@ read the device); the masked loop works for any format as it is.
 
 Reductions use ``torch.dot`` for ``jnp.vdot``: their order differs from
 XLA's, so parity with the JAX solvers holds at a tolerance, not bit for
-bit. The IC(0) and ILU(0) preconditioners need ``solvers/ilu.py``, which
-is not ported yet: ``make_precond`` and ``make_precond_state`` raise
-``NotImplementedError`` for them.
+bit. The IC(0) and ILU(0) preconditioners (``solvers/ilu.py``) factor on
+the host and apply two triangular solves through their schedules, as the
+JAX package's do: ``make_precond`` and the ``solve_*`` helpers on dense
+level schedules, ``make_precond_state`` (the benchmarks') on
+``build_schedule``'s choice (band blocks, level or chunked).
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ import torch
 from ..ops import spmv as spmv_dispatch
 
 POLL_EVERY = 4          # iterations between the host's reads of `active`
+PRECONDS = ("jacobi", "ic0", "ilu0")
 
 
 @dataclasses.dataclass
@@ -226,27 +229,76 @@ def solve_bicgstab(host_csr, A, b, dtype=torch.float32, **kw):
 
 def check_precond(precond: str) -> None:
     """Raise unless ``precond`` is a preconditioner the port has."""
-    if precond in ("ic0", "ilu0"):
-        raise NotImplementedError(
-            f"preconditioner {precond!r} needs solvers/ilu.py (IC(0)/ILU(0) "
-            "and the level-scheduled trisolve), which is not ported yet "
-            "(ROADMAP queue A item 2)")
-    if precond != "jacobi":
-        raise ValueError(f"unknown preconditioner {precond!r}")
+    if precond not in PRECONDS:
+        raise ValueError(f"unknown preconditioner {precond!r} (have "
+                         f"{', '.join(PRECONDS)})")
+
+
+def _factor_schedules(host_csr, precond, build, dtype, device):
+    """The schedules (``build``: ``build_level_schedule`` or
+    ``build_schedule``) of IC(0)'s L and Lᵀ or ILU(0)'s L and U."""
+    from ..core.host import HostCSR
+    from .ilu import ic0, ilu0
+    if precond == "ic0":
+        L = ic0(host_csr)
+        U = HostCSR.from_scipy(L.to_scipy().T.tocsr())
+    else:
+        L, U = ilu0(host_csr)
+    return (build(L, lower=True, dtype=dtype, device=device),
+            build(U, lower=False, dtype=dtype, device=device))
+
+
+def _trisolves(st, r):
+    """M⁻¹ r = U⁻¹ L⁻¹ r through the factors' schedules ``st``."""
+    from .ilu import ilu0_solve
+    return ilu0_solve(st[0], st[1], r)
 
 
 def make_precond_state(host_csr, precond: str, dtype=torch.float32,
                        device="cuda"):
     """``(apply_fn, state)`` with ``apply_fn(state, r) = M⁻¹ r``: the
     preconditioner's arrays in ``state`` on ``device`` (the card unless the
-    caller asks for the CPU), built once outside any timed region."""
+    caller asks for the CPU), built once outside any timed region. IC(0)
+    and ILU(0) hold the schedules ``build_schedule`` picks for their two
+    factors."""
     check_precond(precond)
-    return (lambda st, r: st * r), _jacobi_inv_diag(host_csr, dtype, device)
+    if precond == "jacobi":
+        return (lambda st, r: st * r), _jacobi_inv_diag(host_csr, dtype,
+                                                         device)
+    from .ilu import build_schedule
+    return _trisolves, _factor_schedules(host_csr, precond, build_schedule,
+                                         dtype, device)
 
 
 def make_precond(host_csr, precond: str, dtype=torch.float32,
                  device="cuda"):
     """The preconditioner's apply function ``r ↦ M⁻¹ r``, built once on
-    ``device`` (the card unless the caller asks for the CPU)."""
-    apply_fn, state = make_precond_state(host_csr, precond, dtype, device)
-    return lambda r: apply_fn(state, r)
+    ``device`` (the card unless the caller asks for the CPU); IC(0) and
+    ILU(0) on dense level schedules, as the JAX package's."""
+    check_precond(precond)
+    if precond == "jacobi":
+        inv_diag = _jacobi_inv_diag(host_csr, dtype, device)
+        return lambda r: inv_diag * r
+    from .ilu import build_level_schedule
+    st = _factor_schedules(host_csr, precond, build_level_schedule, dtype,
+                           device)
+    return lambda r: _trisolves(st, r)
+
+
+def solve_cg_ic0(host_csr, A, b, dtype=torch.float32, **kw):
+    """IC(0)-preconditioned CG (SPD systems) on ``A.device``: M = L·Lᵀ on
+    A's lower pattern, applied as two level-scheduled trisolves per
+    iteration. To keep the one-time factorization out of a timed region,
+    build it once with ``make_precond`` and pass it to ``cg`` as
+    ``precond_fn``."""
+    return cg(A, torch.as_tensor(b, dtype=dtype, device=A.device),
+              precond_fn=make_precond(host_csr, "ic0", dtype, A.device),
+              **kw)
+
+
+def solve_bicgstab_ilu0(host_csr, A, b, dtype=torch.float32, **kw):
+    """ILU(0)-preconditioned BiCGStab (general square systems) on
+    ``A.device``."""
+    return bicgstab(A, torch.as_tensor(b, dtype=dtype, device=A.device),
+                    precond_fn=make_precond(host_csr, "ilu0", dtype,
+                                            A.device), **kw)

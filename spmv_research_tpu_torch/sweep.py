@@ -2,8 +2,8 @@
 
     python -m spmv_research_tpu_torch.sweep --matrix "<11-arg line>" \
         [--matrices FILE] --formats csr sellr sellw closg clos bfly dense \
-        btile csrds sellwds [--workloads spmv spmm sddmm cg bicgstab] \
-        --out DIR [--device cuda]
+        btile csrds sellwds [--workloads spmv spmm sddmm cg bicgstab \
+        trisolve] [--impls cuda torch sparse] --out DIR [--device cuda]
     python -m spmv_research_tpu_torch.sweep --matrix "<11-arg line>" \
         --job "formats=csr,sellw,sellwds;workloads=cg;transform=spd" \
         [--job ...]
@@ -14,17 +14,21 @@ the reference's env vars (``BenchConfig.from_env``: ``USE_RCM_REORDERING``
 = 0, 1 or auto, ``FIX_DIAGONAL_ZEROS``, ``MIN_NUM_LOOPS``, ``MIN_TIME_S``,
 ``K_DIM``, the SpMM/SDDMM K, default 128, and ``CG_MAX_NUM_ITERS``, the
 solvers' iteration cap, default 50). Each (format, workload) pair writes
-``<fmt>_<workload>.csv``; a pair the format has no impl for is skipped.
+``<fmt>_<workload>.csv`` (the trisolve, once per matrix, ``trisolve.csv``);
+a pair the format has no impl for is skipped. ``--impls`` narrows the impls
+the device runs (the card: ``cuda`` for an engine and every impl of a
+library format, CSR's SpMV ``torch`` and ``sparse``; the CPU: every impl
+but ``cuda``) to the named ones, as in ``tools/sweep.py``.
 
 ``--job`` (repeatable) is a semicolon-separated spec of one sweep, as in
 ``tools/sweep.py``: ``mats=FILE`` (default: the ``--matrix`` and
-``--matrices`` specs), ``formats=a,b``, ``workloads=x,y``, ``kdim=K``,
-``transform=spd|dd`` (the solver-dataset analogs), ``precond=jacobi``,
-``maxiters=N`` and ``out=DIR`` (default ``--out``). The JAX CLI's
-``impls`` key is left out: the port's impl follows the device. The jobs run
-in order in one process; unlike the JAX CLI, a job that fails stops the
-command. Formats, workloads and preconditioners the port does not have
-raise before any work starts.
+``--matrices`` specs), ``formats=a,b``, ``workloads=x,y``, ``impls=i,j``
+(default ``--impls``), ``kdim=K``, ``transform=spd|dd`` (the
+solver-dataset analogs), ``precond=jacobi|ic0|ilu0``, ``maxiters=N`` and
+``out=DIR`` (default ``--out``). The jobs run in order in one process;
+unlike the JAX CLI, a job that fails stops the command. Formats, workloads
+and preconditioners the port does not have raise before any work
+starts.
 """
 
 from __future__ import annotations
@@ -36,8 +40,8 @@ import torch
 from .harness import BenchConfig
 from .harness.sweep import check_sweep_args, run_sweep
 
-JOB_KEYS = ("mats", "formats", "workloads", "kdim", "transform", "precond",
-            "maxiters", "out")
+JOB_KEYS = ("mats", "formats", "workloads", "impls", "kdim", "transform",
+            "precond", "maxiters", "out")
 
 
 def _read_specs(path):
@@ -69,6 +73,8 @@ def parse_job(spec: str, args) -> dict:
                formats=kv.get("formats", ",".join(args.formats)).split(","),
                workloads=kv.get("workloads",
                                 ",".join(args.workloads)).split(","),
+               impls=(kv["impls"].split(",") if kv.get("impls")
+                      else args.impls),
                out_dir=kv.get("out", args.out), config=cfg)
     check_sweep_args(job["formats"], job["workloads"], cfg.solver_precond)
     return job
@@ -88,6 +94,8 @@ def main(argv=None) -> None:
                     help="inline matrix spec (repeatable)")
     ap.add_argument("--formats", nargs="+", default=["csr", "bfly"])
     ap.add_argument("--workloads", nargs="+", default=["spmv"])
+    ap.add_argument("--impls", nargs="+", default=None,
+                    help="run only these of the impls the device runs")
     ap.add_argument("--out", default="out_logs")
     ap.add_argument("--job", action="append", default=[],
                     help="semicolon-separated job spec (see the module "
@@ -101,8 +109,8 @@ def main(argv=None) -> None:
         else:
             check_sweep_args(args.formats, args.workloads)
             jobs = [dict(matrices=_specs(args), formats=args.formats,
-                         workloads=args.workloads, out_dir=args.out,
-                         config=BenchConfig.from_env())]
+                         workloads=args.workloads, impls=args.impls,
+                         out_dir=args.out, config=BenchConfig.from_env())]
     except (NotImplementedError, ValueError, OSError) as e:
         ap.error(str(e))
     if not all(job["matrices"] for job in jobs):

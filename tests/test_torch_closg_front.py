@@ -10,12 +10,15 @@ JAX package.
   the non-empty x blocks (``_gmul_r1_win_kernel``); once with every block
   non-empty and once with empty blocks compacted away.
 
-On the card B7 runs B1's persistent tile body: a numpy emulation of its
-walk (block b takes tiles b, b + grid, ...; the x rows of a tile fetched
-ahead, gbase three tiles and nbids two; the tile's 8 windows staged with
-columns past n and rows past the compacted plane zero) equals the plain
-version, with and without compaction, at n % 128 != 0, on grids of 1, 7
-and the card's blocks.
+On the card B7 and B4 run B1's persistent tile body: a numpy emulation of
+B7's walk (block b takes tiles b, b + grid, ...; the x rows of a tile
+fetched ahead, gbase three tiles and nbids two; the tile's 8 windows staged
+with columns past n and rows past the compacted plane zero) equals the
+plain version, with and without compaction, at n % 128 != 0, on grids of 1,
+7 and the card's blocks; and one of B4's (rowidx one tile ahead, the
+dictionary staged once a block, each slot's value the dictionary entry at
+word bits [24, 31), bit 31 set at random and ignored, windows at x's last,
+partial row) equals its plain version on the same grids.
 
 Both packages build the program from the same matrix and must give
 identical arrays. The Pallas kernels run in interpret mode; the port runs
@@ -46,7 +49,7 @@ from spmv_research_tpu_torch.ops.clos_gather import (
     DATA_FIELDS, META_FIELDS, from_jax_program)
 from spmv_research_tpu_torch.ops.clos_route import ClosRoutingError
 
-from torch_cases import random_matrix, random_win_inputs
+from torch_cases import random_lut_inputs, random_matrix, random_win_inputs
 
 
 def _compacted_matrix():
@@ -159,7 +162,7 @@ def test_lut_and_fused_windows_are_exclusive():
 # ------------------------------------------------ B7's persistent tile walk
 
 def _emulate_front_win(gbase, nbids, perm_r1, vals, x, dense, grid):
-    """``csrc/closg.cu`` ``front_kernel<true>`` in numpy: block b walks
+    """``csrc/closg.cu`` ``front_kernel<kFrontWin>`` in numpy: block b walks
     tiles b, b + grid, ... with the kernel's pipeline — a tile's gbase
     fetched three tiles ahead, its windows' x blocks (nbids, or the
     compacted row itself when ``dense``) two, its words, values and x
@@ -245,3 +248,77 @@ def test_front_win_walk_on_built_programs(name):
                              x, A.dense_blocks, 7)
     assert np.array_equal(got, np.asarray(_gmul_win(Aj, jnp.asarray(x))
                                           ).reshape(-1))
+
+
+# ------------------------------------------------ B4's persistent tile walk
+
+def _emulate_front_lut(rowidx, perm_r1, dict_plane, x, grid):
+    """``csrc/closg.cu`` ``front_kernel<kFrontLut>`` in numpy: block b
+    stages the dictionary (row 0 of the (8, 128) plane) once, then walks
+    tiles b, b + grid, ... with the kernel's pipeline — a tile's 8 rowidx
+    entries fetched two steps ahead, its words and x windows one — and per
+    tile stages the 8 windows (columns past n 0), multiplies each slot's x
+    at lane λ of its own row's window by the dictionary entry at word bits
+    [24, 31), and applies the r1 layer's picks. No value plane is read."""
+    n_tiles, n_x = rowidx.size // 8, x.size
+    w = perm_r1.reshape(-1).view(np.uint32)
+    out = np.full(n_tiles * 1024, np.nan, np.float32)
+    taken = np.zeros(n_tiles, np.int64)
+    cols, i = np.arange(128), np.arange(1024)
+
+    def block_of(tile):
+        if tile >= n_tiles:
+            return np.full(8, -1)
+        return rowidx[tile * 8:(tile + 1) * 8].astype(np.int64)
+
+    def load(tile, blk):
+        col = blk[:, None] * 128 + cols
+        xs = np.where((blk[:, None] >= 0) & (col < n_x),
+                      x[np.clip(col, 0, n_x - 1)], 0.0).astype(np.float32)
+        return w[tile * 1024:(tile + 1) * 1024], xs.reshape(-1)
+
+    for b in range(min(grid, n_tiles)):
+        dict_sh = dict_plane.reshape(-1)[:128].copy()
+        c = b
+        cur = load(c, block_of(c))
+        blk_next = block_of(c + grid)
+        while c < n_tiles:
+            nxt = (load(c + grid, blk_next) if c + grid < n_tiles else None)
+            blk_next = block_of(c + 2 * grid)
+            ws, xs = cur
+            p = xs[(i & ~127) + ((ws >> 17) & 0x7F)] * dict_sh[
+                (ws >> 24) & 0x7F]
+            taken[c] += 1
+            out[c * 1024 + i] = _pick(ws, p)
+            cur, c = nxt, c + grid
+    assert (taken == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("grid", [1, 7, 528])
+@pytest.mark.parametrize("n_tiles, n_x", [(40, 5037), (600, 20000),
+                                          (9, 3 * 128 + 5)])
+def test_front_lut_persistent_walk_matches_plain(n_tiles, n_x, grid):
+    rng = np.random.Generator(np.random.PCG64(n_tiles + n_x + grid))
+    rowidx, perm_r1, dict_plane, x = random_lut_inputs(rng, n_tiles, n_x)
+    assert (perm_r1.view(np.uint32) >> 31).any()
+    got = _emulate_front_lut(rowidx, perm_r1, dict_plane, x, grid)
+    want = K.closg_front_lut_torch(
+        torch.from_numpy(rowidx), torch.from_numpy(perm_r1),
+        torch.from_numpy(dict_plane), torch.from_numpy(x))
+    assert np.array_equal(got, want.numpy().reshape(-1))
+    # the dictionary's rows past 0 are never read
+    dict_plane[1:] = np.nan
+    assert np.array_equal(
+        _emulate_front_lut(rowidx, perm_r1, dict_plane, x, grid), got)
+
+
+def test_front_lut_walk_on_built_program():
+    """The emulated walk on the built LUT program (7 blocks) equals the
+    plain version and the JAX package's Pallas front end."""
+    _, _, Aj, A, x = _case("lut")
+    got = _emulate_front_lut(A.rowidx.numpy(), A.perm_r1.numpy(),
+                             A.vals_cs.numpy(), x, 7)
+    want = _call(partial(_gmul_r1_kernel, True),
+                 _windows(Aj, jnp.asarray(x)), Aj.perm_r1, Aj.vals_cs)
+    assert np.array_equal(got, np.asarray(want).reshape(-1))

@@ -45,8 +45,8 @@ from torch_cases import (TWIN_LINE, banded_matrix, bfly_pathological,
                          btile_banded, btile_special_matrix,
                          capped_scan_matrix, clos_hi_matrix,
                          dirty_sellr_matrix, ds_banded, ds_staged_matrix,
-                         fill_chunks, random_cand_parts, random_matrix,
-                         random_win_inputs, skewed_matrix, skewed_xl_matrix,
+                         fill_chunks, random_cand_parts, random_lut_inputs,
+                         random_matrix, random_win_inputs, skewed_matrix, skewed_xl_matrix,
                          staged_sellw_matrix, W0_CHUNK_N, w0_chunked_matrix,
                          w0_matrix)
 
@@ -478,6 +478,39 @@ def test_opt_in_front_ends_match_plain_versions(cuda, case):
     _close_to_scipy(mat, x, spmv(A, xd))
 
 
+@pytest.mark.parametrize("grid", ["card", "seven"])
+@pytest.mark.parametrize("case", ["ragged", "tail_window", "unaligned"])
+def test_front_lut_on_awkward_x(cuda, case, grid, monkeypatch):
+    """B4 (B1's persistent tile body in LUT mode) equals its plain version
+    bit for bit with n % 128 != 0, windows at x's tail (the last, partial
+    x row), x not 16-byte aligned and word bit 31 set at random; on the
+    card's persistent grid and on 7 blocks; one launch."""
+    if grid == "seven":
+        monkeypatch.setattr(K, "persistent_grid", _seven_tiles_grid)
+    rng = np.random.Generator(np.random.PCG64(29))
+    n_x = {"ragged": 20000 + 37, "tail_window": 3 * 128 + 5,
+           "unaligned": 5000 + 3}[case]
+    n_tiles = 900
+    rowidx, perm_r1, dict_plane, x = random_lut_inputs(rng, n_tiles, n_x)
+    buf = torch.as_tensor(np.concatenate([[0.5], x]).astype(np.float32),
+                          device=cuda)
+    xd = buf[1:] if case == "unaligned" else buf[1:].clone()
+    assert (xd.data_ptr() % 16 != 0) == (case == "unaligned")
+    args = (torch.as_tensor(rowidx, device=cuda),
+            torch.as_tensor(perm_r1, device=cuda),
+            torch.as_tensor(dict_plane, device=cuda), xd)
+    K.reset_launch_counts()
+    got = K.closg_front_lut(*args)
+    want = K.closg_front_lut_torch(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0),
+                          "closg_front_lut": 1}
+    assert K.front_grid(n_tiles, cuda, K.FRONT_LUT) == (
+        7 if grid == "seven" else min(n_tiles, K.front_grid(
+            1 << 30, cuda, K.FRONT_LUT)))
+
+
 @pytest.mark.parametrize("n_chunks", [1, 3, 10, 70])
 def test_b6_one_launch_over_chunks(cuda, n_chunks):
     """B6 over 1, 3, 10 and 70 programs (past the by-value cap of 32:
@@ -574,9 +607,9 @@ def test_front_win_on_awkward_x(cuda, case, grid, monkeypatch):
     assert torch.equal(got, want)
     assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0),
                           "closg_front_win": 1}
-    assert K.front_grid(n_tiles, cuda, win=True) == (
+    assert K.front_grid(n_tiles, cuda, K.FRONT_WIN) == (
         7 if grid == "seven" else min(n_tiles, K.front_grid(
-            1 << 30, cuda, win=True)))
+            1 << 30, cuda, K.FRONT_WIN)))
 
 
 def test_closgx_kernels_match_plain_versions(cuda):
@@ -1164,3 +1197,32 @@ def test_bench_spmv_torch_row_gates_the_torch_pair(cuda, monkeypatch):
     assert r.metrics.passed and r.metrics.max_rel_err < 1e-10
     bench_spmv(host, A, config=cfg, impl="cuda", matrix_name="t")
     assert ran == ["torch", "cuda"] and KS.LAUNCHES["sellwds"] > 0
+
+
+@pytest.mark.parametrize("kind", ["level", "chunk", "band"])
+def test_sptrsv_on_the_card_matches_cpu(cuda, kind):
+    """The triangular solves (plain PyTorch, no hand kernel) on schedules
+    built on the card agree with the same solve on the CPU within 1e-5 of
+    max |x| (index_add_'s atomics add in another order), and CSR/sparse,
+    cuSPARSE through the registry, is within 1e-5 of |A|·|x|."""
+    from spmv_research_tpu_torch.convert import build_csr, make_spd
+    from spmv_research_tpu_torch.solvers import ilu
+    host = make_spd(HostCSR.from_scipy(banded_matrix(1500, 1500, 60, 12, 5)))
+    L = ilu.ic0(host)
+    build = {"level": ilu.build_level_schedule,
+             "chunk": lambda T, lower, device: ilu.build_chunk_schedule(
+                 T, lower=lower, C=16, device=device),
+             "band": lambda T, lower, device: ilu.build_band_block_schedule(
+                 T, lower=lower, B=128, device=device)}[kind]
+    b = np.random.default_rng(3).uniform(-1, 1, host.m)
+    xs = []
+    for dev in (cuda, torch.device("cpu")):
+        s = build(L, lower=True, device=dev)
+        xs.append(ilu.sptrsv(s, torch.as_tensor(b, dtype=torch.float32,
+                                                 device=dev)).cpu())
+    torch.cuda.synchronize()
+    assert (xs[0] - xs[1]).abs().max() <= 1e-5 * xs[1].abs().max()
+    mat = host.to_scipy()
+    x, xd = _x(host.n, cuda)
+    A = build_csr(host).to(cuda)
+    _close_to_scipy(mat, x, spmv(A, xd, impl="sparse"))

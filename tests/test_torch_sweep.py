@@ -56,17 +56,21 @@ def sweep_out(tmp_path_factory):
 
 
 def test_sweep_writes_jax_csv(sweep_out):
+    """Every format's rows on both matrices; CSR's two impls (the plain
+    ``torch`` and the library's ``sparse``) side by side in csr_spmv.csv."""
     out, res = sweep_out
     labels = jax_bench.csv_labels(synthetic=True)
     for fmt in ("csr", "sellr", "sellw", "closg"):
         lines = (out / f"{fmt}_spmv.csv").read_text().splitlines()
         assert lines[0] == labels
-        assert len(lines) == 1 + 2
+        assert len(lines) == 1 + 2 * (2 if fmt == "csr" else 1)
         assert all(len(ln.split(",")) == len(labels.split(","))
                    for ln in lines[1:])
     assert sorted((r.matrix_name, r.format_name, r.impl) for r in res) == \
-        sorted((m, f, "torch") for m in ("shipsec1_twin", "scircuit_twin")
-               for f in ("CSR", "SELLR", "SELLW", "CLOSG"))
+        sorted([(m, f, "torch") for m in ("shipsec1_twin", "scircuit_twin")
+                for f in ("CSR", "SELLR", "SELLW", "CLOSG")]
+               + [(m, "CSR", "sparse") for m in ("shipsec1_twin",
+                                                 "scircuit_twin")])
     for r in res:
         assert r.metrics.max_rel_err < 1e-5 and r.num_loops >= 2
 
@@ -146,7 +150,7 @@ def test_cli_runs_on_the_cpu(monkeypatch, tmp_path, capsys):
     for fmt in ("csr", "closg"):
         lines = (tmp_path / "out" / f"{fmt}_spmv.csv").read_text()
         assert lines.splitlines()[0] == jax_bench.csv_labels(synthetic=True)
-        assert len(lines.splitlines()) == 2
+        assert len(lines.splitlines()) == (3 if fmt == "csr" else 2)
 
 
 def test_cli_needs_a_gpu_by_default(monkeypatch):
@@ -280,16 +284,19 @@ def test_sweep_ds_spmv_rows_carry_fp64_metrics(tmp_path):
 
 
 def test_sweep_refuses_ic0_before_any_work(tmp_path):
+    """The solvers' preconditioners are checked before any work: ic0 and
+    ilu0 pass, an unknown name raises (the sweep and a CLI job)."""
     out = tmp_path / "out"
-    for p in ("ic0", "ilu0"):
-        with pytest.raises(NotImplementedError, match="solvers/ilu.py"):
-            run_sweep([BANDED_LINE], formats=("csr",), workloads=("cg",),
-                      out_dir=str(out), device="cpu",
-                      config=BenchConfig(**dict(TINY, solver_precond=p)))
+    for p in ("jacobi", "ic0", "ilu0"):
+        check_sweep_args(["csr"], ["cg"], p)
+    with pytest.raises(ValueError, match="unknown preconditioner 'ssor'"):
+        run_sweep([BANDED_LINE], formats=("csr",), workloads=("cg",),
+                  out_dir=str(out), device="cpu",
+                  config=BenchConfig(**dict(TINY, solver_precond="ssor")))
     assert not out.exists()
     with pytest.raises(SystemExit):
         cli.main(["--matrix", BANDED_LINE, "--device", "cpu", "--job",
-                  "formats=csr;workloads=cg;precond=ic0"])
+                  "formats=csr;workloads=cg;precond=ssor"])
 
 
 def test_sweep_skips_ds_range_refusal(tmp_path, monkeypatch, capsys):
@@ -321,9 +328,10 @@ def test_cli_jobs_run_in_order(monkeypatch, tmp_path, capsys):
     for d, fmt, w in (("cg", "csr", "cg"), ("cg", "sellwds", "cg"),
                       ("bicg", "csr", "bicgstab")):
         lines = (tmp_path / d / f"{fmt}_{w}.csv").read_text().splitlines()
-        assert len(lines) == 2 and lines[1].startswith("shipsec1_twin_")
+        assert len(lines) == (3 if fmt == "csr" else 2)   # CSR: two impls
+        assert all(ln.startswith("shipsec1_twin_") for ln in lines[1:])
     with pytest.raises(SystemExit):
-        cli.main(["--matrix", BANDED_LINE, "--job", "formats=csr;impls=xla"])
+        cli.main(["--matrix", BANDED_LINE, "--job", "formats=csr;bogus=1"])
 
 
 def test_config_solver_fields_match_jax(monkeypatch):
@@ -333,3 +341,126 @@ def test_config_solver_fields_match_jax(monkeypatch):
     monkeypatch.setenv("CG_MAX_NUM_ITERS", "77")
     assert (BenchConfig.from_env().cg_max_num_iters
             == JaxBenchConfig.from_env().cg_max_num_iters == 77)
+
+
+# -------------------------------------- the impl loop and the trisolve
+
+@pytest.mark.parametrize("workload, fmt, cuda, cpu", [
+    ("spmv", "CSR", ["sparse", "torch"], ["sparse", "torch"]),
+    ("spmm", "CSR", ["torch"], ["torch"]),
+    ("spmv", "CLOSG", ["cuda"], ["torch"]),
+    ("cg", "SELLW", ["cuda"], ["torch"]),
+    ("spmv", "DENSE", ["torch"], ["torch"]),
+    ("spmv", "CSRDS", ["torch"], ["torch"]),
+    ("spmv", "BTILE", [], []),
+])
+def test_sweep_impls_per_device(workload, fmt, cuda, cpu):
+    """The card runs an engine's kernels and every impl of a library
+    format (never an engine's plain version); the CPU every impl but
+    ``cuda``."""
+    from spmv_research_tpu_torch.harness.sweep import sweep_impls
+    assert sweep_impls(workload, fmt, torch.device("cuda")) == cuda
+    assert sweep_impls(workload, fmt, torch.device("cpu")) == cpu
+
+
+@pytest.mark.parametrize("impls", [None, ["torch"], ["sparse"],
+                                   ["torch", "sparse"], ["cuda", "xla"]])
+def test_sweep_impls_filter_as_jax(tmp_path, capsys, impls):
+    """``impls`` keeps the device's impls it names, in its order — the JAX
+    sweep's ``[i for i in (impls or have) if i in have]`` — and prints a
+    ``#`` line for each one it leaves out; the CLI's ``--impls`` the same."""
+    have = ["sparse", "torch"]
+    want = [i for i in (impls or have) if i in have]
+    res = run_sweep([BANDED_LINE], formats=("csr",), impls=impls,
+                    out_dir=str(tmp_path), config=BenchConfig(**TINY),
+                    device="cpu")
+    assert [r.impl for r in res] == want
+    out = capsys.readouterr().out
+    for i in have:
+        assert (f"# CSR/{i} spmv: not in impls" in out) == (i not in want)
+    if want:
+        lines = (tmp_path / "csr_spmv.csv").read_text().splitlines()
+        assert [next(c for c in ln.split(",") if c.startswith("CSR_"))
+                for ln in lines[1:]] == [f"CSR_{i}" for i in want]
+
+
+def test_cli_impls(monkeypatch, tmp_path):
+    """``--impls`` and a job's ``impls=`` narrow the sweep's impls."""
+    monkeypatch.setenv("MIN_NUM_LOOPS", "2")
+    monkeypatch.setenv("MIN_TIME_S", "0")
+    cli.main(["--matrix", BANDED_LINE, "--formats", "csr", "--device", "cpu",
+              "--impls", "torch", "--out", str(tmp_path / "a"), "--job",
+              "formats=csr", "--job",
+              f"formats=csr;impls=sparse;out={tmp_path / 'b'}"])
+    for d, impl in (("a", "torch"), ("b", "sparse")):
+        lines = (tmp_path / d / "csr_spmv.csv").read_text().splitlines()
+        assert len(lines) == 2 and f",CSR_{impl}," in lines[1]
+
+
+def test_csr_sparse_matches_jax_bcoo():
+    """CSR/sparse (torch.sparse_csr_tensor) against the JAX package's
+    CSR/bcoo on the same matrix and x, within 1e-6 of |A|·|x| (fp32 sums
+    in the libraries' own orders); and against CSR/torch."""
+    import jax.numpy as jnp
+    from spmv_research_tpu.convert import build_csr as jax_build_csr
+    from spmv_research_tpu.ops import spmv as jax_spmv
+    from spmv_research_tpu_torch.convert import build_csr
+    from spmv_research_tpu_torch.ops import spmv
+    mat = banded_matrix(700, 500, 60, 9, 3)
+    x = np.random.default_rng(4).uniform(-1, 1, mat.shape[1])
+    A = build_csr(HostCSR.from_scipy(mat))
+    Aj = jax_build_csr(JaxHostCSR.from_scipy(mat), dtype=jnp.float32)
+    xt = torch.as_tensor(x, dtype=torch.float32)
+    y = spmv(A, xt, impl="sparse")
+    yj = np.asarray(jax_spmv(Aj, jnp.asarray(x, jnp.float32), impl="bcoo"))
+    scale = np.abs(mat) @ np.abs(x) + 1e-30
+    assert y.shape == (mat.shape[0],) and y.dtype == torch.float32
+    assert np.max(np.abs(y.double().numpy() - yj) / scale) <= 1e-6
+    assert np.max(np.abs(y.double().numpy() - mat @ x) / scale) <= 1e-6
+    assert np.max(np.abs((y - spmv(A, xt, impl="torch")).double().numpy())
+                  / scale) <= 1e-6
+
+
+def test_sweep_trisolve_once_per_matrix(tmp_path, capsys):
+    """``trisolve`` runs once per matrix, whatever the formats: on the SPD
+    twin one row in trisolve.csv under the JAX labels, the done-log key
+    (matrix, trisolve), a rerun skips it, and the row equals the JAX
+    runner's but for the impl's prefix (torch- for xla-); on the raw twin,
+    whose ILU(0) solve is NaN in both packages, a GATE-FAIL line and a
+    FAIL record."""
+    from spmv_research_tpu.harness.sweep import _labels_for as jax_labels
+    from spmv_research_tpu.harness.workloads import (
+        bench_trisolve as jax_trisolve)
+    cfg = BenchConfig(**dict(TINY, matrix_transform="spd"))
+    res = run_sweep([BANDED_LINE], formats=("csr", "sellw"),
+                    workloads=("spmv", "trisolve"), out_dir=str(tmp_path),
+                    config=cfg, device="cpu")
+    tri = [r for r in res if getattr(r, "workload", "") == "trisolve"]
+    assert len(tri) == 1 and len(res) == 1 + 3    # CSR x 2 + SELLW spmv
+    lines = (tmp_path / "trisolve.csv").read_text().splitlines()
+    assert lines[0] == jax_labels("trisolve", True) and len(lines) == 2
+    assert lines[1].split(",")[:4] == ["shipsec1_twin_spd", "ILU0-LVL",
+                                       tri[0].impl, "0"]
+    assert SweepDoneLog(str(tmp_path)).skip("shipsec1_twin_spd", "trisolve")
+    assert run_sweep([BANDED_LINE], formats=("csr",),
+                     workloads=("trisolve",), out_dir=str(tmp_path),
+                     config=cfg, device="cpu") == []
+    jcfg = JaxBenchConfig(min_num_loops=2, min_time_s=0.0,
+                          use_rcm_reordering="auto", matrix_transform="spd")
+    hj, _, _ = jax_load_matrix(BANDED_LINE, jcfg)
+    rj = jax_trisolve(hj, config=jcfg, matrix_name="shipsec1_twin_spd")
+    r = tri[0]
+    assert r.impl == "torch-" + rj.impl.removeprefix("xla-") == "torch-band"
+    assert r.format_name == rj.format_name == "ILU0-LVL"
+    assert r.mape <= 1e-2 and abs(r.mape - rj.mape) <= 1e-5
+    for f in ("n_levels_L", "n_levels_U"):
+        assert r.extra[f] == rj.extra[f]
+    assert set(r.extra) == set(rj.extra)
+    capsys.readouterr()
+    raw = tmp_path / "raw"
+    assert run_sweep([BANDED_LINE], formats=(), workloads=("trisolve",),
+                     out_dir=str(raw), config=BenchConfig(**TINY),
+                     device="cpu") == []
+    assert ("# GATE-FAIL shipsec1_twin/trisolve: trisolve on shipsec1_twin: "
+            "residual nan" in capsys.readouterr().out)
+    assert SweepDoneLog(str(raw)).skip("shipsec1_twin", "trisolve")

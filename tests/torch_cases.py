@@ -340,3 +340,23 @@ def random_win_inputs(rng, n_tiles, n_x, dense):
     vals = rng.uniform(-1, 1, S * 128).astype(np.float32)
     x = rng.uniform(-1, 1, n_x).astype(np.float32)
     return gbase, nbids, perm_r1, vals, x
+
+
+def random_lut_inputs(rng, n_tiles, n_x):
+    """Random inputs of B4: rowidx anywhere in x's rows (every third one
+    the last, partial row, whose window passes n), random words (bit 31
+    set at random: the dictionary index is bits [24, 31) only), a random
+    (8, 128) dictionary plane whose rows past 0 the kernel must not read,
+    and x."""
+    x_rows = -(-n_x // 128)
+    S = 8 * n_tiles
+    rowidx = rng.integers(0, x_rows, S).astype(np.int32)
+    rowidx[::3] = x_rows - 1
+    perm_r1 = (rng.integers(0, 128, (S, 128))
+               | rng.integers(0, 8, (S, 128)) << 7
+               | rng.integers(0, 128, (S, 128)) << 10
+               | rng.integers(0, 1 << 15, (S, 128)) << 17
+               ).astype(np.uint32).view(np.int32)
+    dict_plane = rng.uniform(-1, 1, (8, 128)).astype(np.float32)
+    x = rng.uniform(-1, 1, n_x).astype(np.float32)
+    return rowidx, perm_r1, dict_plane, x

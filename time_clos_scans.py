@@ -15,8 +15,10 @@ back behind the spin kernel, no flush: the inputs in the L2, as on the main
 path):
 
 * B1 ``closg_front`` on the scircuit twin's CLOSG program (bench.py's line,
-  RCM, N = 2^20) with x from a seed, and B7 ``closg_front_win`` on the
-  same twin's ``fuse_windows=True`` program;
+  RCM, N = 2^20) with x from a seed, B7 ``closg_front_win`` on the
+  same twin's ``fuse_windows=True`` program, and B4 ``closg_front_lut`` on
+  its value-LUT program (``chip_smoke.py`` phase 9's: the values
+  quantised to 64 levels from ``PCG64(13)``);
 * the r2 step of that program (``clos_r2``: the r2 layer with its
   transposes; on a tree without it, ``_t_fwd``, ``clos_invreg`` and
   ``_t_bwd`` timed as one unit) and of the same twin's CLOS perm network,
@@ -70,6 +72,7 @@ def main() -> None:
         sys.exit("time_clos_scans: needs a CUDA device")
     from spmv_research_tpu_torch import bench
     from spmv_research_tpu_torch.convert.reorder import rcm_if_beneficial
+    from spmv_research_tpu_torch.core.host import HostCSR
     from spmv_research_tpu_torch.gen import generate_from_line
     from spmv_research_tpu_torch.ops import (build_clos_gather,
                                              build_clos_gather_auto, spmv)
@@ -97,6 +100,11 @@ def main() -> None:
     host = rcm_if_beneficial(generate_from_line(bench.SCIRCUIT_LINE)[0])[0]
     G, C = build_clos_gather(host).to(dev), build_clos(host).to(dev)
     F = build_clos_gather(host, fuse_windows=True).to(dev)
+    lrng = np.random.Generator(np.random.PCG64(13))
+    levels = lrng.uniform(-1.0, 1.0, 64)
+    Lu = build_clos_gather(HostCSR.from_arrays(
+        host.ia, host.ja, levels[lrng.integers(0, 64, host.nnz)], host.m,
+        host.n), value_lut=True).to(dev)
     gup = rcm_if_beneficial(generate_from_line(GUPTA3_LINE)[0])[0]
     Ag = build_clos_gather_auto(gup).to(dev)
     rng = np.random.Generator(np.random.PCG64(7))
@@ -140,6 +148,8 @@ def main() -> None:
                                              xd),
         "closg_front_win": lambda: K.closg_front_win(
             F.gbase, F.nbids, F.perm_r1, F.vals_cs, xd, F.dense_blocks),
+        "closg_front_lut": lambda: K.closg_front_lut(
+            Lu.rowidx, Lu.perm_r1, Lu.vals_cs, xd),
         "r2_closg": lambda: r2(v, G.perm_r2, G.V),
         "r2_clos": lambda: r2(v, C.perm_r2, C.V),
         "clos_invreg": lambda: K.clos_invreg(v, C.perm_r1),
