@@ -167,7 +167,24 @@ failure (non-zero exit, no result line):
     solve's time), a CG job with ``precond=ic0`` (SELLW), and a BiCGStab
     job with ``precond=ilu0`` on scircuit_dd (CLOSG), each converged
     below 1e-5, and per preconditioner one apply's device kernels
-    (torch.profiler) and time.
+    (torch.profiler) and time;
+18. SpGEMM and the classic formats (``classic_phase``; plain PyTorch, no
+    hand kernel, as the JAX package computes them in XLA), on the
+    scircuit (validation_twins.txt:5) and raefsky3 (:7) twins at full
+    size: (a) the ``spgemm`` workload through the sweep (C = A·A: one
+    row block on scircuit, 8 on raefsky3, asserted, and the plans' pairs
+    equal to Σ over A's entries of the length of the B row each meets;
+    C within 1e-5 of max |gold| over the blocks the row checks; each
+    block's numeric phase profiled: device time and kernels); (b) the
+    SpMV rows of coo, csc, ell, sellcs, bsr, csr and csr_sym (scircuit's
+    BSR and both twins' CSR_SYM printed as refused), each y within 1e-5
+    of |A|·|x|, each format's call timed alone (device ms, host µs a
+    call) beside CSR/sparse's, and the CLI job
+    ``formats=csr_sym,csr;workloads=spmv;transform=spd`` on raefsky3; (c)
+    the K = 128 SpMM rows of ell, bsr, sellcs, coo and csr and the
+    SDDMM rows of coo and csr on raefsky3, held to their float64 golds;
+    (d) DIA and LDU SpMV through ``ops.spmv`` on phase 7's tridiagonal
+    matrix (n = 1.2M), y within 1e-5 of |A|·|x|, timed.
 
 Every sweep with ``csr`` in it gives CSR/torch and CSR/sparse rows side by
 side (cuSPARSE's SpMV through the registry: the JAX package's CSR/bcoo),
@@ -521,21 +538,37 @@ def device_kernels(fn, n: int = 10) -> dict:
     """The device events of one call of fn by name (kernels, copies,
     memsets): n calls after a warm one, under torch.profiler, each name's
     count over n."""
+    return {k: c for k, (c, _) in device_events(fn, n)[0].items()}
+
+
+def device_events(fn, n: int = 5):
+    """A call of fn under torch.profiler, over n calls after a warm one:
+    ({device event name: (count, device µs)}, kernel launch calls the host
+    made). The profiler can drop device events late in a long process
+    (on an H100 machine, a fifth to all of them by phase 18), so the
+    host's launch calls are the count to hold them to; the cache is
+    emptied first, in case the profiler's device buffers compete with
+    PyTorch's cached blocks."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    counts = {}
+    out, launches = {}, 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            counts[e.name] = counts.get(e.name, 0) + 1
-    return {k: v / n for k, v in counts.items()}
+            c, us = out.get(e.name, (0, 0.0))
+            out[e.name] = (c + 1, us + e.time_range.elapsed_us())
+        elif e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel",
+                                "cudaMemsetAsync", "cudaMemcpyAsync")):
+            launches += 1
+    return {k: (c / n, us / n) for k, (c, us) in out.items()}, launches / n
 
 
 def layer_times(timer, K, entries, args, label):
@@ -955,11 +988,7 @@ def main() -> None:
 
     # --- 7. the streamed SELLW program ---
     rng = np.random.Generator(np.random.PCG64(11))
-    import scipy.sparse as sp
-    tri = sp.diags([rng.uniform(-1, 1, STREAM_N - 1),
-                    rng.uniform(-1, 1, STREAM_N),
-                    rng.uniform(-1, 1, STREAM_N - 1)], [-1, 0, 1],
-                   shape=(STREAM_N, STREAM_N), format="csr")
+    tri = stream_tridiagonal(rng)
     t0 = time.perf_counter()
     tri_host = HostCSR.from_scipy(tri)
     As = build_sellw(tri_host)
@@ -1299,6 +1328,10 @@ def main() -> None:
 
     # --- 17. IC(0)/ILU(0) and the trisolve ---
     ilu_phase(timer, dev, cfg)
+    log(f"# phase 17 done at {time.perf_counter() - t_start:.0f}s")
+
+    # --- 18. SpGEMM and the classic formats ---
+    classic_phase(timer, dev, cfg)
     log(f"# all phases done at {time.perf_counter() - t_start:.0f}s")
 
     kernels += [*k_chunks, k_sellw, k_stream, *k_sellr, *k_opt, *k_w0, *k_g,
@@ -2275,6 +2308,270 @@ def ilu_phase(timer, dev, cfg) -> None:
                        lambda v: apply_fn((Ls, Us), v), rv)
         del states, results, Ls, Us, apply_fn
     log(f"# phase 17 done in {time.perf_counter() - t_phase:.0f}s")
+
+
+def classic_phase(timer, dev, cfg) -> None:
+    """Phase 18, SpGEMM and the classic formats (plain PyTorch on the
+    card, no hand kernel: the JAX package computes them in XLA), on the
+    scircuit and raefsky3 twins at full size. The plans and the formats
+    the sweeps build are kept (their builders wrapped) so that each
+    format's call can be timed alone and each SpGEMM block profiled."""
+    import contextlib
+    import dataclasses
+    import io
+    import torch
+    from spmv_research_tpu_torch import sweep as cli
+    from spmv_research_tpu_torch.convert import build_dia, build_ldu
+    from spmv_research_tpu_torch.core.host import HostCSR
+    from spmv_research_tpu_torch.harness import run_sweep
+    from spmv_research_tpu_torch.harness import sweep as sweep_mod
+    from spmv_research_tpu_torch.harness.bench import csv_labels
+    from spmv_research_tpu_torch.harness.workloads import (sddmm_gold,
+                                                           sddmm_inputs,
+                                                           spmm_inputs)
+    from spmv_research_tpu_torch.ops import sddmm, spgemm as sg, spmm, spmv
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           TWINS)) as f:
+        twins = f.read().splitlines()
+    lines = {"scircuit": twins[4], "raefsky3": twins[6]}
+    ccfg = dataclasses.replace(cfg, min_num_loops=32, min_time_s=0.3)
+
+    class Tee(io.StringIO):
+        """stdout kept as it is printed, to assert the refusal lines."""
+
+        def write(self, text):
+            sys.__stdout__.write(text)
+            return super().write(text)
+
+    @contextlib.contextmanager
+    def keeping(obj, name, store, many=False):
+        """``obj.name`` (a function, or with ``many`` each function of the
+        dict ``obj``) wrapped to append (args, result) to ``store``."""
+        def wrap(fn, key=None):
+            def keep(*args, **kw):
+                out = fn(*args, **kw)
+                store.append((key, args, out))
+                return out
+            return keep
+        if many:
+            orig = dict(obj)
+            obj.update({k: wrap(v, k) for k, v in orig.items()})
+        else:
+            orig = getattr(obj, name)
+            setattr(obj, name, wrap(orig))
+        try:
+            yield
+        finally:
+            if many:
+                obj.update(orig)
+            else:
+                setattr(obj, name, orig)
+
+    def one_call(fn):
+        """'<cold> ms cold, <warm> warm, <host> us host': device ms of one
+        call alone (L2 flushed) and back to back, host µs a call
+        enqueued."""
+        return (f"{timer.ms(fn, iters=10):.4f} ms cold, "
+                f"{timer.warm_ms(fn, iters=10):.4f} warm, "
+                f"{host_us(fn, n=50):.1f} us host")
+
+    # (a) SpGEMM through the sweep, the plans kept
+    kept = []
+    with keeping(sg, "spgemm_device_plans", kept), \
+            tempfile.TemporaryDirectory() as out_dir:
+        results = run_sweep(list(lines.values()), formats=(),
+                            workloads=("spgemm",), out_dir=out_dir,
+                            config=ccfg, device=dev)
+        torch.cuda.synchronize()
+        check_csvs(out_dir, WORKLOAD_LABELS, {"spgemm": 2})
+    if [r.matrix_name for r in results] != list(lines) or len(kept) != 2:
+        fail(f"the spgemm sweep gave rows {[r.matrix_name for r in results]}"
+             f" from {len(kept)} plan builds, want {list(lines)}")
+    for r, (_, (A, B, *_), plans), want_blocks in zip(results, kept,
+                                                       (1, 8)):
+        e = r.extra
+        pairs = sum(bp.npairs for bp in plans)
+        want_pairs = int(A.row_lengths()[A.ja].sum())
+        log(f"# spgemm {r.matrix_name} {r.format_name}/{r.impl}: "
+            f"{r.gflops:.4f} GFLOPS median={r.time_iter_median * 1e3:.3f} ms "
+            f"({r.num_loops} timed), pairs {pairs}, nnz(C) {e['nnz_c']}, "
+            f"blocks {e['n_blocks']}, plans {e['t_symbolic']:.1f}s, max "
+            f"|C - gold| / max |gold| = {r.max_ae}, checked_frac "
+            f"{e['checked_frac']}")
+        if e["n_blocks"] != want_blocks or pairs != want_pairs:
+            fail(f"spgemm {r.matrix_name}: {e['n_blocks']} blocks and "
+                 f"{pairs} pairs, want {want_blocks} and {want_pairs}")
+        if not (r.max_ae <= 1e-5 and e["checked_frac"] > 0):
+            fail(f"spgemm {r.matrix_name}: C off its gold by {r.max_ae} of "
+                 f"max |gold| over {e['checked_frac']} of C")
+        for i, bp in enumerate(p for p in plans if p.nnz_c):
+            ev, n_launch = device_events(bp.numeric_plane)
+            log(f"# spgemm {r.matrix_name} block {i} (rows {bp.r0}:{bp.r1},"
+                f" {bp.npairs} pairs, plane {tuple(bp.guard.shape)}, stages "
+                f"{bp.stages}, carry stages {bp.cstages}): numeric phase "
+                f"{n_launch:g} launches, {timer.warm_ms(bp.numeric_plane):.4f}"
+                f" ms warm; profiled: {sum(c for c, _ in ev.values()):g} "
+                f"device kernels, {sum(us for _, us in ev.values()):.2f} us; "
+                + "; ".join(f"{k[:48]} {c:g}x {us:.2f} us" for k, (c, us) in
+                            sorted(ev.items(), key=lambda kv: -kv[1][1])))
+    del kept, results, plans
+    log(f"# phase 18 spgemm done in {time.perf_counter() - t_phase:.0f}s")
+
+    # (b) the SpMV rows, each format kept and timed alone
+    formats = ("coo", "csc", "ell", "sellcs", "bsr", "csr", "csr_sym")
+    built, out = [], Tee()
+    with keeping(sweep_mod.FORMAT_BUILDERS, None, built, many=True), \
+            tempfile.TemporaryDirectory() as out_dir, \
+            contextlib.redirect_stdout(out):
+        results = run_sweep(list(lines.values()), formats=formats,
+                            out_dir=out_dir, config=ccfg, device=dev)
+        torch.cuda.synchronize()
+        check_csvs(out_dir, csv_labels(synthetic=True), {
+            "coo_spmv": 2, "csc_spmv": 2, "ell_spmv": 2, "sellcs_spmv": 2,
+            "bsr_spmv": 1, "csr_spmv": 4})
+        if os.path.exists(os.path.join(out_dir, "csr_sym_spmv.csv")):
+            fail("CSR_SYM gave rows on an unsymmetric twin")
+    for name in lines:
+        for fmt, err in (("bsr", "BSRBuildError"),
+                         ("csr_sym", "CSRSymBuildError")):
+            if fmt == "bsr" and name == "raefsky3":
+                continue
+            if f"# {fmt} build refused {name}: {err}" not in out.getvalue():
+                fail(f"{fmt} on {name}: no refusal line")
+    hosts = {}                      # the sweep builds each matrix in turn
+    for _, (h, *_), _ in built:
+        if all(h is not v for v in hosts.values()):
+            hosts[list(lines)[len(hosts)]] = h
+    golds = {name: (np.random.Generator(np.random.PCG64(7)).uniform(
+        0.0, 1.0, h.n), None) for name, h in hosts.items()}
+    check_rows(results, [f"{f}/torch" for f in (
+        "COO", "CSC", "ELL", "SELL-C-s", "CSR")] * 2 + ["BSR/torch"]
+        + ["CSR/sparse"] * 2, hosts, None, golds)
+    for _, (h, *_), A in built:
+        name = next(k for k, v in hosts.items() if v is h)
+        A = A.to(dev)
+        xd = torch.as_tensor(golds[name][0], dtype=torch.float32, device=dev)
+        impls = ("torch", "sparse") if A.format_name == "CSR" else ("torch",)
+        for impl in impls:
+            log(f"# classic {name} {A.format_name}/{impl} SpMV: "
+                f"{one_call(lambda: spmv(A, xd, impl=impl))}; footprint "
+                f"{A.mem_footprint_bytes() / 1e6:.2f} MB")
+        del A
+    del built, results
+    log(f"# phase 18 spmv rows done in {time.perf_counter() - t_phase:.0f}s")
+
+    # the CSR_SYM job: raefsky3's SPD transform, through the command line
+    os.environ.update(MIN_NUM_LOOPS="32", MIN_TIME_S="0.3",
+                      USE_RCM_REORDERING="auto")
+    built = []
+    try:
+        with keeping(sweep_mod.FORMAT_BUILDERS, None, built, many=True), \
+                tempfile.TemporaryDirectory() as out_dir:
+            results = cli.main(["--matrix", lines["raefsky3"], "--job",
+                                "formats=csr_sym,csr;workloads=spmv;"
+                                f"transform=spd;out={out_dir}"])
+            torch.cuda.synchronize()
+            check_csvs(out_dir, csv_labels(synthetic=True),
+                       {"csr_sym_spmv": 1, "csr_spmv": 2})
+    finally:
+        for k in ("MIN_NUM_LOOPS", "MIN_TIME_S", "USE_RCM_REORDERING"):
+            del os.environ[k]
+    spd = built[0][1][0]
+    x = np.random.Generator(np.random.PCG64(7)).uniform(0.0, 1.0, spd.n)
+    check_rows(results, ["CSR_SYM/torch", "CSR/torch", "CSR/sparse"],
+               {"raefsky3_spd": spd}, x)
+    A = built[0][2].to(dev)
+    xd = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    log(f"# classic raefsky3_spd CSR_SYM/torch SpMV: "
+        f"{one_call(lambda: spmv(A, xd))}; {A.nnz} stored of "
+        f"{A.nnz_expanded} nnz")
+    del A, built, results
+
+    # (c) SpMM and SDDMM at K = 128 on raefsky3
+    k = 128
+    built = []
+    with keeping(sweep_mod.FORMAT_BUILDERS, None, built, many=True), \
+            tempfile.TemporaryDirectory() as out_dir:
+        results = run_sweep([lines["raefsky3"]],
+                            formats=("ell", "bsr", "sellcs", "coo", "csr"),
+                            workloads=("spmm", "sddmm"), out_dir=out_dir,
+                            config=dataclasses.replace(ccfg, k_dim=k),
+                            device=dev)
+        torch.cuda.synchronize()
+        check_csvs(out_dir, WORKLOAD_LABELS, {
+            "ell_spmm": 1, "bsr_spmm": 1, "sellcs_spmm": 1, "coo_spmm": 1,
+            "coo_sddmm": 1, "csr_spmm": 1, "csr_sddmm": 1})
+    want = sorted(["ELL/torch spmm", "BSR/torch spmm", "SELL-C-s/torch spmm",
+                   "COO/torch spmm", "COO/torch sddmm", "CSR/torch spmm",
+                   "CSR/torch sddmm"])
+    got = sorted(f"{r.format_name}/{r.impl} {r.workload}" for r in results)
+    if got != want:
+        fail(f"K = 128 sweep rows {got}, want {want}")
+    host = built[0][1][0]
+    X = spmm_inputs(host, k)
+    Am, Bm = sddmm_inputs(host, k)
+    gold = sddmm_gold(host, Am, Bm)     # = Σ|a||b|: a, b ≥ 0
+    for r in results:
+        key = f"raefsky3 {r.format_name}/{r.impl} {r.workload}"
+        log(f"# sweep {key}: {r.gflops:.2f} GFLOPS median="
+            f"{r.time_iter_median * 1e6:.1f}us loops={r.num_loops}")
+        if r.workload == "spmm":
+            check_y(f"sweep {key}", host, X, r.out)
+        else:
+            rel = float(np.max(np.abs(r.out - gold) / (gold + 1e-30)))
+            if not (r.out.shape == (host.nnz,) and rel <= 1e-5):
+                fail(f"sweep {key}: shape {r.out.shape}, max |C-gold|/"
+                     f"(Σ|a||b|) = {rel}")
+            log(f"# sweep {key} vs fp64 gold: max rel (Σ|a||b|) = {rel}")
+    Xd = torch.as_tensor(X, dtype=torch.float32, device=dev)
+    Ad, Bd = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+              for a in (Am, Bm))
+    for _, _, A in built:
+        A = A.to(dev)
+        line = (f"# classic raefsky3 {A.format_name}/torch K = {k}: SpMM "
+                f"{one_call(lambda: spmm(A, Xd))}")
+        if A.format_name in ("COO", "CSR"):
+            line += f"; SDDMM {one_call(lambda: sddmm(A, Ad, Bd))}"
+        log(line)
+        del A
+    del built, results, Xd, Ad, Bd
+    log(f"# phase 18 K = {k} done in {time.perf_counter() - t_phase:.0f}s")
+
+    # (d) DIA and LDU on phase 7's tridiagonal matrix
+    tri = stream_tridiagonal(np.random.Generator(np.random.PCG64(11)))
+    tri_host = HostCSR.from_scipy(tri)
+    x = np.random.Generator(np.random.PCG64(7)).uniform(-1.0, 1.0, STREAM_N)
+    xd = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    gold = tri_host.spmv_gold_fast(x).astype(np.float64)
+    for build in (build_dia, build_ldu):
+        t0 = time.perf_counter()
+        A = build(tri_host).to(dev)
+        t_build = time.perf_counter() - t0
+        y = spmv(A, xd)
+        torch.cuda.synchronize()
+        check_gold(f"tridiagonal {A.format_name}/torch", tri_host, x, y, gold)
+        ev, n_launch = device_events(lambda: spmv(A, xd))
+        log(f"# classic tridiagonal n={STREAM_N} {A.format_name}/torch SpMV: "
+            f"build {t_build:.2f}s, {one_call(lambda: spmv(A, xd))}, "
+            f"{n_launch:g} launches ({sum(c for c, _ in ev.values()):g} "
+            f"device kernels profiled); footprint "
+            f"{A.mem_footprint_bytes() / 1e6:.2f} MB")
+        del A, y
+    A = cusparse(tri_host, dev)
+    log(f"# classic tridiagonal cuSPARSE SpMV: "
+        f"{one_call(lambda: A @ xd.unsqueeze(1))}")
+    log(f"# phase 18 done in {time.perf_counter() - t_phase:.0f}s")
+
+
+def stream_tridiagonal(rng):
+    """Phase 7's seeded tridiagonal matrix, n = ``STREAM_N``."""
+    import scipy.sparse as sp
+    return sp.diags([rng.uniform(-1, 1, STREAM_N - 1),
+                     rng.uniform(-1, 1, STREAM_N),
+                     rng.uniform(-1, 1, STREAM_N - 1)], [-1, 0, 1],
+                    shape=(STREAM_N, STREAM_N), format="csr")
 
 
 def b9_calls(A):

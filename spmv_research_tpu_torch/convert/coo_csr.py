@@ -5,8 +5,9 @@ unchanged for the functions the port uses: ``coo_to_csr``
 (``lib/storage_formats/csr/csr_gen.c:182``), ``csr_to_coo``,
 ``csr_row_permute`` (RCM's reorder) and the transforms the sweep's
 ``load_matrix`` applies (``fix_diagonal_zeros``, ``make_spd``,
-``make_diag_dominant``). The symmetric expand/drop follows the solvers'
-slice.
+``make_diag_dominant``), and the symmetric expand/drop
+(``csr_expand_symmetric``, ``csr_drop_upper``) that CSR_SYM's builder
+uses.
 """
 
 from __future__ import annotations
@@ -111,6 +112,31 @@ def csr_row_permute(csr: HostCSR, perm: np.ndarray, permute_columns: bool = True
     return HostCSR(a=a, ia=ia.astype(INDEX_DTYPE), ja=np.asarray(ja, dtype=INDEX_DTYPE),
                    m=csr.m, n=csr.n, nnz_expanded=csr.nnz_expanded,
                    symmetric_storage=False)
+
+
+def csr_expand_symmetric(csr: HostCSR) -> HostCSR:
+    """Expand lower-triangle-stored symmetric CSR to full storage
+    (reference ``csr_expand_symmetric`` — ``csr_gen.c:262``)."""
+    coo = csr_to_coo(csr)
+    off = coo.rows != coo.cols
+    rows = np.concatenate([coo.rows, coo.cols[off]])
+    cols = np.concatenate([coo.cols, coo.rows[off]])
+    vals = np.concatenate([coo.vals, coo.vals[off]])
+    return coo_to_csr(HostCOO(rows, cols, vals, csr.m, csr.n, symmetric=False))
+
+
+def csr_drop_upper(csr: HostCSR, keep_diagonal: bool = True) -> HostCSR:
+    """Keep the lower triangle (reference ``csr_drop_upper`` —
+    ``csr_gen.c:357``); the result is marked as symmetric storage."""
+    coo = csr_to_coo(csr)
+    mask = coo.rows >= coo.cols if keep_diagonal else coo.rows > coo.cols
+    out = coo_to_csr(
+        HostCOO(coo.rows[mask], coo.cols[mask], coo.vals[mask], csr.m, csr.n))
+    out.symmetric_storage = True
+    diag = int(np.count_nonzero(
+        out.ja == np.repeat(np.arange(out.m), out.row_lengths())))
+    out.nnz_expanded = 2 * out.nnz - diag
+    return out
 
 
 def fix_diagonal_zeros(csr: HostCSR, value: float = 1e-7) -> HostCSR:

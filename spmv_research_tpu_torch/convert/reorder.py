@@ -2,8 +2,8 @@
 
 Counterpart of ``spmv_research_tpu/convert/reorder.py``, carried over
 unchanged for RCM and ``rcm_if_beneficial`` (the main path's reorder): the
-same matrix gives the identical permutation. σ-sorting follows the SELL
-formats.
+same matrix gives the identical permutation, and for ``sigma_sort_rows``,
+SELL-C-σ's windowed sort.
 
 RCM is the reference's bandwidth-reduction pass (``lib/rcm/rcm_gen.c:127``
 ``reverse_cuthill_mckee``, applied when ``USE_RCM_REORDERING=1`` —
@@ -66,6 +66,21 @@ def rcm_reorder(csr: HostCSR) -> tuple[HostCSR, np.ndarray]:
     """Apply RCM symmetric permutation; returns (reordered_csr, perm)."""
     perm = reverse_cuthill_mckee(csr)
     return csr_row_permute(csr, perm, permute_columns=True), perm
+
+
+def sigma_sort_rows(csr: HostCSR, sigma: int) -> np.ndarray:
+    """σ-sorting permutation: within consecutive windows of `sigma` rows, sort
+    rows by descending length (SELL-C-σ preprocessing; reference
+    ``sell_sorted.cpp:184``). sigma <= 1 → identity; sigma >= m → global sort."""
+    lengths = csr.row_lengths()
+    m = csr.m
+    if sigma <= 1:
+        return np.arange(m, dtype=np.int64)
+    perm = np.empty(m, dtype=np.int64)
+    for w0 in range(0, m, sigma):
+        w1 = min(w0 + sigma, m)
+        perm[w0:w1] = w0 + np.argsort(-lengths[w0:w1], kind="stable")
+    return perm
 
 
 def _mean_row_bandwidth(csr: HostCSR) -> float:

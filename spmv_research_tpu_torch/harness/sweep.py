@@ -1,34 +1,39 @@
-"""Sweep runner for the SpMV, SpMM, SDDMM, CG, BiCGStab and trisolve
-workloads — the run.sh / proc_run.sh analog.
+"""Sweep runner for the SpMV, SpMM, SDDMM, CG, BiCGStab, SpGEMM and
+trisolve workloads — the run.sh / proc_run.sh analog.
 
 Counterpart of ``spmv_research_tpu/harness/sweep.py``. It iterates
 matrices × formats × impls × workloads on one torch device with the JAX
 sweep's output discipline: one CSV file per (format, workload) pair
-(``<fmt>_<workload>.csv``; the trisolve, which needs no format,
-``trisolve.csv``) with the labels row first (SpMV: the JAX package's
-synthetic schema, ``csv_labels`` / ``csv_row_synthetic``; the others: its
-``matrix_name,format_name,impl,K,...`` schema, a solve's residual in the
-``mape`` and ``max_ae`` columns), human lines on stdout, and an idempotent
-done-log (``done.log``, keys (matrix, format, impl, workload), and
-(matrix, ``trisolve``)) so that a restarted sweep skips finished pairs.
+(``<fmt>_<workload>.csv``; SpGEMM and the trisolve, which need no
+format, ``spgemm.csv`` and ``trisolve.csv``) with the labels row first
+(SpMV: the JAX package's synthetic schema, ``csv_labels`` /
+``csv_row_synthetic``; the others: its ``matrix_name,format_name,impl,
+K,...`` schema, a solve's residual in the ``mape`` and ``max_ae``
+columns), human lines on stdout, and an idempotent done-log (``done.log``, keys (matrix, format, impl, workload), and
+(matrix, workload) for SpGEMM and the trisolve) so that a restarted
+sweep skips finished pairs.
 
 Differences from the JAX sweep, each deliberate:
 
 * matrices are synthetic 11-arg parameter lines; a ``.mtx`` spec raises
   ``NotImplementedError`` (the Matrix Market reader is ROADMAP queue A
   item 6);
-* ``FORMAT_BUILDERS`` holds ``csr``, ``sellr``, ``sellw``, ``closg`` (whose
-  builder may return a CLOSG, RSPLIT or CLOSGX program, as in the JAX
-  sweep), the fallback engines ``clos`` and ``bfly``, ``dense``, ``btile``
-  and the double-single ``csrds`` and ``sellwds``; the workloads are
-  ``spmv``, ``spmm``, ``sddmm``, ``cg``, ``bicgstab`` and ``trisolve`` (once
-  per matrix: ILU(0) and the level-scheduled solves), the solvers'
-  preconditioners ``jacobi``, ``ic0`` and ``ilu0``: any other name, SpGEMM
-  among them (ROADMAP queue A item 3), raises before the sweep starts;
+* ``FORMAT_BUILDERS`` holds ``csr``, the classic formats ``coo``, ``csc``,
+  ``ell``, ``sellcs``, ``bsr`` (8 × 128 blocks) and ``csr_sym``,
+  ``sellr``, ``sellw``, ``closg`` (whose builder may return a CLOSG,
+  RSPLIT or CLOSGX program, as in the JAX sweep), the fallback engines
+  ``clos`` and ``bfly``, ``dense``, ``btile`` and the double-single
+  ``csrds`` and ``sellwds``; the JAX sweep's ``sellg``, ``bsrg`` and
+  ``csr_lut`` are not ported yet (ROADMAP queue A item 5). The workloads
+  are ``spmv``, ``spmm``, ``sddmm``, ``cg``, ``bicgstab``, and once per
+  matrix ``spgemm`` (C = A·A) and ``trisolve`` (ILU(0) and the
+  level-scheduled solves), the solvers' preconditioners ``jacobi``,
+  ``ic0`` and ``ilu0``. Any other name raises before the sweep starts;
 * the impls are the device's (``sweep_impls``): on a CUDA device ``cuda``
-  for an engine and every registered impl of a library format
-  (``LIBRARY_FORMATS``: CSR's SpMV runs ``torch`` and ``sparse``, the
-  cuSPARSE baseline); on the CPU every impl but ``cuda``; the engines'
+  for an engine and every registered impl of a format with no hand
+  kernel (``TORCH_FORMATS``: CSR's SpMV runs ``torch`` and ``sparse``, the
+  cuSPARSE baseline; the classic formats ``torch``); on the CPU every
+  impl but ``cuda``; the engines'
   plain versions are never sweep rows on the card. ``impls`` narrows that
   set as the JAX sweep's does (its names in its order), and each name
   left out is printed as a ``#`` line. A (format, workload) pair with no
@@ -36,12 +41,14 @@ Differences from the JAX sweep, each deliberate:
   skipped, as ``available_impls`` skips it in the JAX sweep; the solvers
   run on the format's SpMV;
 * a matrix's formats are built only when a workload runs on them (the
-  JAX sweep builds them for a trisolve-only sweep too);
+  JAX sweep builds them for a SpGEMM- or trisolve-only sweep too);
 * a builder's suitability error (``SellRBuildError``, ``SellWBuildError``,
   ``ClosRoutingError``, ``RoutingError`` (BFLY past 2^22 slots),
-  ``DenseBuildError``, ``BTileBuildError``, and ``DSRangeError``, a value
-  too large for the double-single split) is
-  printed and the format skipped, as in the JAX sweep; a gated row
+  ``DenseBuildError``, ``BTileBuildError``, ``DSRangeError``, a value
+  too large for the double-single split, ``BSRBuildError``, BSR's fill
+  guard, and ``CSRSymBuildError``, a matrix that is not symmetric) is
+  printed and the format skipped, as in the JAX sweep, which catches any
+  builder error; a gated row
   (non-finite metrics, a solve without progress, a trisolve residual past
   1e-2) is printed and logged as ``FAIL``; any other exception propagates
   (no retries: a GPU fault is not transient);
@@ -51,6 +58,7 @@ Differences from the JAX sweep, each deliberate:
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import Optional, Sequence
@@ -58,12 +66,15 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..convert import (build_csr, extract_features, fix_diagonal_zeros,
-                       make_diag_dominant, make_spd, rcm_reorder)
+from ..convert import (BSRBuildError, CSRSymBuildError, build_bsr,
+                       build_coo, build_csc, build_csr, build_csr_sym,
+                       build_ell, build_sellcs, extract_features,
+                       fix_diagonal_zeros, make_diag_dominant, make_spd,
+                       rcm_reorder)
 from ..convert.reorder import rcm_if_beneficial
 from ..gen import ArtificialParams, artificial_matrix_generation
 from ..ops import available_impls, default_impl
-from ..ops.dispatch import LIBRARY_FORMATS
+from ..ops.dispatch import TORCH_FORMATS
 from ..ops.bfly import build_bfly
 from ..ops.btile import BTileBuildError, build_btile
 from ..ops.clos import build_clos
@@ -78,11 +89,17 @@ from ..ops.sellw_ds import build_sellwds
 from ..solvers import check_precond
 from .bench import BenchResult, bench_spmv, csv_labels, csv_row_synthetic
 from .config import BenchConfig
-from .workloads import (BenchGateError, bench_cg, bench_sddmm, bench_spmm,
-                        bench_trisolve)
+from .workloads import (BenchGateError, bench_cg, bench_sddmm, bench_spgemm,
+                        bench_spmm, bench_trisolve)
 
 FORMAT_BUILDERS = {
     "csr": build_csr,
+    "coo": build_coo,
+    "csc": build_csc,
+    "ell": build_ell,
+    "sellcs": build_sellcs,
+    "bsr": functools.partial(build_bsr, br=8, bc=128),
+    "csr_sym": build_csr_sym,
     "sellr": build_sellr,
     "sellw": build_sellw,
     "closg": build_clos_gather_auto,   # CLOSG, RSPLIT or CLOSGX
@@ -93,13 +110,17 @@ FORMAT_BUILDERS = {
     "csrds": build_csrds,
     "sellwds": build_sellwds,
 }
-WORKLOADS = ("spmv", "spmm", "sddmm", "cg", "bicgstab", "trisolve")
+WORKLOADS = ("spmv", "spmm", "sddmm", "cg", "bicgstab", "spgemm",
+             "trisolve")
 SOLVERS = ("cg", "bicgstab")        # workloads that run on the SpMV
-MATRIX_WORKLOADS = ("trisolve",)    # once per matrix, on no format
+# once per matrix, on no format: each one's runner
+MATRIX_WORKLOADS = {"spgemm": bench_spgemm, "trisolve": bench_trisolve}
+# the JAX sweep's formats that follow ROADMAP queue A item 5
+UNPORTED_FORMATS = ("sellg", "bsrg", "csr_lut")
 # a builder raising one of these refuses the matrix: the format is skipped
 SUITABILITY_ERRORS = (SellRBuildError, SellWBuildError, ClosRoutingError,
                       RoutingError, DenseBuildError, BTileBuildError,
-                      DSRangeError)
+                      BSRBuildError, CSRSymBuildError, DSRangeError)
 WORKLOAD_LABELS = ("matrix_name,format_name,impl,K,time_iter_median,gflops,"
                    "num_loops,mape,max_ae")
 
@@ -112,13 +133,12 @@ def check_sweep_args(formats: Sequence[str], workloads: Sequence[str],
     if bad_f:
         raise NotImplementedError(
             f"formats {bad_f} are not ported: the sweep has "
-            f"{sorted(FORMAT_BUILDERS)} (the others follow their engines, "
-            "ROADMAP queue A items 4 and 5)")
+            f"{sorted(FORMAT_BUILDERS)} ({', '.join(UNPORTED_FORMATS)} "
+            "follow ROADMAP queue A item 5)")
     bad_w = [w for w in workloads if w not in WORKLOADS]
     if bad_w:
-        raise NotImplementedError(
-            f"workloads {bad_w} are not ported: the sweep runs "
-            f"{', '.join(WORKLOADS)} (SpGEMM is ROADMAP queue A item 3)")
+        raise ValueError(f"unknown workloads {bad_w}: the sweep runs "
+                         f"{', '.join(WORKLOADS)}")
     if any(w in SOLVERS for w in workloads):
         check_precond(precond)
 
@@ -179,11 +199,11 @@ class SweepDoneLog:
 def sweep_impls(workload: str, fmt: str, device) -> list:
     """The impls a sweep runs for ``fmt``'s ``workload`` (a solver: its
     SpMV) on ``device``: on a CUDA device ``cuda`` for an engine and every
-    registered impl of a library format; on the CPU every impl but
-    ``cuda``."""
+    registered impl of a format with no hand kernel (``TORCH_FORMATS``);
+    on the CPU every impl but ``cuda``."""
     kernel = "spmv" if workload in SOLVERS else workload
     have = available_impls(kernel, fmt)
-    if device.type == "cuda" and fmt not in LIBRARY_FORMATS:
+    if device.type == "cuda" and fmt not in TORCH_FORMATS:
         return [i for i in have if i == "cuda"]
     if device.type == "cuda":
         return have
@@ -199,9 +219,10 @@ def run_sweep(matrices: Sequence[str],
               device="cuda") -> list:
     """Benchmark every (matrix, format, impl, workload) the device runs
     (``sweep_impls``, narrowed to ``impls`` where given) and every
-    per-matrix workload (trisolve) on ``device``; returns the results
-    (``BenchResult`` for SpMV, ``WorkloadResult`` otherwise) and appends
-    each to ``<out_dir>/<fmt>_<workload>.csv`` (``<workload>.csv``)."""
+    per-matrix workload (SpGEMM, trisolve) on ``device``; returns the
+    results (``BenchResult`` for SpMV, ``WorkloadResult`` otherwise) and
+    appends each to ``<out_dir>/<fmt>_<workload>.csv``
+    (``<workload>.csv``)."""
     cfg = config or BenchConfig.from_env()
     check_sweep_args(formats, workloads, cfg.solver_precond)
     if cfg.dtype != "float32":
@@ -245,10 +266,9 @@ def run_sweep(matrices: Sequence[str],
             if (workload not in MATRIX_WORKLOADS
                     or donelog.skip(name, workload)):
                 continue
-            r = gated(lambda: bench_trisolve(host, config=cfg,
-                                             matrix_name=name,
-                                             device=device),
-                      (name, workload))
+            r = gated(lambda: MATRIX_WORKLOADS[workload](
+                host, config=cfg, matrix_name=name, device=device),
+                (name, workload))
             if r is not None:
                 record(r, f"{workload}.csv", name, (name, workload), params,
                        feats)

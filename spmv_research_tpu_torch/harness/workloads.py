@@ -1,8 +1,8 @@
 """Benchmark runners for the workloads beside SpMV: SpMM, SDDMM, CG,
-BiCGStab and the ILU(0) trisolve.
+BiCGStab, SpGEMM and the ILU(0) trisolve.
 
-Counterpart of ``spmv_research_tpu/harness/workloads.py`` (its SpMM, SDDMM,
-CG/BiCGStab and trisolve runners; SpGEMM follows its slice).
+Counterpart of ``spmv_research_tpu/harness/workloads.py``, every runner of
+it.
 Protocol parity with the reference:
 
 * SpMM — ``bench_spmm.cpp``: Y = A·X, X (n × K) uniform in [0, 1) from
@@ -24,6 +24,12 @@ Protocol parity with the reference:
   GFLOPS = 2·(nnz L + nnz U) / t_median; impl ``torch-<kind>`` (the JAX
   package's ``xla-<kind>``), kind ``band``, ``dense`` (level) or
   ``chunk``, or ``<L's>+<U's>`` where they differ.
+* SpGEMM — C = A·A (BASELINE.json config #4, beyond the reference, whose
+  SpGEMM is a stub): the host plans (``ops/spgemm.py``) timed as
+  ``t_symbolic``, the numeric phase of every block as one timed call;
+  GFLOPS = 2·pairs / t_median; C checked against scipy's float64 product
+  block by block over its first 2^25 entries (``max_ae`` relative to max
+  |gold|, ``extra["checked_frac"]``); format ``CSR-ESC``, impl ``torch``.
 
 The gold is the float64 product on the host (scipy's ``A @ X``; the per-nnz
 dots of A's and B's rows), held against the result through the 8 error
@@ -248,6 +254,68 @@ def bench_cg(host: HostCSR, A, *, config: Optional[BenchConfig] = None,
                "compile_time": t_compile, "loop_iterations": loops,
                "time_divisor": "loop_iterations"},
         out=xh)
+
+
+def bench_spgemm(host: HostCSR, *, config: Optional[BenchConfig] = None,
+                 matrix_name: str = "matrix",
+                 device="cuda") -> WorkloadResult:
+    """C = A·A: the chunked ESC plans built on the host (``t_symbolic``),
+    the numeric phase of every block on ``device`` (the card unless the
+    caller asks for the CPU) timed as one call, C checked against the
+    per-block scipy gold. Past 2^25 pairs the timed chain is cut to 8
+    iterations and at most 2 s."""
+    from ..ops import spgemm as sg
+    cfg = config or BenchConfig()
+    device = torch.device(device)
+    t0 = time.perf_counter()
+    plans = [bp for bp in sg.spgemm_device_plans(
+        host, host, getattr(torch, cfg.dtype), device=device)
+        if bp.nnz_c > 0]
+    sync(device)
+    t_sym = time.perf_counter() - t0
+    n_pairs_total = sum(bp.npairs for bp in plans)
+    nnz_c_total = sum(bp.nnz_c for bp in plans)
+
+    def fn(carry):
+        # the numeric phase's input depends on the carry, so that no
+        # iteration of the chain repeats the one before
+        eps = carry[0] * 1e-30
+        tot = carry.new_zeros(())
+        for bp in plans:
+            tot = tot + sg._scan_numeric_plane(
+                bp.av * (1.0 + eps), bp.bv, bp.guard, bp.rowg,
+                bp.cross_lane, bp.headmask, stages=bp.stages,
+                cstages=bp.cstages).sum()
+        return tot.reshape(1)
+
+    A_sp = host.to_scipy().tocsr()
+    budget = 1 << 25
+    max_ae = 0.0
+    checked = 0
+    for bp in plans:
+        if checked + bp.nnz_c > budget and checked > 0:
+            break
+        gold = (A_sp[bp.r0: bp.r1] @ A_sp).tocsr()
+        gold.sum_duplicates()
+        gold.sort_indices()
+        got = bp.numeric()[: bp.nnz_c].double().cpu().numpy()
+        err = float(np.max(np.abs(got - gold.data))) if gold.nnz else 0.0
+        denom = float(np.abs(gold.data).max()) if gold.nnz else 1.0
+        max_ae = max(max_ae, err / (denom or 1.0))
+        checked += bp.nnz_c
+    t_cfg = cfg
+    if n_pairs_total > 1 << 25:
+        t_cfg = dataclasses.replace(cfg, inner_iters=8, min_num_loops=8,
+                                    min_time_s=min(cfg.min_time_s, 2.0))
+    t_med, loops = _timed(fn, torch.zeros(8, device=device), t_cfg)
+    return WorkloadResult(
+        workload="spgemm", matrix_name=matrix_name, format_name="CSR-ESC",
+        impl="torch", k=0, time_iter_median=t_med,
+        gflops=2.0 * n_pairs_total / t_med * 1e-9, num_loops=loops,
+        mape=max_ae, max_ae=max_ae,
+        extra={"nnz_c": int(nnz_c_total), "t_symbolic": t_sym,
+               "n_blocks": len(plans),
+               "checked_frac": checked / max(nnz_c_total, 1)})
 
 
 def schedule_kind(sched) -> str:

@@ -1,5 +1,6 @@
 from .dispatch import spmv, spmm, sddmm, available_impls, default_impl
-from . import reference    # registers CSR/torch (SpMV, SpMM, SDDMM)
+from . import reference    # registers CSR/torch, CSR/sparse and the classic
+                           # formats' torch impls
 from . import clos_gather  # registers CLOSG/torch and CLOSG/cuda
 from . import rowsplit     # registers RSPLIT/torch and RSPLIT/cuda
 from . import clos_xl      # registers CLOSGX/torch and CLOSGX/cuda

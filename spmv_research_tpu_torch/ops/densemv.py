@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from ..core.formats import _move
 from ..core.host import HostCSR
 from .dispatch import register_spmm, register_spmv
+from .reference import check_full_fp32
 
 _RB, _CB = 8, 128                       # fp32 tile multiples
 
@@ -86,21 +87,15 @@ def build_dense(host: HostCSR, max_bytes: int = 6 << 30) -> DenseMV:
                    nnz_expanded=host.nnz_expanded)
 
 
-def _check_precision(X: torch.Tensor) -> None:
-    if X.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("DENSE needs full float32 products: switch "
-                           "torch.backends.cuda.matmul.allow_tf32 off")
-
-
 @register_spmv("DENSE", "torch")
 def spmv_dense_torch(A: DenseMV, x: torch.Tensor) -> torch.Tensor:
-    _check_precision(x)
+    check_full_fp32(x, "DENSE")
     xp = F.pad(x.to(A.mat.dtype), (0, A.mat.shape[1] - x.shape[0]))
     return torch.matmul(A.mat, xp)[: A.m]
 
 
 @register_spmm("DENSE", "torch")
 def spmm_dense_torch(A: DenseMV, X: torch.Tensor) -> torch.Tensor:
-    _check_precision(X)
+    check_full_fp32(X, "DENSE")
     Xp = F.pad(X.to(A.mat.dtype), (0, 0, 0, A.mat.shape[1] - X.shape[0]))
     return torch.matmul(A.mat, Xp)[: A.m]

@@ -12,13 +12,14 @@ for the workloads SpMV, SpMM and SDDMM. The port has three impl names:
 
 With no ``impl=`` given, ``default_impl`` decides from the input tensor's
 device: a CPU tensor takes ``"torch"``; a CUDA tensor takes ``"cuda"``,
-except for the formats in ``LIBRARY_FORMATS``, which have only ``"torch"``:
-CSR and DENSE (library code in the JAX package too) and CSRDS, the
-double-single CSR, which the JAX package computes in XLA and gives no
-Pallas kernel, so that it stays plain PyTorch on every device. A format
-outside that set with no ``"cuda"`` impl raises on a CUDA tensor, and
-asking for ``"cuda"`` with a CPU tensor raises. There is no other
-preference walk and no fallback.
+except for the formats that have no hand kernel, which take ``"torch"`` on
+every device (``TORCH_FORMATS``): those in ``LIBRARY_FORMATS``, CSR and
+DENSE (library code in the JAX package too) and CSRDS, the double-single
+CSR; and those in ``PLAIN_FORMATS``, the classic formats, which the JAX
+package computes only in XLA (its ``xla`` impls, ``ops/reference.py``).
+A format outside those sets with no ``"cuda"`` impl raises on a CUDA
+tensor, and asking for ``"cuda"`` with a CPU tensor raises. There is no
+other preference walk and no fallback.
 
 The engines whose JAX SpMM is a scan of their SpMV over X's columns
 (CLOSG, RSPLIT, CLOSGX, SELLR) register ``spmm_column_loop`` for both
@@ -37,8 +38,14 @@ _SPMM: Dict[Tuple[str, str], Callable] = {}
 _SDDMM: Dict[Tuple[str, str], Callable] = {}
 _TABLES = {"spmv": _SPMV, "spmm": _SPMM, "sddmm": _SDDMM}
 
-# formats computed by one library call on every device, by design
+# formats whose impls are library calls or plain PyTorch on every device:
+# no hand kernel, by design (CSR, DENSE), or none in the JAX package (CSRDS)
 LIBRARY_FORMATS = frozenset({"CSR", "DENSE", "CSRDS"})
+# the classic formats, plain PyTorch on every device: the JAX package
+# computes them only in XLA
+PLAIN_FORMATS = frozenset({"COO", "CSC", "ELL", "SELL-C-s", "BSR",
+                           "Custom_DIA", "LDU", "CSR_SYM"})
+TORCH_FORMATS = LIBRARY_FORMATS | PLAIN_FORMATS
 
 
 def _make_register(table):
@@ -57,7 +64,7 @@ register_sddmm = _make_register(_SDDMM)
 
 def default_impl(fmt: str, device) -> str:
     """The impl a tensor on ``device`` takes when none is named."""
-    if device.type == "cuda" and fmt not in LIBRARY_FORMATS:
+    if device.type == "cuda" and fmt not in TORCH_FORMATS:
         return "cuda"
     return "torch"
 

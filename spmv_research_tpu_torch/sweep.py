@@ -1,9 +1,10 @@
 """The port's sweep command line — the counterpart of ``tools/sweep.py``.
 
     python -m spmv_research_tpu_torch.sweep --matrix "<11-arg line>" \
-        [--matrices FILE] --formats csr sellr sellw closg clos bfly dense \
-        btile csrds sellwds [--workloads spmv spmm sddmm cg bicgstab \
-        trisolve] [--impls cuda torch sparse] --out DIR [--device cuda]
+        [--matrices FILE] --formats csr coo csc ell sellcs bsr csr_sym \
+        sellr sellw closg clos bfly dense btile csrds sellwds \
+        [--workloads spmv spmm sddmm cg bicgstab spgemm trisolve] \
+        [--impls cuda torch sparse] --out DIR [--device cuda]
     python -m spmv_research_tpu_torch.sweep --matrix "<11-arg line>" \
         --job "formats=csr,sellw,sellwds;workloads=cg;transform=spd" \
         [--job ...]
@@ -14,11 +15,12 @@ the reference's env vars (``BenchConfig.from_env``: ``USE_RCM_REORDERING``
 = 0, 1 or auto, ``FIX_DIAGONAL_ZEROS``, ``MIN_NUM_LOOPS``, ``MIN_TIME_S``,
 ``K_DIM``, the SpMM/SDDMM K, default 128, and ``CG_MAX_NUM_ITERS``, the
 solvers' iteration cap, default 50). Each (format, workload) pair writes
-``<fmt>_<workload>.csv`` (the trisolve, once per matrix, ``trisolve.csv``);
-a pair the format has no impl for is skipped. ``--impls`` narrows the impls
-the device runs (the card: ``cuda`` for an engine and every impl of a
-library format, CSR's SpMV ``torch`` and ``sparse``; the CPU: every impl
-but ``cuda``) to the named ones, as in ``tools/sweep.py``.
+``<fmt>_<workload>.csv`` (SpGEMM and the trisolve, once per matrix,
+``spgemm.csv`` and ``trisolve.csv``); a pair the format has no impl for is
+skipped. ``--impls`` narrows the impls the device runs (the card: ``cuda``
+for an engine and every impl of a format with no hand kernel, CSR's SpMV
+``torch`` and ``sparse``, the classic formats' ``torch``; the CPU: every
+impl but ``cuda``) to the named ones, as in ``tools/sweep.py``.
 
 ``--job`` (repeatable) is a semicolon-separated spec of one sweep, as in
 ``tools/sweep.py``: ``mats=FILE`` (default: the ``--matrix`` and
@@ -87,7 +89,8 @@ def _specs(args):
     return specs
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> list:
+    """Run the command line's sweep or jobs; returns their results."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--matrices", help="file with one matrix spec per line")
     ap.add_argument("--matrix", action="append", default=[],
@@ -119,10 +122,12 @@ def main(argv=None) -> None:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: run on the GPU, or pass "
                          "--device cpu for the plain PyTorch path")
+    results = []
     for spec, job in zip(args.job or [None], jobs):
         if spec is not None:
             print(f"### job: {spec}", flush=True)
-        run_sweep(device=device, **job)
+        results += run_sweep(device=device, **job)
+    return results
 
 
 if __name__ == "__main__":

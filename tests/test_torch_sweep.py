@@ -127,15 +127,18 @@ def test_sweep_resumes_from_done_log(sweep_out):
 
 
 def test_sweep_refuses_unported_names(tmp_path):
-    with pytest.raises(NotImplementedError, match="coo"):
-        check_sweep_args(["csr", "bfly", "coo"], ["spmv"])
-    with pytest.raises(NotImplementedError, match="spgemm"):
-        run_sweep([BANDED_LINE], formats=("csr",), workloads=("spgemm",),
-                  out_dir=str(tmp_path), device="cpu")
+    """A format still to port (``sellg``, queue A item 5), an unknown
+    workload and ``.mtx`` input (item 6) raise before any work."""
+    with pytest.raises(NotImplementedError, match="sellg.*item 5"):
+        check_sweep_args(["csr", "bfly", "sellg"], ["spmv"])
+    with pytest.raises(ValueError, match="unknown workloads"):
+        run_sweep([BANDED_LINE], formats=("csr",), workloads=("spgemmm",),
+                  out_dir=str(tmp_path / "out"), device="cpu")
+    assert not (tmp_path / "out").exists()
     with pytest.raises(NotImplementedError, match="Matrix Market"):
         load_matrix("matrix.mtx", BenchConfig())
     with pytest.raises(SystemExit):
-        cli.main(["--matrix", BANDED_LINE, "--formats", "ell"])
+        cli.main(["--matrix", BANDED_LINE, "--formats", "sellg"])
 
 
 def test_cli_runs_on_the_cpu(monkeypatch, tmp_path, capsys):
