@@ -184,7 +184,27 @@ failure (non-zero exit, no result line):
     the K = 128 SpMM rows of ell, bsr, sellcs, coo and csr and the
     SDDMM rows of coo and csr on raefsky3, held to their float64 golds;
     (d) DIA and LDU SpMV through ``ops.spmv`` on phase 7's tridiagonal
-    matrix (n = 1.2M), y within 1e-5 of |A|·|x|, timed.
+    matrix (n = 1.2M), y within 1e-5 of |A|·|x|, timed;
+19. the XLA-only engines and real-matrix input (``xla_engines_phase``;
+    plain PyTorch, no hand kernel, as the JAX package computes them in
+    XLA), on the scircuit, raefsky3 and shipsec1 (:27) twins at full size,
+    no RCM: (a) CSR_LUT SpMV and K = 128 SpMM on scircuit, on its own
+    values (int32 indices) and on phase 9's 64 levels (int8), asserted;
+    (b) SELLG SpMM at K = 128 on raefsky3 and shipsec1; (c) BSRG SpMV and
+    K = 128 SpMM and the ``BSR/mxu`` SDDMM on raefsky3, BSRG on scircuit
+    refused with ``BSRBuildError``; (d) the ``CSR/gather`` SDDMM at K =
+    128 on raefsky3 and shipsec1; each y, Y and C within 1e-5 of |A|·|x|,
+    |A|·|X| and Σ|a||b|, each call timed alone, cold and warm, with its
+    host µs, beside cuSPARSE's (SpMV, ``torch.sparse.mm``,
+    ``sampled_addmm``); (e) the raefsky3 SDDMM sweep rows CSR/torch,
+    CSR/gather and BSR/mxu, each held to the gold (BSR/mxu through its
+    map to CSR order); (f) the ``.mtx`` round trip (``mtx_sweep``):
+    scircuit and raefsky3 written as ``.mtx`` and swept from disk and
+    from memory (csr, csr_lut, sellg, bsrg; SpMV and K = 16 SpMM; the
+    torch impls, deterministic), every disk row equal to its in-memory
+    row in m, n, nnz and the 8 metrics, under JAX's real-matrix labels,
+    and held to its gold; both files parsed on the native and the numpy
+    tier, timed.
 
 Every sweep with ``csr`` in it gives CSR/torch and CSR/sparse rows side by
 side (cuSPARSE's SpMV through the registry: the JAX package's CSR/bcoo),
@@ -215,6 +235,7 @@ its host time. The line before the last is the kernels' JSON record; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -532,6 +553,14 @@ def host_us(fn, n: int = 200) -> float:
     t = (time.perf_counter() - t0) / n
     torch.cuda.synchronize()
     return t * 1e6
+
+
+def call_times(timer, fn) -> str:
+    """'<cold> ms cold, <warm> warm, <host> us host': device ms of one call
+    alone (L2 flushed) and back to back, host µs a call enqueued."""
+    return (f"{timer.ms(fn, iters=10):.4f} ms cold, "
+            f"{timer.warm_ms(fn, iters=10):.4f} warm, "
+            f"{host_us(fn, n=50):.1f} us host")
 
 
 def device_kernels(fn, n: int = 10) -> dict:
@@ -1332,6 +1361,10 @@ def main() -> None:
 
     # --- 18. SpGEMM and the classic formats ---
     classic_phase(timer, dev, cfg)
+    log(f"# phase 18 done at {time.perf_counter() - t_start:.0f}s")
+
+    # --- 19. the XLA-only engines and real-matrix input ---
+    xla_engines_phase(timer, dev, cfg)
     log(f"# all phases done at {time.perf_counter() - t_start:.0f}s")
 
     kernels += [*k_chunks, k_sellw, k_stream, *k_sellr, *k_opt, *k_w0, *k_g,
@@ -1527,8 +1560,10 @@ def k_dim_phase(timer, dev, gup, ship, Ag, Aw, gup_launches, cfg) -> list:
     with tempfile.TemporaryDirectory() as out_dir:
         for lib_ in (K, KS, KB):
             lib_.reset_launch_counts()
+        # CSR's gather SDDMM is phase 19's
         results = run_sweep([GUPTA3_LINE, SHIPSEC1_LINE], formats=formats,
-                            workloads=("spmm", "sddmm"), out_dir=out_dir,
+                            workloads=("spmm", "sddmm"),
+                            impls=("cuda", "torch"), out_dir=out_dir,
                             config=kcfg, device=dev)
         torch.cuda.synchronize()
         launches = {**KS.LAUNCHES, **KB.LAUNCHES}
@@ -2369,13 +2404,7 @@ def classic_phase(timer, dev, cfg) -> None:
             else:
                 setattr(obj, name, orig)
 
-    def one_call(fn):
-        """'<cold> ms cold, <warm> warm, <host> us host': device ms of one
-        call alone (L2 flushed) and back to back, host µs a call
-        enqueued."""
-        return (f"{timer.ms(fn, iters=10):.4f} ms cold, "
-                f"{timer.warm_ms(fn, iters=10):.4f} warm, "
-                f"{host_us(fn, n=50):.1f} us host")
+    one_call = functools.partial(call_times, timer)
 
     # (a) SpGEMM through the sweep, the plans kept
     kept = []
@@ -2494,9 +2523,11 @@ def classic_phase(timer, dev, cfg) -> None:
     built = []
     with keeping(sweep_mod.FORMAT_BUILDERS, None, built, many=True), \
             tempfile.TemporaryDirectory() as out_dir:
+        # BSR's mxu and CSR's gather SDDMM are phase 19's
         results = run_sweep([lines["raefsky3"]],
                             formats=("ell", "bsr", "sellcs", "coo", "csr"),
-                            workloads=("spmm", "sddmm"), out_dir=out_dir,
+                            workloads=("spmm", "sddmm"), impls=("torch",),
+                            out_dir=out_dir,
                             config=dataclasses.replace(ccfg, k_dim=k),
                             device=dev)
         torch.cuda.synchronize()
@@ -2563,6 +2594,227 @@ def classic_phase(timer, dev, cfg) -> None:
     log(f"# classic tridiagonal cuSPARSE SpMV: "
         f"{one_call(lambda: A @ xd.unsqueeze(1))}")
     log(f"# phase 18 done in {time.perf_counter() - t_phase:.0f}s")
+
+
+def xla_engines_phase(timer, dev, cfg) -> None:
+    """Phase 19, the XLA-only engines and real-matrix input (plain PyTorch
+    on the card, no hand kernel: the JAX package computes them in XLA), on
+    the scircuit (validation_twins.txt:5), raefsky3 (:7) and shipsec1 (:27)
+    twins at full size, no RCM. Each call is checked against its float64
+    gold and timed alone, cold and warm, with its host µs, beside
+    cuSPARSE's call of the same function on the same matrix."""
+    import dataclasses
+    import torch
+    from spmv_research_tpu_torch import mtx_sweep
+    from spmv_research_tpu_torch.convert import (BSRBuildError, build_bsr,
+                                                 build_csr)
+    from spmv_research_tpu_torch.core.host import HostCSR
+    from spmv_research_tpu_torch.gen import generate_from_line
+    from spmv_research_tpu_torch.harness import run_sweep
+    from spmv_research_tpu_torch.harness.bench import csv_labels
+    from spmv_research_tpu_torch.harness.workloads import (sddmm_gold,
+                                                           sddmm_inputs,
+                                                           spmm_inputs)
+    from spmv_research_tpu_torch.io import mtx_read, native
+    from spmv_research_tpu_torch.ops import (bsr_sddmm_to_csr_values,
+                                             build_bsrg, build_csr_lut,
+                                             build_sellg, sddmm, spmm, spmv)
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           TWINS)) as f:
+        twins = f.read().splitlines()
+    lines = {"scircuit": twins[4], "raefsky3": twins[6],
+             "shipsec1": twins[26]}
+    hosts = {name: generate_from_line(line)[0] for name, line in lines.items()}
+    log(f"# phase 19 twins generated in {time.perf_counter() - t_phase:.0f}s")
+    call = functools.partial(call_times, timer)
+    k = 128
+
+    def as_dev(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    def spmv_case(label, A, host, lib):
+        x = np.random.Generator(np.random.PCG64(7)).uniform(0, 1, host.n)
+        xd = as_dev(x)
+        y = spmv(A, xd)
+        torch.cuda.synchronize()
+        check_gold(label, host, x, y)
+        log(f"# {label} SpMV: {call(lambda: spmv(A, xd))}; cuSPARSE "
+            f"{call(lambda: torch.mv(lib, xd))}")
+
+    def spmm_case(label, A, host, lib):
+        X = spmm_inputs(host, k)
+        Xd = as_dev(X)
+        Y = spmm(A, Xd)
+        torch.cuda.synchronize()
+        check_y(f"{label} SpMM K = {k}", host, X, Y.double().cpu().numpy())
+        log(f"# {label} SpMM K = {k}: {call(lambda: spmm(A, Xd))}; cuSPARSE "
+            f"{call(lambda: torch.sparse.mm(lib, Xd))}")
+
+    def sddmm_case(label, S, host, lib, impl, csr_order):
+        Am, Bm = sddmm_inputs(host, k)
+        gold = sddmm_gold(host, Am, Bm)        # = Σ|a||b|: a, b ≥ 0
+        Ad, Bd = as_dev(Am), as_dev(Bm)
+        C = sddmm(S, Ad, Bd, impl=impl)
+        torch.cuda.synchronize()
+        vals = csr_order(C)
+        rel = float(np.max(np.abs(vals - gold) / (gold + 1e-30)))
+        if not (vals.shape == (host.nnz,) and rel <= 1e-5):
+            fail(f"{label} SDDMM: shape {vals.shape}, max |C-gold|/"
+                 f"(Σ|a||b|) = {rel}")
+        library = lambda: torch.sparse.sampled_addmm(  # noqa: E731
+            lib, Ad, Bd.t(), beta=0.0)
+        log(f"# {label} SDDMM K = {k} vs fp64 gold: max rel (Σ|a||b|) = "
+            f"{rel}; {call(lambda: sddmm(S, Ad, Bd, impl=impl))}; cuSPARSE "
+            f"{call(library)}")
+
+    def built(label, build, host):
+        t0 = time.perf_counter()
+        A = build(host)
+        log(f"# {label}: built in {time.perf_counter() - t0:.2f}s, footprint "
+            f"{A.mem_footprint_bytes() / 1e6:.2f} MB")
+        return A.to(dev)
+
+    # (a) CSR_LUT on scircuit: its own values, and phase 9's 64 levels
+    sc = hosts["scircuit"]
+    rng = np.random.Generator(np.random.PCG64(13))
+    levels = rng.uniform(-1.0, 1.0, 64)
+    sq = HostCSR.from_arrays(sc.ia, sc.ja,
+                             levels[rng.integers(0, 64, sc.nnz)], sc.m, sc.n)
+    for label, host, idx_dtype in (("scircuit", sc, torch.int32),
+                                   ("scircuit 64 levels", sq, torch.int8)):
+        A = built(f"{label} CSR_LUT", build_csr_lut, host)
+        log(f"# {label} CSR_LUT: {A.n_unique} distinct values, val_idx "
+            f"{A.val_idx.dtype}")
+        if A.val_idx.dtype != idx_dtype:
+            fail(f"{label} CSR_LUT: val_idx {A.val_idx.dtype}, want "
+                 f"{idx_dtype}")
+        lib = cusparse(host, dev)
+        spmv_case(f"{label} CSR_LUT/torch", A, host, lib)
+        spmm_case(f"{label} CSR_LUT/torch", A, host, lib)
+        del A, lib
+    del sq
+
+    # (b) SELLG SpMM, (c) BSRG and BSR/mxu, (d) CSR/gather
+    for name in ("raefsky3", "shipsec1"):
+        host = hosts[name]
+        lib = cusparse(host, dev)
+        A = built(f"{name} SELLG", build_sellg, host)
+        log(f"# {name} SELLG: widths {A.widths}, rows {A.counts}")
+        spmm_case(f"{name} SELLG/torch", A, host, lib)
+        del A
+        S = build_csr(host).to(dev)
+        sddmm_case(f"{name} CSR/gather", S, host, lib, "gather",
+                   lambda C: C.double().cpu().numpy()[: host.nnz])
+        del S
+        if name == "raefsky3":
+            A = built(f"{name} BSRG", build_bsrg, host)
+            log(f"# {name} BSRG: {A.n_blocks} blocks, widths {A.widths}")
+            spmv_case(f"{name} BSRG/torch", A, host, lib)
+            spmm_case(f"{name} BSRG/torch", A, host, lib)
+            del A
+            S = build_bsr(host).to(dev)
+            sddmm_case(f"{name} BSR/mxu", S, host, lib, "mxu",
+                       lambda C: bsr_sddmm_to_csr_values(S, C, host))
+            del S
+        del lib
+    try:
+        build_bsrg(sc)
+        fail("BSRG built the scircuit twin: BSR refuses it")
+    except BSRBuildError as e:
+        log(f"# scircuit BSRG refused, as BSR: {e}")
+    log(f"# phase 19 calls done in {time.perf_counter() - t_phase:.0f}s")
+
+    # (e) the SDDMM sweep rows: CSR/torch, CSR/gather and BSR/mxu
+    pcfg = dataclasses.replace(cfg, min_num_loops=32, min_time_s=0.3,
+                               use_rcm_reordering=False, k_dim=k)
+    raef = hosts["raefsky3"]
+    with tempfile.TemporaryDirectory() as out_dir:
+        results = run_sweep([lines["raefsky3"]], formats=("csr", "bsr"),
+                            workloads=("sddmm",), out_dir=out_dir,
+                            config=pcfg, device=dev)
+        check_csvs(out_dir, WORKLOAD_LABELS, {"csr_sddmm": 2,
+                                              "bsr_sddmm": 1})
+    got = sorted(f"{r.format_name}/{r.impl}" for r in results)
+    if got != ["BSR/mxu", "CSR/gather", "CSR/torch"]:
+        fail(f"the raefsky3 SDDMM sweep gave rows {got}")
+    gold = sddmm_gold(raef, *sddmm_inputs(raef, k))
+    for r in results:
+        rel = float(np.max(np.abs(r.out - gold) / (gold + 1e-30)))
+        log(f"# sweep raefsky3 {r.format_name}/{r.impl} sddmm: "
+            f"{r.gflops:.2f} GFLOPS median={r.time_iter_median * 1e6:.1f}us"
+            f" loops={r.num_loops}; max rel (Σ|a||b|) = {rel}")
+        if not (r.out.shape == (raef.nnz,) and rel <= 1e-5):
+            fail(f"sweep raefsky3 {r.format_name}/{r.impl} sddmm: shape "
+                 f"{r.out.shape}, max rel {rel}")
+        log_metrics(f"raefsky3 {r.format_name}/{r.impl} sddmm", r.metrics)
+    del results
+    log(f"# phase 19 SDDMM sweep done in {time.perf_counter() - t_phase:.0f}s")
+
+    # (f) the .mtx round trip: scircuit and raefsky3 written as .mtx, swept
+    # from disk and from memory, rows equal; short timed chains (a
+    # scircuit SELLG SpMM is ≈ 50 ms of host, its widths up to 512) and K
+    # = 16, since each SpMM row's float64 gold is host time
+    rcfg = dataclasses.replace(pcfg, min_num_loops=8, min_time_s=0.05,
+                               warmup_iters=2, k_dim=16)
+    with tempfile.TemporaryDirectory() as out_dir:
+        mem, disk, bad = mtx_sweep.round_trip(
+            [lines["scircuit"], lines["raefsky3"]], out_dir, config=rcfg,
+            device=dev)
+        torch.cuda.synchronize()
+        if bad:
+            fail(f".mtx round trip: rows differ from the in-memory ones: "
+                 f"{bad}")
+        disk_dir = os.path.join(out_dir, "disk")
+        check_csvs(disk_dir, csv_labels(synthetic=False), {
+            "csr_spmv": 2, "csr_lut_spmv": 2, "bsrg_spmv": 1})
+        check_csvs(disk_dir, WORKLOAD_LABELS, {
+            "csr_spmm": 2, "csr_lut_spmm": 2, "sellg_spmm": 2,
+            "bsrg_spmm": 1})
+        for name in ("scircuit", "raefsky3"):
+            path = os.path.join(out_dir, "mtx", f"{name}.mtx")
+            t0 = time.perf_counter()
+            fast = mtx_read(path)
+            t_native = time.perf_counter() - t0
+            saved = native._LIB, native._TRIED
+            native._LIB, native._TRIED = None, True
+            try:
+                t0 = time.perf_counter()
+                slow = mtx_read(path)
+                t_numpy = time.perf_counter() - t0
+            finally:
+                native._LIB, native._TRIED = saved
+            same = all(np.array_equal(getattr(fast, f), getattr(slow, f))
+                       for f in ("rows", "cols", "vals"))
+            log(f"# {name}.mtx ({os.path.getsize(path) / 1e6:.1f} MB, "
+                f"{fast.nnz} entries): parse {t_native:.2f}s native "
+                f"(loaded: {native.have_native()}), {t_numpy:.2f}s numpy; "
+                f"same arrays: {same}")
+            if not same:
+                fail(f"{name}.mtx: the native and numpy parsers differ")
+    want = sorted([f"{n} {r}" for n in ("scircuit", "raefsky3") for r in (
+        "CSR/torch spmv", "CSR/torch spmm", "CSR_LUT/torch spmv",
+        "CSR_LUT/torch spmm", "SELLG/torch spmm")]
+        + ["raefsky3 BSRG/torch spmv", "raefsky3 BSRG/torch spmm"])
+    got = sorted(f"{f[0]} {f[1]}/{f[2]} {f[3]}"
+                 for f in map(mtx_sweep.row_fields, disk))
+    if got != want or len(mem) != len(disk):
+        fail(f".mtx round trip rows {got}, want {want}")
+    for r in disk:
+        host = hosts[r.matrix_name]
+        key = (f"{r.matrix_name}.mtx {r.format_name}/{r.impl} "
+               f"{getattr(r, 'workload', 'spmv')}")
+        if hasattr(r, "workload"):
+            check_y(f"sweep {key}", host, spmm_inputs(host, rcfg.k_dim),
+                    r.out)
+        else:
+            x = np.random.Generator(np.random.PCG64(7)).uniform(0, 1, host.n)
+            check_gold(f"sweep {key}", host, x, r.y)
+        log_metrics(key, r.metrics)
+    log(f"# .mtx round trip: {len(disk)} disk rows equal to the in-memory "
+        f"rows in m, n, nnz and the 8 metrics")
+    log(f"# phase 19 done in {time.perf_counter() - t_phase:.0f}s")
 
 
 def stream_tridiagonal(rng):

@@ -20,13 +20,16 @@ import torch
 
 def tree_map(fn, obj):
     """``obj`` with ``fn`` applied to every tensor it holds, through nested
-    dataclass fields and tuples (e.g. the ``ClosG`` programs of a
-    ``ClosGChunked``); other leaves are kept as they are. The role of
-    ``jax.tree_util.tree_map`` over a format pytree."""
+    dataclass fields, tuples (e.g. the ``ClosG`` programs of a
+    ``ClosGChunked``) and dicts (SELLG's slabs by width); other leaves are
+    kept as they are. The role of ``jax.tree_util.tree_map`` over a format
+    pytree."""
     if isinstance(obj, torch.Tensor):
         return fn(obj)
     if isinstance(obj, tuple):
         return tuple(tree_map(fn, o) for o in obj)
+    if isinstance(obj, dict):
+        return {k: tree_map(fn, v) for k, v in obj.items()}
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return dataclasses.replace(obj, **{
             f.name: tree_map(fn, getattr(obj, f.name))

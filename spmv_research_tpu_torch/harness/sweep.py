@@ -6,33 +6,38 @@ matrices × formats × impls × workloads on one torch device with the JAX
 sweep's output discipline: one CSV file per (format, workload) pair
 (``<fmt>_<workload>.csv``; SpGEMM and the trisolve, which need no
 format, ``spgemm.csv`` and ``trisolve.csv``) with the labels row first
-(SpMV: the JAX package's synthetic schema, ``csv_labels`` /
-``csv_row_synthetic``; the others: its ``matrix_name,format_name,impl,
-K,...`` schema, a solve's residual in the ``mape`` and ``max_ae``
-columns), human lines on stdout, and an idempotent done-log (``done.log``, keys (matrix, format, impl, workload), and
+(SpMV: the JAX package's synthetic schema, ``csv_labels(synthetic=True)``
+/ ``csv_row_synthetic``, or for a matrix read from a file its real-matrix
+schema, ``csv_labels()`` / ``csv_row_real``; the others: its
+``matrix_name,format_name,impl,K,...`` schema, a solve's residual in the
+``mape`` and ``max_ae`` columns), human lines on stdout, and an idempotent
+done-log (``done.log``, keys (matrix, format, impl, workload), and
 (matrix, workload) for SpGEMM and the trisolve) so that a restarted
 sweep skips finished pairs.
 
+A matrix is a ``.mtx`` path (or any existing path: Matrix Market,
+``io/matrix_market.py``, symmetry expanded) or a synthetic 11-arg
+parameter line. ``FORMAT_BUILDERS`` holds every format of the JAX sweep:
+``csr``, the classic formats ``coo``, ``csc``, ``ell``, ``sellcs``,
+``bsr`` (8 × 128 blocks) and ``csr_sym``, the XLA-only engines ``sellg``
+(SpMM only), ``bsrg`` (8 × 128 blocks) and ``csr_lut``, ``sellr``,
+``sellw``, ``closg`` (whose builder may return a CLOSG, RSPLIT or CLOSGX
+program), the fallback engines ``clos`` and ``bfly``, ``dense``, ``btile``
+and the double-single ``csrds`` and ``sellwds``. The workloads are
+``spmv``, ``spmm``, ``sddmm`` (CSR's impls ``torch`` and ``gather``,
+BSR's ``mxu``), ``cg``, ``bicgstab``, and once per matrix ``spgemm`` (C =
+A·A) and ``trisolve`` (ILU(0) and the level-scheduled solves), the
+solvers' preconditioners ``jacobi``, ``ic0`` and ``ilu0``.
+
 Differences from the JAX sweep, each deliberate:
 
-* matrices are synthetic 11-arg parameter lines; a ``.mtx`` spec raises
-  ``NotImplementedError`` (the Matrix Market reader is ROADMAP queue A
-  item 6);
-* ``FORMAT_BUILDERS`` holds ``csr``, the classic formats ``coo``, ``csc``,
-  ``ell``, ``sellcs``, ``bsr`` (8 × 128 blocks) and ``csr_sym``,
-  ``sellr``, ``sellw``, ``closg`` (whose builder may return a CLOSG,
-  RSPLIT or CLOSGX program, as in the JAX sweep), the fallback engines
-  ``clos`` and ``bfly``, ``dense``, ``btile`` and the double-single
-  ``csrds`` and ``sellwds``; the JAX sweep's ``sellg``, ``bsrg`` and
-  ``csr_lut`` are not ported yet (ROADMAP queue A item 5). The workloads
-  are ``spmv``, ``spmm``, ``sddmm``, ``cg``, ``bicgstab``, and once per
-  matrix ``spgemm`` (C = A·A) and ``trisolve`` (ILU(0) and the
-  level-scheduled solves), the solvers' preconditioners ``jacobi``,
-  ``ic0`` and ``ilu0``. Any other name raises before the sweep starts;
+* a format, workload or preconditioner name it does not have raises
+  before the sweep starts;
 * the impls are the device's (``sweep_impls``): on a CUDA device ``cuda``
   for an engine and every registered impl of a format with no hand
   kernel (``TORCH_FORMATS``: CSR's SpMV runs ``torch`` and ``sparse``, the
-  cuSPARSE baseline; the classic formats ``torch``); on the CPU every
+  cuSPARSE baseline; the classic formats and the XLA-only engines
+  ``torch``); on the CPU every
   impl but ``cuda``; the engines'
   plain versions are never sweep rows on the card. ``impls`` narrows that
   set as the JAX sweep's does (its names in its order), and each name
@@ -45,8 +50,9 @@ Differences from the JAX sweep, each deliberate:
 * a builder's suitability error (``SellRBuildError``, ``SellWBuildError``,
   ``ClosRoutingError``, ``RoutingError`` (BFLY past 2^22 slots),
   ``DenseBuildError``, ``BTileBuildError``, ``DSRangeError``, a value
-  too large for the double-single split, ``BSRBuildError``, BSR's fill
-  guard, and ``CSRSymBuildError``, a matrix that is not symmetric) is
+  too large for the double-single split, ``BSRBuildError``, the fill
+  guard of BSR and BSRG, and ``CSRSymBuildError``, a matrix that is not
+  symmetric) is
   printed and the format skipped, as in the JAX sweep, which catches any
   builder error; a gated row
   (non-finite metrics, a solve without progress, a trisolve residual past
@@ -68,26 +74,31 @@ import torch
 
 from ..convert import (BSRBuildError, CSRSymBuildError, build_bsr,
                        build_coo, build_csc, build_csr, build_csr_sym,
-                       build_ell, build_sellcs, extract_features,
+                       build_ell, build_sellcs, coo_to_csr, extract_features,
                        fix_diagonal_zeros, make_diag_dominant, make_spd,
                        rcm_reorder)
 from ..convert.reorder import rcm_if_beneficial
 from ..gen import ArtificialParams, artificial_matrix_generation
+from ..io import mtx_read
 from ..ops import available_impls, default_impl
 from ..ops.dispatch import TORCH_FORMATS
 from ..ops.bfly import build_bfly
+from ..ops.bsr_mxu import build_bsrg
 from ..ops.btile import BTileBuildError, build_btile
 from ..ops.clos import build_clos
 from ..ops.compensated import DSRangeError, build_csrds
 from ..ops.clos_gather import build_clos_gather_auto
 from ..ops.clos_route import ClosRoutingError
 from ..ops.densemv import DenseBuildError, build_dense
+from ..ops.gatherk import build_sellg
 from ..ops.routing import RoutingError
 from ..ops.sellr import SellRBuildError, build_sellr
 from ..ops.sellw import SellWBuildError, build_sellw
 from ..ops.sellw_ds import build_sellwds
+from ..ops.value_compress import build_csr_lut
 from ..solvers import check_precond
-from .bench import BenchResult, bench_spmv, csv_labels, csv_row_synthetic
+from .bench import (BenchResult, bench_spmv, csv_labels, csv_row_real,
+                    csv_row_synthetic)
 from .config import BenchConfig
 from .workloads import (BenchGateError, bench_cg, bench_sddmm, bench_spgemm,
                         bench_spmm, bench_trisolve)
@@ -100,6 +111,9 @@ FORMAT_BUILDERS = {
     "sellcs": build_sellcs,
     "bsr": functools.partial(build_bsr, br=8, bc=128),
     "csr_sym": build_csr_sym,
+    "csr_lut": build_csr_lut,
+    "sellg": build_sellg,
+    "bsrg": functools.partial(build_bsrg, br=8, bc=128),
     "sellr": build_sellr,
     "sellw": build_sellw,
     "closg": build_clos_gather_auto,   # CLOSG, RSPLIT or CLOSGX
@@ -115,8 +129,6 @@ WORKLOADS = ("spmv", "spmm", "sddmm", "cg", "bicgstab", "spgemm",
 SOLVERS = ("cg", "bicgstab")        # workloads that run on the SpMV
 # once per matrix, on no format: each one's runner
 MATRIX_WORKLOADS = {"spgemm": bench_spgemm, "trisolve": bench_trisolve}
-# the JAX sweep's formats that follow ROADMAP queue A item 5
-UNPORTED_FORMATS = ("sellg", "bsrg", "csr_lut")
 # a builder raising one of these refuses the matrix: the format is skipped
 SUITABILITY_ERRORS = (SellRBuildError, SellWBuildError, ClosRoutingError,
                       RoutingError, DenseBuildError, BTileBuildError,
@@ -128,13 +140,11 @@ WORKLOAD_LABELS = ("matrix_name,format_name,impl,K,time_iter_median,gflops,"
 def check_sweep_args(formats: Sequence[str], workloads: Sequence[str],
                      precond: str = "jacobi") -> None:
     """Raise on a format, workload or (for the solvers) preconditioner the
-    port does not have yet."""
+    sweep does not have."""
     bad_f = [f for f in formats if f not in FORMAT_BUILDERS]
     if bad_f:
-        raise NotImplementedError(
-            f"formats {bad_f} are not ported: the sweep has "
-            f"{sorted(FORMAT_BUILDERS)} ({', '.join(UNPORTED_FORMATS)} "
-            "follow ROADMAP queue A item 5)")
+        raise ValueError(f"unknown formats {bad_f}: the sweep has "
+                         f"{', '.join(sorted(FORMAT_BUILDERS))}")
     bad_w = [w for w in workloads if w not in WORKLOADS]
     if bad_w:
         raise ValueError(f"unknown workloads {bad_w}: the sweep runs "
@@ -144,17 +154,20 @@ def check_sweep_args(formats: Sequence[str], workloads: Sequence[str],
 
 
 def load_matrix(spec: str, cfg: BenchConfig):
-    """spec: an 11-arg synthetic parameter line (a ``.mtx`` path raises).
-    Applies the config's transforms, then RCM (True, or "auto" = only where
-    it narrows the band). Returns (host, name, params)."""
+    """spec: a ``.mtx`` path (or any existing path: read as Matrix Market,
+    symmetry expanded; name = the file's base name, params None) or an
+    11-arg synthetic parameter line. Applies the config's transforms, then
+    RCM (True, or "auto" = only where it narrows the band). Returns (host,
+    name, params)."""
     t0 = time.time()
     if spec.endswith(".mtx") or os.path.exists(spec):
-        raise NotImplementedError(
-            f"{spec}: Matrix Market input is not ported (ROADMAP queue A "
-            "item 6, io/matrix_market.py)")
-    params = ArtificialParams.from_args(spec.split())
-    host, _ = artificial_matrix_generation(params)
-    name = params.name or "synthetic"
+        host = coo_to_csr(mtx_read(spec, expand_symmetry=True))
+        name = os.path.splitext(os.path.basename(spec))[0]
+        params = None
+    else:
+        params = ArtificialParams.from_args(spec.split())
+        host, _ = artificial_matrix_generation(params)
+        name = params.name or "synthetic"
     if cfg.matrix_transform:
         tf = {"spd": make_spd, "dd": make_diag_dominant}[cfg.matrix_transform]
         host = tf(host)
@@ -241,7 +254,7 @@ def run_sweep(matrices: Sequence[str],
         csv_path = os.path.join(out_dir, csv_name)
         with open(csv_path, "a") as f:
             if csv_path not in label_written and f.tell() == 0:
-                f.write(_labels_for(workload) + "\n")
+                f.write(_labels_for(workload, params is not None) + "\n")
             label_written.add(csv_path)
             f.write(_row_for(r, workload, params, feats) + "\n")
         donelog.mark("DONE", *key)
@@ -261,7 +274,7 @@ def run_sweep(matrices: Sequence[str],
     fmt_workloads = [w for w in workloads if w not in MATRIX_WORKLOADS]
     for spec in matrices:
         host, name, params = load_matrix(spec, cfg)
-        feats = extract_features(host)
+        feats = extract_features(host) if params is not None else None
         for workload in workloads:
             if (workload not in MATRIX_WORKLOADS
                     or donelog.skip(name, workload)):
@@ -330,13 +343,17 @@ def _gate_result(r, workload):
             f"{workload}: residual {m.mape:.3g} — no convergence progress")
 
 
-def _labels_for(workload):
-    return csv_labels(synthetic=True) if workload == "spmv" else WORKLOAD_LABELS
+def _labels_for(workload, synthetic):
+    if workload == "spmv":
+        return csv_labels(synthetic=synthetic)
+    return WORKLOAD_LABELS
 
 
 def _row_for(r, workload, params, feats):
     if workload == "spmv":
-        return csv_row_synthetic(r, params, feats)
+        if params is not None:
+            return csv_row_synthetic(r, params, feats)
+        return csv_row_real(r)
     return (f"{r.matrix_name},{r.format_name},{r.impl},{r.k},"
             f"{r.time_iter_median:.9f},{r.gflops:.4f},{r.num_loops},"
             f"{r.mape:.6g},{r.max_ae:.6g}")

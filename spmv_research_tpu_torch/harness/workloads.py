@@ -33,9 +33,13 @@ Protocol parity with the reference:
 
 The gold is the float64 product on the host (scipy's ``A @ X``; the per-nnz
 dots of A's and B's rows), held against the result through the 8 error
-metrics of ``metrics.py``. A BTILE SDDMM returns its tile slab; its per-nnz
-values are extracted (``sddmm_slab_to_csr_values``) for that check only,
-and the timed chain runs the raw kernel. Timing is ``utils/timing``'s chain
+metrics of ``metrics.py``. A BTILE SDDMM returns its tile slab and a
+``BSR/mxu`` SDDMM its block layout; their per-nnz values are put in CSR
+order (``sddmm_slab_to_csr_values``, ``bsr_sddmm_to_csr_values``) for that
+check only, and the timed chain runs the raw call. (The JAX package's
+``bench_sddmm`` reads ``BSR/mxu``'s block layout as if it were in CSR
+order, so its error columns for that impl are wrong; the product is
+right.) Timing is ``utils/timing``'s chain
 of dependent calls (CUDA events on a card), each call's output folded into
 its input.
 """
@@ -50,7 +54,9 @@ import numpy as np
 import torch
 
 from ..core.host import HostCSR
+from ..core.formats import BSR
 from ..ops import sddmm as sddmm_dispatch, spmm as spmm_dispatch
+from ..ops.bsr_mxu import bsr_sddmm_to_csr_values
 from ..ops.btile import BTile, sddmm_slab_to_csr_values
 from ..utils.timing import fold, sync, time_chain
 from .config import BenchConfig
@@ -155,6 +161,8 @@ def bench_sddmm(host: HostCSR, S, *, config: Optional[BenchConfig] = None,
     sync(S.device)
     if isinstance(S, BTile):       # the tile slab, for validation only
         vals = sddmm_slab_to_csr_values(S, C, host)
+    elif isinstance(S, BSR):       # the block layout, likewise
+        vals = bsr_sddmm_to_csr_values(S, C, host)
     else:
         vals = C.double().cpu().numpy()[: host.nnz]
     m = error_metrics(sddmm_gold(host, Amat, Bmat), vals,

@@ -4,9 +4,8 @@ Counterpart of ``spmv_research_tpu/io/native.py``. It loads the same
 ``native/libsparse_host.so`` (the C++ stays single-sourced) and keeps the
 same behaviour: when the library is missing but its sources exist, try
 ``make -C native`` once. Only the entry points the port's modules call are
-bound (COO→CSR, RCM, feature extraction, the Clos Euler edge coloring, the
-SELLW packer, the Waksman router of BFLY); the MTX parser follows its
-module.
+bound (the MTX body parser, COO→CSR, RCM, feature extraction, the Clos
+Euler edge coloring, the SELLW packer, the Waksman router of BFLY).
 
 This is a host library: its numpy fallbacks give the same results (the
 Euler coloring a different but equally valid one) more slowly, and are not a
@@ -81,6 +80,11 @@ def _load() -> None:
         return
     lib = ctypes.CDLL(path)
 
+    lib.mtx_parse_body.restype = ctypes.c_int64
+    lib.mtx_parse_body.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+        _c_i32p, _c_i32p, _c_f64p]
+
     lib.coo_to_csr.restype = None
     lib.coo_to_csr.argtypes = [
         _c_i32p, _c_i32p, _c_f64p, ctypes.c_int64, ctypes.c_int64,
@@ -120,6 +124,21 @@ def _load() -> None:
 
 def have_native() -> bool:
     return get_lib() is not None
+
+
+def mtx_parse_body(body: bytes, nnz_decl: int, fields: int):
+    """(rows, cols, vals) of a coordinate body's ``nnz_decl`` entries,
+    0-based; ``fields`` is 2 (pattern), 3 (real, integer) or 4 (complex:
+    the real part kept)."""
+    lib = get_lib()
+    rows = np.empty(nnz_decl, np.int32)
+    cols = np.empty(nnz_decl, np.int32)
+    vals = np.empty(nnz_decl, np.float64)
+    got = lib.mtx_parse_body(body, len(body), nnz_decl, fields,
+                             rows, cols, vals)
+    if got != nnz_decl:
+        raise ValueError(f"native mtx parse: got {got} of {nnz_decl} entries")
+    return rows, cols, vals
 
 
 def coo_to_csr_native(rows, cols, vals, m):

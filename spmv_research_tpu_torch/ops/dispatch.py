@@ -15,8 +15,11 @@ device: a CPU tensor takes ``"torch"``; a CUDA tensor takes ``"cuda"``,
 except for the formats that have no hand kernel, which take ``"torch"`` on
 every device (``TORCH_FORMATS``): those in ``LIBRARY_FORMATS``, CSR and
 DENSE (library code in the JAX package too) and CSRDS, the double-single
-CSR; and those in ``PLAIN_FORMATS``, the classic formats, which the JAX
-package computes only in XLA (its ``xla`` impls, ``ops/reference.py``).
+CSR; and those in ``PLAIN_FORMATS``, the classic formats and the engines
+SELLG, BSRG and CSR_LUT, which the JAX package computes only in XLA (its
+``xla`` impls, ``ops/reference.py``, ``gatherk.py``, ``bsr_mxu.py`` and
+``value_compress.py``). Two SDDMMs keep the JAX package's impl names:
+CSR's ``gather`` and BSR's ``mxu``.
 A format outside those sets with no ``"cuda"`` impl raises on a CUDA
 tensor, and asking for ``"cuda"`` with a CPU tensor raises. There is no
 other preference walk and no fallback.
@@ -41,10 +44,11 @@ _TABLES = {"spmv": _SPMV, "spmm": _SPMM, "sddmm": _SDDMM}
 # formats whose impls are library calls or plain PyTorch on every device:
 # no hand kernel, by design (CSR, DENSE), or none in the JAX package (CSRDS)
 LIBRARY_FORMATS = frozenset({"CSR", "DENSE", "CSRDS"})
-# the classic formats, plain PyTorch on every device: the JAX package
-# computes them only in XLA
+# the classic formats and the XLA-only engines, plain PyTorch on every
+# device: the JAX package computes them only in XLA
 PLAIN_FORMATS = frozenset({"COO", "CSC", "ELL", "SELL-C-s", "BSR",
-                           "Custom_DIA", "LDU", "CSR_SYM"})
+                           "Custom_DIA", "LDU", "CSR_SYM", "SELLG", "BSRG",
+                           "CSR_LUT"})
 TORCH_FORMATS = LIBRARY_FORMATS | PLAIN_FORMATS
 
 

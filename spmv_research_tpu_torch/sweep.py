@@ -1,17 +1,19 @@
 """The port's sweep command line — the counterpart of ``tools/sweep.py``.
 
     python -m spmv_research_tpu_torch.sweep --matrix "<11-arg line>" \
-        [--matrices FILE] --formats csr coo csc ell sellcs bsr csr_sym \
-        sellr sellw closg clos bfly dense btile csrds sellwds \
+        [--matrix PATH.mtx] [--matrices FILE] --formats csr coo csc ell \
+        sellcs bsr csr_sym csr_lut sellg bsrg sellr sellw closg clos bfly \
+        dense btile csrds sellwds \
         [--workloads spmv spmm sddmm cg bicgstab spgemm trisolve] \
         [--impls cuda torch sparse] --out DIR [--device cuda]
     python -m spmv_research_tpu_torch.sweep --matrix "<11-arg line>" \
         --job "formats=csr,sellw,sellwds;workloads=cg;transform=spd" \
         [--job ...]
 
-Matrix list files hold one synthetic parameter line per line (``#`` starts
-a comment), e.g. ``datasets/validation_twins.txt``. The config comes from
-the reference's env vars (``BenchConfig.from_env``: ``USE_RCM_REORDERING``
+A matrix spec is a synthetic parameter line or a Matrix Market file's path
+(``.mtx``, or any existing path). Matrix list files hold one spec per line
+(``#`` starts a comment), e.g. ``datasets/validation_twins.txt``. The
+config comes from the reference's env vars (``BenchConfig.from_env``: ``USE_RCM_REORDERING``
 = 0, 1 or auto, ``FIX_DIAGONAL_ZEROS``, ``MIN_NUM_LOOPS``, ``MIN_TIME_S``,
 ``K_DIM``, the SpMM/SDDMM K, default 128, and ``CG_MAX_NUM_ITERS``, the
 solvers' iteration cap, default 50). Each (format, workload) pair writes
@@ -19,8 +21,10 @@ solvers' iteration cap, default 50). Each (format, workload) pair writes
 ``spgemm.csv`` and ``trisolve.csv``); a pair the format has no impl for is
 skipped. ``--impls`` narrows the impls the device runs (the card: ``cuda``
 for an engine and every impl of a format with no hand kernel, CSR's SpMV
-``torch`` and ``sparse``, the classic formats' ``torch``; the CPU: every
-impl but ``cuda``) to the named ones, as in ``tools/sweep.py``.
+``torch`` and ``sparse``, CSR's SDDMM ``torch`` and ``gather``, BSR's
+SDDMM ``mxu``, the classic formats' and the XLA-only engines' ``torch``;
+the CPU: every impl but ``cuda``) to the named ones, as in
+``tools/sweep.py``.
 
 ``--job`` (repeatable) is a semicolon-separated spec of one sweep, as in
 ``tools/sweep.py``: ``mats=FILE`` (default: the ``--matrix`` and
@@ -28,9 +32,8 @@ impl but ``cuda``) to the named ones, as in ``tools/sweep.py``.
 (default ``--impls``), ``kdim=K``, ``transform=spd|dd`` (the
 solver-dataset analogs), ``precond=jacobi|ic0|ilu0``, ``maxiters=N`` and
 ``out=DIR`` (default ``--out``). The jobs run in order in one process;
-unlike the JAX CLI, a job that fails stops the command. Formats, workloads
-and preconditioners the port does not have raise before any work
-starts.
+unlike the JAX CLI, a job that fails stops the command. Unknown formats,
+workloads and preconditioners raise before any work starts.
 """
 
 from __future__ import annotations

@@ -214,12 +214,15 @@ def test_coo_sddmm_matches_jax_xla(k):
 
 
 def test_classic_formats_take_torch_on_the_card():
-    """No hand kernel: the classic formats' plain impl is the default on a
-    CUDA tensor too."""
-    assert PLAIN_FORMATS == {"COO", "CSC", "ELL", "SELL-C-s", "BSR",
-                             "Custom_DIA", "LDU", "CSR_SYM"}
+    """No hand kernel: the classic formats' plain impl (and the XLA-only
+    engines', since they were ported) is the default on a CUDA tensor
+    too."""
+    classic = {"COO", "CSC", "ELL", "SELL-C-s", "BSR", "Custom_DIA", "LDU",
+               "CSR_SYM"}
+    assert PLAIN_FORMATS == classic | {"SELLG", "BSRG", "CSR_LUT"}
     for fmt in PLAIN_FORMATS:
         assert default_impl(fmt, torch.device("cuda")) == "torch"
+    for fmt in classic:
         assert sweep_mod.sweep_impls("spmv", fmt, torch.device("cuda")) == \
             ["torch"]
 

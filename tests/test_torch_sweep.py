@@ -127,18 +127,20 @@ def test_sweep_resumes_from_done_log(sweep_out):
 
 
 def test_sweep_refuses_unported_names(tmp_path):
-    """A format still to port (``sellg``, queue A item 5), an unknown
-    workload and ``.mtx`` input (item 6) raise before any work."""
-    with pytest.raises(NotImplementedError, match="sellg.*item 5"):
-        check_sweep_args(["csr", "bfly", "sellg"], ["spmv"])
+    """Every format of the JAX sweep is ported; an unknown format or
+    workload raises before any work, and a ``.mtx`` path is read as a
+    file (a missing one raises as the JAX sweep's reader does)."""
+    check_sweep_args(["csr", "bfly", "sellg", "bsrg", "csr_lut"], ["spmv"])
+    with pytest.raises(ValueError, match="unknown formats.*sellx"):
+        check_sweep_args(["csr", "bfly", "sellx"], ["spmv"])
     with pytest.raises(ValueError, match="unknown workloads"):
         run_sweep([BANDED_LINE], formats=("csr",), workloads=("spgemmm",),
                   out_dir=str(tmp_path / "out"), device="cpu")
     assert not (tmp_path / "out").exists()
-    with pytest.raises(NotImplementedError, match="Matrix Market"):
-        load_matrix("matrix.mtx", BenchConfig())
+    with pytest.raises(FileNotFoundError):
+        load_matrix(str(tmp_path / "matrix.mtx"), BenchConfig())
     with pytest.raises(SystemExit):
-        cli.main(["--matrix", BANDED_LINE, "--formats", "sellg"])
+        cli.main(["--matrix", BANDED_LINE, "--formats", "sellx"])
 
 
 def test_cli_runs_on_the_cpu(monkeypatch, tmp_path, capsys):

@@ -7,6 +7,8 @@ import torch
 
 from spmv_research_tpu_torch.ops.clos import _stage_bit
 
+torch.set_num_threads(1)   # the test workers (pytest -n 6) share the cores
+
 # bench.py's scircuit twin line, cut to 2000 rows (V=16, W=2, capped scan
 # with 10 accumulate records)
 TWIN_LINE = ("2000 2000 5.6 4.39 normal random 0.297 61.9 0.803 0.633 14 "
