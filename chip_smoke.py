@@ -1,11 +1,20 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # phases 1-20
+    python3 chip_smoke.py --phase 20   # phases 1, 2 and 20 alone
 
 Needs one CUDA card, nvcc, and the repository checkout (it imports
-``spmv_research_tpu_torch`` and nothing of JAX). Phases, each fatal on
-failure (non-zero exit, no result line):
+``spmv_research_tpu_torch`` and nothing of JAX). Each run points
+``SPARSE_FORMAT_CACHE_TORCH`` at an empty directory of its own (removed at
+its end): every build is cold the first time, and a later phase that
+builds what an earlier phase built (the same matrix, format and kwargs:
+phase 5's scircuit CLOSG, phase 8's shipsec1 programs, phase 12's gupta3
+and mip1 CLOSG, phase 14's sweep BTILE programs, phase 16's sweeps' CLOS
+and BFLY, ...) loads it; the kernel checks run on the loaded programs all
+the same, and the cache's hits, misses, saved host seconds and the
+seconds its saves cost are printed before phase 20. Phases, each fatal on failure (non-zero exit,
+no result line):
 
 1. the card (``nvidia-smi`` name and power limit) and whether the native
    host library loaded;
@@ -204,7 +213,34 @@ failure (non-zero exit, no result line):
     torch impls, deterministic), every disk row equal to its in-memory
     row in m, n, nnz and the 8 metrics, under JAX's real-matrix labels,
     and held to its gold; both files parsed on the native and the numpy
-    tier, timed.
+    tier, timed;
+20. the format cache, row clustering, tracing and the tools
+    (``tooling_phase``), at the main path's full size: (a) ``build_best``
+    on the scircuit twin cold and again on the same (fresh) cache
+    directory, every entry loaded with every tensor ``torch.equal`` to
+    the fresh build's, load and cold build seconds and MB on disk logged,
+    the loaded CLOSG program's CLOSG/cuda y bit for bit the fresh
+    program's; ``bench.run`` twice on one cache directory, the second
+    loading CLOSG (its convert time the load, its cold time the first
+    run's build); (b) ``kmeans_reorder`` (k = 16) on the shipsec1 and
+    scircuit twins as generated: host seconds, ``bw_avg``,
+    ``scatter_avg`` and ``cross_row_similarity_avg`` before and after,
+    CSR/torch and CSR/sparse SpMV in both orders timed and, mapped back
+    through the permutation, held to the gold; (c) in a child process
+    (``--trace-check``: the profiler drops device events late in a long
+    process), one CLOSG/cuda SpMV inside ``trace_region`` under
+    ``utils.trace.profile``: the region among the profiler's events, B1,
+    ``clos_r2``, the scan and the extraction inside its window, a Chrome
+    trace written; (d) ``tools.machine_info`` (the name and power limit
+    phase 1 read), ``mat_feat`` on the scircuit line, ``twin_fidelity
+    --limit 3``, the locality statistics of shipsec1 after RCM and
+    ``collect_results`` over the CSVs of phases 8, 12, 14 and 16: corpus
+    files for spmv, spmm and sddmm, a speedup over CSR/torch and over
+    CSR/sparse for every SpMV matrix, the card in the title; (e)
+    ``tools.xl_run`` on pwtk (validation_twins.txt:33, 11.5M nnz, no RCM):
+    a CLOSGX of several chunks, B1, ``clos_r2`` and B15 launched, y held
+    to the gold, the JSON line's fields (``passed`` is the reference's
+    fp32 gate, logged) and the CSV row under the real-matrix labels.
 
 Every sweep with ``csr`` in it gives CSR/torch and CSR/sparse rows side by
 side (cuSPARSE's SpMV through the registry: the JAX package's CSR/bcoo),
@@ -235,9 +271,12 @@ its host time. The line before the last is the kernels' JSON record; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import functools
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -775,13 +814,46 @@ def cusparse(host, dev):
 
 
 def main() -> None:
+    args = sys.argv[1:]
+    if args not in ([], ["--phase", "20"], ["--trace-check"]):
+        fail(f"usage: python3 chip_smoke.py [--phase 20 | --trace-check], "
+             f"not {args}")
+    if args == ["--trace-check"]:
+        trace_check()
+        return
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    # one format cache a run, empty at its start: a cache an earlier run
+    # left can never make a "cold build" line lie, and a later phase that
+    # builds what an earlier phase built (the same matrix, format and
+    # kwargs) loads it
+    os.environ["SPARSE_FORMAT_CACHE_TORCH"] = os.path.join(run_dir,
+                                                           "format_cache")
+    try:
+        run(run_dir, tooling_only=bool(args))
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+
+def kept_dir(run_dir, name) -> str:
+    """A new directory ``name`` in the run's directory, for a sweep's CSVs
+    that phase 20's ``collect_results`` merges."""
+    path = os.path.join(run_dir, name)
+    os.makedirs(path)
+    return path
+
+
+def run(run_dir, tooling_only: bool) -> None:
+    """The phases: 1-20, or with ``tooling_only`` 1, 2 and 20 (its CSVs
+    from a short sweep of its own)."""
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
     try:
         from spmv_research_tpu_torch import bench
         from spmv_research_tpu_torch.convert import build_csr
+        from spmv_research_tpu_torch.convert import cache
         from spmv_research_tpu_torch.convert.build_best import build_best
+        from spmv_research_tpu_torch.convert.cache import describe
         from spmv_research_tpu_torch.convert.reorder import rcm_if_beneficial
         from spmv_research_tpu_torch.core.host import HostCSR
         from spmv_research_tpu_torch.gen import generate_from_line
@@ -815,7 +887,8 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    smi_line = smi.stdout.strip().splitlines()[0]
+    log(smi_line)
     log(f"# torch {torch.__version__} cuda {torch.version.cuda}; "
         f"native host library loaded: {native.have_native()}; data sheet: "
         f"{spec.hbm_bw / 1e12} TB/s, {spec.peak_tflops} TFLOP/s fp32")
@@ -835,6 +908,13 @@ def main() -> None:
             "scan_contig_kernelILi9ELb0ELb0", "scan_contig_kernelILi9ELb0ELb1",
             "scan_contig_kernelILi9ELb1ELb0", "scan_strided_kernelILi9ELb0",
             "scan_strided_kernelILi9ELb1")))
+
+    if tooling_only:
+        tooling_phase(DeviceTimer(spec), dev, run_dir,
+                      tooling_sweeps(run_dir, dev), smi_line)
+        log(f"# phase 20 alone passed at {time.perf_counter() - t_start:.0f}s")
+        return
+    cache.reset_stats()
 
     # --- 3. the scircuit program ---
     t0 = time.perf_counter()
@@ -928,7 +1008,7 @@ def main() -> None:
              f"{type(Ac).__name__} with chunk W "
              f"{[c.W for c in getattr(Ac, 'chunks', ())]}")
     for key, (F, info) in fmts.items():
-        log(f"# {key} cold build {info['build_s']:.2f}s, footprint_MB="
+        log(f"# {key} {describe(info)}, footprint_MB="
             f"{F.mem_footprint_bytes() / 1e6:.2f}")
     log(f"# SELLR: nchunks={Ar.nchunks} nch_pad={Ar.word.shape[0] // 8} "
         f"x_rows={Ar.x_rows} y_rows={Ar.y_rows} stages={Ar.stages} "
@@ -1060,20 +1140,20 @@ def main() -> None:
     cfg = BenchConfig(min_num_loops=64, min_time_s=1.0,
                       use_rcm_reordering="auto")
     formats = ("csr", "sellr", "sellw", "closg")
-    with tempfile.TemporaryDirectory() as out_dir:
-        K.reset_launch_counts()
-        KS.reset_launch_counts()
-        results = run_sweep([SHIPSEC1_LINE], formats=formats,
-                            out_dir=out_dir, config=cfg)
-        torch.cuda.synchronize()
-        launches = {**K.LAUNCHES, **KS.LAUNCHES}
-        log(f"# launches during the sweep path: {launches}")
-        for name in ("sellw", "sellr_place", "sellr_flush", "closg_front",
-                     "clos_r2", "closg_r3_scan_yext"):
-            if launches[name] <= 0:
-                fail(f"the sweep path never launched {name}")
-        check_csvs(out_dir, csv_labels(synthetic=True),
-                   {f"{f}_spmv": 2 if f == "csr" else 1 for f in formats})
+    out_dir = kept_dir(run_dir, "phase8_sweep")
+    K.reset_launch_counts()
+    KS.reset_launch_counts()
+    results = run_sweep([SHIPSEC1_LINE], formats=formats,
+                        out_dir=out_dir, config=cfg)
+    torch.cuda.synchronize()
+    launches = {**K.LAUNCHES, **KS.LAUNCHES}
+    log(f"# launches during the sweep path: {launches}")
+    for name in ("sellw", "sellr_place", "sellr_flush", "closg_front",
+                 "clos_r2", "closg_r3_scan_yext"):
+        if launches[name] <= 0:
+            fail(f"the sweep path never launched {name}")
+    check_csvs(out_dir, csv_labels(synthetic=True),
+               {f"{f}_spmv": 2 if f == "csr" else 1 for f in formats})
     for k in (k_sellw, *k_sellr, *k_chunks):
         k["launches"] = launches[k["name"].removesuffix("_chunked")]
     check_rows(results, ["CLOSG/cuda", "CSR/sparse", "CSR/torch",
@@ -1142,8 +1222,8 @@ def main() -> None:
         fail(f"gupta3: expected a chunked CLOSG with W = 0 in every chunk, "
              f"got {type(Ag).__name__} W "
              f"{[c.W for c in getattr(Ag, 'chunks', (Ag,))]}")
-    log(f"# gupta3 candidates {sorted(fmts)}; CLOSG cold build "
-        f"{fmts['CLOSG'][1]['build_s']:.2f}s: {len(Ag.chunks)} chunks, "
+    log(f"# gupta3 candidates {sorted(fmts)}; CLOSG "
+        f"{describe(fmts['CLOSG'][1])}: {len(Ag.chunks)} chunks, "
         f"row_split={Ag.row_split}, N={[c.N for c in Ag.chunks]}, "
         f"C={[c.C for c in Ag.chunks]}, stages="
         f"{[len(c.scan_stages) for c in Ag.chunks]}, scan_hi="
@@ -1247,8 +1327,8 @@ def main() -> None:
         fail(f"mip1: expected RSPLIT over CLOSGX, got {type(Ax).__name__} "
              f"over {type(getattr(Ax, 'inner', None)).__name__}")
     X = Ax.inner
-    log(f"# mip1 candidates {sorted(fmts)}; cold build "
-        f"{fmts['CLOSG'][1]['build_s']:.2f}s: RSPLIT H="
+    log(f"# mip1 candidates {sorted(fmts)}; CLOSG "
+        f"{describe(fmts['CLOSG'][1])}: RSPLIT H="
         f"{Ax.heavy_rows.numel()} n_extra={Ax.n_extra} kmax="
         f"{Ax.gidx.shape[1]} over CLOSGX C={X.n_chunks} N={X.N} "
         f"stages={X.stages} W={X.W} mrp={X.mrp} footprint_MB="
@@ -1294,19 +1374,19 @@ def main() -> None:
 
     # --- 12. the sweep on the gupta3 and mip1 lines ---
     formats = ("csr", "closg", "dense")
-    with tempfile.TemporaryDirectory() as out_dir:
-        K.reset_launch_counts()
-        results = run_sweep([GUPTA3_LINE, MIP1_LINE], formats=formats,
-                            out_dir=out_dir, config=cfg)
-        torch.cuda.synchronize()
-        launches = dict(K.LAUNCHES)
-        log(f"# launches during the gupta3 + mip1 sweep: {launches}")
-        for name in ("closg_front", "clos_r2", "closg_r3_scan",
-                     "closg_cand_yext", "closgx_r3_scan_yext"):
-            if launches[name] <= 0:
-                fail(f"the gupta3 + mip1 sweep never launched {name}")
-        check_csvs(out_dir, csv_labels(synthetic=True),
-                   {"csr_spmv": 4, "closg_spmv": 2, "dense_spmv": 1})
+    out_dir = kept_dir(run_dir, "phase12_sweep")
+    K.reset_launch_counts()
+    results = run_sweep([GUPTA3_LINE, MIP1_LINE], formats=formats,
+                        out_dir=out_dir, config=cfg)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    log(f"# launches during the gupta3 + mip1 sweep: {launches}")
+    for name in ("closg_front", "clos_r2", "closg_r3_scan",
+                 "closg_cand_yext", "closgx_r3_scan_yext"):
+        if launches[name] <= 0:
+            fail(f"the gupta3 + mip1 sweep never launched {name}")
+    check_csvs(out_dir, csv_labels(synthetic=True),
+               {"csr_spmv": 4, "closg_spmv": 2, "dense_spmv": 1})
     check_rows(results, ["CLOSG/cuda", "CSR/sparse", "CSR/sparse",
                          "CSR/torch", "CSR/torch", "DENSE/torch",
                          "RSPLIT/cuda"],
@@ -1342,7 +1422,8 @@ def main() -> None:
     log(f"# phase 13 done at {time.perf_counter() - t_start:.0f}s")
 
     # --- 14. the K-dimension workloads ---
-    k_kdim = k_dim_phase(timer, dev, gup, ship, Ag, Aw, gup_launches, cfg)
+    k_kdim = k_dim_phase(timer, dev, gup, ship, Ag, Aw, gup_launches, cfg,
+                         run_dir)
     del gup, Ag, Aw
     log(f"# phase 14 done at {time.perf_counter() - t_start:.0f}s")
 
@@ -1352,7 +1433,7 @@ def main() -> None:
     log(f"# phase 15 done at {time.perf_counter() - t_start:.0f}s")
 
     # --- 16. the fallback engines CLOS and BFLY ---
-    k_fb = fallback_phase(timer, dev, cfg)
+    k_fb = fallback_phase(timer, dev, cfg, run_dir)
     log(f"# phase 16 done at {time.perf_counter() - t_start:.0f}s")
 
     # --- 17. IC(0)/ILU(0) and the trisolve ---
@@ -1365,6 +1446,19 @@ def main() -> None:
 
     # --- 19. the XLA-only engines and real-matrix input ---
     xla_engines_phase(timer, dev, cfg)
+    log(f"# phase 19 done at {time.perf_counter() - t_start:.0f}s")
+    st = dict(cache.STATS)
+    log(f"# format cache over phases 3-19: {st['hits']} hits, "
+        f"{st['misses']} misses; the hits saved {st['saved_s']:.2f}s of host "
+        f"(their cold builds less their loads), the misses' saves cost "
+        f"{st['save_s']:.2f}s: net {st['saved_s'] - st['save_s']:.2f}s")
+    if st["hits"] <= 0:
+        fail("no phase loaded a program from the run's format cache")
+
+    # --- 20. the format cache, row clustering, tracing and the tools ---
+    tooling_phase(timer, dev, run_dir,
+                  [os.path.join(run_dir, f"phase{n}_sweep")
+                   for n in (8, 12, 14, 16)], smi_line)
     log(f"# all phases done at {time.perf_counter() - t_start:.0f}s")
 
     kernels += [*k_chunks, k_sellw, k_stream, *k_sellr, *k_opt, *k_w0, *k_g,
@@ -1375,7 +1469,8 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def k_dim_phase(timer, dev, gup, ship, Ag, Aw, gup_launches, cfg) -> list:
+def k_dim_phase(timer, dev, gup, ship, Ag, Aw, gup_launches, cfg,
+                csv_dir) -> list:
     """Phase 14, the K-dimension workloads at K = 128 (phases 10's gupta3
     and 6's shipsec1 hosts, their CLOSG and SELLW programs, one gupta3
     SpMV's launch counts): B16a and B16b against their plain versions on
@@ -1394,6 +1489,9 @@ def k_dim_phase(timer, dev, gup, ship, Ag, Aw, gup_launches, cfg) -> list:
                                                            sddmm_inputs,
                                                            spmm_inputs)
     from spmv_research_tpu_torch.convert import build_csr
+    from spmv_research_tpu_torch.convert.cache import (cached_build,
+                                                       cached_build_timed,
+                                                       describe)
     from spmv_research_tpu_torch.ops import (build_btile, build_dense, sddmm,
                                              spmm)
     from spmv_research_tpu_torch.ops import btile_cuda as KB
@@ -1404,15 +1502,17 @@ def k_dim_phase(timer, dev, gup, ship, Ag, Aw, gup_launches, cfg) -> list:
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 is on: the workloads' comparisons need full fp32")
     k = 128
+    cached_btile = functools.partial(cached_build, build_btile,
+                                     fmt_name="btile")
 
     # 1. BTILE: B16a and B16b, checked on gupta3's and shipsec1's programs,
-    # timed on gupta3's
+    # timed on gupta3's (built through the format cache, under the sweep's
+    # key: the sweep below loads them)
     def btile_case(label, host):
         """(program, X, A, B, SpMM args, SDDMM args, |A|·|X| per element)
         of ``host``'s BTILE program at K = 128 on the card."""
-        t0 = time.perf_counter()
-        Ab = build_btile(host)
-        log(f"# {label} BTILE ({time.perf_counter() - t0:.1f}s): ntiles="
+        Ab, info = cached_build_timed(build_btile, host, "btile")
+        log(f"# {label} BTILE ({describe(info)}): ntiles="
             f"{Ab.ntiles} nsteps={Ab.nsteps} bands={Ab.ngroups} slots/nnz="
             f"{Ab.ntiles * 1024 / Ab.nnz:.2f} MB="
             f"{Ab.mem_footprint_bytes() / 1e6:.1f} (slab "
@@ -1557,34 +1657,34 @@ def k_dim_phase(timer, dev, gup, ship, Ag, Aw, gup_launches, cfg) -> list:
     # 4. the spmm/sddmm sweep on both lines
     formats = ("csr", "btile", "dense", "sellw")
     kcfg = dataclasses.replace(cfg, k_dim=k)
-    with tempfile.TemporaryDirectory() as out_dir:
-        for lib_ in (K, KS, KB):
-            lib_.reset_launch_counts()
-        # CSR's gather SDDMM is phase 19's
-        results = run_sweep([GUPTA3_LINE, SHIPSEC1_LINE], formats=formats,
-                            workloads=("spmm", "sddmm"),
-                            impls=("cuda", "torch"), out_dir=out_dir,
-                            config=kcfg, device=dev)
-        torch.cuda.synchronize()
-        launches = {**KS.LAUNCHES, **KB.LAUNCHES}
-        log(f"# launches during the spmm/sddmm sweep: {launches}")
-        for kk in (k_spmm, k_sddmm, k_b12):
-            kk["launches"] = launches[kk["name"]]
-            if kk["launches"] <= 0:
-                fail(f"the spmm/sddmm sweep never launched {kk['name']}")
-        # B16a's second launch, its chunks' combine, where bands are cut
-        k_spmm["combine_launches"] = launches["btile_combine"]
-        if (launches["btile_combine"] > 0) != (plan_g.nchunk > 1
-                                               or plan_s.nchunk > 1):
-            fail(f"the spmm/sddmm sweep launched btile_combine "
-                 f"{launches['btile_combine']} times for chunks per band "
-                 f"{plan_g.nchunk} (gupta3) and {plan_s.nchunk} (shipsec1)")
-        rows = {"csr_spmm": 2, "csr_sddmm": 2, "btile_spmm": 2,
-                "btile_sddmm": 2, "dense_spmm": 1, "sellw_spmm": 1}
-        got_files = sorted(f for f in os.listdir(out_dir) if f.endswith(".csv"))
-        if got_files != sorted(f"{f}.csv" for f in rows):
-            fail(f"spmm/sddmm sweep CSVs {got_files}")
-        check_csvs(out_dir, WORKLOAD_LABELS, rows)
+    out_dir = kept_dir(csv_dir, "phase14_sweep")
+    for lib_ in (K, KS, KB):
+        lib_.reset_launch_counts()
+    # CSR's gather SDDMM is phase 19's
+    results = run_sweep([GUPTA3_LINE, SHIPSEC1_LINE], formats=formats,
+                        workloads=("spmm", "sddmm"),
+                        impls=("cuda", "torch"), out_dir=out_dir,
+                        config=kcfg, device=dev)
+    torch.cuda.synchronize()
+    launches = {**KS.LAUNCHES, **KB.LAUNCHES}
+    log(f"# launches during the spmm/sddmm sweep: {launches}")
+    for kk in (k_spmm, k_sddmm, k_b12):
+        kk["launches"] = launches[kk["name"]]
+        if kk["launches"] <= 0:
+            fail(f"the spmm/sddmm sweep never launched {kk['name']}")
+    # B16a's second launch, its chunks' combine, where bands are cut
+    k_spmm["combine_launches"] = launches["btile_combine"]
+    if (launches["btile_combine"] > 0) != (plan_g.nchunk > 1
+                                           or plan_s.nchunk > 1):
+        fail(f"the spmm/sddmm sweep launched btile_combine "
+             f"{launches['btile_combine']} times for chunks per band "
+             f"{plan_g.nchunk} (gupta3) and {plan_s.nchunk} (shipsec1)")
+    rows = {"csr_spmm": 2, "csr_sddmm": 2, "btile_spmm": 2,
+            "btile_sddmm": 2, "dense_spmm": 1, "sellw_spmm": 1}
+    got_files = sorted(f for f in os.listdir(out_dir) if f.endswith(".csv"))
+    if got_files != sorted(f"{f}.csv" for f in rows):
+        fail(f"spmm/sddmm sweep CSVs {got_files}")
+    check_csvs(out_dir, WORKLOAD_LABELS, rows)
     want = sorted(["gupta3 CSR/torch spmm", "gupta3 BTILE/cuda spmm",
                    "gupta3 DENSE/torch spmm", "gupta3 CSR/torch sddmm",
                    "gupta3 BTILE/cuda sddmm", "shipsec1 CSR/torch spmm",
@@ -1613,9 +1713,9 @@ def k_dim_phase(timer, dev, gup, ship, Ag, Aw, gup_launches, cfg) -> list:
         log_metrics(key, r.metrics)
     # 5. the device time of each row's call (one call timed alone)
     for name, host, fmts in (
-            ("gupta3", gup, (("CSR", build_csr), ("BTILE", build_btile),
+            ("gupta3", gup, (("CSR", build_csr), ("BTILE", cached_btile),
                              ("DENSE", build_dense))),
-            ("shipsec1", ship, (("CSR", build_csr), ("BTILE", build_btile),
+            ("shipsec1", ship, (("CSR", build_csr), ("BTILE", cached_btile),
                                 ("SELLW", lambda _: Aw)))):
         X = torch.as_tensor(spmm_inputs(host, k), dtype=torch.float32,
                             device=dev)
@@ -1644,6 +1744,8 @@ def ds_phase(timer, dev, cfg) -> list:
     import torch
     from spmv_research_tpu_torch import bench
     from spmv_research_tpu_torch.convert import build_csr
+    from spmv_research_tpu_torch.convert.cache import (cached_build_timed,
+                                                       describe)
     from spmv_research_tpu_torch.harness import run_sweep
     from spmv_research_tpu_torch.harness.bench import csv_labels
     from spmv_research_tpu_torch.harness.metrics import check_accuracy
@@ -1661,15 +1763,13 @@ def ds_phase(timer, dev, cfg) -> list:
     dcfg = dataclasses.replace(cfg, use_rcm_reordering=True)
     ship = load_matrix(SHIPSEC1_LINE, dcfg)[0]
     xs = np.random.Generator(np.random.PCG64(7)).uniform(0.0, 1.0, ship.n)
-    t0 = time.perf_counter()
-    Ads = build_sellwds(ship)
-    t_w = time.perf_counter() - t0
+    Ads, info_w = cached_build_timed(build_sellwds, ship, "sellwds")
     t0 = time.perf_counter()
     Acs = build_csrds(ship)
     t_c = time.perf_counter() - t0
     B = Ads.base
     plan = class_plan(B)
-    log(f"# shipsec1 SELLWDS (build {t_w:.2f}s): nchunks={B.nchunks} "
+    log(f"# shipsec1 SELLWDS ({describe(info_w)}): nchunks={B.nchunks} "
         f"npad={B.wrow.numel() // 8} G={B.G} K={B.K} stages={B.stages} "
         f"classes={B.classes} MiB={Ads.mem_footprint_bytes() / 2**20:.1f}")
     log(f"# shipsec1 CSRDS (build {t_c:.2f}s): "
@@ -1865,7 +1965,7 @@ def ds_phase(timer, dev, cfg) -> list:
     return [k_b13, k_comb]
 
 
-def fallback_phase(timer, dev, cfg) -> list:
+def fallback_phase(timer, dev, cfg, csv_dir) -> list:
     """Phase 16, the fallback engines: CLOS and BFLY on the scircuit twin
     (B8, B9, B10 against their plain versions and timed, cuSPARSE beside
     B10, counted and traced SpMVs, the csr/clos/bfly sweep, one counted
@@ -1876,6 +1976,8 @@ def fallback_phase(timer, dev, cfg) -> list:
     import torch.nn.functional as F
     from spmv_research_tpu_torch import bench
     from spmv_research_tpu_torch.convert import build_csr
+    from spmv_research_tpu_torch.convert.cache import (cached_build_timed,
+                                                       describe)
     from spmv_research_tpu_torch.harness import run_sweep
     from spmv_research_tpu_torch.harness.bench import csv_labels
     from spmv_research_tpu_torch.harness.sweep import load_matrix
@@ -1888,18 +1990,16 @@ def fallback_phase(timer, dev, cfg) -> list:
 
     t_phase = time.perf_counter()
     host = load_matrix(bench.SCIRCUIT_LINE, cfg)[0]
-    t0 = time.perf_counter()
-    Ac = build_clos(host)
-    t_c = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    Ab = build_bfly(host)
-    t_b = time.perf_counter() - t0
-    log(f"# scircuit CLOS (cold build {t_c:.2f}s): N={Ac.N} V={Ac.V} "
+    # through the format cache, under the sweep's keys: the sweeps below
+    # load these programs
+    Ac, info_c = cached_build_timed(build_clos, host, "clos")
+    Ab, info_b = cached_build_timed(build_bfly, host, "bfly")
+    log(f"# scircuit CLOS ({describe(info_c)}): N={Ac.N} V={Ac.V} "
         f"fill_stages={Ac.fill_stages} scan_stages={len(Ac.scan_stages)} "
         f"fill_hi={tuple(Ac.fill_hi.shape)} scan_hi="
         f"{tuple(Ac.scan_hi.shape)} footprint_MB="
         f"{Ac.mem_footprint_bytes() / 1e6:.2f}")
-    log(f"# scircuit BFLY (cold build {t_b:.2f}s): N={Ab.N} L={Ab.L} "
+    log(f"# scircuit BFLY ({describe(info_b)}): N={Ab.N} L={Ab.L} "
         f"sigma_x={Ab.sigma_x} sigma_y={Ab.sigma_y} stages widen/fill/perm/"
         f"scan/compact={len(Ab.widen_stages)}/{len(Ab.fill_stages)}/"
         f"{len(Ab.perm_stages)}/{len(Ab.scan_stages)}/"
@@ -2079,23 +2179,23 @@ def fallback_phase(timer, dev, cfg) -> list:
     del Ac
 
     # the sweep path: csr, clos, bfly
-    with tempfile.TemporaryDirectory() as out_dir:
-        K.reset_launch_counts()
-        KF.reset_launch_counts()
-        results = run_sweep([bench.SCIRCUIT_LINE],
-                            formats=("csr", "clos", "bfly"),
-                            out_dir=out_dir, config=cfg, device=dev)
-        torch.cuda.synchronize()
-        launches = {**K.LAUNCHES, **KF.LAUNCHES}
-        log(f"# launches during the csr/clos/bfly sweep: {launches}")
-        check_csvs(out_dir, csv_labels(synthetic=True),
-                   {"csr_spmv": 2, "clos_spmv": 1, "bfly_spmv": 1})
-        csr_labels = sorted(c for ln in open(os.path.join(
-            out_dir, "csr_spmv.csv")).read().splitlines()[1:]
-            for c in ln.split(",") if c.startswith("CSR_"))
-        if csr_labels != ["CSR_sparse", "CSR_torch"]:
-            fail(f"the scircuit csr_spmv.csv rows are {csr_labels}, not a "
-                 f"CSR/torch and a CSR/sparse row")
+    out_dir = kept_dir(csv_dir, "phase16_sweep")
+    K.reset_launch_counts()
+    KF.reset_launch_counts()
+    results = run_sweep([bench.SCIRCUIT_LINE],
+                        formats=("csr", "clos", "bfly"),
+                        out_dir=out_dir, config=cfg, device=dev)
+    torch.cuda.synchronize()
+    launches = {**K.LAUNCHES, **KF.LAUNCHES}
+    log(f"# launches during the csr/clos/bfly sweep: {launches}")
+    check_csvs(out_dir, csv_labels(synthetic=True),
+               {"csr_spmv": 2, "clos_spmv": 1, "bfly_spmv": 1})
+    csr_labels = sorted(c for ln in open(os.path.join(
+        out_dir, "csr_spmv.csv")).read().splitlines()[1:]
+        for c in ln.split(",") if c.startswith("CSR_"))
+    if csr_labels != ["CSR_sparse", "CSR_torch"]:
+        fail(f"the scircuit csr_spmv.csv rows are {csr_labels}, not a "
+             f"CSR/torch and a CSR/sparse row")
     for k in (*k_b2, *k_b8, *k_b9):
         k["launches"] = launches[k["name"].removesuffix("_clos")]
         if k["launches"] <= 0:
@@ -2141,10 +2241,9 @@ def fallback_phase(timer, dev, cfg) -> list:
     except ClosRoutingError as e:
         log(f"# mac_econ_fwd500 (m={mac.m} nnz={mac.nnz}): build_clos "
             f"refused it: {e}")
-    t0 = time.perf_counter()
-    Am = build_bfly(mac)
-    log(f"# mac_econ_fwd500 BFLY (cold build "
-        f"{time.perf_counter() - t0:.2f}s): N={Am.N} L={Am.L} stages "
+    Am, info_m = cached_build_timed(build_bfly, mac, "bfly")
+    log(f"# mac_econ_fwd500 BFLY ({describe(info_m)}): N={Am.N} L={Am.L} "
+        f"stages "
         f"{len(Am.widen_stages)}/{len(Am.fill_stages)}/"
         f"{len(Am.perm_stages)}/{len(Am.scan_stages)}/"
         f"{len(Am.compact_stages)}")
@@ -2815,6 +2914,311 @@ def xla_engines_phase(timer, dev, cfg) -> None:
     log(f"# .mtx round trip: {len(disk)} disk rows equal to the in-memory "
         f"rows in m, n, nnz and the 8 metrics")
     log(f"# phase 19 done in {time.perf_counter() - t_phase:.0f}s")
+
+
+def tooling_sweeps(run_dir, dev) -> list:
+    """For phase 20 alone: CSV directories like those of phases 8, 12, 14
+    and 16, from short sweeps of the scircuit twin (csr and closg SpMV;
+    csr SpMM and SDDMM at K = 16)."""
+    from spmv_research_tpu_torch import bench
+    from spmv_research_tpu_torch.harness import BenchConfig, run_sweep
+    cfg = BenchConfig(min_num_loops=16, min_time_s=0.2,
+                      use_rcm_reordering="auto", k_dim=16)
+    dirs = [kept_dir(run_dir, "alone_spmv"), kept_dir(run_dir, "alone_k")]
+    run_sweep([bench.SCIRCUIT_LINE], formats=("csr", "closg"),
+              out_dir=dirs[0], config=cfg, device=dev)
+    run_sweep([bench.SCIRCUIT_LINE], formats=("csr",),
+              workloads=("spmm", "sddmm"), out_dir=dirs[1], config=cfg,
+              device=dev)
+    return dirs
+
+
+def leaves_of(fmt) -> list:
+    from spmv_research_tpu_torch.core.formats import tree_map
+    out = []
+    tree_map(out.append, fmt)
+    return out
+
+
+def captured(fn, *args) -> list:
+    """The lines ``fn(*args)`` prints on stdout, also logged."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        fn(*args)
+    lines = out.getvalue().rstrip().splitlines()
+    for ln in lines:
+        log(f"#   {ln}")
+    return lines
+
+
+def tooling_phase(timer, dev, run_dir, csv_dirs, smi_line) -> None:
+    """Phase 20, at the main path's full size: (a) the format cache
+    (``build_best`` on the scircuit twin cold and loaded: every tensor
+    equal, the loaded CLOSG program's y on the card bit for bit the fresh
+    one's; ``bench.run`` twice on one cache directory, the second loading);
+    (b) k-means row clustering (k = 16) on the shipsec1 and scircuit twins
+    as generated: host seconds, the row-local features, CSR/torch and
+    CSR/sparse in both orders, each y mapped back and held to the gold;
+    (c) a CLOSG/cuda SpMV inside ``trace_region`` under ``utils.trace.
+    profile`` (in a child process: the profiler drops device events late
+    in a long process); (d) the CLIs: machine_info (the card's name and
+    power limit as phase 1 read them), mat_feat, twin_fidelity, the
+    locality statistics of shipsec1 after RCM, collect_results over
+    ``csv_dirs``; (e) ``tools.xl_run`` on pwtk (validation_twins.txt:33,
+    11.5M nnz, no RCM): CLOSGX, B1, ``clos_r2`` and B15 launched, y held
+    to the gold, the JSON line and the real-matrix CSV row."""
+    import torch
+    from spmv_research_tpu_torch import bench
+    from spmv_research_tpu_torch.convert import (build_csr, extract_features,
+                                                 kmeans_reorder, rcm_reorder)
+    from spmv_research_tpu_torch.convert.build_best import build_best
+    from spmv_research_tpu_torch.convert.cache import CACHE_ENV
+    from spmv_research_tpu_torch.convert.reorder import rcm_if_beneficial
+    from spmv_research_tpu_torch.gen import generate_from_line
+    from spmv_research_tpu_torch.harness.bench import csv_labels
+    from spmv_research_tpu_torch.ops import spmv
+    from spmv_research_tpu_torch.ops import clos_cuda as K
+    from spmv_research_tpu_torch.tools import (collect_results,
+                                               locality_stats, machine_info,
+                                               mat_feat, twin_fidelity,
+                                               xl_run)
+
+    t_phase = time.perf_counter()
+    run_cache = os.environ[CACHE_ENV]
+
+    # (a) the cache: build_best cold, then again with the same directory
+    raw, _ = generate_from_line(bench.SCIRCUIT_LINE)
+    host, _ = rcm_if_beneficial(raw)
+    own = os.path.join(run_dir, "phase20_cache")
+    os.environ[CACHE_ENV] = own
+    try:
+        fresh, loaded = build_best(host), build_best(host)
+    finally:
+        os.environ[CACHE_ENV] = run_cache
+    if list(fresh) != list(loaded) or "CLOSG" not in fresh:
+        fail(f"build_best on scircuit gave {list(fresh)}, then "
+             f"{list(loaded)}")
+    for key in fresh:
+        (A, cold), (B, hit) = fresh[key], loaded[key]
+        a, b = leaves_of(A), leaves_of(B)
+        if (cold["from_cache"] or not hit["from_cache"]
+                or hit["cold_build_s"] != cold["build_s"]
+                or type(A) is not type(B) or len(a) != len(b)
+                or not all(x.dtype == y.dtype and torch.equal(x, y)
+                           for x, y in zip(a, b))):
+            fail(f"scircuit {key}: the cached program differs from the "
+                 f"fresh build ({cold}, {hit})")
+        mb = sum(os.path.getsize(os.path.join(own, f)) for f in
+                 os.listdir(own) if f"_{key.lower()}_" in f) / 1e6
+        log(f"# phase 20 cache: scircuit {key} cold build "
+            f"{cold['build_s']:.3f}s, load {hit['build_s']:.3f}s, {mb:.2f} "
+            f"MB on disk, {len(a)} tensors equal")
+    A, B = fresh["CLOSG"][0].to(dev), loaded["CLOSG"][0].to(dev)
+    x = np.random.Generator(np.random.PCG64(7)).uniform(0.0, 1.0, host.n)
+    xd = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    y_fresh, (y_loaded, launches) = (spmv(A, xd, impl="cuda"),
+                                     counted_spmv(B, xd, K))
+    if not torch.equal(y_fresh, y_loaded) or launches["closg_front"] != 1:
+        fail(f"the loaded scircuit CLOSG/cuda y differs from the fresh "
+             f"program's (launches {launches})")
+    check_gold("phase 20 loaded scircuit CLOSG/cuda", host, x, y_loaded)
+    del A, B, fresh, loaded
+    os.environ[CACHE_ENV] = os.path.join(run_dir, "phase20_bench_cache")
+    try:
+        runs = [bench.run(dev) for _ in range(2)]
+    finally:
+        os.environ[CACHE_ENV] = run_cache
+    for i, r in enumerate(runs):
+        d = r.json["detail"]
+        c = r.results["CLOSG/cuda"]
+        log(f"# phase 20 bench.run {i + 1}: best {d['best_format']}/"
+            f"{d['best_impl']}, time_convert_s {d['time_convert_s']}, "
+            f"time_convert_cold_s {d['time_convert_cold_s']}; CLOSG/cuda "
+            f"convert {c.time_convert:.4f}s (cold {c.time_convert_cold:.4f}s)"
+            f", {c.nnz_per_s / 1e9:.4f} Gnnz/s")
+    first, second = (r.results["CLOSG/cuda"] for r in runs)
+    if not (first.time_convert == first.time_convert_cold
+            and second.time_convert_cold == first.time_convert
+            and second.time_convert < second.time_convert_cold):
+        fail("the second bench.run did not load CLOSG from the cache")
+    d = runs[1].json["detail"]
+    if d["best_format"] == "CLOSG" and (d["time_convert_s"]
+                                        == d["time_convert_cold_s"]):
+        fail(f"the second bench.run's JSON reports the load as the cold "
+             f"build ({d['time_convert_s']} s)")
+    check_gold("phase 20 second bench.run CLOSG/cuda", runs[1].host, x,
+               second.y)
+    del runs, first, second
+    log(f"# phase 20 (a) done at {time.perf_counter() - t_phase:.0f}s")
+
+    # (b) k-means row clustering on the twins as generated
+    ship, _ = generate_from_line(SHIPSEC1_LINE)
+    for label, h in (("shipsec1", ship), ("scircuit", raw)):
+        t0 = time.perf_counter()
+        hk, perm = kmeans_reorder(h, k=16)
+        t_km = time.perf_counter() - t0
+        f0, f1 = extract_features(h), extract_features(hk)
+        log(f"# phase 20 k-means {label} (m={h.m} nnz={h.nnz}): "
+            f"kmeans_reorder {t_km:.2f}s of host; bw_avg {f0.bw_avg:.2f} -> "
+            f"{f1.bw_avg:.2f}, scatter_avg {f0.scatter_avg:.6f} -> "
+            f"{f1.scatter_avg:.6f}, cross_row_similarity_avg "
+            f"{f0.cross_row_similarity_avg:.4f} -> "
+            f"{f1.cross_row_similarity_avg:.4f}")
+        x = np.random.Generator(np.random.PCG64(7)).uniform(0.0, 1.0, h.n)
+        xd = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        gold = h.spmv_gold_fast(x).astype(np.float64)
+        times = []
+        for order, hh in (("as generated", h), ("k-means", hk)):
+            csr = build_csr(hh).to(dev)
+            for impl in ("torch", "sparse"):
+                y = spmv(csr, xd, impl=impl).double().cpu().numpy()
+                if order == "k-means":        # new row i is old row perm[i]
+                    y_old = np.empty_like(y)
+                    y_old[perm] = y
+                    y = y_old
+                check_gold(f"phase 20 {label} CSR/{impl} ({order})", h, x,
+                           y, gold)
+                fn = (lambda c=csr, i=impl: spmv(c, xd, impl=i))
+                times.append(f"CSR/{impl} {order} {timer.ms(fn):.4f} ms "
+                             f"cold, {timer.warm_ms(fn):.4f} warm")
+            del csr
+        log(f"# phase 20 k-means {label} SpMV device times: "
+            + "; ".join(times))
+    log(f"# phase 20 (b) done at {time.perf_counter() - t_phase:.0f}s")
+
+    # (c) the trace, in a child process (the cache holds phase 3's program)
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--trace-check"], capture_output=True, text=True,
+                         timeout=600)
+    for ln in out.stdout.rstrip().splitlines():
+        log(f"#   {ln}")
+    if out.returncode != 0:
+        fail(f"the trace check exited {out.returncode}: "
+             f"{out.stderr.strip()[-2000:]}")
+    log(f"# phase 20 (c) done at {time.perf_counter() - t_phase:.0f}s")
+
+    # (d) the tools
+    info = machine_info.info()
+    log(f"# phase 20 machine_info: {json.dumps(info)}")
+    if info["name_power_limit"] != smi_line or info["backend"] != "cuda":
+        fail(f"machine_info gives {info.get('name_power_limit')}, phase 1 "
+             f"read {smi_line}")
+    feat = captured(mat_feat.main, [bench.SCIRCUIT_LINE])
+    if not (len([ln for ln in feat if not ln.startswith("#")])
+            == len(mat_feat.FIELDS) + 1 and feat[-1].startswith("twin line:")):
+        fail("mat_feat on the scircuit line printed another table")
+    twins = os.path.join(os.path.dirname(os.path.abspath(__file__)), TWINS)
+    fid = captured(twin_fidelity.main, ["--twins", twins, "--limit", "3"])
+    if len(fid) != 1 + 3 * 6:
+        fail(f"twin_fidelity --limit 3 printed {len(fid)} lines, not 19")
+    loc = captured(locality_stats.report, rcm_reorder(ship)[0])
+    if not (loc[0] == f"m={ship.m} nnz={ship.nnz}" and len(loc) == 9):
+        fail(f"locality_stats on shipsec1 printed {loc}")
+    res = os.path.join(run_dir, "phase20_results")
+    wrote = captured(collect_results.main,
+                     [*csv_dirs, "--results-dir", res, "--card", smi_line])
+    summary = open(os.path.join(res, "SUMMARY.md")).read().splitlines()
+    for ln in summary:
+        log(f"#   {ln}")
+    corpus = sorted(f for f in os.listdir(res) if f.startswith("corpus_"))
+    if not {"corpus_spmv.csv", "corpus_spmm.csv",
+            "corpus_sddmm.csv"} <= set(corpus):
+        fail(f"collect_results wrote {corpus}")
+    with open(os.path.join(res, "corpus_spmv.csv")) as f:
+        names = {ln.split(",")[0] for ln in f.read().splitlines()[1:]}
+    names = {n for n in names if not n.endswith(("_spd", "_dd"))}
+    table = summary[4:4 + len(names)]
+    if not (smi_line.split(",")[0] in summary[0] and "TPU" not in summary[0]
+            and {ln.split(" | ")[0][2:] for ln in table} == names
+            and all(ln.endswith("x |") and ln.count("x |") == 2
+                    for ln in table)):
+        fail(f"SUMMARY.md lacks the card or a speedup over CSR/torch and "
+             f"CSR/sparse for one of {sorted(names)}")
+    log(f"# phase 20 (d) done at {time.perf_counter() - t_phase:.0f}s "
+        f"({wrote[-1]})")
+
+    # (e) the XL entry point on pwtk, no RCM
+    xl_dir = os.path.join(run_dir, "phase20_xl")
+    line = open(twins).read().splitlines()[32]
+    K.reset_launch_counts()
+    host, A, r, js = xl_run.main(["--line", line, "--out", xl_dir])
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    log(f"# phase 20 xl_run {line.split()[-1]}: {A.n_chunks} chunks of "
+        f"{A.N} slots, W={A.W}, {A.mem_footprint_bytes() / 1e6:.1f} MB; "
+        f"launches {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not (A.format_name == "CLOSGX" and A.n_chunks > 1
+            and all(launches[n] > 0 for n in ("closg_front", "clos_r2",
+                                               "closgx_r3_scan_yext"))):
+        fail(f"xl_run: {A.format_name} of {A.n_chunks} chunks, launches "
+             f"{launches}")
+    if set(js) != {"matrix", "m", "nnz", "format", "nnz_per_s", "gflops",
+                   "median_us", "roofline_frac", "mape", "passed",
+                   "build_s"} or js["roofline_frac"] is None:
+        fail(f"xl_run's JSON line: {js}")
+    log(f"# phase 20 xl_run gate (1e-7 of the reference) passed="
+        f"{js['passed']}, max_rel_err {r.metrics.max_rel_err}")
+    check_gold("phase 20 xl_run CLOSGX/cuda", host, np.random.Generator(
+        np.random.PCG64(7)).uniform(0.0, 1.0, host.n), r.y)
+    with open(os.path.join(xl_dir, "closgx_spmv.csv")) as f:
+        rows = f.read().splitlines()
+    if not (rows[0] == csv_labels(synthetic=False) and len(rows) == 2
+            and rows[1].split(",")[14] == "CLOSGX_cuda"):
+        fail(f"xl_run's CSV: {rows}")
+    del host, A, r
+    log(f"# phase 20 done in {time.perf_counter() - t_phase:.0f}s")
+
+
+def trace_check() -> None:
+    """Phase 20 (c), run as ``chip_smoke.py --trace-check`` in a process of
+    its own: the scircuit CLOSG program (from the run's format cache), one
+    CLOSG/cuda SpMV inside ``trace_region("COMPUTATION-SpMV")`` under
+    ``utils.trace.profile``; the region is among the profiler's events,
+    B1, ``clos_r2``, the phased scan and the extraction ran inside its
+    window, and a Chrome trace was written."""
+    import torch
+    from torch.autograd import DeviceType
+    from spmv_research_tpu_torch import bench
+    from spmv_research_tpu_torch.convert.build_best import build_best
+    from spmv_research_tpu_torch.convert.reorder import rcm_if_beneficial
+    from spmv_research_tpu_torch.gen import generate_from_line
+    from spmv_research_tpu_torch.ops import spmv
+    from spmv_research_tpu_torch.utils import trace
+    host, _ = rcm_if_beneficial(generate_from_line(bench.SCIRCUIT_LINE)[0])
+    A, info = build_best(host)["CLOSG"]
+    A = A.to("cuda")
+    xd = torch.ones(A.n, device="cuda")
+    spmv(A, xd, impl="cuda")
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tdir:
+        with trace.profile(tdir) as prof:
+            with trace.trace_region("COMPUTATION-SpMV"):
+                spmv(A, xd, impl="cuda")
+                torch.cuda.synchronize()
+        files = os.listdir(tdir)
+        size = sum(os.path.getsize(os.path.join(tdir, f)) for f in files)
+    events = prof.events()
+    region = [e for e in events if e.name == "COMPUTATION-SpMV"
+              and e.device_type == DeviceType.CPU]
+    if len(region) != 1:
+        fail(f"the trace holds {len(region)} COMPUTATION-SpMV regions")
+    t0, t1 = region[0].time_range.start, region[0].time_range.end
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and "kernel" in e.name]
+    inside = [e.name for e in kernels
+              if t0 <= e.time_range.start and e.time_range.end <= t1]
+    want = ("front_kernel<0>", "layer_kernel<true>", "scan_contig_kernel",
+            "yext_kernel")
+    print(f"program ({'from the cache' if info['from_cache'] else 'built'}); "
+          f"region {t1 - t0:.1f} us; {len(kernels)} device kernels, "
+          f"{len(inside)} inside the region: "
+          + "; ".join(n[:60] for n in inside)
+          + f"; Chrome trace {files} ({size} B)", flush=True)
+    if not (len(files) == 1 and files[0].endswith(".json") and size > 0):
+        fail(f"no Chrome trace written: {files}")
+    if not all(any(w in n for n in inside) for w in want):
+        fail(f"the region's window lacks one of {want}: {inside}")
 
 
 def stream_tridiagonal(rng):

@@ -8,3 +8,5 @@ from .build import (BSRBuildError, CSRSymBuildError, DIABuildError,
                     LDUBuildError, build_bsr, build_coo, build_csc, build_csr,
                     build_csr_sym, build_dia, build_ell, build_ldu,
                     build_sellcs)
+from .cluster import kmeans_rows, kmeans_reorder, row_feature_vectors
+from .cache import cached_build, save_format, load_format, matrix_digest

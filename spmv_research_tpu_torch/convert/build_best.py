@@ -9,14 +9,16 @@ matrix (``ClosRoutingError``), the JAX package's format order goes on: CLOS
 (which refuses past 2^20 slots), then BFLY (past 2^22 slots,
 ``RoutingError``); a matrix that all three refuse gets only the locality
 engines that took it. This is an order of formats, not a device
-fallback. The format cache (``convert/cache.py``) is not ported: every
-build is a cold build, and its time is reported as such.
+fallback. Each build goes through the format cache
+(``convert/cache.py:cached_build_timed``) under the JAX package's keys
+``sellr``, ``sellw``, ``closg``, ``clos`` and ``bfly``, which the sweep's
+builders share; the log line says of each entry "cold build X s" or "from
+cache Y s (cold X s)", the cold build's time recorded when it was made.
 """
 
 from __future__ import annotations
 
 import sys
-import time
 
 from ..core.host import HostCSR
 from ..ops.bfly import build_bfly
@@ -26,37 +28,32 @@ from ..ops.clos_route import ClosRoutingError
 from ..ops.routing import RoutingError
 from ..ops.sellr import SellRBuildError, build_sellr
 from ..ops.sellw import SellWBuildError, build_sellw
-
-
-def _timed(builder, host: HostCSR) -> tuple:
-    t0 = time.perf_counter()
-    A = builder(host)
-    t = time.perf_counter() - t0
-    return A, {"build_s": t, "cold_build_s": t, "from_cache": False}
+from .cache import cached_build_timed, describe
 
 
 def build_best(host: HostCSR) -> dict:
     """``{name: (format, info)}`` candidates for this matrix, each format on
-    the CPU; ``info`` is ``{"build_s", "cold_build_s", "from_cache"}`` as the
-    JAX package's cached build reports it."""
+    the CPU; ``info`` is ``cached_build_timed``'s ``{"build_s",
+    "cold_build_s", "from_cache"}``."""
     out = {}
     for name, builder, refused in (("SELLR", build_sellr, SellRBuildError),
                                    ("SELLW", build_sellw, SellWBuildError)):
         try:
-            out[name] = _timed(builder, host)
+            out[name] = cached_build_timed(builder, host, name.lower())
         except refused:
             pass
     try:
-        out["CLOSG"] = _timed(build_clos_gather_auto, host)
+        out["CLOSG"] = cached_build_timed(build_clos_gather_auto, host,
+                                          "closg")
     except ClosRoutingError:
         try:
-            out["CLOS"] = _timed(build_clos, host)
+            out["CLOS"] = cached_build_timed(build_clos, host, "clos")
         except ClosRoutingError:
             try:
-                out["BFLY"] = _timed(build_bfly, host)
+                out["BFLY"] = cached_build_timed(build_bfly, host, "bfly")
             except RoutingError:
                 pass
     print("# build_best: " + ", ".join(
-        f"{k} cold build {info['build_s']:.2f}s"
-        for k, (_, info) in out.items()), file=sys.stderr, flush=True)
+        f"{k} {describe(info)}" for k, (_, info) in out.items()),
+        file=sys.stderr, flush=True)
     return out

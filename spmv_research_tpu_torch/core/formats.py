@@ -18,21 +18,24 @@ import numpy as np
 import torch
 
 
-def tree_map(fn, obj):
+def tree_map(fn, obj, leaf=torch.Tensor):
     """``obj`` with ``fn`` applied to every tensor it holds, through nested
     dataclass fields, tuples (e.g. the ``ClosG`` programs of a
     ``ClosGChunked``) and dicts (SELLG's slabs by width); other leaves are
     kept as they are. The role of ``jax.tree_util.tree_map`` over a format
-    pytree."""
-    if isinstance(obj, torch.Tensor):
+    pytree. ``leaf`` is the type ``fn`` is applied to (the format cache
+    maps its skeleton's leaf indices back to tensors with it). A dataclass
+    comes back as a fresh ``dataclasses.replace``: nothing a
+    ``cached_property`` stored on the old instance is carried over."""
+    if isinstance(obj, leaf):
         return fn(obj)
     if isinstance(obj, tuple):
-        return tuple(tree_map(fn, o) for o in obj)
+        return tuple(tree_map(fn, o, leaf) for o in obj)
     if isinstance(obj, dict):
-        return {k: tree_map(fn, v) for k, v in obj.items()}
+        return {k: tree_map(fn, v, leaf) for k, v in obj.items()}
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return dataclasses.replace(obj, **{
-            f.name: tree_map(fn, getattr(obj, f.name))
+            f.name: tree_map(fn, getattr(obj, f.name), leaf)
             for f in dataclasses.fields(obj) if f.init})
     return obj
 

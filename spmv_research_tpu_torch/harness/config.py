@@ -5,7 +5,9 @@ fields the SpMV, SpMM, SDDMM, CG and BiCGStab protocols and the sweep
 read: the timing protocol (reference ``bench_spmv.cpp:335-384``), the value
 type, the matrix transforms, the K dimension and the solvers' iteration cap
 and preconditioner, with the reference's env-var overrides (``from_env``).
-The distribution fields follow the slice that uses them.
+The distribution fields follow the slice that uses them; the JAX
+package's ``print_statistics`` and ``csv_to_stderr``, which nothing reads
+there, are not carried over.
 """
 
 from __future__ import annotations

@@ -23,7 +23,11 @@ parameter line. ``FORMAT_BUILDERS`` holds every format of the JAX sweep:
 (SpMM only), ``bsrg`` (8 × 128 blocks) and ``csr_lut``, ``sellr``,
 ``sellw``, ``closg`` (whose builder may return a CLOSG, RSPLIT or CLOSGX
 program), the fallback engines ``clos`` and ``bfly``, ``dense``, ``btile``
-and the double-single ``csrds`` and ``sellwds``. The workloads are
+and the double-single ``csrds`` and ``sellwds``. The builders of ``sellr``,
+``sellw``, ``closg``, ``clos``, ``bfly``, ``btile`` and ``sellwds`` go
+through the format cache (``convert/cache.py``) under the JAX sweep's keys,
+as the JAX sweep's do; a row's ``time_convert`` is then the load's
+seconds. The workloads are
 ``spmv``, ``spmm``, ``sddmm`` (CSR's impls ``torch`` and ``gather``,
 BSR's ``mxu``), ``cg``, ``bicgstab``, and once per matrix ``spgemm`` (C =
 A·A) and ``trisolve`` (ILU(0) and the level-scheduled solves), the
@@ -77,6 +81,7 @@ from ..convert import (BSRBuildError, CSRSymBuildError, build_bsr,
                        build_ell, build_sellcs, coo_to_csr, extract_features,
                        fix_diagonal_zeros, make_diag_dominant, make_spd,
                        rcm_reorder)
+from ..convert.cache import cached_build
 from ..convert.reorder import rcm_if_beneficial
 from ..gen import ArtificialParams, artificial_matrix_generation
 from ..io import mtx_read
@@ -103,6 +108,14 @@ from .config import BenchConfig
 from .workloads import (BenchGateError, bench_cg, bench_sddmm, bench_spgemm,
                         bench_spmm, bench_trisolve)
 
+
+def _cached(builder, key):
+    """``builder`` through the format cache under the JAX sweep's ``key``
+    (``build_best`` shares the entries of sellr, sellw, closg, clos and
+    bfly)."""
+    return functools.partial(cached_build, builder, fmt_name=key)
+
+
 FORMAT_BUILDERS = {
     "csr": build_csr,
     "coo": build_coo,
@@ -114,15 +127,16 @@ FORMAT_BUILDERS = {
     "csr_lut": build_csr_lut,
     "sellg": build_sellg,
     "bsrg": functools.partial(build_bsrg, br=8, bc=128),
-    "sellr": build_sellr,
-    "sellw": build_sellw,
-    "closg": build_clos_gather_auto,   # CLOSG, RSPLIT or CLOSGX
-    "clos": build_clos,
-    "bfly": build_bfly,
+    # the builders the JAX sweep caches, under its keys
+    "sellr": _cached(build_sellr, "sellr"),
+    "sellw": _cached(build_sellw, "sellw"),
+    "closg": _cached(build_clos_gather_auto, "closg"),  # CLOSG/RSPLIT/CLOSGX
+    "clos": _cached(build_clos, "clos"),
+    "bfly": _cached(build_bfly, "bfly"),
     "dense": build_dense,
-    "btile": build_btile,
+    "btile": _cached(build_btile, "btile"),
     "csrds": build_csrds,
-    "sellwds": build_sellwds,
+    "sellwds": _cached(build_sellwds, "sellwds"),
 }
 WORKLOADS = ("spmv", "spmm", "sddmm", "cg", "bicgstab", "spgemm",
              "trisolve")

@@ -186,11 +186,21 @@ def test_clos_moves_and_scales_whole():
                                                                     A.vals)
 
 
-def test_build_best_fallback_order(monkeypatch):
+def test_build_best_fallback_order(monkeypatch, tmp_path):
     """CLOSG, else CLOS, else BFLY, else neither (the JAX format order);
-    the scattered twin has no locality, so SELLR and SELLW refuse it."""
+    the scattered twin has no locality, so SELLR and SELLW refuse it. Each
+    call has a format cache of its own: a program cached by the call
+    before would load past the refusing builder."""
     host = HostCSR.from_scipy(scattered_matrix())
-    assert list(bb.build_best(host)) == ["CLOSG"]
+    calls = []
+
+    def best():
+        calls.append(1)
+        monkeypatch.setenv("SPARSE_FORMAT_CACHE_TORCH",
+                           str(tmp_path / str(len(calls))))
+        return bb.build_best(host)
+
+    assert list(best()) == ["CLOSG"]
 
     def refuse(err):
         def builder(_):
@@ -198,12 +208,12 @@ def test_build_best_fallback_order(monkeypatch):
         return builder
 
     monkeypatch.setattr(bb, "build_clos_gather_auto", refuse(ClosRoutingError))
-    got = bb.build_best(host)
+    got = best()
     assert list(got) == ["CLOS"] and got["CLOS"][1]["build_s"] > 0
     monkeypatch.setattr(bb, "build_clos", refuse(ClosRoutingError))
-    assert list(bb.build_best(host)) == ["BFLY"]
+    assert list(best()) == ["BFLY"]
     monkeypatch.setattr(bb, "build_bfly", refuse(RoutingError))
-    assert bb.build_best(host) == {}
+    assert best() == {}
 
 
 def test_sweep_runs_clos_and_skips_refusals(tmp_path, monkeypatch, capsys):

@@ -66,6 +66,28 @@ def _host(case):
     return HostCSR.from_scipy(capped_scan_matrix())
 
 
+@pytest.mark.parametrize("kind", ["closg", "closg_chunked"])
+def test_cached_closg_program_gives_the_same_y(cuda, kind, tmp_path):
+    """A CLOSG program loaded from the format cache gives, on the card, the
+    y of the fresh build bit for bit (B1, clos_r2 and K3 are deterministic);
+    the chunked one runs K3 once a chunk."""
+    from spmv_research_tpu_torch.convert.cache import cached_build_timed
+    host = _host("twin")
+    kw = {"max_N": 1 << 13} if kind == "closg_chunked" else {}
+    A, cold = cached_build_timed(build_clos_gather_auto, host, "closg",
+                                 cache_dir=str(tmp_path), **kw)
+    B, hit = cached_build_timed(build_clos_gather_auto, host, "closg",
+                                cache_dir=str(tmp_path), **kw)
+    assert not cold["from_cache"] and hit["from_cache"]
+    assert type(B) is type(A) and A.format_name == "CLOSG"
+    x = np.random.Generator(np.random.PCG64(7)).uniform(0.0, 1.0, host.n)
+    xd = torch.as_tensor(x, dtype=torch.float32, device=cuda)
+    K.reset_launch_counts()
+    y = spmv(B.to(cuda), xd, impl="cuda")
+    assert K.LAUNCHES["closg_front"] >= 1
+    assert torch.equal(y, spmv(A.to(cuda), xd, impl="cuda"))
+
+
 @pytest.mark.parametrize("case", ["twin", "capped_scan"])
 def test_kernels_match_plain_versions(cuda, case):
     host = _host(case)

@@ -90,10 +90,12 @@ def test_sweep_rowsplit_and_dense_rows(tmp_path, monkeypatch, capsys):
     """``closg`` yields an RSPLIT row where rows are long (the split
     threshold and part size lowered to 16 nnz for the 2000-row twin),
     ``dense`` a DENSE row, and a dense plane past the budget is refused and
-    skipped."""
+    skipped. The test's own format cache: a CLOSG cached without the
+    lowered threshold would load in place of the RSPLIT build."""
     import spmv_research_tpu_torch.ops.clos_gather as cg
     from spmv_research_tpu_torch.harness import sweep as sweep_mod
     from spmv_research_tpu_torch.ops import build_dense, rowsplit
+    monkeypatch.setenv("SPARSE_FORMAT_CACHE_TORCH", str(tmp_path / "cache"))
     monkeypatch.setattr(cg, "SPLIT_ROW_NNZ", 16)
     monkeypatch.setattr(rowsplit, "DEFAULT_T", 16)
     res = run_sweep([TWIN_LINE], formats=("closg", "dense"),
@@ -238,6 +240,7 @@ def test_transforms_match_jax(transform):
 @pytest.mark.parametrize("which", ["banded", "twin"])
 def test_build_best_keys_match_jax(which, monkeypatch, tmp_path):
     monkeypatch.setattr(jax_cache, "DEFAULT_CACHE_DIR", str(tmp_path))
+    monkeypatch.setenv("SPARSE_FORMAT_CACHE_TORCH", str(tmp_path / "torch"))
     line = BANDED_LINE if which == "banded" else TWIN_LINE
     host, _, _ = load_matrix(line, BenchConfig(use_rcm_reordering="auto"))
     hj, _, _ = jax_load_matrix(line,
@@ -307,6 +310,9 @@ def test_sweep_refuses_ic0_before_any_work(tmp_path):
 def test_sweep_skips_ds_range_refusal(tmp_path, monkeypatch, capsys):
     from spmv_research_tpu_torch.harness import sweep as sweep_mod
     from spmv_research_tpu_torch.ops import compensated
+    # the test's own format cache: a cached SELLWDS would load past the
+    # lowered range
+    monkeypatch.setenv("SPARSE_FORMAT_CACHE_TORCH", str(tmp_path / "cache"))
     monkeypatch.setattr(compensated, "DS_MAX_ABS", 1e-3)
     assert run_sweep([BANDED_LINE], formats=("csrds", "sellwds"),
                      out_dir=str(tmp_path), config=BenchConfig(**TINY),

@@ -1,6 +1,11 @@
 """Small CLOSG cases shared by the port's tests (no JAX, so the GPU tests
 can import them on a machine without it)."""
 
+import atexit
+import os
+import shutil
+import tempfile
+
 import numpy as np
 import scipy.sparse as sp
 import torch
@@ -8,6 +13,15 @@ import torch
 from spmv_research_tpu_torch.ops.clos import _stage_bit
 
 torch.set_num_threads(1)   # the test workers (pytest -n 6) share the cores
+
+# the format cache of this test process (convert/cache.py reads the
+# variable at each call): no test writes under the repository, and no two
+# worker processes share entries. A test that monkeypatches a cached
+# builder or its constants, or asserts a cold build, sets its own
+# tmp_path cache.
+os.environ["SPARSE_FORMAT_CACHE_TORCH"] = tempfile.mkdtemp(
+    prefix="format_cache_torch_")
+atexit.register(shutil.rmtree, os.environ["SPARSE_FORMAT_CACHE_TORCH"], True)
 
 # bench.py's scircuit twin line, cut to 2000 rows (V=16, W=2, capped scan
 # with 10 accumulate records)
