@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # phases 1-20
+    python3 chip_smoke.py              # phases 1-21
     python3 chip_smoke.py --phase 20   # phases 1, 2 and 20 alone
+    python3 chip_smoke.py --phase 21   # phases 1, 2 and 21 alone
 
 Needs one CUDA card, nvcc, and the repository checkout (it imports
 ``spmv_research_tpu_torch`` and nothing of JAX). Each run points
@@ -170,13 +171,13 @@ no result line):
     clos as unsuitable and gives a BFLY/cuda row within 1e-5;
 17. IC(0)/ILU(0) and the trisolve (``ilu_phase``; plain PyTorch, no hand
     kernel, as the JAX package solves in XLA), on the shipsec1_spd twin
-    cut to half its rows (at full size its factors take chunked schedules,
-    too slow for the smoke): the trisolve workload once through the sweep
-    (its residual gated at 1e-2, the schedules' kinds and step counts, the
-    solve's time), a CG job with ``precond=ic0`` (SELLW), and a BiCGStab
-    job with ``precond=ilu0`` on scircuit_dd (CLOSG), each converged
-    below 1e-5, and per preconditioner one apply's device kernels
-    (torch.profiler) and time;
+    cut to a quarter of its rows (at full size its factors take chunked
+    schedules, too slow for the smoke): the trisolve workload once
+    through the sweep (its residual gated at 1e-2, the schedules' kinds
+    and step counts, the solve's time), a CG job with ``precond=ic0``
+    (SELLW), and a BiCGStab job with ``precond=ilu0`` on scircuit_dd
+    (CLOSG), each converged below 1e-5, and per preconditioner one
+    apply's device kernels (torch.profiler) and time;
 18. SpGEMM and the classic formats (``classic_phase``; plain PyTorch, no
     hand kernel, as the JAX package computes them in XLA), on the
     scircuit (validation_twins.txt:5) and raefsky3 (:7) twins at full
@@ -240,7 +241,31 @@ no result line):
     ``tools.xl_run`` on pwtk (validation_twins.txt:33, 11.5M nnz, no RCM):
     a CLOSGX of several chunks, B1, ``clos_r2`` and B15 launched, y held
     to the gold, the JSON line's fields (``passed`` is the reference's
-    fp32 gate, logged) and the CSV row under the real-matrix labels.
+    fp32 gate, logged) and the CSV row under the real-matrix labels;
+21. the distributed layer (``dist_phase``; ``parallel/``, one process a
+    rank): (a) one rank over NCCL (``init_multihost()``: a group of one),
+    the shipsec1 twin after RCM through ``build_dist_sellr`` with
+    allgather, ring and psum_scatter (the three share one SELLR build
+    through the format cache), each y equal to the single-device
+    SELLR/cuda SpMV of the same program and held to the gold, one SpMV's
+    launches (B14's place and flush once each, asserted), B14 exact to
+    its plain versions on the rank's padded program; (b) pwtk (:33, no
+    RCM) through ``build_dist_closgx`` with ``overlap`` off (y equal to
+    the single-device CLOSGX/cuda SpMV) and on, B1, ``clos_r2`` and B15
+    launched (asserted); (c) two ranks on the one card over gloo (two
+    processes, ``chip_smoke.py --dist-rank``): (a)'s ring and (b)'s
+    overlap, the backend and the bytes staged through host memory a SpMV
+    printed, each y held to the gold; no scaling claim; (d)
+    ``build_sharded_best`` on gupta3 in two shards on ``[cuda:0,
+    cuda:0]`` in this process, each shard's engine printed, y held to the
+    gold; (e) ``distributed_cg_step`` on shipsec1_spd and
+    ``dist_cg_step_sellr`` on (a)'s allgather program: finite; (f)
+    ``tools.weak_scaling --device cuda --ranks 2 --backend gloo`` at
+    100k rows a rank, its CSV read back (host-staged). For (a), (b) and
+    (d) the distributed SpMV's device ms beside the single-device SpMV
+    of the same program, the host µs a call and the launches a SpMV;
+    each path's launches go into its kernels' entries as
+    ``dist_launches``.
 
 Every sweep with ``csr`` in it gives CSR/torch and CSR/sparse rows side by
 side (cuSPARSE's SpMV through the registry: the JAX package's CSR/bcoo),
@@ -311,16 +336,19 @@ KINDS = {17: ("RSPLIT", [1, 1, 1, 1, 32, 32]),
          33: ("CLOSGX", 13, 8),
          36: ("refused", "XL chunk fell back to legacy extraction")}
 STREAM_N = 1_200_000      # > 2^20 columns: a stream_wins SELLW program
-# the shipsec1 line cut to half its rows, for phase 17's trisolve and CG +
-# IC(0): at full size 7.9% of the ILU(0) factors' entries lie past the
-# widest band the band-block budget allows (8192 columns), so
+# the shipsec1 line cut to a quarter of its rows, for phase 17's trisolve
+# and CG + IC(0): at full size 7.9% of the ILU(0) factors' entries lie
+# past the widest band the band-block budget allows (8192 columns), so
 # build_schedule takes chunked schedules of ≈ 17k chunks, one Python step
 # each (trisolve_plan.py), and a full-size trisolve through the sweep did
 # not end within the smoke's limit; the half-size twin's factors fit the
-# band (Q = 18, 138 blocks a factor)
-SHIPSEC1_HALF_LINE = ("70437 70437 55.4637761404 11.0748106399 normal "
-                      "random 0.0458755451 0.8390381452 1.7123850245 "
-                      "0.8734443677 14 shipsec1_half")
+# band (Q = 18, 138 blocks a factor), and so do the quarter's, whose
+# host factorisations (ILU(0) and IC(0), ≈ 30 and 26 s at half size)
+# take about half as long: the cut that keeps the smoke's phases near
+# 1000 s with phase 21
+SHIPSEC1_QUARTER_LINE = ("35218 35218 55.4637761404 11.0748106399 normal "
+                         "random 0.0458755451 0.8390381452 1.7123850245 "
+                         "0.8734443677 14 shipsec1_quarter")
 # the JAX package's SpMM/SDDMM CSV labels (spmv_research_tpu/harness/
 # sweep.py:_labels_for)
 WORKLOAD_LABELS = ("matrix_name,format_name,impl,K,time_iter_median,gflops,"
@@ -815,9 +843,13 @@ def cusparse(host, dev):
 
 def main() -> None:
     args = sys.argv[1:]
-    if args not in ([], ["--phase", "20"], ["--trace-check"]):
-        fail(f"usage: python3 chip_smoke.py [--phase 20 | --trace-check], "
-             f"not {args}")
+    if args[:1] == ["--dist-rank"] and len(args) == 3:
+        dist_child(int(args[1]), args[2])
+        return
+    if args not in ([], ["--phase", "20"], ["--phase", "21"],
+                    ["--trace-check"]):
+        fail(f"usage: python3 chip_smoke.py [--phase 20 | --phase 21 | "
+             f"--trace-check], not {args}")
     if args == ["--trace-check"]:
         trace_check()
         return
@@ -829,7 +861,7 @@ def main() -> None:
     os.environ["SPARSE_FORMAT_CACHE_TORCH"] = os.path.join(run_dir,
                                                            "format_cache")
     try:
-        run(run_dir, tooling_only=bool(args))
+        run(run_dir, only=int(args[1]) if args else None)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
 
@@ -842,9 +874,9 @@ def kept_dir(run_dir, name) -> str:
     return path
 
 
-def run(run_dir, tooling_only: bool) -> None:
-    """The phases: 1-20, or with ``tooling_only`` 1, 2 and 20 (its CSVs
-    from a short sweep of its own)."""
+def run(run_dir, only=None) -> None:
+    """The phases: 1-21, or with ``only`` = 20 or 21 phases 1, 2 and that
+    one (phase 20's CSVs from a short sweep of its own)."""
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
@@ -909,10 +941,14 @@ def run(run_dir, tooling_only: bool) -> None:
             "scan_contig_kernelILi9ELb1ELb0", "scan_strided_kernelILi9ELb0",
             "scan_strided_kernelILi9ELb1")))
 
-    if tooling_only:
+    if only == 20:
         tooling_phase(DeviceTimer(spec), dev, run_dir,
                       tooling_sweeps(run_dir, dev), smi_line)
         log(f"# phase 20 alone passed at {time.perf_counter() - t_start:.0f}s")
+        return
+    if only == 21:
+        dist_phase(DeviceTimer(spec), dev, run_dir)
+        log(f"# phase 21 alone passed at {time.perf_counter() - t_start:.0f}s")
         return
     cache.reset_stats()
 
@@ -1459,10 +1495,17 @@ def run(run_dir, tooling_only: bool) -> None:
     tooling_phase(timer, dev, run_dir,
                   [os.path.join(run_dir, f"phase{n}_sweep")
                    for n in (8, 12, 14, 16)], smi_line)
+    log(f"# phase 20 done at {time.perf_counter() - t_start:.0f}s")
+
+    # --- 21. the distributed layer ---
+    dist_launches = dist_phase(timer, dev, run_dir)
     log(f"# all phases done at {time.perf_counter() - t_start:.0f}s")
 
     kernels += [*k_chunks, k_sellw, k_stream, *k_sellr, *k_opt, *k_w0, *k_g,
                 *k_xl, *k_kdim, *k_ds, *k_fb]
+    for k in kernels:
+        if k["name"] in dist_launches:
+            k["dist_launches"] = dist_launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -2311,8 +2354,9 @@ def fallback_phase(timer, dev, cfg, csv_dir) -> list:
 def ilu_phase(timer, dev, cfg) -> None:
     """Phase 17, IC(0)/ILU(0) and the level-scheduled trisolve (plain
     PyTorch on the card, no hand kernel: the JAX package solves in XLA):
-    the trisolve workload on the shipsec1_spd twin cut to half its rows
-    (``SHIPSEC1_HALF_LINE``, RCM as phase 15's CG), once through the
+    the trisolve workload on the shipsec1_spd twin cut to a quarter of
+    its rows (``SHIPSEC1_QUARTER_LINE``, RCM as phase 15's CG), once
+    through the
     sweep; a CG job with ``precond=ic0`` on the same twin (SELLW) and a
     BiCGStab job with ``precond=ilu0`` on scircuit_dd (CLOSG). Each
     gated (the trisolve's residual at 1e-2, the solves converged below
@@ -2369,7 +2413,7 @@ def ilu_phase(timer, dev, cfg) -> None:
     orig = kept(ilu, "build_schedule", built)
     try:
         with tempfile.TemporaryDirectory() as out_dir:
-            results = run_sweep([SHIPSEC1_HALF_LINE], formats=("csr",),
+            results = run_sweep([SHIPSEC1_QUARTER_LINE], formats=("csr",),
                                 workloads=("trisolve",), out_dir=out_dir,
                                 config=tcfg, device=dev)
             torch.cuda.synchronize()
@@ -2394,7 +2438,7 @@ def ilu_phase(timer, dev, cfg) -> None:
 
     # 2. CG + IC(0) on shipsec1_spd, 3. BiCGStab + ILU(0) on scircuit_dd
     for workload, line, transform, fmt, precond, lib, row in (
-            ("cg", SHIPSEC1_HALF_LINE, "spd", "sellw", "ic0", KS,
+            ("cg", SHIPSEC1_QUARTER_LINE, "spd", "sellw", "ic0", KS,
              "SELLW/cuda+ic0"),
             ("bicgstab", bench.SCIRCUIT_LINE, "dd", "closg", "ilu0", K,
              "CLOSG/cuda+ilu0")):
@@ -3168,6 +3212,347 @@ def tooling_phase(timer, dev, run_dir, csv_dirs, smi_line) -> None:
         fail(f"xl_run's CSV: {rows}")
     del host, A, r
     log(f"# phase 20 done in {time.perf_counter() - t_phase:.0f}s")
+
+
+def counted_call(fn, *libs):
+    """fn() between a reset and a read of the launch counters of ``libs``
+    (and of the bytes staged through host memory): (out, the non-zero
+    launch counts, staged bytes)."""
+    import torch
+    from spmv_research_tpu_torch.parallel import comm
+    for lib in libs:
+        lib.reset_launch_counts()
+    comm.reset_staged()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for lib in libs for k, v in lib.LAUNCHES.items()
+                 if v}, comm.STAGED["bytes"]
+
+
+def dist_times(timer, label, fn_dist, fn_single) -> dict:
+    """The distributed SpMV's device ms beside the single-device SpMV of
+    the same program (each the median of 5 means of 6 calls alone: one
+    stalled call must not move it), and the host µs a call of each,
+    logged."""
+    def ms(fn):
+        return float(np.median([timer.ms(fn, iters=6) for _ in range(5)]))
+
+    t = {"ms": ms(fn_dist), "single_ms": ms(fn_single),
+         "host_us": host_us(fn_dist, n=100),
+         "single_host_us": host_us(fn_single, n=100)}
+    log(f"# phase 21 {label}: dist SpMV {t['ms']:.4f} ms, the single-device "
+        f"SpMV of the same program {t['single_ms']:.4f} ms; host "
+        f"{t['host_us']:.1f} us a call (single {t['single_host_us']:.1f})")
+    return t
+
+
+def dist_phase(timer, dev, run_dir) -> dict:
+    """Phase 21: the distributed layer on the card (see the module's
+    docstring). Returns {kernel name: {path: launches a SpMV}}."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from spmv_research_tpu_torch import parallel as tp
+    from spmv_research_tpu_torch.convert.cache import cached_build
+    from spmv_research_tpu_torch.convert.coo_csr import make_spd
+    from spmv_research_tpu_torch.convert.reorder import rcm_if_beneficial
+    from spmv_research_tpu_torch.gen import generate_from_line
+    from spmv_research_tpu_torch.ops import clos_cuda as K
+    from spmv_research_tpu_torch.ops import sell_cuda as KS
+    from spmv_research_tpu_torch.ops import (build_clos_gather_auto,
+                                             build_clos_gather_xl, spmv)
+    from spmv_research_tpu_torch.ops.clos_route import LANES
+    from spmv_research_tpu_torch.ops.sellr import build_sellr
+    from spmv_research_tpu_torch.parallel import comm
+    from spmv_research_tpu_torch.parallel import dist_closgx as tdx
+    from spmv_research_tpu_torch.parallel import dist_sellr as tds
+    from spmv_research_tpu_torch.parallel.dist_closg import (
+        build_sharded_best, distributed_spmv_closg)
+
+    t_phase = time.perf_counter()
+    tp.init_multihost()                       # one rank, NCCL
+    if dist.get_world_size() != 1 or dist.get_backend() != "nccl":
+        fail(f"init_multihost() gave {dist.get_world_size()} ranks on "
+             f"{dist.get_backend()}, not one on nccl")
+    mesh = tp.make_sparse_mesh(1)
+    launches_of = {}
+    rng_x = lambda n: np.random.Generator(np.random.PCG64(7)).uniform(  # noqa
+        0.0, 1.0, n)
+    try:
+        # (a) SELLR on shipsec1 after RCM, k = 1
+        ship, _ = generate_from_line(SHIPSEC1_LINE)
+        ship, _ = rcm_if_beneficial(ship)
+        x = rng_x(ship.n)
+        gold = ship.spmv_gold_fast(x).astype(np.float64)
+        n_pad = -(-ship.n // LANES) * LANES
+        part = dataclasses.replace(tds._rows_slice(ship, 0, ship.m), n=n_pad)
+        t0 = time.perf_counter()
+        As = cached_build(build_sellr, part, "sellr", dtype=np.float32,
+                          max_slot_factor=6.0).to(dev)
+        log(f"# phase 21 (a) shipsec1 m={ship.m} nnz={ship.nnz}: the "
+            f"shard's SELLR {time.perf_counter() - t0:.2f}s (nchunks "
+            f"{As.nchunks}, {As.mem_footprint_bytes() / 1e6:.2f} MB)")
+        xs = torch.zeros(n_pad, dtype=torch.float32)
+        xs[: ship.n] = torch.as_tensor(x, dtype=torch.float32)
+        xs = xs.to(dev)
+        y_single = spmv(As, xs)[: ship.m].cpu().numpy()
+        D_ag = None
+        for strategy in ("allgather", "ring", "psum_scatter"):
+            t0 = time.perf_counter()
+            D = tp.build_dist_sellr(ship, mesh, strategy=strategy)
+            t_build = time.perf_counter() - t0
+            xp = tds._pad_x(D, x)
+            _, launches, _ = counted_call(lambda: tds.dist_spmv_sellr(D, xp),
+                                          K, KS)
+            if launches != {"sellr_place": 1, "sellr_flush": 1}:
+                fail(f"a k = 1 {strategy} SELLR SpMV launched {launches}, "
+                     "not B14's place and flush once each")
+            for name, n in launches.items():
+                launches_of.setdefault(name, {})[f"sellr_{strategy}"] = n
+            y = tp.dist_spmv_sellr_host(D, x)
+            check_gold(f"phase 21 (a) SELLR {strategy}", ship, x, y, gold)
+            if not np.array_equal(y.astype(np.float32), y_single):
+                fail(f"phase 21 (a) {strategy}: y differs from the "
+                     "single-device SELLR/cuda SpMV of the same program")
+            b = 0 if strategy == "ring" else None
+            sel = (lambda t: t[b]) if b is not None else (lambda t: t)
+            xk = comm.all_gather(xp, D.group) if (
+                strategy == "allgather") else xp
+            p_args = (sel(D.word), sel(D.vals), sel(D.smeta), xk,
+                      sel(D.nchunks) if b is not None else D.nchunks,
+                      D.meta["stages"], D.meta["rolls"])
+            R = KS.sellr_place(*p_args)
+            f_args = (R, sel(D.gptr), sel(D.gchunk))
+            if not (torch.equal(R, KS.sellr_place_torch(*p_args))
+                    and torch.equal(KS.sellr_flush(*f_args),
+                                    KS.sellr_flush_torch(*f_args))):
+                fail(f"phase 21 (a) {strategy}: B14 on the padded program "
+                     "differs from its plain versions")
+            log(f"# phase 21 (a) {strategy}: plan {t_build:.2f}s, "
+                f"{D.word.shape[-2] // 8} chunks padded ({D.nchunks} live), "
+                f"stages {D.meta['stages']}, {len(D.meta['rolls'])} rolls; "
+                f"launches a SpMV {launches}; B14 exact to its plain "
+                f"versions on the padded program")
+            dist_times(timer, f"(a) SELLR {strategy}",
+                       lambda: tds.dist_spmv_sellr(D, xp),
+                       lambda: spmv(As, xs))
+            if strategy == "allgather":
+                D_ag = D
+        del As
+        xg = tds._pad_x(D_ag, x)
+        buf = torch.empty_like(xg)
+        raw = lambda: dist.all_gather_into_tensor(  # noqa: E731
+            buf, xg, group=D_ag.group)
+        log(f"# phase 21 (a) one NCCL all_gather_into_tensor of x "
+            f"({xg.numel() * 4} B, one rank) alone: {timer.ms(raw):.4f} ms, "
+            f"host {host_us(raw, n=100):.1f} us a call; comm.all_gather "
+            f"{host_us(lambda: comm.all_gather(xg, D_ag.group), n=100):.1f}"
+            f" us, dist.get_backend "
+            f"{host_us(lambda: dist.get_backend(D_ag.group), n=100):.1f} "
+            f"us, the SELLR body alone "
+            f"{host_us(lambda: tds._kern(D_ag)(xg), n=100):.1f} us")
+        log(f"# phase 21 (a) done at {time.perf_counter() - t_phase:.0f}s")
+
+        # (b) CLOSGX on pwtk, no RCM, k = 1
+        twins = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             TWINS)
+        pw, _ = generate_from_line(open(twins).read().splitlines()[32])
+        xw = rng_x(pw.n)
+        gold_w = pw.spmv_gold_fast(xw).astype(np.float64)
+        t0 = time.perf_counter()
+        Ax = cached_build(build_clos_gather_xl, tdx._rows_slice(pw, 0, pw.m),
+                          "closgx", chunk_N=1 << 20, max_chunks=256).to(dev)
+        log(f"# phase 21 (b) pwtk m={pw.m} nnz={pw.nnz}: the shard's "
+            f"CLOSGX {time.perf_counter() - t0:.2f}s ({Ax.n_chunks} chunks, "
+            f"W={Ax.W}, {Ax.mem_footprint_bytes() / 1e6:.1f} MB)")
+        xwd = torch.as_tensor(xw, dtype=torch.float32, device=dev)
+        yw_single = spmv(Ax, xwd).cpu().numpy()
+        for ov in (False, True):
+            t0 = time.perf_counter()
+            D = tp.build_dist_closgx(pw, mesh, axis="rows", overlap=ov)
+            t_build = time.perf_counter() - t0
+            xl = tdx.shard_x(D, xw)
+            _, launches, _ = counted_call(
+                lambda: tdx.dist_spmv_closgx(D, xl), K, KS)
+            if not all(launches.get(n, 0) > 0 for n in (
+                    "closg_front", "clos_r2", "closgx_r3_scan_yext")):
+                fail(f"a k = 1 CLOSGX SpMV (overlap={ov}) launched "
+                     f"{launches}")
+            label = "closgx_overlap" if ov else "closgx"
+            for name, n in launches.items():
+                launches_of.setdefault(name, {})[label] = n
+            y = tp.dist_spmv_closgx_host(D, xw)
+            check_gold(f"phase 21 (b) CLOSGX overlap={ov}", pw, xw, y,
+                       gold_w)
+            if not ov and not np.array_equal(y.astype(np.float32),
+                                             yw_single):
+                fail("phase 21 (b): y differs from the single-device "
+                     "CLOSGX/cuda SpMV of the same program")
+            log(f"# phase 21 (b) overlap={ov}: plan {t_build:.2f}s, "
+                f"{D.prog.n_chunks} chunks"
+                + (f" + {D.prog_loc.n_chunks} local" if ov else "")
+                + f"; launches a SpMV {launches}")
+            dist_times(timer, f"(b) CLOSGX overlap={ov}",
+                       lambda: tdx.dist_spmv_closgx(D, xl),
+                       lambda: spmv(Ax, xwd))
+        del Ax, D
+        log(f"# phase 21 (b) done at {time.perf_counter() - t_phase:.0f}s")
+
+        # (c) two ranks on the one card over gloo
+        t0 = time.perf_counter()
+        tds.plan_dist_sellr(ship, 2, "ring")            # warm the cache
+        tdx.plan_dist_closgx(pw, 2, overlap=True)
+        np.savez(os.path.join(run_dir, "dist_mats.npz"),
+                 **{f"{p}_{f}": getattr(h, f) for p, h in (("ship", ship),
+                                                          ("pw", pw))
+                    for f in ("ia", "ja", "a")},
+                 ship_mn=[ship.m, ship.n], pw_mn=[pw.m, pw.n], gold=gold,
+                 gold_w=gold_w)
+        log(f"# phase 21 (c) k = 2 programs built in "
+            f"{time.perf_counter() - t0:.1f}s")
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--dist-rank", str(r), run_dir])
+                 for r in (0, 1)]
+        try:
+            rcs = [p.wait(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        if any(rcs):
+            fail(f"phase 21 (c): the two gloo ranks exited {rcs}")
+        with open(os.path.join(run_dir, "dist_k2.json")) as f:
+            res = json.load(f)
+        for key, r in res["paths"].items():
+            log(f"# phase 21 (c) k = 2 on one card, backend "
+                f"{res['backend']}: {key} y vs gold max rel {r['rel']}, "
+                f"{r['staged_bytes']} B staged through host memory a SpMV "
+                f"(rank 0), launches a SpMV on rank 0 {r['launches']}, "
+                f"{r['wall_ms']:.3f} ms wall a SpMV (host-staged; no "
+                "scaling claim)")
+        log(f"# phase 21 (c) done at {time.perf_counter() - t_phase:.0f}s")
+
+        # (d) per-shard engines on gupta3, two shards on the one card
+        gup, _ = generate_from_line(GUPTA3_LINE)
+        gup, _ = rcm_if_beneficial(gup)
+        t0 = time.perf_counter()
+        A = build_sharded_best(gup, devices=[dev, dev])
+        engines = [f"{type(s).__name__}" + (
+            f"({len(s.chunks)} chunks, W={[c.W for c in s.chunks]})"
+            if hasattr(s, "chunks") else "") for s in A.shards]
+        log(f"# phase 21 (d) gupta3 m={gup.m} nnz={gup.nnz}: shards "
+            f"{engines} on {[str(d) for d in A.devices]}, row splits "
+            f"{A.row_splits.tolist()} ({time.perf_counter() - t0:.1f}s)")
+        xg = rng_x(gup.n)
+        xgd = torch.as_tensor(xg, dtype=torch.float32, device=dev)
+        y, launches, _ = counted_call(lambda: distributed_spmv_closg(A, xgd),
+                                      K, KS)
+        for name, n in launches.items():
+            launches_of.setdefault(name, {})["sharded_best"] = n
+        check_gold("phase 21 (d) sharded best", gup, xg, y)
+        Ag = cached_build(build_clos_gather_auto, gup, "closg").to(dev)
+        log(f"# phase 21 (d) launches a SpMV {launches}")
+        dist_times(timer, "(d) gupta3 sharded best",
+                   lambda: distributed_spmv_closg(A, xgd),
+                   lambda: spmv(Ag, xgd))
+        del A, Ag, gup
+
+        # (e) CG steps
+        spd = make_spd(ship)
+        _, rr = tp.distributed_cg_step(spd, mesh)()
+        step, xp = tds.dist_cg_step_sellr(D_ag, x)
+        ys = step(xp)
+        torch.cuda.synchronize()
+        if not (np.isfinite(float(rr)) and bool(torch.isfinite(ys).all())):
+            fail(f"phase 21 (e): r·r {float(rr)}, the SELLR step finite "
+                 f"{bool(torch.isfinite(ys).all())}")
+        log(f"# phase 21 (e) distributed_cg_step on shipsec1_spd (nnz "
+            f"{spd.nnz}): r·r = {float(rr)}; dist_cg_step_sellr on (a)'s "
+            f"allgather program: finite, |y| {float(ys.norm())}")
+        del spd, D_ag
+    finally:
+        dist.destroy_process_group()
+
+    # (f) the weak-scaling tool, two ranks on the one card over gloo
+    wdir = os.path.join(run_dir, "weak_scaling")
+    out = subprocess.run(
+        [sys.executable, "-m", "spmv_research_tpu_torch.tools.weak_scaling",
+         "--device", "cuda", "--ranks", "2", "--backend", "gloo",
+         "--out-dir", wdir], cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    for ln in out.stdout.splitlines():
+        log(f"# phase 21 (f) {ln}")
+    if out.returncode:
+        fail(f"tools.weak_scaling exited {out.returncode}: {out.stderr}")
+    with open(os.path.join(wdir, "weak_scaling_cuda2.csv")) as f:
+        rows = f.read().splitlines()
+    if not (rows[0] == ("strategy,devices,rows_per_device,nnz,time_iter_s,"
+                        "efficiency,efficiency_overhead") and len(rows) == 5
+            and "host-staged" in out.stdout):
+        fail(f"tools.weak_scaling's CSV: {rows}")
+    for ln in rows:
+        log(f"#   {ln}")
+    log(f"# phase 21 done in {time.perf_counter() - t_phase:.0f}s")
+    return launches_of
+
+
+def dist_child(rank: int, run_dir: str) -> None:
+    """Phase 21 (c), one of two ranks on the one card over gloo
+    (``chip_smoke.py --dist-rank R RUN_DIR``): the shipsec1 ring and the
+    pwtk CLOSGX with overlap, from the programs the parent cached; rank 0
+    writes ``dist_k2.json``. Exits non-zero on a failed check."""
+    import torch
+    import torch.distributed as dist
+    from spmv_research_tpu_torch import parallel as tp
+    from spmv_research_tpu_torch.core.host import HostCSR
+    from spmv_research_tpu_torch.ops import clos_cuda as K
+    from spmv_research_tpu_torch.ops import sell_cuda as KS
+    from spmv_research_tpu_torch.parallel import dist_closgx as tdx
+    from spmv_research_tpu_torch.parallel import dist_sellr as tds
+
+    tp.init_multihost(f"file://{os.path.join(run_dir, 'dist_store')}", 2,
+                      rank, backend="gloo")
+    try:
+        mesh = tp.make_sparse_mesh(2)
+        z = np.load(os.path.join(run_dir, "dist_mats.npz"))
+        hosts = {p: HostCSR(ia=z[f"{p}_ia"], ja=z[f"{p}_ja"], a=z[f"{p}_a"],
+                            m=int(z[f"{p}_mn"][0]), n=int(z[f"{p}_mn"][1]))
+                 for p in ("ship", "pw")}
+        res = {"backend": dist.get_backend(), "paths": {}}
+        for key, p, gold_key, build, run, pad in (
+                ("sellr_ring", "ship", "gold",
+                 lambda h: tp.build_dist_sellr(h, mesh, strategy="ring"),
+                 tds.dist_spmv_sellr, tds._pad_x),
+                ("closgx_overlap", "pw", "gold_w",
+                 lambda h: tp.build_dist_closgx(h, mesh, axis="rows",
+                                                overlap=True),
+                 tdx.dist_spmv_closgx, tdx.shard_x)):
+            h = hosts[p]
+            D = build(h)
+            x = np.random.Generator(np.random.PCG64(7)).uniform(0.0, 1.0,
+                                                                 h.n)
+            xl = pad(D, x)
+            _, launches, staged = counted_call(lambda: run(D, xl), K, KS)
+            y = (tp.dist_spmv_sellr_host if p == "ship"
+                 else tp.dist_spmv_closgx_host)(D, x)
+            scale = np.abs(h.to_scipy()) @ np.abs(x) + 1e-30
+            rel = float(np.max(np.abs(y - z[gold_key]) / scale))
+            t0 = time.perf_counter()
+            for _ in range(20):
+                run(D, xl)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 20 * 1e3
+            if not (rel <= 1e-5 and launches):
+                print(f"chip_smoke: FAIL: rank {rank} {key}: rel {rel}, "
+                      f"launches {launches}", file=sys.stderr, flush=True)
+                sys.exit(1)
+            res["paths"][key] = {"rel": rel, "launches": launches,
+                                 "staged_bytes": staged, "wall_ms": wall}
+        if rank == 0:
+            with open(os.path.join(run_dir, "dist_k2.json"), "w") as f:
+                json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
 
 
 def trace_check() -> None:

@@ -25,8 +25,10 @@ with their flush bits (``gptr``/``gchunk``), and one block per group applies
 them in turn: the sums are the JAX kernel's, deterministic, without atomics.
 
 ``NB``, ``SMEM_BLK`` and ``_XY_VMEM_ROWS`` are TPU-derived and kept so that
-``build_best`` makes the same choices. ``sellr_pallas_raw``'s counterpart
-(the raw-array entry of the distributed layer) waits for that layer.
+``build_best`` makes the same choices. :func:`sellr_raw` is the counterpart
+of ``sellr_pallas_raw``, the raw-array entry of the distributed layer
+(``parallel/dist_sellr.py``): a padded or stacked program's arrays, with
+the flush order :func:`raw_flush_order` derives from its live chunks.
 """
 
 from __future__ import annotations
@@ -386,6 +388,29 @@ def _flush_order(smeta: np.ndarray, nchunks: int, y_rows: int) -> tuple:
     counts = np.bincount(group, minlength=ngroups)
     gptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
     return gptr, gchunk
+
+
+def raw_flush_order(smeta: np.ndarray, nchunks: int, y_rows: int) -> tuple:
+    """``(gptr, gchunk)`` tensors for a program passed as raw arrays: a
+    program padded to more steps (dead chunks, flush 0, after its
+    ``nchunks`` live ones) or with a y plane of ``y_rows`` rows past its
+    own. The order is taken from the live chunks only; a program with no
+    live chunk gives every group an empty list (a y of zeros)."""
+    gptr, gchunk = _flush_order(np.asarray(smeta), nchunks, y_rows)
+    return torch.from_numpy(gptr), torch.from_numpy(gchunk)
+
+
+def sellr_raw(word, vals, smeta, gptr, gchunk, x, *, nchunks: int,
+              stages: int, rolls) -> torch.Tensor:
+    """The SELLR y plane (y_rows, 128) of a program given as raw arrays
+    (the counterpart of the JAX ``sellr_pallas_raw``): B14's place over
+    the ``nchunks`` live chunks, then its flush in the order of
+    :func:`raw_flush_order`. The kernels on CUDA tensors, their plain
+    versions on CPU tensors. ``rolls`` is the program's roll set (the
+    union over the shards of a padded set; the place kernel reads each
+    slot's own roll code)."""
+    return K.sellr_y(word, vals, smeta, gptr, gchunk, x.to(vals.dtype),
+                     nchunks, stages, rolls)
 
 
 def _sellr(arrays: dict, meta: dict) -> SellR:

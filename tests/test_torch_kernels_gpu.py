@@ -1248,3 +1248,63 @@ def test_sptrsv_on_the_card_matches_cpu(cuda, kind):
     x, xd = _x(host.n, cuda)
     A = build_csr(host).to(cuda)
     _close_to_scipy(mat, x, spmv(A, xd, impl="sparse"))
+
+
+def test_one_rank_nccl_dist_sellr_and_closgx(cuda, tmp_path, monkeypatch):
+    """The distributed layer on one rank over NCCL (``init_multihost``
+    with no arguments): each SELLR strategy and CLOSGX with and without
+    overlap against the single-device SpMV of the same matrix (B14, or
+    B1, clos_r2 and B15, each launched), and B14 on the rank's padded
+    program exact to its plain versions."""
+    import torch.distributed as dist
+    from spmv_research_tpu_torch.convert import cache
+    from spmv_research_tpu_torch import parallel as tp
+    from spmv_research_tpu_torch.parallel.dist_sellr import (
+        _pad_x, dist_spmv_sellr)
+    monkeypatch.setenv(cache.CACHE_ENV, str(tmp_path))
+    if dist.is_initialized():
+        pytest.skip("a process group exists already in this process")
+    tp.init_multihost()
+    try:
+        mesh = tp.make_sparse_mesh(1)
+        mat = banded_matrix(3000, 3000, 300, 8, 11)
+        h = HostCSR.from_scipy(mat)
+        x = np.random.default_rng(1).standard_normal(3000)
+        xd = torch.as_tensor(x, dtype=torch.float32, device=cuda)
+        A1 = sellr.build_sellr(h, max_slot_factor=30.0).to(cuda)
+        want = spmv(A1, xd).double().cpu().numpy()
+        for strategy in ("allgather", "ring", "psum_scatter"):
+            D = tp.build_dist_sellr(h, mesh, strategy=strategy,
+                                    max_slot_factor=30.0)
+            assert D.device.type == "cuda"
+            KS.reset_launch_counts()
+            y = tp.dist_spmv_sellr_host(D, x)
+            assert KS.LAUNCHES["sellr_place"] == KS.LAUNCHES[
+                "sellr_flush"] == 1
+            assert np.array_equal(y.astype(np.float32),
+                                  want.astype(np.float32)), strategy
+        xp = _pad_x(D, x)
+        p_args = (D.word, D.vals, D.smeta, xp, D.nchunks,
+                  D.meta["stages"], D.meta["rolls"])
+        R = KS.sellr_place(*p_args)
+        assert torch.equal(R, KS.sellr_place_torch(*p_args))
+        assert torch.equal(KS.sellr_flush(R, D.gptr, D.gchunk),
+                           KS.sellr_flush_torch(R, D.gptr, D.gchunk))
+        assert dist_spmv_sellr(D, xp).shape[0] == D.meta["y_rows"] * 128
+        mx = random_matrix(3000, 3000, 0.004, 3)
+        hx = HostCSR.from_scipy(mx)
+        xx = np.random.default_rng(2).uniform(-1, 1, 3000)
+        Ax = build_clos_gather_xl(hx, chunk_N=1 << 14).to(cuda)
+        want = spmv(Ax, torch.as_tensor(xx, dtype=torch.float32,
+                                        device=cuda)).double().cpu().numpy()
+        for ov in (False, True):
+            Dx = tp.build_dist_closgx(hx, mesh, axis="rows",
+                                      chunk_N=1 << 14, overlap=ov)
+            K.reset_launch_counts()
+            y = tp.dist_spmv_closgx_host(Dx, xx)
+            for k in ("closg_front", "clos_r2", "closgx_r3_scan_yext"):
+                assert K.LAUNCHES[k] > 0, k
+            scale = np.abs(mx) @ np.abs(xx) + 1e-30
+            assert np.max(np.abs(y - want) / scale) <= 1e-6, ov
+    finally:
+        dist.destroy_process_group()
