@@ -103,7 +103,9 @@ no result line):
     validation_twins.txt (RCM where the matrix is square): ASIC_680k (:17)
     an RSPLIT over a 6-chunk CLOSG with W = 1, 1, 1, 1, 32, 32; pwtk (:33) a
     13-chunk CLOSGX with W = 8; rail4284 (:32) and TSOPF_RS_b2383 (:36)
-    refused by the XL builder's guards. Host work only;
+    refused by the XL tier's guards. Host work only, so it runs in a
+    child process (``--program-kinds``) beside phase 14 and its lines
+    follow phase 14's;
 14. the K-dimension workloads at K = 128 (``k_dim_phase``): gupta3's and
     shipsec1's BTILE programs (ntiles, nsteps, slots/nnz, MB printed) and
     the cut of B16a's launch on each (blocks, chunks per band, K slices,
@@ -140,8 +142,8 @@ no result line):
     converged with a relative residual < 1e-5, and one counted solve of
     each (B13's, the combine's and B1-B3's launches per solve; on SELLWDS
     B13 once per stage class for each combine);
-16. the fallback engines CLOS and BFLY (``fallback_phase``): the scircuit
-    twin as the sweep loads it (RCM where it narrows the band), CLOS
+16. the fallback engines CLOS, CLOSM and BFLY (``fallback_phase``): the
+    scircuit twin as the sweep loads it (RCM where it narrows the band), CLOS
     (asserts N = 2^20) and BFLY (N = 2^20, L = 20) built, cold build times
     and program shapes logged; CLOS's r1 layers (``clos_invreg``) and r2
     layers (``clos_r2``, also beside ``unfolded_ms``) on its three
@@ -157,13 +159,22 @@ no result line):
     SpMV per engine (launches per SpMV; CLOS's asserted to be 3
     ``clos_invreg``, 3 ``clos_r2`` and B8 one a phase of the fill's and
     scan's plans + 1, BFLY's B9 launches one
-    a phase of its calls' plans, 11), one SpMV's device time and a
+    a phase of its calls' plans, 11); CLOSM, the multicast Clos engine,
+    built on the same host (N = 2^20 and a live spill side path
+    asserted; its build seconds logged), each of its B2 and B8 calls
+    (``clos_invreg`` and ``clos_r2`` on both networks, ``clos_r3_scan``,
+    ``clos_r3_valid``) against its plain version on the program's own
+    inputs (``torch.equal``) and timed, one counted CLOSM/cuda SpMV (2 +
+    2 layers, the scan once a phase, the valid step once, asserted) against
+    the gold, and one run of ``harness.bench_spmv`` on it (its launches
+    the CLOSM kernel entries'); one SpMV's device time and a
     traced chain of 50 per engine (and B10 and cuSPARSE timed alone); the
     sweep with formats csr, clos and bfly (the B8 and B9 kernels must
     launch, every row within 1e-5 of |A|·|x|); one counted B10 SpMV (one
     launch per phase, at most 20), checked against the gold; then
     mac_econ_fwd500 (validation_twins.txt:6, N = 2^21): ``build_clos``
-    refuses it, BFLY builds it, B9 equals its plain versions there and B10
+    and ``build_clos_mcast`` refuse it past ``max_N``, BFLY builds it,
+    B9 equals its plain versions there and B10
     (the strided tiling at L = 21) its plain version and B9's chain, timed,
     y against the gold, one counted BFLY/cuda SpMV (B9 one launch a phase
     of its plans, asserted) against the gold, and the sweep with clos and
@@ -203,7 +214,10 @@ no result line):
     (b) SELLG SpMM at K = 128 on raefsky3 and shipsec1; (c) BSRG SpMV and
     K = 128 SpMM and the ``BSR/mxu`` SDDMM on raefsky3, BSRG on scircuit
     refused with ``BSRBuildError``; (d) the ``CSR/gather`` SDDMM at K =
-    128 on raefsky3 and shipsec1; each y, Y and C within 1e-5 of |A|·|x|,
+    128 on raefsky3 and shipsec1; (g) the chunked CSR baseline
+    ``CSR/torchc`` on shipsec1 at blocks of 2^21 (≥ 4 blocks, asserted)
+    and 2^20 nonzeros, SpMV and K = 128 SpMM, beside CSR/torch; each y,
+    Y and C within 1e-5 of |A|·|x|,
     |A|·|X| and Σ|a||b|, each call timed alone, cold and warm, with its
     host µs, beside cuSPARSE's (SpMV, ``torch.sparse.mm``,
     ``sampled_addmm``); (e) the raefsky3 SDDMM sweep rows CSR/torch,
@@ -847,11 +861,14 @@ def main() -> None:
         dist_child(int(args[1]), args[2])
         return
     if args not in ([], ["--phase", "20"], ["--phase", "21"],
-                    ["--trace-check"]):
+                    ["--trace-check"], ["--program-kinds"]):
         fail(f"usage: python3 chip_smoke.py [--phase 20 | --phase 21 | "
-             f"--trace-check], not {args}")
+             f"--trace-check | --program-kinds], not {args}")
     if args == ["--trace-check"]:
         trace_check()
+        return
+    if args == ["--program-kinds"]:
+        program_kinds()
         return
     run_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     # one format cache a run, empty at its start: a cache an earlier run
@@ -895,13 +912,11 @@ def run(run_dir, only=None) -> None:
         from spmv_research_tpu_torch.ops import (ClosG, ClosGChunked, ClosGX,
                                                  RowSplit, SellR, SellW,
                                                  build_clos_gather,
-                                                 build_clos_gather_auto,
                                                  build_dense, build_sellw,
                                                  spmv)
         from spmv_research_tpu_torch.ops import bfly_cuda as KF
         from spmv_research_tpu_torch.ops import btile_cuda as KB
         from spmv_research_tpu_torch.ops import clos_cuda as K
-        from spmv_research_tpu_torch.ops.clos_route import ClosRoutingError
         from spmv_research_tpu_torch.ops import sell_cuda as KS
         from spmv_research_tpu_torch.ops.sellw import class_plan
         from spmv_research_tpu_torch.utils.roofline import device_spec
@@ -1173,7 +1188,7 @@ def run(run_dir, only=None) -> None:
     del As, s_args, y, tri, tri_host, lib_tri
 
     # --- 8. the sweep path ---
-    cfg = BenchConfig(min_num_loops=64, min_time_s=1.0,
+    cfg = BenchConfig(min_num_loops=64, min_time_s=0.25,
                       use_rcm_reordering="auto")
     formats = ("csr", "sellr", "sellw", "closg")
     out_dir = kept_dir(run_dir, "phase8_sweep")
@@ -1431,44 +1446,43 @@ def run(run_dir, only=None) -> None:
     del mip, results
     log(f"# phase 12 done at {time.perf_counter() - t_start:.0f}s")
 
-    # --- 13. the program kinds of four more twins ---
-    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           TWINS)) as f:
-        twins = f.read().splitlines()
-    for no, want in KINDS.items():
-        t0 = time.perf_counter()
-        tw, _ = generate_from_line(twins[no - 1])
-        if tw.m == tw.n:                    # RCM needs a square matrix
-            tw, _ = rcm_if_beneficial(tw)
-        try:
-            Ak = build_clos_gather_auto(tw)
-            got = program_kind(Ak, RowSplit, ClosGChunked, ClosGX)
-            shape = (f"{got}, footprint_MB="
-                     f"{Ak.mem_footprint_bytes() / 1e6:.2f}")
-            del Ak
-        except ClosRoutingError as e:
-            got = ("refused", str(e)[:len(want[1])])
-            shape = f"refused: {e}"
-        log(f"# {TWINS}:{no} {twins[no - 1].split()[-1]}: m={tw.m} n={tw.n} "
-            f"nnz={tw.nnz}; generate + RCM + build "
-            f"{time.perf_counter() - t0:.1f}s: {shape}")
-        if got != want:
-            fail(f"{TWINS}:{no}: program {got}, want {want}")
-    del tw
-    log(f"# phase 13 done at {time.perf_counter() - t_start:.0f}s")
+    # --- 13. the program kinds of four more twins: host work only, in a
+    # child process (``--program-kinds``) while phase 14 runs the card ---
+    kinds_out = open(os.path.join(run_dir, "phase13.log"), "w+")
+    kinds = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                              "--program-kinds"], stdout=kinds_out,
+                             stderr=subprocess.STDOUT, text=True)
+    log("# phase 13 started beside phase 14 (a child process)")
 
     # --- 14. the K-dimension workloads ---
-    k_kdim = k_dim_phase(timer, dev, gup, ship, Ag, Aw, gup_launches, cfg,
-                         run_dir)
+    try:
+        k_kdim = k_dim_phase(timer, dev, gup, ship, Ag, Aw, gup_launches,
+                             cfg, run_dir)
+    except BaseException:
+        kinds.kill()
+        kinds.wait()
+        raise
     del gup, Ag, Aw
     log(f"# phase 14 done at {time.perf_counter() - t_start:.0f}s")
+    try:
+        kinds.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        kinds.kill()
+        kinds.wait()
+        fail("phase 13's child process ran past 900 s")
+    kinds_out.seek(0)
+    log(kinds_out.read().rstrip())
+    kinds_out.close()
+    if kinds.returncode != 0:
+        fail(f"phase 13's child process exited {kinds.returncode}")
+    log(f"# phase 13 done at {time.perf_counter() - t_start:.0f}s")
 
     # --- 15. double-single and solvers ---
     del ship
     k_ds = ds_phase(timer, dev, cfg)
     log(f"# phase 15 done at {time.perf_counter() - t_start:.0f}s")
 
-    # --- 16. the fallback engines CLOS and BFLY ---
+    # --- 16. the fallback engines CLOS, CLOSM and BFLY ---
     k_fb = fallback_phase(timer, dev, cfg, run_dir)
     log(f"# phase 16 done at {time.perf_counter() - t_start:.0f}s")
 
@@ -2009,10 +2023,12 @@ def ds_phase(timer, dev, cfg) -> list:
 
 
 def fallback_phase(timer, dev, cfg, csv_dir) -> list:
-    """Phase 16, the fallback engines: CLOS and BFLY on the scircuit twin
-    (B8, B9, B10 against their plain versions and timed, cuSPARSE beside
-    B10, counted and traced SpMVs, the csr/clos/bfly sweep, one counted
-    B10 SpMV), then mac_econ_fwd500 (CLOS refuses it, BFLY runs it)."""
+    """Phase 16, the fallback engines: CLOS, CLOSM and BFLY on the
+    scircuit twin (B2 and B8 on CLOS's and CLOSM's planes, B9, B10 against
+    their plain versions and timed, cuSPARSE beside B10, counted and
+    traced SpMVs, CLOSM through ``bench_spmv``, the csr/clos/bfly sweep,
+    one counted B10 SpMV), then mac_econ_fwd500 (CLOS and CLOSM refuse
+    it, BFLY runs it)."""
     import contextlib
     import io
     import torch
@@ -2022,11 +2038,13 @@ def fallback_phase(timer, dev, cfg, csv_dir) -> list:
     from spmv_research_tpu_torch.convert.cache import (cached_build_timed,
                                                        describe)
     from spmv_research_tpu_torch.harness import run_sweep
-    from spmv_research_tpu_torch.harness.bench import csv_labels
+    from spmv_research_tpu_torch.harness.bench import bench_spmv, csv_labels
     from spmv_research_tpu_torch.harness.sweep import load_matrix
-    from spmv_research_tpu_torch.ops import (build_bfly, build_clos, spmv,
+    from spmv_research_tpu_torch.ops import (build_bfly, build_clos,
+                                             build_clos_mcast, spmv,
                                              spmv_bfly_cuda_fused)
     from spmv_research_tpu_torch.ops import bfly as BF
+    from spmv_research_tpu_torch.ops import clos_mcast as CM
     from spmv_research_tpu_torch.ops import bfly_cuda as KF
     from spmv_research_tpu_torch.ops import clos_cuda as K
     from spmv_research_tpu_torch.ops.clos_route import ClosRoutingError
@@ -2190,6 +2208,68 @@ def fallback_phase(timer, dev, cfg, csv_dir) -> list:
     del u, fill, scan, valid, whole, v0, v1, v2, v3, v4, nets, chain, full
     del planes
 
+    # CLOSM on the same host: one multicast gather network (x to every CSR
+    # slot of its column) on B2, B8's scan, the compact network on B2, B8's
+    # valid step, and the spilled nonzeros through a PyTorch side path;
+    # each B2 and B8 call on the program's own pipeline inputs
+    t_part = time.perf_counter()
+    Am = build_clos_mcast(host)
+    t_closm = time.perf_counter() - t_part
+    log(f"# scircuit CLOSM (cold build {t_closm:.2f}s): N={Am.N} V={Am.V} "
+        f"x_stride={Am.x_stride} scan_stages={len(Am.scan_stages)} "
+        f"scan_hi={tuple(Am.scan_hi.shape)} n_spill={Am.n_spill} (padded "
+        f"{Am.spill_rows.numel()}) footprint_MB="
+        f"{Am.mem_footprint_bytes() / 1e6:.2f}")
+    if not (Am.N == N and Am.n_spill > 0):
+        fail(f"scircuit CLOSM: N={Am.N}, {Am.n_spill} spilled; want 2^20 "
+             f"and a live side path")
+    Am = Am.to(dev)
+    m_calls = {"clos_invreg": [], "clos_r2": [], "clos_r3_scan": [],
+               "clos_r3_valid": []}
+
+    def m_step(name, *args):
+        m_calls[name].append(args)
+        return getattr(K, name + "_torch")(*args)
+
+    u = CM._spread(xd, N, Am.x_stride)
+    u = m_step("clos_r2", m_step("clos_invreg", u, Am.g_r1), Am.g_r2, Am.V)
+    u = m_step("clos_r3_scan", u, Am.g_r3, Am.vals, Am.scan_hi,
+               Am.scan_stages)
+    u = m_step("clos_r2", m_step("clos_invreg", u, Am.compact_r1),
+               Am.compact_r2, Am.V)
+    m_step("clos_r3_valid", u, Am.compact_r3, Am.m)
+    m_rows = -(-Am.m // 1024) * 8
+    m_work = {   # as CLOS's: 12 bytes a slot a layer; the scan's product
+        "clos_invreg": lambda a: (nbytes(*a) + 4 * N, 0),  # and adds
+        "clos_r2": lambda a: (nbytes(*a) + 4 * N, 0),
+        "clos_r3_scan": lambda a: (nbytes(a[0], a[1], a[2], hi(a[3]))
+                                   + 4 * N, 2 * N),
+        "clos_r3_valid": lambda a: (3 * 4 * m_rows * 128, 0)}
+    k_closm = []
+    for name, calls in m_calls.items():
+        k_closm.append(entry(name, CLOSG_SRC,
+                             [b8_case(name, a) for a in calls],
+                             m_work[name](calls[0])))
+        k_closm[-1]["name"] = name + "_closm"
+    m_scan = K.plan_scan_phases(Am.scan_stages, N, N)
+    log(f"# CLOSM's B2 and B8 calls equal their plain versions on its "
+        f"multicast planes ({sum(map(len, m_calls.values()))} calls); scan "
+        f"({len(Am.scan_stages)} stages) " + describe_plan(
+            K, Am.scan_stages, N, N))
+    del m_calls, u
+    y, launches = counted_spmv(Am, xd, K)
+    log(f"# launches during one scircuit CLOSM/cuda SpMV: "
+        f"{ {k: v for k, v in launches.items() if v} } (total "
+        f"{sum(launches.values())}; + the spread and the {Am.n_spill}-entry "
+        f"side path in PyTorch)")
+    if launches != {**dict.fromkeys(K.LAUNCHES, 0), "clos_invreg": 2,
+                    "clos_r2": 2, "clos_r3_scan": len(m_scan),
+                    "clos_r3_valid": 1}:
+        fail(f"one scircuit CLOSM/cuda SpMV launched {launches}, not the "
+             f"layers 2 + 2, the scan once a phase and the valid step once")
+    check_gold("scircuit CLOSM/cuda", host, x, y)
+    t_part = time.perf_counter() - t_part
+
     for label, A in (("CLOS", Ac), ("BFLY", Ab)):
         y, launches = counted_spmv(A, xd, K, KF)
         log(f"# launches during one scircuit {label}/cuda SpMV: "
@@ -2215,11 +2295,34 @@ def fallback_phase(timer, dev, cfg, csv_dir) -> list:
              f"not 11 (3 a network, 1 the fill, 1 the scan)")
     time_candidates(timer, "scircuit", {
         "CLOS/cuda": lambda v: spmv(Ac, v, impl="cuda"),
+        "CLOSM/cuda": lambda v: spmv(Am, v, impl="cuda"),
         "BFLY/cuda": lambda v: spmv(Ab, v, impl="cuda"),
         "BFLY/cuda fused (B10)": lambda v: spmv_bfly_cuda_fused(Ab, v),
         "cuSPARSE (library)": lambda v: (lib @ v.unsqueeze(1)).squeeze(1)},
-        ("CLOS/cuda", "BFLY/cuda", "BFLY/cuda fused (B10)"), xd)
+        ("CLOS/cuda", "CLOSM/cuda", "BFLY/cuda", "BFLY/cuda fused (B10)"),
+        xd)
     del Ac
+    # CLOSM's main path: the bench protocol, as a user times a format; the
+    # CLOSM kernel entries' launches are this run's
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
+    r = bench_spmv(host, Am, config=cfg, matrix_name="scircuit_twin", x=x)
+    torch.cuda.synchronize()
+    log(f"# scircuit CLOSM/{r.impl} through harness.bench_spmv: "
+        f"{r.nnz_per_s / 1e9:.4f} Gnnz/s median="
+        f"{r.time_iter_median * 1e6:.1f}us min={r.time_iter_min * 1e6:.1f}us"
+        f" loops={r.num_loops}; launches "
+        f"{ {k: v for k, v in K.LAUNCHES.items() if v} }")
+    for k in k_closm:
+        k["launches"] = K.LAUNCHES[k["name"].removesuffix("_closm")]
+        if k["launches"] <= 0:
+            fail(f"CLOSM's bench run never launched {k['name']}")
+    check_gold("bench_spmv scircuit CLOSM/cuda", host, x, r.y)
+    log_metrics("scircuit CLOSM/cuda", r.metrics)
+    del Am, r
+    log(f"# phase 16 CLOSM part done in "
+        f"{t_part + time.perf_counter() - t0:.0f}s (build {t_closm:.1f}s; "
+        f"its two timed candidates not counted)")
 
     # the sweep path: csr, clos, bfly
     out_dir = kept_dir(csv_dir, "phase16_sweep")
@@ -2284,6 +2387,14 @@ def fallback_phase(timer, dev, cfg, csv_dir) -> list:
     except ClosRoutingError as e:
         log(f"# mac_econ_fwd500 (m={mac.m} nnz={mac.nnz}): build_clos "
             f"refused it: {e}")
+    try:
+        build_clos_mcast(mac)
+        fail("build_clos_mcast accepted mac_econ_fwd500 (N = 2^21)")
+    except ClosRoutingError as e:
+        if "too large" not in str(e):
+            fail(f"build_clos_mcast refused mac_econ_fwd500 for another "
+                 f"reason than max_N: {e}")
+        log(f"# mac_econ_fwd500: build_clos_mcast refused it: {e}")
     Am, info_m = cached_build_timed(build_bfly, mac, "bfly")
     log(f"# mac_econ_fwd500 BFLY ({describe(info_m)}): N={Am.N} L={Am.L} "
         f"stages "
@@ -2348,7 +2459,7 @@ def fallback_phase(timer, dev, cfg, csv_dir) -> list:
         check_csvs(out_dir, csv_labels(synthetic=True), {"bfly_spmv": 1})
     check_rows(results, ["BFLY/cuda"], {"mac_econ_fwd500": mac}, xm)
     log(f"# phase 16 done in {time.perf_counter() - t_phase:.0f}s")
-    return [*k_b2, *k_b8, *k_b9, k_b10]
+    return [*k_b2, *k_b8, *k_closm, *k_b9, k_b10]
 
 
 def ilu_phase(timer, dev, cfg) -> None:
@@ -2743,9 +2854,10 @@ def xla_engines_phase(timer, dev, cfg) -> None:
     """Phase 19, the XLA-only engines and real-matrix input (plain PyTorch
     on the card, no hand kernel: the JAX package computes them in XLA), on
     the scircuit (validation_twins.txt:5), raefsky3 (:7) and shipsec1 (:27)
-    twins at full size, no RCM. Each call is checked against its float64
-    gold and timed alone, cold and warm, with its host µs, beside
-    cuSPARSE's call of the same function on the same matrix."""
+    twins at full size, no RCM, and the chunked CSR baseline on
+    shipsec1. Each call is checked against its float64 gold and timed
+    alone, cold and warm, with its host µs, beside cuSPARSE's call of the
+    same function on the same matrix."""
     import dataclasses
     import torch
     from spmv_research_tpu_torch import mtx_sweep
@@ -2760,8 +2872,9 @@ def xla_engines_phase(timer, dev, cfg) -> None:
                                                            spmm_inputs)
     from spmv_research_tpu_torch.io import mtx_read, native
     from spmv_research_tpu_torch.ops import (bsr_sddmm_to_csr_values,
-                                             build_bsrg, build_csr_lut,
-                                             build_sellg, sddmm, spmm, spmv)
+                                             build_bsrg, build_csr_chunked,
+                                             build_csr_lut, build_sellg,
+                                             sddmm, spmm, spmv)
 
     t_phase = time.perf_counter()
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -2867,6 +2980,49 @@ def xla_engines_phase(timer, dev, cfg) -> None:
         fail("BSRG built the scircuit twin: BSR refuses it")
     except BSRBuildError as e:
         log(f"# scircuit BSRG refused, as BSR: {e}")
+
+    # (g) the chunked CSR baseline (CSR/torchc) on shipsec1, at the default
+    # block of 2^21 nonzeros and at 2^20, beside CSR/torch and cuSPARSE
+    t_chunked = time.perf_counter()
+    ship = hosts["shipsec1"]
+    lib = cusparse(ship, dev)
+    S = build_csr(ship).to(dev)
+    x = np.random.Generator(np.random.PCG64(7)).uniform(0, 1, ship.n)
+    xd = as_dev(x)
+    X = spmm_inputs(ship, k)                # ≥ 0: |A|·|X| = |A|·X
+    Xd = as_dev(X)
+    mat = ship.to_scipy()
+    gold, Y_gold, Y_scale = (ship.spmv_gold_fast(x).astype(np.float64),
+                             mat @ X, np.abs(mat) @ X + 1e-30)
+    del mat
+    log(f"# shipsec1 CSR/torch SpMV: {call(lambda: spmv(S, xd))}; SpMM K = "
+        f"{k}: {call(lambda: spmm(S, Xd))}; cuSPARSE SpMV "
+        f"{call(lambda: torch.mv(lib, xd))}, SpMM "
+        f"{call(lambda: torch.sparse.mm(lib, Xd))}")
+    del S
+    for block in (1 << 21, 1 << 20):
+        label = f"shipsec1 CSR/torchc (block 2^{block.bit_length() - 1})"
+        A = built(label, lambda h: build_csr_chunked(h, block=block), ship)
+        n_blocks = A.data.shape[0]
+        log(f"# {label}: {n_blocks} blocks of {A.data.shape[1]}, R = {A.R}")
+        if n_blocks < (4 if block == 1 << 21 else 8):
+            fail(f"{label}: {n_blocks} blocks for {ship.nnz} nnz")
+        y = spmv(A, xd, impl="torchc")
+        Y = spmm(A, Xd, impl="torchc")
+        torch.cuda.synchronize()
+        check_gold(label, ship, x, y, gold)
+        Y = Y.double().cpu().numpy()
+        rel = float(np.max(np.abs(Y - Y_gold) / Y_scale))
+        if not (Y.shape == Y_gold.shape and rel <= 1e-5):
+            fail(f"{label} SpMM K = {k}: shape {Y.shape}, max |Y-gold|/"
+                 f"(|A||X|) = {rel}")
+        log(f"# {label} SpMM K = {k} vs fp64 gold: max rel (|A||X|) = {rel}")
+        log(f"# {label} SpMV: {call(lambda: spmv(A, xd, impl='torchc'))}; "
+            f"SpMM K = {k}: {call(lambda: spmm(A, Xd, impl='torchc'))}")
+        del A, y, Y
+    del lib, X, Xd, gold, Y_gold, Y_scale
+    log(f"# phase 19 chunked CSR done in "
+        f"{time.perf_counter() - t_chunked:.0f}s")
     log(f"# phase 19 calls done in {time.perf_counter() - t_phase:.0f}s")
 
     # (e) the SDDMM sweep rows: CSR/torch, CSR/gather and BSR/mxu
@@ -3553,6 +3709,42 @@ def dist_child(rank: int, run_dir: str) -> None:
                 json.dump(res, f)
     finally:
         dist.destroy_process_group()
+
+
+def program_kinds() -> None:
+    """Phase 13, run as ``chip_smoke.py --program-kinds`` in a child
+    process beside phase 14 (host work only, no card): the program kind
+    ``build_clos_gather_auto`` gives each twin of ``KINDS`` (RCM where the
+    matrix is square), one line each; exit 1 on the first other kind."""
+    from spmv_research_tpu_torch.convert.reorder import rcm_if_beneficial
+    from spmv_research_tpu_torch.gen import generate_from_line
+    from spmv_research_tpu_torch.ops import (ClosGChunked, ClosGX, RowSplit,
+                                             build_clos_gather_auto)
+    from spmv_research_tpu_torch.ops.clos_route import ClosRoutingError
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           TWINS)) as f:
+        twins = f.read().splitlines()
+    for no, want in KINDS.items():
+        t0 = time.perf_counter()
+        tw, _ = generate_from_line(twins[no - 1])
+        if tw.m == tw.n:                    # RCM needs a square matrix
+            tw, _ = rcm_if_beneficial(tw)
+        try:
+            Ak = build_clos_gather_auto(tw)
+            got = program_kind(Ak, RowSplit, ClosGChunked, ClosGX)
+            shape = (f"{got}, footprint_MB="
+                     f"{Ak.mem_footprint_bytes() / 1e6:.2f}")
+            del Ak
+        except ClosRoutingError as e:
+            got = ("refused", str(e)[:len(want[1])])
+            shape = f"refused: {e}"
+        log(f"# {TWINS}:{no} {twins[no - 1].split()[-1]}: m={tw.m} n={tw.n} "
+            f"nnz={tw.nnz}; generate + RCM + build "
+            f"{time.perf_counter() - t0:.1f}s: {shape}")
+        if got != want:
+            print(f"chip_smoke: FAIL: {TWINS}:{no}: program {got}, want "
+                  f"{want}", flush=True)
+            sys.exit(1)
 
 
 def trace_check() -> None:

@@ -227,9 +227,11 @@ def sweep_impls(workload: str, fmt: str, device) -> list:
     """The impls a sweep runs for ``fmt``'s ``workload`` (a solver: its
     SpMV) on ``device``: on a CUDA device ``cuda`` for an engine and every
     registered impl of a format with no hand kernel (``TORCH_FORMATS``);
-    on the CPU every impl but ``cuda``."""
+    on the CPU every impl but ``cuda``. ``torchc`` is never one: it runs
+    a ``CSRChunked``, which no sweep format builds (the JAX sweep tries
+    ``xlac`` on a plain CSR, fails and writes no row)."""
     kernel = "spmv" if workload in SOLVERS else workload
-    have = available_impls(kernel, fmt)
+    have = [i for i in available_impls(kernel, fmt) if i != "torchc"]
     if device.type == "cuda" and fmt not in TORCH_FORMATS:
         return [i for i in have if i == "cuda"]
     if device.type == "cuda":

@@ -44,6 +44,7 @@ from spmv_research_tpu_torch.ops.compensated import _split_f64
 from torch_cases import (TWIN_LINE, banded_matrix, bfly_pathological,
                          btile_banded, btile_special_matrix,
                          capped_scan_matrix, clos_hi_matrix,
+                         closm_spilling_matrix,
                          dirty_sellr_matrix, ds_banded, ds_staged_matrix,
                          fill_chunks, random_cand_parts, random_lut_inputs,
                          random_matrix, random_win_inputs, skewed_matrix, skewed_xl_matrix,
@@ -1091,6 +1092,56 @@ def test_clos_r3_kernels_match_plain_versions(cuda, case):
         with pytest.raises(ValueError, match="fill_hi"):
             K.clos_r3_fill(u, A.widen_r3, A.fill_hi[:8].contiguous(),
                            A.fill_stages)
+
+
+@pytest.mark.parametrize("case", ["random", "spilling"])
+def test_closm_kernels_on_multicast_planes(cuda, case):
+    """B2 and B8 on a CLOSM program's multicast planes (one source feeds
+    several outputs): ``clos_invreg`` and ``clos_r2`` on both networks,
+    ``clos_r3_scan`` and ``clos_r3_valid`` equal their plain versions bit
+    for bit on the pipeline's own inputs; one CLOSM/cuda SpMV launches the
+    layers 2 + 2 times, the scan once a phase and the valid step once; its
+    y (spilled nonzeros added by ``index_add_``, atomics on the card) lies
+    within 1e-6 of |A|·|x| of CLOSM/torch's and 1e-5 of the float64
+    product; CLOSM/cuda refuses CPU tensors."""
+    from spmv_research_tpu_torch.ops import build_clos_mcast
+    from spmv_research_tpu_torch.ops import clos_mcast as cm
+    mat = (closm_spilling_matrix() if case == "spilling"
+           else random_matrix(300, 300, 0.01, 1))
+    A = build_clos_mcast(HostCSR.from_scipy(mat)).to(cuda)
+    assert (A.n_spill == 134) == (case == "spilling")
+    x, xd = _x(mat.shape[1], cuda)
+    steps = []
+
+    def step(name, *args):
+        got = getattr(K, name)(*args)
+        want = getattr(K, name + "_torch")(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
+        steps.append(name)
+        return want
+
+    u = cm._spread(xd, A.N, A.x_stride)
+    for r1, r2 in ((A.g_r1, A.g_r2), (A.compact_r1, A.compact_r2)):
+        u = step("clos_r2", step("clos_invreg", u, r1), r2, A.V)
+        if r1 is A.g_r1:
+            u = step("clos_r3_scan", u, A.g_r3, A.vals, A.scan_hi,
+                     A.scan_stages)
+    step("clos_r3_valid", u, A.compact_r3, A.m)
+    assert len(steps) == 6
+    n_scan = len(K.plan_scan_phases(A.scan_stages, A.N, A.N))
+    K.reset_launch_counts()
+    y = spmv(A, xd)                                    # CUDA tensor: "cuda"
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0), "clos_invreg": 2,
+                          "clos_r2": 2, "clos_r3_scan": n_scan,
+                          "clos_r3_valid": 1}
+    scale = np.abs(mat) @ np.abs(x) + 1e-30
+    plain = spmv(A, xd, impl="torch").double().cpu().numpy()
+    assert np.max(np.abs(y.double().cpu().numpy() - plain) / scale) <= 1e-6
+    _close_to_scipy(mat, x, y)
+    with pytest.raises(ValueError, match="CUDA"):
+        spmv(A.to("cpu"), torch.ones(mat.shape[1]), impl="cuda")
 
 
 @pytest.mark.parametrize("case", ["random", "pathological"])

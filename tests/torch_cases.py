@@ -166,6 +166,15 @@ def random_matrix(m, n, density, seed, levels=0):
     return mat
 
 
+def closm_spilling_matrix():
+    """A uniform 2000 × 2000 matrix of 0.2% (scipy's sampler, seeded): its
+    CLOSM program (N = 8192) spills 134 nonzeros to the COO side path."""
+    mat = sp.random(2000, 2000, density=0.002, format="csr",
+                    random_state=np.random.default_rng(1))
+    mat.sort_indices()
+    return mat
+
+
 def skewed_matrix(seed=1234):
     """tests/test_rowsplit.py's _skewed_host: a sparse 600 × 600 background
     plus rows of 1500 (capped at 600 columns), 900, 641 and 100 nnz."""
