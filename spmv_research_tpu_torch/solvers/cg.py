@@ -30,7 +30,16 @@ read the device); the masked loop works for any format as it is.
 
 Reductions use ``torch.dot`` for ``jnp.vdot``: their order differs from
 XLA's, so parity with the JAX solvers holds at a tolerance, not bit for
-bit. The IC(0) and ILU(0) preconditioners (``solvers/ilu.py``) factor on
+bit.
+
+Under a torch profiler each solve records the spans ``solver.cg`` (or
+``solver.bicgstab``: the whole call), ``solver.start`` (entry to the
+loop), one ``solver.step`` a loop iteration (every launch of it but the
+poll's read) and one ``solver.poll`` a poll (the host's blocking read of
+``active``); with no profiler each costs a flag read
+(``utils.trace.trace_region``).
+
+The IC(0) and ILU(0) preconditioners (``solvers/ilu.py``) factor on
 the host and apply two triangular solves through their schedules, as the
 JAX package's do: ``make_precond`` and the ``solve_*`` helpers on dense
 level schedules, ``make_precond_state`` (the benchmarks') on
@@ -40,12 +49,14 @@ level schedules, ``make_precond_state`` (the benchmarks') on
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ..ops import spmv as spmv_dispatch
+from ..utils.trace import trace_region
 
 POLL_EVERY = 4          # iterations between the host's reads of `active`
 PRECONDS = ("jacobi", "ic0", "ilu0")
@@ -77,21 +88,42 @@ def _guard(t: torch.Tensor) -> torch.Tensor:
     return torch.where(t == 0, torch.full_like(t, 1e-30), t)
 
 
-def _run(step, state, active_of, max_iters: int):
+def _traced(name: str):
+    """Run the decorated solver inside ``trace_region(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            with trace_region(name):
+                return fn(*args, **kwargs)
+        return run
+    return wrap
+
+
+def _run(step, state, active, active_of, max_iters: int):
     """Iterate ``state ← where(active, step(state), state)`` (``state[0]``
-    the device iteration count ``i``), polling ``active`` on the host every
-    ``POLL_EVERY`` iterations; returns (state, iterations run)."""
+    the device iteration count ``i``, ``active = active_of(state)``),
+    polling ``active`` on the host every ``POLL_EVERY`` iterations; returns
+    (state, iterations run). The caller computes the first ``active`` and
+    each step the next one, so that a ``solver.step`` span holds all of an
+    iteration's launches but the poll's read."""
     it = 0
     while it < max_iters:
-        active = active_of(state)
-        if it % POLL_EVERY == 0 and not bool(active):
-            break
-        new = step(state, it)
-        state = tuple(torch.where(active, n, o) for n, o in zip(new, state))
-        it += 1
+        if it % POLL_EVERY == 0:
+            with trace_region("solver.poll"):
+                go = bool(active)
+            if not go:
+                break
+        with trace_region("solver.step"):
+            new = step(state, it)
+            state = tuple(torch.where(active, n, o)
+                          for n, o in zip(new, state))
+            it += 1
+            if it < max_iters:
+                active = active_of(state)
     return state, it
 
 
+@_traced("solver.cg")
 def cg(A, b: torch.Tensor, *, inv_diag: Optional[torch.Tensor] = None,
        max_iters: int = 50, rtol: float = 1e-6,
        x0: Optional[torch.Tensor] = None,
@@ -106,19 +138,11 @@ def cg(A, b: torch.Tensor, *, inv_diag: Optional[torch.Tensor] = None,
         raise ValueError("provide inv_diag (Jacobi) or precond_fn "
                          "(identity: precond_fn=lambda r: r)")
     mz = precond_fn or (lambda r_: inv_diag * r_)
-    x = torch.zeros_like(b) if x0 is None else x0
-    tol2 = (rtol * rtol) * torch.dot(b, b)
 
     # the explicit-residual check fires at least once per solve even for
     # short runs (the reference's 100-iteration cadence with the default
     # 50-iteration cap would otherwise never run it)
     check_every = max(min(check_every, max_iters), 1)
-
-    r = b - mv(x)
-    z = mz(r)
-    p = z
-    rho = torch.dot(r, z)
-    rr = torch.dot(r, r)
 
     def active_of(state):
         i, x, r, p, rho, rr, x_best, rr_best = state
@@ -150,14 +174,24 @@ def cg(A, b: torch.Tensor, *, inv_diag: Optional[torch.Tensor] = None,
         rr_best = torch.where(better, rr_new, rr_best)
         return (i + 1, x, r_new, p, rho_new, rr_new, x_best, rr_best)
 
-    i0 = torch.zeros((), dtype=torch.int32, device=b.device)
-    state, loops = _run(step, (i0, x, r, p, rho, rr, x, rr), active_of,
-                        max_iters)
+    with trace_region("solver.start"):
+        x = torch.zeros_like(b) if x0 is None else x0
+        tol2 = (rtol * rtol) * torch.dot(b, b)
+        r = b - mv(x)
+        z = mz(r)
+        p = z
+        rho = torch.dot(r, z)
+        rr = torch.dot(r, r)
+        i0 = torch.zeros((), dtype=torch.int32, device=b.device)
+        init = (i0, x, r, p, rho, rr, x, rr)
+        active = active_of(init)
+    state, loops = _run(step, init, active, active_of, max_iters)
     i, x, r, p, rho, rr, x_best, rr_best = state
     return x_best, {"iterations": i, "rr": rr_best, "tol2": tol2,
                     "converged": rr_best <= tol2, "loop_iterations": loops}
 
 
+@_traced("solver.bicgstab")
 def bicgstab(A, b: torch.Tensor, *, inv_diag: Optional[torch.Tensor] = None,
              max_iters: int = 50, rtol: float = 1e-6,
              x0: Optional[torch.Tensor] = None,
@@ -171,14 +205,6 @@ def bicgstab(A, b: torch.Tensor, *, inv_diag: Optional[torch.Tensor] = None,
         raise ValueError("provide inv_diag (Jacobi) or precond_fn "
                          "(identity: precond_fn=lambda r: r)")
     mz = precond_fn or (lambda r_: inv_diag * r_)
-    x = torch.zeros_like(b) if x0 is None else x0
-    tol2 = (rtol * rtol) * torch.dot(b, b)
-
-    r = b - mv(x)
-    r_hat = r
-    one = torch.ones((), dtype=b.dtype, device=b.device)
-    rho = alpha = omega = one
-    v = p = torch.zeros_like(b)
 
     def active_of(state):
         i, x, r = state[:3]
@@ -204,9 +230,18 @@ def bicgstab(A, b: torch.Tensor, *, inv_diag: Optional[torch.Tensor] = None,
         rr_best = torch.where(better, rr, rr_best)
         return (i + 1, x, r, rho_new, alpha, omega, v, p, x_best, rr_best)
 
-    i0 = torch.zeros((), dtype=torch.int32, device=b.device)
-    init = (i0, x, r, rho, alpha, omega, v, p, x, torch.dot(r, r))
-    state, loops = _run(step, init, active_of, max_iters)
+    with trace_region("solver.start"):
+        x = torch.zeros_like(b) if x0 is None else x0
+        tol2 = (rtol * rtol) * torch.dot(b, b)
+        r = b - mv(x)
+        r_hat = r
+        one = torch.ones((), dtype=b.dtype, device=b.device)
+        rho = alpha = omega = one
+        v = p = torch.zeros_like(b)
+        i0 = torch.zeros((), dtype=torch.int32, device=b.device)
+        init = (i0, x, r, rho, alpha, omega, v, p, x, torch.dot(r, r))
+        active = active_of(init)
+    state, loops = _run(step, init, active, active_of, max_iters)
     i, x_best, rr_best = state[0], state[8], state[9]
     return x_best, {"iterations": i, "rr": rr_best, "tol2": tol2,
                     "converged": rr_best <= tol2, "loop_iterations": loops}

@@ -8,8 +8,12 @@ brackets exactly the kernel invocation) mapped onto ``torch.profiler``::
         with trace_region("COMPUTATION-SpMV"):
             y = spmv(A, x)
 
-A region is a ``torch.profiler.record_function`` (a host event spanning the
-kernels it launches) and, where CUDA is initialised, an NVTX range too.
+A region is a ``torch.profiler.record_function`` (a host event; the
+profiler ties the kernels launched inside it to it by correlation) while a
+profiler records. Otherwise it is one shared null context after a single
+read of the profiler's enabled flag: no ``record_function`` and no
+allocation, so the program's hot loops (the solvers') may open regions on
+every iteration.
 """
 
 from __future__ import annotations
@@ -19,17 +23,19 @@ import os
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 _active = []  # (profiler, logdir) of each start_profiler, until its stop
+_NULL = contextlib.nullcontext()
 
 
-@contextlib.contextmanager
 def trace_region(name: str):
-    """Named region in torch.profiler traces (and NVTX, where CUDA runs)."""
-    nvtx = (torch.cuda.nvtx.range(name) if torch.cuda.is_initialized()
-            else contextlib.nullcontext())
-    with torch.profiler.record_function(name), nvtx:
-        yield
+    """``with trace_region(name):`` a named region in torch.profiler traces
+    while a profiler records; the shared null context otherwise (a
+    profiler's warm-up steps record nothing either)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NULL
 
 
 def start_profiler(logdir: str) -> torch.profiler.profile:
