@@ -116,12 +116,17 @@ no result line):
     also on shipsec1's and at other chunk targets; shipsec1's SELLW
     SpMM kernel B12 (the scan in registers) against its plain
     version (exact), timed beside cuSPARSE's SpMM and its first kernel's
-    time; one CLOSG SpMM on gupta3 at K = 8 through ``ops.spmm``
+    time; SELLW's combine B12c on B12's planes and on their first column
+    (the SpMV's y) against its plain version (exact), timed beside its
+    bound and the gather and sum PyTorch ran before it, and one counted
+    SELLW SpMM through ``ops.spmm`` (B12 once a stage class, B12c once,
+    asserted); one CLOSG SpMM on gupta3 at K = 8
+    through ``ops.spmm``
     (B5 and B6 launch 8× their per-SpMV count; Y within 1e-5 of |A|·|X|);
     the sweep with workloads spmm and sddmm, formats csr, btile, dense and
     sellw, on the gupta3 and shipsec1 lines: its ten rows and six CSVs
     under the JAX labels, B16a (its product, and its chunks' combine where
-    a band is cut), B16b and B12 launched, every row within
+    a band is cut), B16b, B12 and B12c launched, every row within
     1e-5 of the fp64 gold's |·| yardstick, the 8 error metrics printed;
     then each row's call timed alone on the card;
 15. double-single and solvers (``ds_phase``): the shipsec1 twin with RCM
@@ -1531,8 +1536,9 @@ def k_dim_phase(timer, dev, gup, ship, Ag, Aw, gup_launches, cfg,
     """Phase 14, the K-dimension workloads at K = 128 (phases 10's gupta3
     and 6's shipsec1 hosts, their CLOSG and SELLW programs, one gupta3
     SpMV's launch counts): B16a and B16b against their plain versions on
-    both twins' BTILE programs and timed on gupta3's, B12 against its plain
-    version, each timed beside a library call, one CLOSG SpMM through
+    both twins' BTILE programs and timed on gupta3's, B12 and B12c against
+    their plain versions, each timed beside a library call (B12c beside the
+    gather and sum it replaced), one SELLW and one CLOSG SpMM through
     ``ops.spmm``,
     and the spmm/sddmm sweep over both lines. Memory: CSR/torch's SDDMM at
     K = 128 gathers two nnz × K planes (9.4 GB on gupta3, 14 GB with the
@@ -1694,8 +1700,18 @@ def k_dim_phase(timer, dev, gup, ship, Ag, Aw, gup_launches, cfg,
         library=lambda: torch.sparse.mm(lib, Xsd))
     log(f"# B12 (scan in registers): {k_b12['ms']:.4f} ms, bound "
         f"{k_b12['bound_ms']:.4f} ms, cuSPARSE {k_b12['library_ms']:.4f} ms")
+    k_b12c = sellw_combine_check(timer, Aw, planes)
     log(f"# shipsec1 SELLW one SpMM through ops.spmm, device time "
         f"{timer.ms(lambda: spmm(Aw, Xsd), iters=10):.4f} ms")
+    KS.reset_launch_counts()
+    spmm(Aw, Xsd)
+    torch.cuda.synchronize()
+    launches = {name: n for name, n in KS.LAUNCHES.items() if n}
+    n_classes = sum(1 for _, cnt, _ in class_plan(Aw) if cnt)
+    if launches != {"sellw_spmm": n_classes, "sellw_combine": 1}:
+        fail(f"a shipsec1 SELLW SpMM launched {launches}, not B12 once a "
+             f"stage class ({n_classes}) and B12c once")
+    log(f"# launches during one shipsec1 SELLW SpMM: {launches}")
     del w_args, planes, lib, Xsd
 
     # 3. one CLOSG SpMM (the column loop) on gupta3 at K = 8
@@ -1725,7 +1741,7 @@ def k_dim_phase(timer, dev, gup, ship, Ag, Aw, gup_launches, cfg,
     torch.cuda.synchronize()
     launches = {**KS.LAUNCHES, **KB.LAUNCHES}
     log(f"# launches during the spmm/sddmm sweep: {launches}")
-    for kk in (k_spmm, k_sddmm, k_b12):
+    for kk in (k_spmm, k_sddmm, k_b12, k_b12c):
         kk["launches"] = launches[kk["name"]]
         if kk["launches"] <= 0:
             fail(f"the spmm/sddmm sweep never launched {kk['name']}")
@@ -1787,7 +1803,42 @@ def k_dim_phase(timer, dev, gup, ship, Ag, Aw, gup_launches, cfg,
                     f"{timer.ms(lambda: sddmm(Fm, Ad, Bd), iters=5):.4f} ms")
             del Fm
         del X, Ad, Bd
-    return [k_spmm, k_sddmm, k_b12]
+    return [k_spmm, k_sddmm, k_b12, k_b12c]
+
+
+def sellw_combine_check(timer, A, planes) -> dict:
+    """B12c, SELLW's combine, on ``planes`` (program A's SpMM planes, one
+    set a column of X) and on their first column (the SpMV's y): against
+    its plain version (exact) and timed beside the combine PyTorch ran
+    before it (``planes[..., yidx, :].sum(-3)``, the yardstick); bound:
+    the live plane rows read once and y written once. The SpMV's numbers
+    are kept in the entry as ``spmv_*``."""
+    from spmv_research_tpu_torch.ops import sell_cuda as KS
+    from spmv_research_tpu_torch.ops.clos_route import LANES
+    idx = A.yidx.long()
+    live = int((A.yidx != planes.shape[-2] - 1).sum())
+    entries = []
+    for p in (planes, planes[0]):
+        cols = planes.shape[0] if p.dim() == 3 else 1
+        args = (p, A.yidx, A.m)
+        entries.append(check_kernel(
+            timer, "sellw_combine", SELL_SRC,
+            "spmv_research_tpu/ops/sellw.py:453",
+            [(lambda a=args: KS.sellw_combine(*a),
+              lambda a=args: KS.sellw_combine_torch(*a))], exact,
+            (4 * (LANES * live + A.m) * cols, LANES * live * cols),
+            library=lambda p=p: p[..., idx, :].sum(dim=-3)))
+    k, k1 = entries
+    k.update({f"spmv_{f}": k1[f]
+              for f in ("ms", "plain_ms", "bound_ms", "library_ms")})
+    log(f"# B12c (SELLW's combine, {live} live yidx entries of "
+        f"{A.yidx.numel()}): {planes.shape[0]} columns {k['ms']:.4f} ms, "
+        f"bound {k['bound_ms']:.4f} ms, the gather and sum before it "
+        f"{k['library_ms']:.4f} ms; one column {k1['ms']:.5f} ms, bound "
+        f"{k1['bound_ms']:.5f} ms, gather and sum {k1['library_ms']:.5f} ms")
+    log("# ptxas of B12c: " + ptxas_of(KS.build_log(), (
+        "sellw_combine_kernelILi4E", "sellw_combine_kernelILi1E")))
+    return k
 
 
 def ds_phase(timer, dev, cfg) -> list:

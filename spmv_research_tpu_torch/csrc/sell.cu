@@ -375,6 +375,142 @@ __global__ void __launch_bounds__(kRowThreads, 3)
   }
 }
 
+// SELLW's combine (entry sellw_combine, kernel B12c) — replaces the XLA
+// gather and sum after the Pallas kernels, spmv_research_tpu/ops/sellw.py
+// `_combine_y` (PyTorch ran it as planes[..., yidx, :] and .sum(dim=-3): a
+// (cols, K, nb, 128) intermediate written and read back). For each y block
+// b, lane l and column c of n_cols:
+//   Y[128b + l][c] = 0 + planes[c][yidx[0][b]][l] + ...
+//                      + planes[c][yidx[K-1][b]][l]
+// in that order, the planes of B11 (n_cols = 1, y of length m) or B12
+// (Y (m, n_cols) row-major):
+//   * a unit is one (y block, column) sum; a block of 256 threads takes a
+//     tile of 8 * kUnits units, kUnits a warp: ct = min(n_cols, 8 * kUnits)
+//     columns of 8 * kUnits / ct y blocks (at n_cols >= 32 one y block, a
+//     warp its columns w, w + 8, w + 16, w + 24), and lane t of a warp
+//     holds the row's lanes 4t..4t+3 of each of its units;
+//   * the tile's yidx columns go to shared memory first (coalesced over the
+//     y blocks); each unit stops after its last entry that names a live
+//     row, and skips entries that name the zero row G·npad (the builder
+//     puts them last in each column). Both are exact: the sum starts at +0
+//     and so is never -0, and adding +0 to it changes no bit;
+//   * each live plane row is read once, as 16-byte streamed loads (each
+//     plane row is named by at most one yidx entry): 8 loads a thread in
+//     flight, then their adds in k order; kUnits = 4 at n_cols >= 4 (two
+//     rows of each unit ahead), kUnits = 1 below (eight rows ahead: a
+//     SpMV's 1101 y blocks on shipsec1 are 138 blocks, not 35);
+//   * the units' sums are staged through shared memory (one 16-byte store
+//     a thread and unit, rows padded to 132 floats) and each Y row of the
+//     tile goes out as contiguous stores, 16 bytes a thread where n_cols
+//     is a multiple of 4 (columns c0..c0+ct of rows 128b..128b+127).
+// So the sums are sellw_combine_torch's, in its order, bit for bit.
+// Bound: device memory, the live plane rows read once and Y written once:
+// 4 * (128 * live entries + m) * n_cols bytes (shipsec1_spd at K = 128:
+// 1.654 GB + 72 MB, 0.515 ms at 3.35 TB/s; this kernel 0.592 ms on an H100
+// SXM, the gather and sum it replaced 3.72 ms).
+constexpr int kCombThreads = 256;
+constexpr int kCombLoads = 8;    // loads a thread keeps in flight
+constexpr int kCombMaxUnits = 32;
+constexpr int kCombMaxK = 64;    // the builder's cap on yidx rows
+constexpr int kCombRow = kLanes + 4;  // a staged sum, 16-byte aligned
+
+template <int kUnits>
+__global__ void __launch_bounds__(kCombThreads, 3)
+    sellw_combine_kernel(const float* __restrict__ planes,
+                         int64_t plane_stride,
+                         const int32_t* __restrict__ yidx, int K, int64_t nb,
+                         int32_t zero_row, int64_t m, int n_cols, int ct,
+                         float* __restrict__ y) {
+  constexpr int kAhead = kCombLoads / kUnits;  // rows of a unit ahead
+  __shared__ int32_t ys[kCombMaxK][kCombMaxUnits];
+  __shared__ int n_live[kCombMaxUnits];
+  __shared__ __align__(16) float tile[kCombMaxUnits * kCombRow];
+  const int t = threadIdx.x;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const int bbn = 8 * kUnits / ct;  // y blocks a tile
+  const int n_ct = (n_cols + ct - 1) / ct;
+  const int64_t b0 = (int64_t)(blockIdx.x / n_ct) * bbn;
+  const int c0 = (blockIdx.x % n_ct) * ct;
+  const int ncw = min(ct, n_cols - c0);  // the tile's columns
+  for (int i = t; i < K * bbn; i += kCombThreads) {
+    const int k = i / bbn, bb = i % bbn;
+    ys[k][bb] = b0 + bb < nb ? yidx[k * nb + b0 + bb] : zero_row;
+  }
+  __syncthreads();
+  if (t < bbn) {
+    int n = K;
+    while (n > 0 && ys[n - 1][t] == zero_row) --n;
+    n_live[t] = n;
+  }
+  __syncthreads();
+  int bb[kUnits], n[kUnits];
+  const float* src[kUnits];
+  int kmax = 0;
+#pragma unroll
+  for (int j = 0; j < kUnits; ++j) {
+    const int u = warp + 8 * j;
+    bb[j] = u / ct;
+    const int c = u % ct;
+    n[j] = bb[j] < bbn && c < ncw ? n_live[bb[j]] : 0;
+    kmax = max(kmax, n[j]);
+    src[j] = planes + (int64_t)(c0 + min(c, ncw - 1)) * plane_stride +
+             4 * lane;
+  }
+  float4 acc[kUnits];
+#pragma unroll
+  for (int j = 0; j < kUnits; ++j)
+    acc[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int k0 = 0; k0 < kmax; k0 += kAhead) {
+    float4 v[kUnits][kAhead];
+#pragma unroll
+    for (int j = 0; j < kUnits; ++j)
+#pragma unroll
+      for (int q = 0; q < kAhead; ++q) {
+        const int k = k0 + q;
+        const int32_t row = k < n[j] ? ys[k][bb[j]] : zero_row;
+        v[j][q] = row != zero_row
+                      ? __ldcs(reinterpret_cast<const float4*>(
+                            src[j] + (int64_t)row * kLanes))
+                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+#pragma unroll
+    for (int j = 0; j < kUnits; ++j)
+#pragma unroll
+      for (int q = 0; q < kAhead; ++q) {
+        acc[j].x = acc[j].x + v[j][q].x;
+        acc[j].y = acc[j].y + v[j][q].y;
+        acc[j].z = acc[j].z + v[j][q].z;
+        acc[j].w = acc[j].w + v[j][q].w;
+      }
+  }
+#pragma unroll
+  for (int j = 0; j < kUnits; ++j) {
+    const int u = warp + 8 * j;
+    if (u < bbn * ct)
+      *reinterpret_cast<float4*>(&tile[u * kCombRow + 4 * lane]) = acc[j];
+  }
+  __syncthreads();
+  // row r of the tile is Y row 128 * b0 + r: y block r / 128, lane r % 128
+  const int64_t r0 = b0 * kLanes;
+  const int rows = (int)min((int64_t)bbn * kLanes, m - r0);
+  if ((n_cols & 3) == 0) {  // then ct and c0 are multiples of 4 too
+    const int q4 = ncw >> 2;
+    for (int i = t; i < rows * q4; i += kCombThreads) {
+      const int r = i / q4, c = 4 * (i % q4);
+      const float* s = &tile[((r >> 7) * ct + c) * kCombRow + (r & 127)];
+      *reinterpret_cast<float4*>(y + (r0 + r) * n_cols + c0 + c) =
+          make_float4(s[0], s[kCombRow], s[2 * kCombRow], s[3 * kCombRow]);
+    }
+  } else {
+    for (int i = t; i < rows * ncw; i += kCombThreads) {
+      const int r = i / ncw, c = i % ncw;
+      y[(r0 + r) * n_cols + c0 + c] =
+          tile[((r >> 7) * ct + c) * kCombRow + (r & 127)];
+    }
+  }
+}
+
 // SELLR kernel 1 (entry sellr_place, B14 with kernel 2) — with kernel 2,
 // replaces spmv_research_tpu/ops/sellr.py `_sellr_kernel`. The live chunks
 // [0, n_chunks) in persistent blocks, on the layout above: per chunk the
@@ -831,6 +967,27 @@ int sellwds_spmv(const void* word, const void* vhi, const void* vlo,
       (const uint32_t*)word, (const float*)vhi, (const float*)vlo,
       (const int32_t*)wrow, (const float*)xh, (const float*)xl, n_x,
       (float*)out_s, (float*)out_e, npad, chunk0, G);
+  return (int)cudaGetLastError();
+}
+
+// Y (m, n_cols) row-major (at n_cols = 1, y of length m) from the n_cols
+// columns' planes, column c at planes + c * plane_stride, their zero row
+// zero_row, and yidx (K, nb), 0 < K <= 64, m > 0.
+int sellw_combine(const void* planes, int64_t plane_stride, const void* yidx,
+                  int K, int64_t nb, int zero_row, int64_t m, int n_cols,
+                  void* y, void* stream) {
+  if (K < 1 || K > kCombMaxK || n_cols < 1 || nb < 1)
+    return (int)cudaErrorInvalidValue;
+  const int units = n_cols >= 4 ? 4 : 1;  // a warp's units
+  const int ct = min(n_cols, 8 * units);
+  const int bbn = 8 * units / ct;
+  const int64_t grid = (nb + bbn - 1) / bbn * ((n_cols + ct - 1) / ct);
+  if (grid >= (int64_t)1 << 31) return (int)cudaErrorInvalidValue;
+  auto kernel =
+      units == 4 ? &sellw_combine_kernel<4> : &sellw_combine_kernel<1>;
+  kernel<<<(unsigned)grid, kCombThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)planes, plane_stride, (const int32_t*)yidx, K, nb,
+      zero_row, m, n_cols, ct, (float*)y);
   return (int)cudaGetLastError();
 }
 

@@ -17,6 +17,11 @@ wrapper                 replaces
                         the chunk decoded once and the scan in registers
                         (one launch per stage class, counted as
                         ``sellw_spmm``)
+``sellw_combine``       the XLA gather and sum after both (``sellw.py``
+                        ``_combine_y``): per y block the sum over its yidx
+                        rows of the planes, each live plane row read
+                        once, y or Y (m, cols) written once (one launch,
+                        counted as ``sellw_combine``)
 ``sellr_place``         ``sellr.py:_sellr_kernel``, with ``sellr_flush``:
                         the placed chunk planes R (persistent blocks)
 ``sellr_flush``         the run-flush of R into y, four blocks per y group,
@@ -43,8 +48,8 @@ versions add in the kernels' order
 chunk), so on the card kernel and plain version agree exactly. B13's and
 its combine's plain versions round every product and sum on its own, as
 the kernels do with the ``__f*_rn`` intrinsics, so the two agree exactly
-too. SELLW's ``_combine_y`` (an XLA gather and sum in the JAX package)
-stays PyTorch.
+too. SELLW's combine adds each y block's plane rows from +0 in yidx order
+in kernel and plain version alike.
 
 The kernels are compiled by ``nvcc`` from ``csrc/sell.cu`` at first CUDA use
 (``cuda_lib.CudaLib``); importing this module builds and loads nothing.
@@ -66,10 +71,11 @@ from .cuda_lib import (CudaLib, check, check_aligned, on_cuda,
 SELLR_NB = 64            # SELLR chunks per smeta step
 SELLR_SMEM_BLK = 1024    # smeta ints per step
 FLUSH_SPLIT = 4          # sellr_flush's blocks per y group (csrc/sell.cu)
+COMBINE_MAX_K = 64       # sellw_combine's yidx rows at most (the builder's)
 
 LAUNCHES = {"sellw": 0, "sellw_stream": 0, "sellw_spmm": 0,
-            "sellr_place": 0, "sellr_flush": 0, "sellwds": 0,
-            "sellwds_combine": 0}
+            "sellw_combine": 0, "sellr_place": 0, "sellr_flush": 0,
+            "sellwds": 0, "sellwds_combine": 0}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -79,14 +85,15 @@ def _bind(lib: ctypes.CDLL) -> None:
                                i32, p]
     lib.sellw_spmm.argtypes = [p, p, p, p, i64, i32, p, i64, i64, i64, i64,
                                i32, i32, p]
+    lib.sellw_combine.argtypes = [p, i64, p, i32, i64, i32, i64, i32, p, p]
     lib.sellr_place.argtypes = [p, p, p, p, i64, p, i64, i32, i32, p]
     lib.sellr_flush.argtypes = [p, p, p, p, i32, p]
     lib.sellwds_spmv.argtypes = [p, p, p, p, p, p, i64, p, p, i64, i64, i64,
                                  i32, i32, p]
     lib.sellwds_combine.argtypes = [p, p, p, i32, i64, i64, p, p, p, p]
     for fn in (lib.sell_blocks_per_sm, lib.sellw_spmv, lib.sellw_spmm,
-               lib.sellr_place, lib.sellr_flush, lib.sellwds_spmv,
-               lib.sellwds_combine):
+               lib.sellw_combine, lib.sellr_place, lib.sellr_flush,
+               lib.sellwds_spmv, lib.sellwds_combine):
         fn.restype = i32
 
 
@@ -181,6 +188,19 @@ def sellw_spmm_planes_torch(word, vals, wrow, xt, classes, G: int
     ``xt`` = Xᵀ (K, n), ``sellw_planes_torch`` column by column."""
     return torch.stack([sellw_planes_torch(word, vals, wrow, xt[k], classes,
                                            G) for k in range(xt.shape[0])])
+
+
+def sellw_combine_torch(planes, yidx, m: int) -> torch.Tensor:
+    """y (m,) from SELLW's planes (G·npad + 1, 128), or Y (m, cols)
+    row-major from each column's planes (cols, G·npad + 1, 128): per y block
+    b the sum from +0 of the plane rows yidx[0, b], ..., yidx[K-1, b], in
+    that order (padding entries name the zero row G·npad)."""
+    idx = yidx.long()
+    acc = planes.new_zeros((*planes.shape[:-2], yidx.shape[1], LANES))
+    for k in range(yidx.shape[0]):
+        acc = acc + planes[..., idx[k], :]
+    y = acc.flatten(-2)[..., :m]
+    return y.t().contiguous() if planes.dim() == 3 else y
 
 
 def sellwds_planes_torch(word, vhi, vlo, wrow, xh, xl,
@@ -388,6 +408,34 @@ def sellw_spmm_planes(word, vals, wrow, xt, classes: Sequence[Tuple[int, int,
                                  stages, G, st)
                     LAUNCHES["sellw_spmm"] += 1
     return out
+
+
+def sellw_combine(planes, yidx, m: int) -> torch.Tensor:
+    """y (m,) or Y (m, cols) from SELLW's planes (kernel B12c; see
+    ``sellw_combine_torch``): one launch, whatever the column count."""
+    if not on_cuda(planes, yidx):
+        return sellw_combine_torch(planes, yidx, m)
+    check(planes, "planes", torch.float32)
+    check(yidx, "yidx", torch.int32)
+    if planes.dim() not in (2, 3) or planes.shape[-1] != LANES:
+        raise ValueError(f"planes: expected (G·npad + 1, 128) or (cols, "
+                         f"G·npad + 1, 128), got {tuple(planes.shape)}")
+    K, nb = yidx.shape if yidx.dim() == 2 else (0, 0)
+    if not 0 < K <= COMBINE_MAX_K or not 0 <= m <= nb * LANES:
+        raise ValueError(f"yidx {tuple(yidx.shape)}: expected (K, nb) with "
+                         f"0 < K <= {COMBINE_MAX_K} and nb·128 >= m = {m}")
+    check_aligned(planes=planes)
+    cols = planes.shape[0] if planes.dim() == 3 else 1
+    rows = planes.shape[-2]
+    y = torch.empty((m, cols) if planes.dim() == 3 else (m,),
+                    dtype=planes.dtype, device=planes.device)
+    if m and cols:
+        with torch.cuda.device(planes.device):
+            _CUDA.launch("sellw_combine", planes.data_ptr(), rows * LANES,
+                         yidx.data_ptr(), K, nb, rows - 1, m, cols,
+                         y.data_ptr(), stream(planes))
+        LAUNCHES["sellw_combine"] += 1
+    return y
 
 
 def sellwds_planes(word, vhi, vlo, wrow, xh, xl,

@@ -13,12 +13,15 @@ and two impls each of SpMV and SpMM:
 * ``"torch"`` — the same functions in plain PyTorch (SpMM: the SpMV's plain
   version column by column, like the JAX ``spmm_sellw_xla``).
 
+Both impls end in the combine (``sell_cuda.sellw_combine``, kernel B12c,
+and its plain version), which writes y, or Y (m, cols) row-major.
+
 Layout (see the JAX module for the design): chunks of 8×128 slots, each
 serving a group of ``G`` adjacent 128-row y blocks; each sublane is bound to
 one x2d row ``wrow`` (x viewed as (x_rows, 128)). Word bits per slot:
 [0,7) lane pick, [7,14) scan guards, [14,21) eidx, [21] emask, [22,25) bid.
 The kernel writes G partial planes (plane g at rows [g·npad, (g+1)·npad)),
-and ``_combine_y`` sums the ``K`` partial rows of each y block.
+and the combine sums the ``K`` partial rows of each y block.
 
 The constants ``CHUNK_PAD`` and ``_X_VMEM_LIMIT`` and the ``stream_wins``
 flag are TPU-derived and kept so that the programs stay identical. With
@@ -402,19 +405,12 @@ def class_plan(A: SellW):
     return cls or ((0, nch, A.stages),)
 
 
-def _combine_y(A: SellW, planes: torch.Tensor) -> torch.Tensor:
-    """y[b] = Σ_k planes[yidx[k, b]] (``planes`` ends in the zero row); for
-    planes (K, G·npad + 1, 128) of K columns, y (K, m) in one gather."""
-    y = planes[..., A.yidx.long(), :].sum(dim=-3)
-    return y.flatten(-2)[..., : A.m]
-
-
 @register_spmv("SELLW", "torch")
 def spmv_sellw_torch(A: SellW, x: torch.Tensor) -> torch.Tensor:
     """SELLW in plain PyTorch, on any device (the kernel's plain version)."""
     planes = K.sellw_planes_torch(A.word, A.vals, A.wrow,
                                   x.to(A.vals.dtype), class_plan(A), A.G)
-    return _combine_y(A, planes)
+    return K.sellw_combine_torch(planes, A.yidx, A.m)
 
 
 def _check_cuda(A: SellW, x: torch.Tensor) -> None:
@@ -429,7 +425,7 @@ def spmv_sellw_cuda(A: SellW, x: torch.Tensor) -> torch.Tensor:
     _check_cuda(A, x)
     planes = K.sellw_planes(A.word, A.vals, A.wrow, x.to(A.vals.dtype),
                             class_plan(A), A.G, stream_wins=A.stream_wins)
-    return _combine_y(A, planes)
+    return K.sellw_combine(planes, A.yidx, A.m)
 
 
 def _xt(A: SellW, X: torch.Tensor) -> torch.Tensor:
@@ -439,10 +435,10 @@ def _xt(A: SellW, X: torch.Tensor) -> torch.Tensor:
 @register_spmm("SELLW", "torch")
 def spmm_sellw_torch(A: SellW, X: torch.Tensor) -> torch.Tensor:
     """Y = A @ X in plain PyTorch: the SpMV's planes column by column, then
-    one ``_combine_y`` over all columns."""
+    one combine over all columns."""
     planes = K.sellw_spmm_planes_torch(A.word, A.vals, A.wrow, _xt(A, X),
                                        class_plan(A), A.G)
-    return _combine_y(A, planes).t()
+    return K.sellw_combine_torch(planes, A.yidx, A.m)
 
 
 @register_spmm("SELLW", "cuda")
@@ -452,7 +448,7 @@ def spmm_sellw_cuda(A: SellW, X: torch.Tensor) -> torch.Tensor:
     _check_cuda(A, X)
     planes = K.sellw_spmm_planes(A.word, A.vals, A.wrow, _xt(A, X),
                                  class_plan(A), A.G)
-    return _combine_y(A, planes).t()
+    return K.sellw_combine(planes, A.yidx, A.m)
 
 
 def _np(t) -> np.ndarray:

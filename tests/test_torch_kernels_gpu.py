@@ -9,9 +9,10 @@ additions in the same order as its plain version and is held to 1e-6 of max |y| 
 kernels add in their plain versions' order and must match exactly, as must
 B4-B7 and B15 (gathers, one product per slot, and scan stages that add in
 the plain versions' order), and B12, the SELLW SpMM kernel (the SpMV
-kernel's pipeline per column), and B13, the double-single SELLW kernel,
-and its combine (every product and sum rounded on its own, in the plain
-version's order),
+kernel's pipeline per column), and B12c, SELLW's combine (each y block's
+plane rows added from +0 in yidx order), and B13, the double-single SELLW
+kernel, and its combine (every product and sum rounded on its own, in the
+plain version's order),
 and B8, B9 and B10, the CLOS and BFLY kernels (selects, one product per
 slot and adds in the plain versions' order). B16a and B16b, BTILE's SpMM and SDDMM, sum
 their products in another order than ``torch.bmm`` (B16a skips stored
@@ -386,10 +387,8 @@ def test_sellr_kernels_match_plain_version(cuda, kind, monkeypatch):
         got = KS.sellr_flush(R_plain, A.gptr, A.gchunk)
         torch.cuda.synchronize()
         assert torch.equal(R, R_plain) and torch.equal(got, want), grid
-        assert KS.LAUNCHES == {"sellw": 0, "sellw_stream": 0,
-                               "sellw_spmm": 0, "sellr_place": 1,
-                               "sellr_flush": 1, "sellwds": 0,
-                               "sellwds_combine": 0}
+        assert KS.LAUNCHES == {**dict.fromkeys(KS.LAUNCHES, 0),
+                               "sellr_place": 1, "sellr_flush": 1}
     assert torch.equal(KS.sellr_y(*args), KS.sellr_y_torch(*args))
     _close_to_scipy(mat, x, spmv(A, xd))
 
@@ -866,6 +865,78 @@ def test_sellw_spmm_kernel_matches_plain_version(cuda, kind, k,
     Y = spmm(A, Xd).double().cpu().numpy()            # CUDA tensor: "cuda"
     scale = np.abs(mat) @ np.abs(X) + 1e-30
     assert np.max(np.abs(Y - mat @ X) / scale) <= 1e-5
+
+
+@pytest.mark.parametrize("cols", [1, 3, 128])
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_sellw_combine_kernel_matches_plain_version(cuda, G, cols):
+    """B12c at G = 1, 2, 4 (K = 1 at G = 1) on m = 1100, not a multiple of
+    128, over 1, 3 and 128 columns (16-byte stores at 128; the SpMV's y at
+    one column and from 2-D planes): y and Y equal the plain version's bit
+    for bit, one launch a call; a SpMM through the cuda impl launches B12
+    once a class and B12c once, and equals the torch impl exactly."""
+    mat = banded_matrix(1100, 1300, 120, 9, 1)
+    A = sellw.build_sellw(HostCSR.from_scipy(mat), group=G).to(cuda)
+    assert (A.K == 1) == (G == 1)
+    plan = sellw.class_plan(A)
+    X = np.random.Generator(np.random.PCG64(8)).uniform(
+        -1.0, 1.0, (mat.shape[1], cols))
+    Xd = torch.as_tensor(X, dtype=torch.float32, device=cuda)
+    planes = KS.sellw_spmm_planes_torch(A.word, A.vals, A.wrow,
+                                        Xd.t().contiguous(), plan, G)
+    for p in (planes, planes[0]):
+        KS.reset_launch_counts()
+        got = KS.sellw_combine(p, A.yidx, A.m)
+        want = KS.sellw_combine_torch(p, A.yidx, A.m)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and torch.equal(got, want)
+        assert {k: v for k, v in KS.LAUNCHES.items() if v} == {
+            "sellw_combine": 1}
+    KS.reset_launch_counts()
+    Y = spmm(A, Xd)                                   # CUDA tensor: "cuda"
+    torch.cuda.synchronize()
+    assert {k: v for k, v in KS.LAUNCHES.items() if v} == {
+        "sellw_spmm": sum(1 for _, cnt, _ in plan if cnt),
+        "sellw_combine": 1}
+    assert Y.shape == (A.m, cols) and Y.is_contiguous()
+    assert torch.equal(Y, spmm(A, Xd, impl="torch"))
+
+
+@pytest.mark.parametrize("cols", [2, 37])
+def test_sellw_combine_past_the_tile(cuda, cols):
+    """B12c on random planes: 2 columns (one unit a warp, 4 y blocks a
+    block) and 37 (4 units a warp, a second column tile of 5; scalar stores
+    both), K = 64 (the builder's cap) with padding tails of 0 to 64,
+    values over many magnitudes, m cut inside the last y block: Y equals
+    the plain version bit for bit; the wrapper refuses what it cannot run."""
+    rng = np.random.default_rng(4)
+    K, nb = 64, 70
+    live = rng.integers(0, K + 1, nb)
+    live[:2] = 0, K                    # an empty y block, a full column
+    rows = int(live.sum()) + 1                     # the zero row last
+    planes = (rng.uniform(-1, 1, (cols, rows, 128))
+              * rng.lognormal(0, 4, (cols, rows, 128))).astype(np.float32)
+    planes[:, -1] = 0.0
+    yidx = np.full((K, nb), rows - 1, np.int32)
+    named = np.split(rng.permutation(rows - 1), np.cumsum(live)[:-1])
+    for b in range(nb):                # each plane row named once
+        yidx[:live[b], b] = named[b]
+    m = (nb - 1) * 128 + 77
+    P = torch.as_tensor(planes, device=cuda)
+    idx = torch.as_tensor(yidx, device=cuda)
+    KS.reset_launch_counts()
+    got = KS.sellw_combine(P, idx, m)
+    torch.cuda.synchronize()
+    assert torch.equal(got, KS.sellw_combine_torch(P, idx, m))
+    assert KS.LAUNCHES["sellw_combine"] == 1
+    with pytest.raises(ValueError, match="several devices"):
+        KS.sellw_combine(P, idx.cpu(), m)
+    with pytest.raises(TypeError):
+        KS.sellw_combine(P, idx.long(), m)
+    with pytest.raises(ValueError, match="nb·128"):
+        KS.sellw_combine(P, idx, nb * 128 + 1)
+    with pytest.raises(ValueError, match="K <= 64"):
+        KS.sellw_combine(P, torch.cat([idx, idx[:1]]), m)
 
 
 def _btile_case(cuda, k, special=False):

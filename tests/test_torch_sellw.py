@@ -10,6 +10,10 @@ sublanes in order; XLA's reduction order is unspecified); the float64 host
 executors must agree exactly. SpMM: the port's ``"torch"`` impl (the SpMV's
 plain version per column, one combine) against ``spmm_sellw_xla`` and,
 once, the pallas SpMM kernel in interpret mode, at K not a multiple of 8.
+The combine's plain version (``sell_cuda.sellw_combine_torch``, which the
+kernel B12c equals bit for bit on the card) against the float64 executor
+and the JAX impls at 1, 3 and 128 columns, G ∈ {1, 2, 4} (K = 1 at G = 1)
+and m not a multiple of 128; the yidx padding its early stop rests on.
 """
 
 import numpy as np
@@ -200,6 +204,108 @@ def test_program_moves_whole_and_refuses_cuda_impl_on_cpu(case):
         spmv(A, torch.from_numpy(x), impl="cuda")
     with pytest.raises(ValueError, match="CUDA"):
         spmm(A, torch.from_numpy(x)[:, None], impl="cuda")
+
+
+# ------------------------------------------------------------- the combine
+
+@pytest.fixture(scope="module", params=[1, 2, 4], ids=["g1", "g2", "g4"])
+def combine_case(request):
+    """(scipy matrix, JAX program at group G, the port's copy of it): m =
+    1100, not a multiple of 128; at G = 1 each y block has one chunk."""
+    mat = banded_matrix(1100, 1300, 120, 9, 1)
+    Aj = jax_sellw.build_sellw(JaxHostCSR.from_scipy(mat),
+                               group=request.param)
+    A = sellw.sellw_from_jax(*_leaves(Aj))
+    assert (A.K == 1) == (request.param == 1) and A.m % 128
+    return mat, Aj, A
+
+
+def _combined(A, X):
+    """The planes of X's columns and their combine, Y (m, cols)."""
+    xt = torch.from_numpy(X).t().contiguous()
+    planes = K.sellw_spmm_planes_torch(A.word, A.vals, A.wrow, xt,
+                                       sellw.class_plan(A), A.G)
+    return planes, K.sellw_combine_torch(planes, A.yidx, A.m)
+
+
+@pytest.mark.parametrize("cols", [1, 3, 128])
+def test_combine_matches_executor_and_jax_xla(combine_case, cols):
+    mat, Aj, A = combine_case
+    X = _X(mat.shape[1], cols)
+    planes, Y = _combined(A, X)
+    assert Y.shape == (A.m, cols) and Y.is_contiguous()
+    want = np.stack([sellw.execute_sellw_numpy(A, X[:, k].astype(np.float64))
+                     for k in range(cols)], axis=1)
+    _near_spmm(mat, X, Y.numpy(), want)
+    _near_spmm(mat, X, Y.numpy(), jax_spmm(Aj, jnp.asarray(X), impl="xla"))
+    y = K.sellw_combine_torch(planes[0], A.yidx, A.m)   # the SpMV's y (m,)
+    assert y.shape == (A.m,) and torch.equal(y, Y[:, 0])
+    want_x = np.asarray(jax_spmv(Aj, jnp.asarray(X[:, 0]), impl="xla"))
+    _near_spmm(mat, X[:, :1], y.numpy()[:, None], want_x[:, None])
+
+
+@pytest.mark.parametrize("cols", [1, 3])
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_combine_matches_jax_pallas(monkeypatch, G, cols):
+    """The JAX kernels in interpret mode (SpMV at one column, SpMM at 3) on
+    m = 300; chunks padded to 8, not 64, as in the SpMM test above."""
+    monkeypatch.setattr(jax_sellw, "CHUNK_PAD", 8)
+    mat = banded_matrix(300, 300, 40, 6, 1)
+    Aj = jax_sellw.build_sellw(JaxHostCSR.from_scipy(mat), group=G)
+    A = sellw.sellw_from_jax(*_leaves(Aj))
+    X = _X(mat.shape[1], cols)
+    planes, Y = _combined(A, X)
+    if cols == 1:
+        want = np.asarray(jax_spmv(Aj, jnp.asarray(X[:, 0]),
+                                   impl="pallas"))[:, None]
+    else:
+        want = jax_spmm(Aj, jnp.asarray(X), impl="pallas")
+    _near_spmm(mat, X, Y.numpy(), want)
+
+
+def test_combine_wrapper_takes_plain_version_on_cpu(case):
+    mat, _, A, _ = case
+    planes, Y = _combined(A, _X(mat.shape[1], 3))
+    K.reset_launch_counts()
+    assert torch.equal(K.sellw_combine(planes, A.yidx, A.m), Y)
+    assert torch.equal(K.sellw_combine(planes[1], A.yidx, A.m), Y[:, 1])
+    assert not any(K.LAUNCHES.values())
+
+
+def test_spmm_returns_contiguous_y(case):
+    mat, _, A, _ = case
+    X = _X(mat.shape[1], 5)
+    Y = spmm(A, torch.from_numpy(X))                  # CPU tensor: "torch"
+    assert Y.shape == (A.m, 5) and Y.is_contiguous()
+    assert torch.equal(Y, _combined(A, X)[1])
+
+
+def _assert_padding_is_a_tail(A):
+    """In each yidx column the entries naming the zero row G·npad come
+    after every live one (the combine kernel stops at the last live)."""
+    pad = A.yidx == A.G * (A.wrow.shape[0] // 8)
+    assert torch.equal(pad, pad.cummax(dim=0).values)
+    assert not pad[0].any()                           # no empty y block
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_yidx_padding_is_a_tail_python_tier(python_tier, G):
+    h, _ = _hosts(banded_matrix(1100, 1300, 120, 9, 1))
+    _assert_padding_is_a_tail(sellw.build_sellw(h, group=G, part_cap=4))
+
+
+@pytest.mark.parametrize("kind", ["native", "stream", "long_rows"])
+def test_yidx_padding_is_a_tail(kind, stream_case):
+    if kind == "stream":
+        A = stream_case[1]
+    elif kind == "long_rows":           # K = 11 chunks for some y blocks
+        A = sellw.build_sellw(HostCSR.from_scipy(banded_matrix(
+            2000, 2000, 400, 80, 0)), part_cap=128)
+    else:
+        A = sellw.build_sellw(_hosts(banded_matrix(1500, 1500, 200, 12,
+                                                   0))[0])
+    assert A.K > 1
+    _assert_padding_is_a_tail(A)
 
 
 def test_scattered_matrix_refused():
