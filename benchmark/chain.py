@@ -9,6 +9,11 @@ host enqueues ahead and the device paces the chain.
 The answers compared are the outputs of calls drawn from the seed among
 the first ``sample_within`` and the window's last, each kept with the
 input that produced it.
+
+Over k ranks each rank holds its block of x (``Cell.block``) and the
+program's call gives its block of the product; the fold works block by
+block, and the kept blocks are made whole on rank 0 (:func:`gather`)
+before the check.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import time
 
 import torch
 
-from benchmark import reference, trace
+from benchmark import harness, reference, trace
 
 
 def fold(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -30,8 +35,8 @@ def fold(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def setup(cell, shape) -> None:
-    cell.state["x0"] = torch.rand(shape, generator=cell.generator(),
-                                  device=cell.device)
+    cell.state["x0"] = cell.block(torch.rand(
+        shape, generator=cell.generator(), device=cell.device))
     t = cell.traffic
     cell.state["sample"] = cell.sample(t["sample_within"], t["sample_answers"])
 
@@ -44,9 +49,9 @@ def warm(cell, call) -> None:
 
 
 def window(cell, call, span_name: str, seconds: float) -> None:
-    """Calls back to back for ``seconds``; with ``--trace 1`` a slice of
-    ``trace_calls`` of them, half way through, under the profiler, after
-    3 calls in its warm-up step."""
+    """Calls back to back for ``seconds`` (``harness.paced``); with
+    ``--trace 1`` a slice of ``trace_calls`` of them, half way through,
+    under the profiler, after 3 calls in its warm-up step."""
     st = {"x": cell.state["x0"], "calls": 0, "last": None}
     sample, kept = cell.state["sample"], []
 
@@ -61,30 +66,18 @@ def window(cell, call, span_name: str, seconds: float) -> None:
         st["last"] = (x_in, y)
         st["calls"] += 1
 
-    def traced_slice() -> None:
-        cell.tracing = True
-        try:
-            for _ in range(cell.traffic["trace_calls"]):
-                step()
-        finally:
-            cell.tracing = False
-
-    slice_due = cell.trace
-    cell.sync()
-    t0 = time.perf_counter()
-    deadline, slice_at = t0 + seconds, t0 + seconds / 2
-    while True:
-        if slice_due and time.perf_counter() >= slice_at:
-            cell.slice = trace.profile_slice(
-                cell, lambda: [step() for _ in range(3)], traced_slice)
-            slice_due = False
-        step()
-        if time.perf_counter() >= deadline and not slice_due:
-            break
-    cell.sync()
-    cell.window = {"calls": st["calls"], "seconds": time.perf_counter() - t0}
+    seconds, _ = harness.paced(cell, seconds, step, 3,
+                               cell.traffic["trace_calls"])
+    cell.window = {"calls": st["calls"], "seconds": seconds}
     cell.state["kept"] = kept + [st["last"]]
     cell.state["x0"] = None
+
+
+def gather(cell) -> None:
+    """Over k ranks: the kept inputs and outputs made whole on rank 0 (a
+    collective: every rank calls it)."""
+    cell.state["kept"] = [(cell.whole(x), cell.whole(y))
+                          for x, y in cell.state["kept"]]
 
 
 def host_us(cell, call) -> float:

@@ -17,6 +17,12 @@ per-layer metric is a file of its own, found by the name that
 
 So a later change adds a cell or a metric by adding files and entries to
 ``BENCHMARK.json``, and edits none.
+
+A workload whose ``chips`` is k > 1 runs as k rank processes (``ranks.py``
+starts them); each prepares its own ``Cell`` with ``control``, and
+``run_seed`` keeps every rank's calls in step and gathers their results
+to rank 0, which alone reports and judges. At one chip nothing of that
+runs: no process is started and no process group is made.
 """
 
 from __future__ import annotations
@@ -27,11 +33,13 @@ import os
 import re
 import sys
 import time
+import types
 from typing import Callable, Optional
 
 import numpy as np
 
-from . import matrices
+from . import matrices, trace
+from .ranks import GO, SLICE, STOP
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -137,6 +145,38 @@ class Cell:
         self.extra: dict = {}
         self.slice = None
         self.setup_spans: list = []   # (name, host seconds) of set-up
+        # over k > 1 ranks: this process's rank, k, the ``ranks.Ranks``
+        # that carries the host-side control, and on rank 0 each rank's
+        # summary once the window has closed (None at one chip)
+        self.rank = 0
+        self.ranks = 1
+        self.control = None
+        self.rank_info = None
+
+    def agree(self, decision: int) -> int:
+        """The decision (``ranks.GO``, ``SLICE`` or ``STOP``) that every
+        rank follows now: at one chip ``decision`` itself; over k ranks
+        rank 0's of ``ranks.AGREE_LAG`` calls ago, ``decision`` posted in
+        its place, in the span ``window.agree``."""
+        if self.control is None:
+            return decision
+        with trace.span(self, "window.agree"):
+            return self.control.agree(decision)
+
+    def barrier(self) -> None:
+        """Wait for every rank (nothing at one chip)."""
+        if self.control is not None:
+            self.control.barrier()
+
+    def block(self, x):
+        """This rank's block of the global vector ``x`` (``x`` at one
+        chip)."""
+        return x if self.control is None else self.program.block(x)
+
+    def whole(self, v):
+        """The global vector from every rank's block ``v`` of it (``v`` at
+        one chip); a collective."""
+        return v if self.control is None else self.program.whole(v)
 
     def sync(self) -> None:
         import torch
@@ -158,10 +198,14 @@ class Cell:
 
 
 def prepare(bench: Bench, workload: str, device, trace: bool,
-            program_factory: Optional[Callable] = None) -> Cell:
-    """The cell with its matrix loaded and its program built."""
+            program_factory: Optional[Callable] = None,
+            control=None) -> Cell:
+    """The cell with its matrix loaded and its program built; over k ranks
+    (``control``, a ``ranks.Ranks``) this rank's cell and shard."""
     from .program import PortProgram
     cell = Cell(bench, workload, device, trace)
+    if control is not None:
+        return _prepare_rank(cell, control, program_factory)
     t0 = time.perf_counter()
     cell.csr = matrices.load_matrix(cell.config, cell.config_file)
     t1 = time.perf_counter()
@@ -173,13 +217,133 @@ def prepare(bench: Bench, workload: str, device, trace: bool,
     return cell
 
 
+def _prepare_rank(cell: Cell, control, program_factory) -> Cell:
+    """This rank's cell: the process group first (``program.join``), then
+    rank 0 makes or loads the matrix and builds the plan through the
+    port's format cache while the other ranks wait at a barrier, so that
+    they load both from the caches; each rank keeps its own shard. On the
+    other ranks ``cell.csr`` keeps only ``m``, ``n`` and ``nnz``."""
+    from .program import RankProgram, join
+    if cell.entry["chips"] != control.k:
+        raise ValueError(f"{cell.name} asks for {cell.entry['chips']} "
+                         f"chips, the run has {control.k} ranks")
+    cell.control, cell.rank, cell.ranks = control, control.rank, control.k
+    t0 = time.perf_counter()
+    join(control, cell.config["format"].get("mesh_axis", "rows"))
+    cell.device = control.device
+    t1 = time.perf_counter()
+    if cell.rank:
+        control.barrier()    # rank 0's matrix and plan are in the caches
+    t2 = time.perf_counter()
+    cell.csr = matrices.load_matrix(cell.config, cell.config_file)
+    t3 = time.perf_counter()
+    factory = program_factory or RankProgram
+    cell.program = factory(cell.config, cell.device, control)
+    cell.build_info = cell.program.build(cell.csr)
+    t4 = time.perf_counter()
+    if cell.rank:
+        c = cell.csr
+        cell.csr = types.SimpleNamespace(m=c.m, n=c.n, nnz=c.nnz)
+    else:
+        control.barrier()
+    cell.setup_spans = [("ranks.join", t1 - t0), ("ranks.wait", t2 - t1),
+                        ("matrix", t3 - t2), ("program.build", t4 - t3)]
+    return cell
+
+
+def paced(cell: Cell, seconds: float, step: Callable, warm_steps: int,
+          slice_steps: int):
+    """The measured window: ``step()`` back to back for ``seconds`` on
+    rank 0's clock; with ``--trace 1``, half way, ``warm_steps`` calls in
+    the profiler's warm-up step and ``slice_steps`` in its traced slice
+    (``cell.tracing``). After every call rank 0's clock decides whether to
+    go on, take the slice or stop, and every rank follows its decisions in
+    order (``Cell.agree``; over k ranks each is followed
+    ``ranks.AGREE_LAG`` calls after it was made), so that every rank runs
+    the same calls. The window closes once every rank's device has
+    finished: a synchronize, then a barrier. Its seconds, and the indices
+    of the calls run under the profiler."""
+    calls = 0
+
+    def run(n: int, tracing: bool) -> None:
+        nonlocal calls
+        cell.tracing = tracing
+        try:
+            for _ in range(n):
+                step()
+                calls += 1
+                cell.agree(GO)
+        finally:
+            cell.tracing = False
+
+    profiled = range(0)
+    asked = taken = not cell.trace     # the slice, by rank 0's clock
+    cell.sync()
+    if cell.control is not None and cell.rank == 0:
+        print("# window: open", file=sys.stderr, flush=True)
+    t0 = time.perf_counter()
+    deadline, slice_at = t0 + seconds, t0 + seconds / 2
+    while True:
+        step()
+        calls += 1
+        now = time.perf_counter()
+        if not asked and now >= slice_at:
+            decision, asked = SLICE, True
+        else:
+            decision = STOP if taken and now >= deadline else GO
+        decision = cell.agree(decision)
+        if decision == STOP:
+            break
+        if decision == SLICE:
+            first = calls
+            cell.slice = trace.profile_slice(
+                cell, lambda: run(warm_steps, False),
+                lambda: run(slice_steps, True))
+            profiled = range(first, calls)
+            taken = True
+    if cell.control is not None:
+        cell.control.settle()
+    cell.sync()
+    cell.barrier()
+    return time.perf_counter() - t0, profiled
+
+
+RANK_KEYS = ("rank", "device", "memory_peak_bytes", "attempted", "failed",
+             "busy_s", "window_s")
+
+
 def device_info(cell: Cell, peak_bytes: int) -> dict:
+    """The result's ``device``; over k ranks ``count`` = k,
+    ``memory_peak_bytes`` the largest rank's, and under ``ranks`` each
+    rank's device, peak, counts and, traced, its slice's ``busy_s`` and
+    ``window_s``."""
     import torch
+    count, ranks = 1, None
+    if cell.control is not None:
+        ranks = [{k: r[k] for k in RANK_KEYS if k in r}
+                 for r in cell.rank_info]
+        count = cell.ranks
+        peak_bytes = max(r["memory_peak_bytes"] for r in ranks)
     if cell.device.type == "cuda":
-        return {"platform": "gpu", "kind": torch.cuda.get_device_name(
-            cell.device), "count": 1, "memory_peak_bytes": int(peak_bytes)}
-    return {"platform": "cpu", "kind": "cpu", "count": 1,
-            "memory_peak_bytes": int(peak_bytes)}
+        info = {"platform": "gpu", "kind": torch.cuda.get_device_name(
+            cell.device), "count": count, "memory_peak_bytes": int(peak_bytes)}
+    else:
+        info = {"platform": "cpu", "kind": "cpu", "count": count,
+                "memory_peak_bytes": int(peak_bytes)}
+    if ranks is not None:
+        info["ranks"] = ranks
+    return info
+
+
+def _rank_summary(cell: Cell, peak: int, attempted: int,
+                  failed: int) -> dict:
+    """What rank 0 gathers of each rank once the window has closed."""
+    s = {"rank": cell.rank, "device": str(cell.device),
+         "memory_peak_bytes": int(peak), "attempted": int(attempted),
+         "failed": int(failed), "forbidden": forbidden_modules()}
+    if cell.slice is not None:
+        s.update(busy_s=cell.slice.busy_s, window_s=cell.slice.window_s)
+    return s
 
 
 def memory_peak(cell: Cell) -> int:
@@ -203,14 +367,22 @@ def run_seed(cell: Cell, seed: int, seconds: float, t_start: float,
     t1 = time.perf_counter()
     op.warm(cell)
     cell.sync()
+    cell.barrier()
     t2 = time.perf_counter()
     cell.setup_spans += [("op.setup", t1 - t0), ("op.warm", t2 - t1)]
     setup_s = t2 - t_start
     op.window(cell, seconds)
     peak = memory_peak(cell)
-    metrics, units = {}, {}
     if cell.trace:
         op.after_window(cell)
+    attempted, failed = op.counts(cell)
+    if cell.control is not None:
+        if not _gather_ranks(cell, peak, attempted, failed, release):
+            return None
+        attempted = sum(r["attempted"] for r in cell.rank_info)
+        failed = sum(r["failed"] for r in cell.rank_info)
+    metrics, units = {}, {}
+    if cell.trace:
         for m in cell.bench.per_layer(cell.name):
             v = cell.bench.reader(m["name"]).read(cell)
             if v is not None:
@@ -221,11 +393,8 @@ def run_seed(cell: Cell, seed: int, seconds: float, t_start: float,
         for m in cell.bench.end_to_end(cell.name):
             metrics[m["name"]] = float(values[m["name"]])
             units[m["name"]] = m["unit"]
-    attempted, failed = op.counts(cell)
     if release:
-        cell.program.release()
-        if cell.device.type == "cuda":
-            torch.cuda.empty_cache()
+        _release(cell)
     readings = op.check(cell)
     limits = cell.bench.limits(cell.name)
     checks = {k: {"value": float(readings.get(k, float("inf"))),
@@ -238,11 +407,45 @@ def run_seed(cell: Cell, seed: int, seconds: float, t_start: float,
                        for k, v in metrics.items()},
            "device": device}
     if cell.trace and cell.slice is not None:
-        device["busy_s"] = cell.slice.busy_s
-        device["window_s"] = cell.slice.window_s
+        if cell.control is None:
+            device["busy_s"] = cell.slice.busy_s
+            device["window_s"] = cell.slice.window_s
+        else:   # averaged over the ranks' cards
+            device["busy_s"] = float(np.mean([r["busy_s"] for r in
+                                              cell.rank_info]))
+            device["window_s"] = float(np.mean([r["window_s"] for r in
+                                                cell.rank_info]))
         out["breakdown"] = cell.slice.breakdown()
     out["checks"] = checks
     return out
+
+
+def _gather_ranks(cell: Cell, peak: int, attempted: int, failed: int,
+                  release: bool) -> bool:
+    """Over k ranks, on every rank once the window has closed: the kept
+    answers made whole on rank 0 (the op's ``gather``, a collective), each
+    rank's summary gathered to rank 0 (``cell.rank_info``), then the
+    process group left. False on the other ranks, which release their
+    shard and are done."""
+    cell.op.gather(cell)
+    cell.rank_info = cell.control.gather(
+        _rank_summary(cell, peak, attempted, failed))
+    cell.control.done()
+    if cell.rank == 0:
+        return True
+    cell.state["kept"] = []
+    if release:
+        _release(cell)
+    return False
+
+
+def _release(cell: Cell) -> None:
+    """Free the program's state, so that the reference's check does not
+    add to the device's peak."""
+    import torch
+    cell.program.release()
+    if cell.device.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def forbidden_modules() -> list:

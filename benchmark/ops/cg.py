@@ -6,14 +6,16 @@ from the seed's stream, made and synchronized before the solve's clock
 starts; a solve's time runs from the call to its x being ready on the
 device. A solve that stops short of ``rtol`` counts as failed. The solves
 compared are those drawn from the seed among the first ``sample_within``,
-and the window's last.
+and the window's last. Over k ranks each rank holds its block of b
+(``Cell.block``) and of x, and the program's ``cg`` is its rank-local
+solver.
 """
 
 import time
 
 import torch
 
-from benchmark import metrics, reference, trace
+from benchmark import harness, metrics, reference, trace
 
 
 def setup(cell):
@@ -23,8 +25,8 @@ def setup(cell):
 
 
 def _rhs(cell):
-    return torch.rand(cell.csr.m, generator=cell.state["gen"],
-                      device=cell.device)
+    return cell.block(torch.rand(cell.csr.m, generator=cell.state["gen"],
+                                 device=cell.device))
 
 
 def warm(cell):
@@ -35,9 +37,9 @@ def warm(cell):
 
 
 def window(cell, seconds):
-    """Solves for ``seconds``; with ``--trace 1`` a slice of
-    ``trace_solves`` of them, half way through, under the profiler, after
-    one solve in its warm-up step."""
+    """Solves for ``seconds`` (``harness.paced``); with ``--trace 1`` a
+    slice of ``trace_solves`` of them, half way through, under the
+    profiler, after one solve in its warm-up step."""
     t = cell.traffic
     rec = {"times": [], "iters": [], "loops": [], "converged": []}
     sample, kept, last = cell.state["sample"], [], []
@@ -59,31 +61,17 @@ def window(cell, seconds):
             kept.append((b, x))
         last[:] = [(b, x)]
 
-    def traced_slice() -> None:
-        cell.tracing = True
-        try:
-            for _ in range(t["trace_solves"]):
-                solve()
-        finally:
-            cell.tracing = False
-
-    slice_due = cell.trace
-    rec["profiled"] = range(0)
-    cell.sync()
-    t0 = time.perf_counter()
-    deadline, slice_at = t0 + seconds, t0 + seconds / 2
-    while True:
-        if slice_due and time.perf_counter() >= slice_at:
-            first = len(rec["times"])
-            cell.slice = trace.profile_slice(cell, solve, traced_slice)
-            rec["profiled"] = range(first, len(rec["times"]))
-            slice_due = False
-        solve()
-        if time.perf_counter() >= deadline and not slice_due:
-            break
-    rec["seconds"] = time.perf_counter() - t0
+    rec["seconds"], rec["profiled"] = harness.paced(cell, seconds, solve, 1,
+                                                    t["trace_solves"])
     cell.window = rec
     cell.state["kept"] = kept + last
+
+
+def gather(cell):
+    """Over k ranks: the kept b and x made whole on rank 0 (a
+    collective)."""
+    cell.state["kept"] = [(cell.whole(b), cell.whole(x))
+                          for b, x in cell.state["kept"]]
 
 
 def after_window(cell):

@@ -26,6 +26,10 @@ def end_to_end(cell):
             / 1e9}
 
 
+def gather(cell):
+    chain.gather(cell)
+
+
 def counts(cell):
     return cell.window["calls"], 0
 

@@ -25,6 +25,10 @@ def end_to_end(cell):
     return {"spmv_gnnz_s": cell.csr.nnz * w["calls"] / w["seconds"] / 1e9}
 
 
+def gather(cell):
+    chain.gather(cell)
+
+
 def counts(cell):
     return cell.window["calls"], 0
 
